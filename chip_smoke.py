@@ -8,18 +8,29 @@ Usage (from the repository root, on a machine with one NVIDIA H100):
 Phases, one line each, any miss fails the run with a non-zero exit:
 
 1. device   torch/CUDA versions, the card's name and power limit;
-2. build    the CUDA kernels from ``oscen_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build    the CUDA kernels from ``oscen_tpu_torch/csrc`` (one nvcc per
+            source, all started together; sm_90a), with register use;
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes (V=256, H=32, B=1024 and 4096, with and
-            without the fused mix, 3 chained blocks);
-4. main     the 256-voice electric piano at 48 kHz through the public API
-            (``build_electric_piano(256).compile(..., device="cuda")``, a
-            256-note chord, steady blocks, note-offs, ``render_steady``,
-            ``steady_checksum``), once per kernel version, with launch
-            counts; the first blocks against the same run on the CPU;
-5. timing   each kernel's device time (profiler) and its wrapper's and
-            plain version's time per call (CUDA events), and a steady
-            ``process_block``'s time and device-busy share, after warm-up.
+            the main paths' shapes: the additive voice (V=256, H=32,
+            B=1024 and 4096, with and without the fused mix), phase_scan,
+            tpt_svf_scan (row and per-sample coefficients) and adsr_scan
+            (A -> D -> S, then a gate-off through R -> idle) at V=256,
+            B=1024 and 4096 and a ragged V=3, B=37; 3 chained blocks;
+4. main     the two models through the public API, each with its launch
+            counts set to 0 just before it and read just after:
+            - the 256-voice electric piano at 48 kHz
+              (``build_electric_piano(256).compile(..., device="cuda")``, a
+              256-note chord, steady blocks, note-offs, ``render_steady``,
+              ``steady_checksum``), once per kernel version;
+            - the 256-voice poly synth (``build_poly_synth(256)``, the same
+              chord, 8 steady blocks under
+              ``torch.cuda.set_sync_debug_mode("error")``, half the notes
+              released, ``render_steady``, ``steady_checksum``);
+            the first blocks of each against the same run on the CPU; and
+            the README synth (``build_simple_synth()``) at 440 Hz;
+5. timing   each kernel's device time (profiler) and its plain version's
+            time per call (CUDA events), and a steady ``process_block``'s
+            time, device-busy share and real-time factor per model.
 
 The line before the last is the JSON kernel report, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -46,6 +57,10 @@ BLOCKS = (1024, 4096)
 Y_TOL = 5e-5
 STATE_TOL = 1e-5
 MAIN_TOL = 1e-4   # card against CPU, the whole graph
+# the poly synth: its kernels equal their plain versions bit for bit, so
+# only the float32 glue can differ (peak ~0.1-0.5)
+POLY_TOL = 1e-5
+SCAN_SHAPES = ((VOICES, 1024), (VOICES, 4096), (3, 37))
 
 
 def phase(name, msg):
@@ -94,8 +109,20 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from oscen_tpu_torch import raw_midi_event
     from oscen_tpu_torch.models.electric_piano import build_electric_piano
+    from oscen_tpu_torch.models.poly_synth import build_poly_synth
+    from oscen_tpu_torch.models.simple import build_simple_synth
+    from oscen_tpu_torch.nodes.envelope import _cached_steps
+    from oscen_tpu_torch.ops.cuda import adsr as kadsr
     from oscen_tpu_torch.ops.cuda import additive as add
     from oscen_tpu_torch.ops.cuda import build
+    from oscen_tpu_torch.ops.cuda import iir as kiir
+    from oscen_tpu_torch.ops.cuda import phase as kphase
+    scans = {"phase_scan": kphase, "tpt_svf_scan": kiir, "adsr_scan": kadsr}
+
+    def reset_all():
+        add.reset_launches()
+        for mod in scans.values():
+            mod.reset_launches()
 
     # ---- 1. device ---------------------------------------------------
     smi = subprocess.run(
@@ -112,12 +139,19 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 2. build ----------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+    libs = ("additive", "phase", "iir", "adsr")
     t0 = time.perf_counter()
-    build.load_library("additive")
-    secs, log = build.build_info.get("additive", (0.0, ""))
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    phase("build", f"additive.cu built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {secs:.2f} s); " + " | ".join(regs))
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(build.load_library, libs))   # raises on failure
+    phase("build", f"{len(libs)} sources built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in libs:
+        secs, log = build.build_info.get(name, (0.0, ""))
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        phase("build", f"{name}.cu (nvcc {secs:.2f} s): "
+              + " | ".join(regs))
 
     # ---- 3. kernels against their plain versions ---------------------
     def on_card(a):
@@ -167,6 +201,100 @@ def main() -> int:
                 check(ok, f"{version} disagrees with its plain version")
                 rep["max_abs_err"] = max(rep["max_abs_err"], y_err)
 
+    # the scan kernels: torch.equal on every output of 3 chained blocks
+    rng = np.random.default_rng(1)
+
+    def rand(lo, hi, shape):
+        return on_card(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    def adsr_inputs(V):
+        """The parameter rows of tests/test_pallas.py:274-280 tiled across
+        V voices and perturbed by +-10%; gate-on state (attack from 0 at
+        velocity 0.8)."""
+        base = np.array([[0.0005, 0.0010, 0.60, 0.0015],
+                         [0.0020, 0.0005, 0.25, 0.0008],
+                         [0.0010, 0.0030, 0.90, 0.0030]], np.float32)
+        pv = np.tile(base, (-(-V // 3), 1))[:V]
+        pv = pv * rng.uniform(0.9, 1.1, pv.shape).astype(np.float32)
+        p = {k: on_card(pv[:, i]) for i, k in
+             enumerate(("attack", "decay", "sustain", "release"))}
+        a_n, d_n, r_n, a_c, d_c = _cached_steps(p, SR)
+        rows = [a_n.float(), d_n.float(), r_n.float(), a_c, d_c]
+        st = torch.zeros(7, V, device=dev)
+        st[0], st[1], st[3], st[5] = 1.0, rows[0], 1.0, 0.8
+        return st, rows, p["sustain"]
+
+    def gate_off(st, rows):
+        """set_stage(RELEASE) on state7: release from the current level."""
+        st = st.clone()
+        lvl = st[2].clamp(0.0, 1.0)
+        st[0], st[1], st[3] = 4.0, rows[2], 0.0
+        st[6] = torch.where(lvl <= 0.0, 0.0, -lvl / rows[2].clamp(min=1.0))
+        return st
+
+    def scan_case(name, V, B, per_sample=False):
+        """Chained blocks of kernel and plain version on the same inputs;
+        returns the largest difference (0.0 when bit-equal)."""
+        mod = scans[name]
+        fn = getattr(mod, name)
+        plain = getattr(mod, "plain_" + name)
+        if name == "phase_scan":
+            carry = rand(0, 1, (V,))
+            blocks = [(rand(0, 0.3, (B, V)),) for _ in range(3)]
+        elif name == "tpt_svf_scan":
+            carry = (rand(-1, 1, (V,)), rand(-1, 1, (V,)))
+            cs = (B, V) if per_sample else (V,)
+            blocks = [(rand(-1, 1, (B, V)), rand(0.3, 0.9, cs),
+                       rand(0.05, 0.5, cs), rand(1.0, 2.0, cs))
+                      for _ in range(3)]
+        else:
+            carry, rows, sus = adsr_inputs(V)
+            n_on = -(-300 // B)   # through A -> D -> S
+            n_blocks = max(3, n_on + -(-200 // B))
+            sus_p = sus[None].expand(B, V).contiguous()
+        err = 0.0
+        before = mod.launches[name]
+        for i in range(n_blocks if name == "adsr_scan" else 3):
+            if name == "phase_scan":
+                args = (carry, blocks[i][0])
+            elif name == "tpt_svf_scan":
+                args = (*blocks[i], *carry)
+            else:
+                if i == n_on:
+                    check(bool((carry[0] == 3.0).all()),
+                          "adsr_scan: not every voice reached sustain")
+                    carry = gate_off(carry, rows)
+                args = (carry, *rows, sus_p)
+            k_out = fn(*args)
+            torch.cuda.synchronize()
+            p_out = plain(*args)
+            for a, b in zip(k_out, p_out):
+                if not torch.equal(a, b):
+                    err = max(err, float((a - b).abs().max()))
+                    check(False, f"{name} V={V} B={B}: kernel and plain "
+                          f"version differ by {err:.3e}")
+            carry = k_out[1] if name != "tpt_svf_scan" else k_out[1:]
+        check(mod.launches[name] == before + i + 1,
+              f"{name}: launch counter did not advance")
+        if name == "adsr_scan":
+            check(bool((carry[0] == 0.0).all()),
+                  "adsr_scan: not every voice returned to idle")
+        return err
+
+    for name in scans:
+        rep = report.setdefault(name, {"max_abs_err": 0.0})
+        for V, B in SCAN_SHAPES:
+            for per_sample in ((False, True) if name == "tpt_svf_scan"
+                               else (False,)):
+                err = scan_case(name, V, B, per_sample)
+                rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                what = (" per-sample coefficients" if per_sample else
+                        " row coefficients" if name == "tpt_svf_scan"
+                        else "")
+                phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
+                      f"plain version (torch.equal, every output of 3+ "
+                      f"chained blocks) ok")
+
     # ---- 4. main path ------------------------------------------------
     def chord(p):
         for i in range(VOICES):
@@ -193,7 +321,7 @@ def main() -> int:
         return p, blocks, steady, ck
 
     main_out = {}
-    add.reset_launches()
+    reset_all()
     for version in add.KERNELS:
         os.environ["OSCEN_ADDITIVE_KERNEL"] = version
         t0 = time.perf_counter()
@@ -260,10 +388,94 @@ def main() -> int:
         check(err <= MAIN_TOL, "card and CPU runs disagree")
     os.environ.pop("OSCEN_ADDITIVE_KERNEL", None)
 
+    # the 256-voice poly synth
+    def poly_chord(p):
+        for i in range(VOICES):
+            p.queue_event("midi_in", 0,
+                          raw_midi_event([0x90, 36 + (i % 64), 100]))
+
+    def poly_drive(device, B=1024, sync_check=False):
+        p = build_poly_synth(VOICES).compile(SR, block_size=B,
+                                             device=device)
+        poly_chord(p)
+        blocks = [p.process_block()["audio_out"]]
+        if sync_check:   # a steady block must not wait for the card
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            blocks += [p.process_block()["audio_out"] for _ in range(8)]
+        finally:
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("default")
+        release_half(p)
+        blocks.append(p.process_block()["audio_out"])
+        return p, blocks
+
+    reset_all()
+    t0 = time.perf_counter()
+    p, blocks = poly_drive("cuda", sync_check=True)
+    steady = p.render_steady(16)["audio_out"]
+    ck = p.steady_checksum(32)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    poly_launches = {k: mod.launches[k] for k, mod in scans.items()}
+    poly_blocks = 1 + 8 + 1 + 16 + 32
+    audio = torch.cat(blocks + [steady]).cpu().numpy()
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+    walk(p.state)
+    checks = {
+        "shape": tuple(blocks[0].shape) == (1024,)
+        and blocks[0].device.type == "cuda",
+        "finite": bool(np.isfinite(audio).all()) and math.isfinite(ck),
+        "peak": 0.01 < float(np.abs(audio).max()) < 2.0,
+        "state_on_cuda": all(x.device.type == "cuda" for x in leaves),
+        "steady_blocks_never_synced": True,   # else set_sync_debug_mode
+    }
+    phase("main", f"poly synth: 256 voices B=1024, 8 steady blocks under "
+          f"sync debug mode 'error', half released, 16+32 steady blocks, "
+          f"checksum {ck:.6e}, peak {float(np.abs(audio).max()):.4f}, "
+          f"{secs:.2f} s; checks {checks}")
+    check(all(checks.values()), f"poly-synth checks failed: {checks}")
+    phase("main", f"poly synth: kernel launches {poly_launches} "
+          f"(process_block + steady blocks: {poly_blocks}; adsr_scan is "
+          f"not wired into AdsrEnvelope, as in the JAX package)")
+    for name in ("phase_scan", "tpt_svf_scan"):
+        check(poly_launches[name] == poly_blocks,
+              f"{name}: {poly_launches[name]} launches, want {poly_blocks}")
+    _, cpu_blocks = poly_drive("cpu")
+    errs = [float((a.cpu() - b).abs().max())
+            for a, b in zip(blocks[:4], cpu_blocks[:4])]
+    phase("main", f"poly synth: card against CPU, first 4 blocks: max abs "
+          f"per block {['%.3e' % e for e in errs]} (<= {POLY_TOL:.0e}; "
+          f"CPU peak {float(torch.cat(cpu_blocks).abs().max()):.4f})")
+    check(max(errs) <= POLY_TOL, "poly synth: card and CPU runs disagree")
+
+    # the README synth (one voice: the kernels at V=1)
+    readme = {}
+    for device in ("cuda", "cpu"):
+        readme[device] = build_simple_synth().compile(
+            SR, block_size=512, device=device).render_mono(4800)
+    out = readme["cuda"]
+    spec = np.abs(np.fft.rfft(out[480:] * np.hanning(4320)))
+    peak_hz = float(np.fft.rfftfreq(4320, 1 / SR)[spec.argmax()])
+    err = float(np.abs(out - readme["cpu"]).max())
+    phase("main", f"README synth: 4800 samples at B=512, peak {peak_hz:.1f} "
+          f"Hz (440 +- 15), card against CPU {err:.3e} (<= "
+          f"{POLY_TOL:.0e})")
+    check(np.isfinite(out).all() and abs(peak_hz - 440.0) < 15.0
+          and err <= POLY_TOL, "README synth checks failed")
+
     # ---- 5. timing ---------------------------------------------------
-    def time_ms(fn, reps):
+    def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
-        for _ in range(2):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
@@ -275,9 +487,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    def device_ms(fn, reps, kernel=None):
+    def device_ms(fn, reps, kernel=None, top=None):
         """Device time per call from the profiler: the named kernel's, or
-        the sum over all device activity (the busy time)."""
+        the sum over all device activity (the busy time).  With ``top``,
+        also the ``top`` largest device activities as (name, ms per call,
+        launches per call)."""
         from torch.profiler import ProfilerActivity, profile
         for _ in range(2):
             fn()
@@ -287,14 +501,18 @@ def main() -> int:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
+        total, rows = 0.0, []
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             if e.device_type == torch.autograd.DeviceType.CUDA \
                     and (kernel is None or kernel in e.key):
                 total += us
+                rows.append((e.key, us / reps / 1e3, e.count / reps))
         check(total > 0, "the profiler saw no device time")
+        if top is not None:
+            rows.sort(key=lambda r: -r[1])
+            return total / reps / 1e3, rows[:top], sum(r[2] for r in rows)
         return total / reps / 1e3
 
     phase("timing", f"card {card}")
@@ -326,15 +544,103 @@ def main() -> int:
               f"({100 * busy / ms:.1f}%), real-time factor "
               f"{(B / SR) / (ms * 1e-3):.1f}x ({card})")
 
+    # the scan kernels at the poly synth's shapes (V=256 voices)
+    cuda_name = {"phase_scan": "phase_scan_kernel",
+                 "tpt_svf_scan": "tpt_svf_kernel",
+                 "adsr_scan": "adsr_kernel"}
+    plain_reps = {"phase_scan": 3, "tpt_svf_scan": 2, "adsr_scan": 1}
+    for name, mod in scans.items():
+        fn, plain = getattr(mod, name), getattr(mod, "plain_" + name)
+        for B in BLOCKS:
+            if name == "phase_scan":
+                args = (rand(0, 1, (VOICES,)), rand(0, 0.3, (B, VOICES)))
+            elif name == "tpt_svf_scan":
+                args = (rand(-1, 1, (B, VOICES)), rand(0.3, 0.9, (VOICES,)),
+                        rand(0.05, 0.5, (VOICES,)), rand(1, 2, (VOICES,)),
+                        rand(-1, 1, (VOICES,)), rand(-1, 1, (VOICES,)))
+            else:
+                st, rows, sus = adsr_inputs(VOICES)
+                args = (st, *rows, sus[None].expand(B, VOICES).contiguous())
+            ms = device_ms(lambda: fn(*args), 50, kernel=cuda_name[name])
+            plain_ms = time_ms(lambda: plain(*args), plain_reps[name],
+                               warm=1)
+            phase("timing", f"{name} V={VOICES} B={B}: kernel "
+                  f"{ms * 1e3:.1f} us (device), plain PyTorch "
+                  f"{plain_ms * 1e3:.1f} us/call ({card})")
+            if B == 1024:
+                report[name].update(ms=ms, plain_ms=plain_ms)
+
+    # the steady poly-synth block, and where its device time goes
+    for B in BLOCKS:
+        p = build_poly_synth(VOICES).compile(SR, block_size=B,
+                                             device="cuda")
+        poly_chord(p)
+        p.process_block()
+        ms = time_ms(lambda: p.process_block(), 20)
+        busy, top, n_kern = device_ms(lambda: p.process_block(), 20,
+                                      top=6)
+        phase("timing", f"poly synth steady process_block V={VOICES} "
+              f"B={B}: {ms * 1e3:.1f} us/block, device busy "
+              f"{busy * 1e3:.1f} us ({100 * busy / ms:.1f}%), "
+              f"{n_kern:.0f} device activities per block, real-time "
+              f"factor {(B / SR) / (ms * 1e-3):.1f}x ({card})")
+        phase("timing", f"poly synth B={B} top device time per block: "
+              + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c:.0f}"
+                          for k, t, c in top))
+
+    # host time per node in a steady poly-synth block: each node's block
+    # methods wrapped in a profiler range (wrapped before the first block,
+    # so the block compiler reads the same signatures)
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(fn, label):
+        @functools.wraps(fn)
+        def inner(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return inner
+
+    p = build_poly_synth(VOICES).compile(SR, block_size=1024, device="cuda")
+    for nm, inst in p.ir.nodes.items():
+        for meth in ("process_block", "process_block_batched"):
+            if hasattr(inst.node, meth) and not inst.node.HOST:
+                setattr(inst.node, meth,
+                        ranged(getattr(inst.node, meth), f"node:{nm}"))
+    poly_chord(p)
+    for _ in range(3):
+        p.process_block()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            p.process_block()
+        torch.cuda.synchronize()
+    host = {e.key: e.cpu_time_total / 20 / 1e3 for e in prof.key_averages()
+            if e.key.startswith("node:")}
+    phase("timing", "poly synth B=1024 host time per steady block by node "
+          "(profiler ranges): " + ", ".join(
+              f"{k[5:]} {v * 1e3:.0f} us" for k, v in sorted(
+                  host.items(), key=lambda kv: -kv[1])))
+
+    sources = {"v4": ("additive_voice_v4", "additive.cu",
+                      "oscen_tpu/ops/pallas/additive.py:260"),
+               "parity": ("additive_voice_parity", "additive.cu",
+                          "oscen_tpu/ops/pallas/additive.py:401"),
+               "phase_scan": ("phase_scan", "phase.cu",
+                              "oscen_tpu/ops/pallas/phase.py:53"),
+               "tpt_svf_scan": ("tpt_svf_scan", "iir.cu",
+                                "oscen_tpu/ops/pallas/iir.py:103"),
+               "adsr_scan": ("adsr_scan", "adsr.cu",
+                             "oscen_tpu/ops/pallas/adsr.py:122")}
+    path_launches = {**launches, **poly_launches}
     kernels = []
-    for version, rep in report.items():
+    for key, rep in report.items():
+        name, src, replaces = sources[key]
         kernels.append({
-            "name": f"additive_voice_{version}", "route": "cuda",
-            "source": "oscen_tpu_torch/csrc/additive.cu",
-            "replaces": ("oscen_tpu/ops/pallas/additive.py:260"
-                         if version == "v4" else
-                         "oscen_tpu/ops/pallas/additive.py:401"),
-            "launches": launches[version],
+            "name": name, "route": "cuda",
+            "source": f"oscen_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": path_launches[key],
             "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)

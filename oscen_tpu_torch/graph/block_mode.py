@@ -170,6 +170,14 @@ def make_block_fn(prog, block_len: int):
         name for name in prog.device_nodes
         if "const_ins" in inspect.signature(
             ir.nodes[name].node.process_block).parameters}
+    # the keyword arguments each node array's batched method takes, read
+    # from its signature as the JAX package does (block_mode.py:641-646);
+    # literal_ins waits for a ported node that takes it
+    batched_kw = {
+        name: {"fanin_eps", "const_ins"} & set(inspect.signature(
+            ir.nodes[name].node.process_block_batched).parameters)
+        for name in prog.device_nodes
+        if hasattr(ir.nodes[name].node, "process_block_batched")}
 
     def block_fn(state, per_block, ev_bufs):
         per_block = reconstruct_step_values(per_block, B)
@@ -310,12 +318,15 @@ def make_block_fn(prog, block_len: int):
             kw = {"const_ins": const_eps(name)} if name in takes_const \
                 else {}
             batched = None
-            if inst.count > 1 and not evs and hasattr(
-                    node, "process_block_batched"):
+            if inst.count > 1 and not evs and name in batched_kw:
                 # voice-batched kernel path (None: take process_block)
-                batched = node.process_block_batched(
-                    st, ins, evs, sr, B,
-                    fanin_eps=fanin_only.get(name, frozenset()))
+                bkw = {}
+                if "fanin_eps" in batched_kw[name]:
+                    bkw["fanin_eps"] = fanin_only.get(name, frozenset())
+                if "const_ins" in batched_kw[name]:
+                    bkw["const_ins"] = const_eps(name)
+                batched = node.process_block_batched(st, ins, evs, sr, B,
+                                                     **bkw)
             if batched is not None:
                 explain.note(path="batched")
                 st, outs = batched

@@ -134,8 +134,10 @@ class _Program:
         """Evaluate a connection expression; ``resolve(ref)`` supplies
         endpoint values."""
         if isinstance(expr, Const):
-            return torch.tensor(expr.value, dtype=torch.float32,
-                                device=self.device)
+            # filled on the device: torch.tensor(value, device=cuda) is a
+            # synchronizing host-to-device copy on every block
+            return torch.full((), expr.value, dtype=torch.float32,
+                              device=self.device)
         if isinstance(expr, EndpointRef):
             v = resolve(expr)
             if expr.index is not None:

@@ -25,7 +25,6 @@ Layout: state planes ``[H, V]`` (H = 32 harmonics, V voices), ``step``
 
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import Dict
 
@@ -42,7 +41,6 @@ KERNELS = ("v4", "parity")
 launches: Dict[str, int] = {v: 0 for v in KERNELS}
 
 _ENTRY = {"v4": "oscen_additive_v4", "parity": "oscen_additive_parity"}
-_entries: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def kernel_version() -> str:
@@ -88,26 +86,8 @@ def additive_voice_block(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
     return _launch(version, planes, step, block_len, sub, with_mix)
 
 
-def _entry(name):
-    """A kernel's C entry point, typed for ctypes (built at first use)."""
-    fn = _entries.get(name)
-    if fn is None:
-        from .build import load_library
-        lib = load_library("additive")
-        if name == "error_string":
-            fn = lib.oscen_cuda_error_string
-            fn.restype = ctypes.c_char_p
-            fn.argtypes = [ctypes.c_int]
-        else:
-            fn = getattr(lib, _ENTRY[name])
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
-        _entries[name] = fn
-    return fn
-
-
 def _launch(version, planes, step, block_len, sub, with_mix):
+    from . import build
     H, V = planes[0].shape
     dev = planes[0].device
     if H != NUM_HARMONICS:
@@ -122,7 +102,7 @@ def _launch(version, planes, step, block_len, sub, with_mix):
     if step.device != dev or tuple(step.shape) != (V,):
         raise ValueError(f"step must be [{V}] on {dev}")
     step = step.to(torch.float32).contiguous()
-    fn = _entry(version)
+    fn = build.entry("additive", _ENTRY[version], 14, 5)
     n_blk = -(-V // WARPS_PER_BLOCK)
     y = torch.empty((n_blk, block_len) if with_mix else (block_len, V),
                     dtype=torch.float32, device=dev)
@@ -134,10 +114,7 @@ def _launch(version, planes, step, block_len, sub, with_mix):
             *[t.data_ptr() for t in outs], step_o.data_ptr(),
             V, block_len, sub, int(with_mix), WARPS_PER_BLOCK, stream)
     launches[version] += 1
-    if rc != 0:
-        msg = _entry("error_string")(rc).decode()
-        raise RuntimeError(f"additive {version} kernel launch failed: "
-                           f"{msg} ({rc})")
+    build.check_launch("additive", rc, f"additive {version}")
     if with_mix:
         y = y.sum(dim=0)  # per-block partial mixes
     return (y, *outs, step_o)

@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # name -> (build seconds, nvcc's diagnostics incl. -Xptxas -v register use)
 build_info: Dict[str, Tuple[float, str]] = {}
 
@@ -72,3 +75,38 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _libs[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, n_ptr: int, n_int: int):
+    """``csrc/<name>.cu``'s C entry point ``symbol``, typed for ctypes:
+    ``n_ptr`` pointers, ``n_int`` ints, then the stream; returns the
+    launch's CUDA error code (built and typed at first use)."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        _entries[(name, symbol)] = fn
+    return fn
+
+
+def check_launch(name: str, rc: int, what: str) -> None:
+    """Raise if a launch from ``csrc/<name>.cu`` returned an error."""
+    if rc != 0:
+        fn = load_library(name).oscen_cuda_error_string
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"{what} kernel launch failed: {fn(rc).decode()} ({rc})")
+
+
+def check_operands(dev, **tensors) -> None:
+    """The operands a kernel takes: contiguous float32 tensors on ``dev``."""
+    for nm, t in tensors.items():
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{nm} must be a contiguous float32 tensor on {dev} (got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}, contiguous="
+                f"{t.is_contiguous()})")

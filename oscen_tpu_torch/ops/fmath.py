@@ -11,14 +11,27 @@ rounded float32 values on both (the arguments stay float32, as in the JAX
 package).  The operands here are small (``[C, H]`` planes, ``[B]`` rows).
 
 Division by a constant has the same problem: on CUDA, PyTorch computes
-``tensor / python_float`` as a product with the float32 reciprocal, which
-is an ulp off the quotient for most divisors (9 of the 32 harmonic
-rotation angles of a 440 Hz note at 48 kHz).  :func:`div` divides by a
-0-d tensor instead, which both devices divide correctly rounded.
+``tensor / python_float`` as a product with the float32 reciprocal, on the
+CPU as a true quotient; the two differ by an ulp for most divisors (9 of
+the 32 harmonic rotation angles of a 440 Hz note at 48 kHz).  Each form
+below is computed the same way on both devices:
+
+- :func:`div`, the true quotient, as the JAX package's node functions give
+  it when they run eagerly (the electric-piano nodes are held to those);
+- :func:`div_const`, the product with the float32 reciprocal, as the JAX
+  package gives it inside a ``CompiledGraph``: XLA rewrites ``x / c`` for
+  a constant ``c`` into ``x * float32(1 / c)`` under ``jit``.  The
+  poly-synth nodes use it, because an oscillator's per-sample increment
+  ``f / sr`` accumulates into its phase, and one ulp there drifts the
+  phase away from the JAX package's compiled graph;
+- :func:`rdiv`, a constant divided by a tensor, a true quotient under
+  ``jit`` too (PyTorch's ``python_float / tensor`` is a reciprocal times
+  the constant, two roundings).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,6 +41,10 @@ def sin(x):
 
 def cos(x):
     return torch.cos(x.double()).float()
+
+
+def tan(x):
+    return torch.tan(x.double()).float()
 
 
 def exp(x):
@@ -45,3 +62,14 @@ def pow(x, y):
 def div(x, c: float):
     """``x / c`` correctly rounded on every device."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def div_const(x, c: float):
+    """``x / c`` as XLA compiles it: ``x`` times the float32 reciprocal of
+    ``c``, one rounding, the same on every device."""
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
+def rdiv(c: float, x):
+    """``c / x`` correctly rounded on every device, as in XLA."""
+    return torch.full((), c, dtype=x.dtype, device=x.device) / x

@@ -1,6 +1,7 @@
 """oscen_tpu_torch never imports jax: with ``sys.modules["jax"] = None``
 (any ``import jax`` then raises) the package imports, and the electric
-piano builds, compiles and renders a block on the CPU."""
+piano, the poly synth and the README synth build, compile and render on
+the CPU."""
 
 import subprocess
 import sys
@@ -25,6 +26,13 @@ def test_port_imports_and_renders_without_jax():
         b = p.process_block()["out"]
         assert a.shape == b.shape == (64, 2)
         assert float(b.abs().max()) > 0.01
+        from oscen_tpu_torch.models.poly_synth import build_poly_synth
+        from oscen_tpu_torch.models.simple import build_simple_synth
+        s = build_poly_synth(4).compile(48000.0, block_size=64)
+        s.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
+        assert float(s.process_block()["audio_out"].abs().max()) > 0.001
+        r = build_simple_synth().compile(48000.0, block_size=64)
+        assert abs(r.render_mono(256)).max() > 0.1
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)
