@@ -13,10 +13,14 @@ Phases, one line each, any miss fails the run with a non-zero exit:
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main paths' shapes: the additive voice (V=256, H=32,
             B=1024 and 4096, with and without the fused mix), phase_scan,
-            tpt_svf_scan (row and per-sample coefficients) and adsr_scan
-            (A -> D -> S, then a gate-off through R -> idle) at V=256,
-            B=1024 and 4096 and a ragged V=3, B=37; 3 chained blocks;
-4. main     the two models through the public API, each with its launch
+            tpt_svf_scan (row and per-sample coefficients), adsr_scan
+            (A -> D -> S, then a gate-off through R -> idle), and the FM
+            kernels fract_phase3, fm_chain3_scan and pivot_chain3_scan
+            (nonzero feedback, per-sample and block-constant dt) and
+            fm_operator_scan (per-sample feedback and level) at V=256,
+            B=1024 and 4096 and a ragged V=3, B=37; 3 chained blocks; the
+            chains' zero-feedback branch against their kernels;
+4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
               (``build_electric_piano(256).compile(..., device="cuda")``, a
@@ -26,11 +30,18 @@ Phases, one line each, any miss fails the run with a non-zero exit:
               chord, 8 steady blocks under
               ``torch.cuda.set_sync_debug_mode("error")``, half the notes
               released, ``render_steady``, ``steady_checksum``);
+            - the 256-voice fm synth and pivot (``build_fm_synth(256)``,
+              ``build_pivot(256)``, the same chord, 8 steady blocks under
+              sync debug mode "error"; the pivot then sets op3_feedback to
+              0.3 and runs 4 more; half the notes released,
+              ``render_steady``, ``steady_checksum``), and the unfused fm
+              synth (``fused=False``) for a few blocks;
             the first blocks of each against the same run on the CPU; and
             the README synth (``build_simple_synth()``) at 440 Hz;
 5. timing   each kernel's device time (profiler) and its plain version's
-            time per call (CUDA events), and a steady ``process_block``'s
-            time, device-busy share and real-time factor per model.
+            time per call (CUDA events), a steady ``process_block``'s
+            time, device-busy share, top device activities and real-time
+            factor per model, and host time per node.
 
 The line before the last is the JSON kernel report, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -109,18 +120,22 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from oscen_tpu_torch import raw_midi_event
     from oscen_tpu_torch.models.electric_piano import build_electric_piano
+    from oscen_tpu_torch.models.fm_synth import build_fm_synth
+    from oscen_tpu_torch.models.pivot import build_pivot
     from oscen_tpu_torch.models.poly_synth import build_poly_synth
     from oscen_tpu_torch.models.simple import build_simple_synth
     from oscen_tpu_torch.nodes.envelope import _cached_steps
     from oscen_tpu_torch.ops.cuda import adsr as kadsr
     from oscen_tpu_torch.ops.cuda import additive as add
     from oscen_tpu_torch.ops.cuda import build
+    from oscen_tpu_torch.ops.cuda import fm as kfm
     from oscen_tpu_torch.ops.cuda import iir as kiir
     from oscen_tpu_torch.ops.cuda import phase as kphase
     scans = {"phase_scan": kphase, "tpt_svf_scan": kiir, "adsr_scan": kadsr}
 
     def reset_all():
         add.reset_launches()
+        kfm.reset_launches()
         for mod in scans.values():
             mod.reset_launches()
 
@@ -140,7 +155,7 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
-    libs = ("additive", "phase", "iir", "adsr")
+    libs = ("additive", "phase", "iir", "adsr", "fm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(build.load_library, libs))   # raises on failure
@@ -294,6 +309,93 @@ def main() -> int:
                 phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
                       f"plain version (torch.equal, every output of 3+ "
                       f"chained blocks) ok")
+
+    # the FM kernels: torch.equal on every output of 3 chained blocks
+    def fm_args(name, V, B, rng_f, per_sample=False, fb=0.4):
+        """One block's operands after the carries: nonzero feedback, a
+        per-sample pitch step (a note-on) or block-constant dt for the
+        chains; per-sample planes for the operator."""
+        def r(lo, hi, shape):
+            return on_card(rng_f.uniform(lo, hi, shape).astype(np.float32))
+        if name == "fract_phase3":
+            return (r(-0.05, 0.4, (3, V)), B)
+        if name == "fm_operator_scan":   # dt, pm, fb, env, lvl
+            return tuple(r(lo, hi, (B, V)) for lo, hi in (
+                (0.002, 0.03), (-0.2, 0.2), (0.0, 0.6), (0.1, 1.0),
+                (0.3, 1.0)))
+        freq = np.broadcast_to(rng_f.uniform(100, 1000, V), (B, V)).copy()
+        if per_sample:
+            freq[B // 3:, ::2] *= 1.5
+        dt = np.stack([freq * k / SR for k in (3.0, 2.0, 1.0)])
+        return (on_card(dt.astype(np.float32) if per_sample
+                        else dt[:, :1].astype(np.float32)),
+                r(0.3, 1.0, (3, V)), r(0.0, fb, (3, V)), r(0.0, 1.0, (V,)),
+                *(r(0.1, 1.0, (B, V)) for _ in range(3)))
+
+    def fm_carry(name, V, rng_f):
+        def r(lo, hi, shape):
+            return on_card(rng_f.uniform(lo, hi, shape).astype(np.float32))
+        if name == "fract_phase3":
+            return (r(-1, 1, (3, V)),)
+        if name == "fm_operator_scan":
+            return (r(0, 1, (V,)), r(-1, 1, (V,)))
+        return (r(0, 1, (3, V)), r(-1, 1, (3, V)))
+
+    def fm_case(name, V, B, per_sample=False):
+        """3 chained blocks of kernel and plain version on the same
+        operands; any difference fails the run."""
+        fn, plain = getattr(kfm, name), getattr(kfm, "plain_" + name)
+        rng_f = np.random.default_rng(V + B + per_sample)
+        carry = fm_carry(name, V, rng_f)
+        before = kfm.launches[name]
+        for _ in range(3):
+            args = fm_args(name, V, B, rng_f, per_sample)
+            k_out = fn(*carry, *args)
+            torch.cuda.synchronize()
+            p_out = plain(*carry, *args)
+            for a, b in zip(k_out, p_out):
+                if not torch.equal(a, b):
+                    check(False, f"{name} V={V} B={B}: kernel and plain "
+                          f"version differ by "
+                          f"{float((a - b).abs().max()):.3e}")
+            carry = k_out[3:] if name == "fract_phase3" else k_out[1:]
+        check(kfm.launches[name] == before + 3,
+              f"{name}: launch counter did not advance")
+
+    for name in kfm.KERNELS:
+        report[name] = {"max_abs_err": 0.0}
+        for V, B in SCAN_SHAPES:
+            for per_sample in ((False, True) if "chain" in name
+                               else (False,)):
+                fm_case(name, V, B, per_sample)
+                what = ({True: " per-sample dt, feedback",
+                         False: " block-constant dt, feedback"}[per_sample]
+                        if "chain" in name else " per-sample fb/lvl"
+                        if "operator" in name else "")
+                phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
+                      f"plain version (torch.equal, every output of 3 "
+                      f"chained blocks) ok")
+
+    # the chains' zero-feedback branch (fract_phase3 + plain PyTorch) is
+    # bit-equal to their sequential kernels, so the branch choice never
+    # changes the numbers
+    for kind in ("fm", "pivot"):
+        scan = getattr(kfm, f"{kind}_chain3_scan")
+        for V, B in ((VOICES, 1024), (VOICES, 4096)):
+            rng_f = np.random.default_rng(B)
+            fast = seq = fm_carry("chain", V, rng_f)
+            for _ in range(3):
+                args = fm_args("chain", V, B, rng_f, fb=0.0)
+                f_out = scan(*fast, *args, fb_zero=True)
+                s_out = scan(*seq, *args)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(f_out, s_out)),
+                      f"{kind} zero-feedback branch differs from the "
+                      f"chain kernel at V={V} B={B}")
+                fast, seq = f_out[1:], s_out[1:]
+            phase("kernels", f"{kind} zero-feedback branch V={V} B={B}: "
+                  f"equal to {kind}_chain3_scan (torch.equal, 3 chained "
+                  f"blocks) ok")
 
     # ---- 4. main path ------------------------------------------------
     def chord(p):
@@ -457,6 +559,100 @@ def main() -> int:
           f"CPU peak {float(torch.cat(cpu_blocks).abs().max()):.4f})")
     check(max(errs) <= POLY_TOL, "poly synth: card and CPU runs disagree")
 
+    # the 256-voice fm synth and pivot
+    def fm_drive(build, device, B=1024, sync_check=False):
+        """The chord, 8 steady blocks (under sync debug mode "error" when
+        ``sync_check``); the pivot then sets op3_feedback to 0.3 (its
+        steady blocks run pivot_chain3_scan) and runs 1 + 4 more; half
+        the notes released."""
+        p = build(VOICES).compile(SR, block_size=B, device=device)
+        poly_chord(p)
+        blocks = [p.process_block()["audio_out"]]
+
+        def steady(n):
+            if sync_check:   # a steady block must not wait for the card
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return [p.process_block()["audio_out"] for _ in range(n)]
+            finally:
+                if sync_check:
+                    torch.cuda.set_sync_debug_mode("default")
+        blocks += steady(8)
+        if build is build_pivot:
+            p.set_value("op3_feedback", 0.3)
+            blocks.append(p.process_block()["audio_out"])   # restaged
+            blocks += steady(4)
+        release_half(p)
+        blocks.append(p.process_block()["audio_out"])
+        return p, blocks
+
+    fm_launches = {}
+    for model, build, chain_kernel in (
+            ("fm synth", build_fm_synth, "fm_chain3_scan"),
+            ("pivot", build_pivot, "pivot_chain3_scan")):
+        reset_all()
+        t0 = time.perf_counter()
+        p, blocks = fm_drive(build, "cuda", sync_check=True)
+        steady = p.render_steady(16)["audio_out"]
+        ck = p.steady_checksum(32)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: kfm.launches[k] for k in ("fract_phase3", chain_kernel)}
+        got["tpt_svf_scan"] = kiir.launches["tpt_svf_scan"]
+        fm_launches[model] = got
+        n_blocks = len(blocks) + 16 + 32
+        audio = torch.cat(blocks + [steady]).cpu().numpy()
+        leaves = []
+        walk(p.state)
+        checks = {
+            "shape": tuple(blocks[0].shape) == (1024,)
+            and blocks[0].device.type == "cuda",
+            "finite": bool(np.isfinite(audio).all()) and math.isfinite(ck),
+            "peak": 0.01 < float(np.abs(audio).max()) < 1000.0,
+            "state_on_cuda": all(x.device.type == "cuda" for x in leaves),
+            "steady_blocks_never_synced": True,   # else set_sync_debug_mode
+            "both_branches_ran": got["fract_phase3"] > 0
+            and got[chain_kernel] > 0,
+            "filter_every_block": got["tpt_svf_scan"] == n_blocks,
+        }
+        phase("main", f"{model}: 256 voices B=1024, 8 steady blocks under "
+              f"sync debug mode 'error'"
+              + (", op3_feedback 0.3 then 4 more" if model == "pivot"
+                 else "")
+              + f", half released, 16+32 steady blocks, checksum "
+              f"{ck:.6e}, peak {float(np.abs(audio).max()):.4f}, "
+              f"{secs:.2f} s; checks {checks}")
+        check(all(checks.values()), f"{model} checks failed: {checks}")
+        phase("main", f"{model}: kernel launches {got} ({n_blocks} blocks)")
+        _, cpu_blocks = fm_drive(build, "cpu")
+        errs = [float((a.cpu() - b).abs().max())
+                for a, b in zip(blocks, cpu_blocks)]
+        phase("main", f"{model}: card against CPU, first 4 blocks: max abs "
+              f"per block {['%.3e' % e for e in errs[:4]]} (<= "
+              f"{POLY_TOL:.0e}; CPU peak "
+              f"{float(torch.cat(cpu_blocks).abs().max()):.4f}); all "
+              f"{len(errs)} blocks: {max(errs):.3e}")
+        check(max(errs[:4]) <= POLY_TOL, f"{model}: card and CPU disagree")
+
+    # the unfused fm synth: FmOperator node arrays, one fm_operator_scan
+    # per operator per block at full width
+    reset_all()
+    p = build_fm_synth(VOICES, fused=False).compile(SR, block_size=1024,
+                                                    device="cuda")
+    poly_chord(p)
+    un_blocks = [p.process_block()["audio_out"] for _ in range(3)]
+    torch.cuda.synchronize()
+    fm_launches["unfused fm synth"] = {
+        "fm_operator_scan": kfm.launches["fm_operator_scan"]}
+    un_audio = torch.cat(un_blocks).cpu().numpy()
+    phase("main", f"unfused fm synth: 256 voices B=1024, 3 blocks, peak "
+          f"{float(np.abs(un_audio).max()):.4f}, kernel launches "
+          f"{fm_launches['unfused fm synth']} (3 operators x 3 blocks)")
+    check(kfm.launches["fm_operator_scan"] == 9
+          and np.isfinite(un_audio).all(),
+          "unfused fm synth: fm_operator_scan did not run 9 times")
+
     # the README synth (one voice: the kernels at V=1)
     readme = {}
     for device in ("cuda", "cpu"):
@@ -588,9 +784,9 @@ def main() -> int:
               + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c:.0f}"
                           for k, t, c in top))
 
-    # host time per node in a steady poly-synth block: each node's block
-    # methods wrapped in a profiler range (wrapped before the first block,
-    # so the block compiler reads the same signatures)
+    # host time per node in a steady block: each node's block methods
+    # wrapped in a profiler range (wrapped before the first block, so the
+    # block compiler reads the same signatures)
     import functools
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -602,26 +798,75 @@ def main() -> int:
                 return fn(*a, **kw)
         return inner
 
-    p = build_poly_synth(VOICES).compile(SR, block_size=1024, device="cuda")
-    for nm, inst in p.ir.nodes.items():
-        for meth in ("process_block", "process_block_batched"):
-            if hasattr(inst.node, meth) and not inst.node.HOST:
-                setattr(inst.node, meth,
-                        ranged(getattr(inst.node, meth), f"node:{nm}"))
-    poly_chord(p)
-    for _ in range(3):
-        p.process_block()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(20):
+    def host_time_by_node(label, build):
+        p = build(VOICES).compile(SR, block_size=1024, device="cuda")
+        for nm, inst in p.ir.nodes.items():
+            for meth in ("process_block", "process_block_batched"):
+                if hasattr(inst.node, meth) and not inst.node.HOST:
+                    setattr(inst.node, meth,
+                            ranged(getattr(inst.node, meth), f"node:{nm}"))
+        poly_chord(p)
+        for _ in range(3):
             p.process_block()
         torch.cuda.synchronize()
-    host = {e.key: e.cpu_time_total / 20 / 1e3 for e in prof.key_averages()
-            if e.key.startswith("node:")}
-    phase("timing", "poly synth B=1024 host time per steady block by node "
-          "(profiler ranges): " + ", ".join(
-              f"{k[5:]} {v * 1e3:.0f} us" for k, v in sorted(
-                  host.items(), key=lambda kv: -kv[1])))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(20):
+                p.process_block()
+            torch.cuda.synchronize()
+        host = {e.key: e.cpu_time_total / 20 / 1e3
+                for e in prof.key_averages() if e.key.startswith("node:")}
+        phase("timing", f"{label} B=1024 host time per steady block by node "
+              "(profiler ranges): " + ", ".join(
+                  f"{k[5:]} {v * 1e3:.0f} us" for k, v in sorted(
+                      host.items(), key=lambda kv: -kv[1])))
+
+    host_time_by_node("poly synth", build_poly_synth)
+
+    # the FM kernels at the fm synth's and pivot's shapes (V=256 voices)
+    fm_cuda_name = {"fract_phase3": "fract_phase3_kernel",
+                    "fm_chain3_scan": "chain3_kernel",
+                    "pivot_chain3_scan": "chain3_kernel",
+                    "fm_operator_scan": "fm_operator_kernel"}
+    for name in kfm.KERNELS:
+        fn, plain = getattr(kfm, name), getattr(kfm, "plain_" + name)
+        for B in BLOCKS:
+            rng_f = np.random.default_rng(B)
+            args = fm_carry(name, VOICES, rng_f) + fm_args(name, VOICES, B,
+                                                           rng_f)
+            ms = device_ms(lambda: fn(*args), 50, kernel=fm_cuda_name[name])
+            plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
+            what = (" (block-constant dt, feedback)" if "chain" in name
+                    else "")
+            phase("timing", f"{name} V={VOICES} B={B}{what}: kernel "
+                  f"{ms * 1e3:.1f} us (device), plain PyTorch "
+                  f"{plain_ms * 1e3:.1f} us/call ({card})")
+            if B == 1024:
+                report[name].update(ms=ms, plain_ms=plain_ms)
+
+    # the steady fm-synth and pivot blocks, and where their device time
+    # goes (the pivot also with op3_feedback 0.3: pivot_chain3_scan)
+    for label, build, fb in (("fm synth", build_fm_synth, None),
+                             ("pivot", build_pivot, None),
+                             ("pivot op3_feedback=0.3", build_pivot, 0.3)):
+        for B in BLOCKS:
+            p = build(VOICES).compile(SR, block_size=B, device="cuda")
+            poly_chord(p)
+            if fb is not None:
+                p.set_value("op3_feedback", fb)
+            p.process_block()
+            ms = time_ms(lambda: p.process_block(), 20)
+            busy, top, n_kern = device_ms(lambda: p.process_block(), 20,
+                                          top=6)
+            phase("timing", f"{label} steady process_block V={VOICES} "
+                  f"B={B}: {ms * 1e3:.1f} us/block, device busy "
+                  f"{busy * 1e3:.1f} us ({100 * busy / ms:.1f}%), "
+                  f"{n_kern:.0f} device activities per block, real-time "
+                  f"factor {(B / SR) / (ms * 1e-3):.1f}x ({card})")
+            phase("timing", f"{label} B={B} top device time per block: "
+                  + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c:.0f}"
+                              for k, t, c in top))
+    host_time_by_node("fm synth", build_fm_synth)
+    host_time_by_node("pivot", build_pivot)
 
     sources = {"v4": ("additive_voice_v4", "additive.cu",
                       "oscen_tpu/ops/pallas/additive.py:260"),
@@ -632,8 +877,26 @@ def main() -> int:
                "tpt_svf_scan": ("tpt_svf_scan", "iir.cu",
                                 "oscen_tpu/ops/pallas/iir.py:103"),
                "adsr_scan": ("adsr_scan", "adsr.cu",
-                             "oscen_tpu/ops/pallas/adsr.py:122")}
+                             "oscen_tpu/ops/pallas/adsr.py:122"),
+               "fract_phase3": ("fract_phase3", "fm.cu",
+                                "oscen_tpu/ops/pallas/fm.py:199"),
+               "fm_chain3_scan": ("fm_chain3_scan", "fm.cu",
+                                  "oscen_tpu/ops/pallas/fm.py:325"),
+               "fm_operator_scan": ("fm_operator_scan", "fm.cu",
+                                    "oscen_tpu/ops/pallas/fm.py:361"),
+               "pivot_chain3_scan": ("pivot_chain3_scan", "fm.cu",
+                                     "oscen_tpu/ops/pallas/fm.py:517")}
+    # main-path launches: the piano, the poly synth, and the FM models
+    # (fract_phase3 from the fm synth's and the pivot's runs together)
     path_launches = {**launches, **poly_launches}
+    path_launches["fract_phase3"] = sum(
+        fm_launches[m]["fract_phase3"] for m in ("fm synth", "pivot"))
+    path_launches["fm_chain3_scan"] = fm_launches["fm synth"][
+        "fm_chain3_scan"]
+    path_launches["pivot_chain3_scan"] = fm_launches["pivot"][
+        "pivot_chain3_scan"]
+    path_launches["fm_operator_scan"] = fm_launches["unfused fm synth"][
+        "fm_operator_scan"]
     kernels = []
     for key, rep in report.items():
         name, src, replaces = sources[key]

@@ -3,10 +3,11 @@
 A port of the JAX package ``oscen_tpu`` (which stays the reference) to
 PyTorch, with its TPU kernels rewritten as CUDA kernels for Hopper.  Module
 paths and names mirror the JAX package.  The port so far holds the
-electric-piano and poly-synth slices: the graph front end, block-mode
+electric-piano, poly-synth and FM slices: the graph front end, block-mode
 compilation on one device (``Graph.compile(..., device="cpu" | "cuda")``),
 the host MIDI and voice-allocation nodes, the additive voice, the tremolo,
-the oscillators, the TPT filter and the ADSR envelope.  Tensors on the
+the oscillators, the TPT filter, the ADSR envelope and bank, the FM
+operator and the small utility nodes.  Tensors on the
 CPU run each kernel's plain PyTorch version; tensors on a CUDA card run the
 kernel.
 """
@@ -18,10 +19,11 @@ from .core.types import (DEFAULT_MAX_BLOCK_SIZE, Kind, ParamSpec, Policy,
                          SampleRate)
 from .graph.builder import Frame, Graph, GraphError, call
 from .graph.node import HostNode, Node, StepValue
-from .nodes.basic import Tremolo
+from .nodes.basic import (AddValue, Crossfade, FmOperator, Gain, Mixer,
+                          MulAdd, Tremolo, Vca)
 from .nodes.electric_piano import (AmplitudeSource, ElectricPianoVoice,
                                    OscillatorBank)
-from .nodes.envelope import AdsrEnvelope
+from .nodes.envelope import AdsrBank, AdsrEnvelope
 from .nodes.filters import TptFilter
 from .nodes.midi import (MidiParser, MidiVoiceHandler, midi_note_to_freq,
                          raw_midi_event)
@@ -31,12 +33,13 @@ from .nodes.voice_allocator import VoiceAllocator
 __version__ = "0.1.0"
 
 __all__ = [
-    "AdsrEnvelope", "AmplitudeSource", "DEFAULT_MAX_BLOCK_SIZE",
-    "ElectricPianoVoice", "EventBuffer", "EventInstance", "Frame", "Graph",
-    "GraphError", "HostNode", "Kind", "MidiParser", "MidiVoiceHandler",
+    "AddValue", "AdsrBank", "AdsrEnvelope", "AmplitudeSource", "Crossfade",
+    "DEFAULT_MAX_BLOCK_SIZE", "ElectricPianoVoice", "EventBuffer",
+    "EventInstance", "FmOperator", "Frame", "Gain", "Graph", "GraphError",
+    "HostNode", "Kind", "MidiParser", "MidiVoiceHandler", "Mixer", "MulAdd",
     "Node", "NoteOffEvent", "NoteOnEvent", "Oscillator", "OscillatorBank",
     "ParamSpec", "Policy", "PolyBlepOscillator", "RawMidiMessage",
     "SampleRate", "StepValue", "Tremolo", "TptFilter", "ValueRampState",
-    "VoiceAllocator", "call", "midi_note_to_freq", "raw_midi_event",
+    "Vca", "VoiceAllocator", "call", "midi_note_to_freq", "raw_midi_event",
     "scalar_event",
 ]

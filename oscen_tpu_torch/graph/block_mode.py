@@ -11,6 +11,23 @@ instance axis written out (``Node.BATCHED``), or through their
 Not ported yet, and refused with ``NotImplementedError``: feedback cycles
 (per-sample scan islands and dissolved delay islands), cross-rate edges,
 voice sharding and the stream-epilogue fusion (ROADMAP.md queue 1).
+
+Besides its inputs, a node's block methods may ask, by naming the keyword
+in their signature, for what the compiler knows of them on the host:
+
+- ``const_ins``: input endpoints that are block-constant THIS block
+  (staged as ``[1]``, literals, or outputs that an upstream stateless node
+  proved constant through its ``const_out_eps``);
+- ``literal_ins``: ``{endpoint: float}`` of inputs whose value is a
+  literal of the compiled graph: unconnected defaults, ``Const`` and
+  ``+ - * /`` of them, and graph parameters never set since compile
+  (``CompiledGraph._literal_params``; the first setter rebuilds the block
+  function without them);
+- ``host_ins``: ``{endpoint: float}`` of value inputs that are
+  block-constant this block and whose value the host knows: literals and
+  live graph parameters staged as ``[1]`` (the port's counterpart of the
+  JAX package's ``CompiledGraph._host_input_value``; it replaces a device
+  predicate, so no block ever reads the card).
 """
 
 from __future__ import annotations
@@ -113,10 +130,40 @@ def _add_instance_axis(st, ins, evs):
              for k, b in evs.items()})
 
 
-def make_block_fn(prog, block_len: int):
-    """Build ``(state, per_block, ev_bufs) -> (state, out_blocks)``."""
+def _fold_expr(ex, leaf):
+    """The float an edge expression holds on the host, or None: ``Const``,
+    ``+ - * /`` over such values, and ``EndpointRef`` leaves as ``leaf``
+    resolves them (the rules of the JAX package's ``literal_eps`` and
+    ``_host_input_value``)."""
+    if isinstance(ex, Const):
+        return float(ex.value)
+    if isinstance(ex, EndpointRef):
+        return leaf(ex)
+    if isinstance(ex, BinOp):
+        lhs, rhs = _fold_expr(ex.lhs, leaf), _fold_expr(ex.rhs, leaf)
+        if lhs is None or rhs is None or ex.op not in "+-*/":
+            return None
+        if ex.op == "/" and rhs == 0.0:
+            return None    # not a host value: leave it to the device
+        return {"+": lhs + rhs, "-": lhs - rhs, "*": lhs * rhs,
+                "/": lhs / rhs}[ex.op]
+    return None
+
+
+def _signature_kw(fn, names) -> frozenset:
+    return frozenset(names) & set(inspect.signature(fn).parameters)
+
+
+def make_block_fn(prog, block_len: int, literal_params=None,
+                  host_params=None):
+    """Build ``(state, per_block, ev_bufs) -> (state, out_blocks)``.
+
+    ``literal_params``: values of the graph value inputs never set since
+    compile (``literal_ins``); ``host_params``: a callable returning the
+    current host values of the graph value inputs (``host_ins``)."""
     ir = prog.ir
     B = block_len
+    literal_params = literal_params or {}
 
     # dependency graph over device nodes
     deps: Dict[str, set] = {n: set() for n in prog.device_nodes}
@@ -165,19 +212,52 @@ def make_block_fn(prog, block_len: int):
                 eps.add(ep.name)
         if eps:
             fanin_only[name] = frozenset(eps)
-    # nodes whose process_block specializes on block-constant inputs
-    takes_const = {
-        name for name in prog.device_nodes
-        if "const_ins" in inspect.signature(
-            ir.nodes[name].node.process_block).parameters}
-    # the keyword arguments each node array's batched method takes, read
-    # from its signature as the JAX package does (block_mode.py:641-646);
-    # literal_ins waits for a ported node that takes it
+    # the keyword arguments each node's block methods take, read from
+    # their signatures as the JAX package does (block_mode.py:642-687)
+    host_kw = ("const_ins", "literal_ins", "host_ins")
+    block_kw = {name: _signature_kw(ir.nodes[name].node.process_block,
+                                    host_kw)
+                for name in prog.device_nodes}
     batched_kw = {
-        name: {"fanin_eps", "const_ins"} & set(inspect.signature(
-            ir.nodes[name].node.process_block_batched).parameters)
+        name: _signature_kw(ir.nodes[name].node.process_block_batched,
+                            ("fanin_eps",) + host_kw)
         for name in prog.device_nodes
         if hasattr(ir.nodes[name].node, "process_block_batched")}
+
+    def fold_eps(name: str, leaf) -> Dict[str, float]:
+        """Value and stream endpoints of ``name`` whose every feeding edge
+        folds to a host value (summed over fan-in edges); an unconnected
+        endpoint holds its default."""
+        out = {}
+        for ep in ir.nodes[name].node.INPUTS:
+            if ep.kind not in (Kind.VALUE, Kind.STREAM):
+                continue
+            edges = prog.edges_by_dst.get((name, ep.name), [])
+            if not edges:
+                out[ep.name] = float(ep.default or 0.0)
+                continue
+            total = None
+            for e in edges:
+                v = None
+                if e.kernel == EdgeKernel.NONE and not e.is_feedback \
+                        and e.dst_index is None:
+                    v = _fold_expr(e.source, leaf)
+                if v is None:
+                    break
+                total = v if total is None else total + v
+            else:
+                out[ep.name] = total
+        return out
+
+    def literal_leaf(ref):
+        # a never-set graph parameter holding its default is a literal
+        if ref.node == "" and ref.endpoint in literal_params:
+            return float(literal_params[ref.endpoint])
+        return None
+
+    # literals depend on the graph and literal_params alone
+    literals = {name: fold_eps(name, literal_leaf)
+                for name in prog.device_nodes}
 
     def block_fn(state, per_block, ev_bufs):
         per_block = reconstruct_step_values(per_block, B)
@@ -193,6 +273,12 @@ def make_block_fn(prog, block_len: int):
             for k, v in per_block.items()}
         env: Dict[Tuple[str, str], Any] = {}
         new_state = dict(state)
+        # node outputs proven block-constant this block (filled in order by
+        # stateless nodes' const_out_eps, e.g. a MulAdd with a literal 0.0
+        # gain), so const-ness propagates through modulation chains
+        const_outs: set = set()
+        const_memo: Dict[str, frozenset] = {}
+        params: List[Dict[str, float]] = []
 
         def resolve(ref: EndpointRef):
             if ref.node == "":
@@ -277,8 +363,11 @@ def make_block_fn(prog, block_len: int):
         def const_eps(name: str) -> frozenset:
             """Input endpoints of ``name`` that are block-constant in THIS
             block: unconnected, or fed only by plain edges whose every
-            endpoint leaf is staged as [1] (the rest literals or
-            arithmetic on them)."""
+            endpoint leaf is staged as [1] or is a proven-constant node
+            output (the rest literals or arithmetic on them)."""
+            if name in const_memo:
+                return const_memo[name]
+
             def expr_const(ex) -> bool:
                 if isinstance(ex, Const):
                     return True
@@ -294,16 +383,41 @@ def make_block_fn(prog, block_len: int):
                     if ex.node in prog.host_set:
                         return (f"__host__{ex.node}.{ex.endpoint}"
                                 in const_inputs)
+                    return (ex.node, ex.endpoint) in const_outs
                 return False
 
             out = set()
             for ep in ir.nodes[name].node.INPUTS:
                 if ep.kind in (Kind.EVENT, Kind.ASSET):
                     continue
-                if all(expr_const(e.source) and not e.is_feedback
+                if all(expr_const(e.source) and e.kernel == EdgeKernel.NONE
+                       and not e.is_feedback
                        for e in prog.edges_by_dst.get((name, ep.name), [])):
                     out.add(ep.name)
-            return frozenset(out)
+            const_memo[name] = frozenset(out)
+            return const_memo[name]
+
+        def host_leaf(ref):
+            # a live graph parameter staged as [1]: its host value
+            if ref.node != "" or ref.endpoint not in const_inputs:
+                return None
+            if not params:
+                params.append(host_params() if host_params else {})
+            return params[0].get(ref.endpoint)
+
+        def host_kwargs(name: str, wanted) -> Dict[str, Any]:
+            kw: Dict[str, Any] = {}
+            if "const_ins" in wanted:
+                kw["const_ins"] = const_eps(name)
+            if "literal_ins" in wanted:
+                kw["literal_ins"] = literals[name]
+            if "host_ins" in wanted:
+                value_eps = {ep.name for ep in ir.nodes[name].node.INPUTS
+                             if ep.kind == Kind.VALUE}
+                kw["host_ins"] = {k: v for k, v in
+                                  fold_eps(name, host_leaf).items()
+                                  if k in value_eps}
+            return kw
 
         def run_node(name: str) -> None:
             inst = ir.nodes[name]
@@ -315,16 +429,12 @@ def make_block_fn(prog, block_len: int):
                    and f"{name}.{ep.name}" in ev_bufs
                    and ev_bufs[f"{name}.{ep.name}"].capacity > 0}
             st = new_state[name]
-            kw = {"const_ins": const_eps(name)} if name in takes_const \
-                else {}
             batched = None
             if inst.count > 1 and not evs and name in batched_kw:
                 # voice-batched kernel path (None: take process_block)
-                bkw = {}
+                bkw = host_kwargs(name, batched_kw[name])
                 if "fanin_eps" in batched_kw[name]:
                     bkw["fanin_eps"] = fanin_only.get(name, frozenset())
-                if "const_ins" in batched_kw[name]:
-                    bkw["const_ins"] = const_eps(name)
                 batched = node.process_block_batched(st, ins, evs, sr, B,
                                                      **bkw)
             if batched is not None:
@@ -337,9 +447,11 @@ def make_block_fn(prog, block_len: int):
                         f"no instance-batched block path in the port yet")
                 # the JAX package's name for this path (it vmaps there)
                 explain.note(path="vmap")
-                st, outs = node.process_block(st, ins, evs, sr, B, **kw)
+                st, outs = node.process_block(
+                    st, ins, evs, sr, B, **host_kwargs(name, block_kw[name]))
             else:
                 explain.note(path="block")
+                kw = host_kwargs(name, block_kw[name])
                 if node.BATCHED:
                     st1, ins1, evs1 = _add_instance_axis(st, ins, evs)
                     st, outs = node.process_block(st1, ins1, evs1, sr, B,
@@ -351,6 +463,14 @@ def make_block_fn(prog, block_len: int):
             new_state[name] = st
             for k, v in outs.items():
                 env[(name, k)] = v  # [C, B, ...] / [B, ...]
+            # const-ness propagation: a stateless node may prove outputs
+            # block-constant from its (const, literal) input sets
+            cfn = getattr(node, "const_out_eps", None)
+            if cfn is not None:
+                ceps = cfn(const_eps(name), literals[name])
+                if ceps:
+                    const_outs.update((name, epn) for epn in ceps)
+                    explain.note(const_outputs=sorted(ceps))
 
         for name in order:
             with explain.processing(name):

@@ -208,7 +208,10 @@ class CompiledGraph:
                 self._event_queues[gi.name] = []
 
         self.state = self.prog.init_device_state()
-        self._block_fns: Dict[int, Any] = {}
+        # block functions keyed on (block length, literal parameters)
+        self._block_fns: Dict[Tuple[int, Tuple], Any] = {}
+        # (literal parameters, their cache key); None after a setter
+        self._literals: Optional[Tuple[Dict[str, float], Tuple]] = None
         # steady-state staging cache: when the control plane is idle (no
         # pending events, no param changes, no active ramps) the host
         # prepass and staging reproduce block to block, so the staged
@@ -243,19 +246,24 @@ class CompiledGraph:
     def set_value(self, name: str, v: float) -> None:
         spec = self.ir.get_input(name).spec
         frames = spec.ramp_frames if spec else 0
-        self._control_dirty = True
+        self._touch()
         if frames:
             self._params[name].set_with_ramp(v, frames)
         else:
             self._params[name].set_immediate(v)
 
     def set_value_immediate(self, name: str, v: float) -> None:
-        self._control_dirty = True
+        self._touch()
         self._params[name].set_immediate(v)
 
     def set_value_with_ramp(self, name: str, v: float, frames: int) -> None:
-        self._control_dirty = True
+        self._touch()
         self._params[name].set_with_ramp(v, frames)
+
+    def _touch(self) -> None:
+        """A setter ran: restage, and re-derive the literal parameters."""
+        self._control_dirty = True
+        self._literals = None
 
     def queue_event(self, name: str, frame_offset: int, payload) -> None:
         if name not in self._event_queues:
@@ -525,12 +533,36 @@ class CompiledGraph:
         return ev_bufs, host_vals
 
     # ------------------------------------------------------------------ #
+    def _literal_params(self) -> Dict[str, float]:
+        """Values of the graph value inputs never set since compile (they
+        still hold their defaults): the nodes' ``literal_ins`` may
+        specialize on them, e.g. a pivot whose ``filter_env_amount`` was
+        never raised runs the cutoff-modulation MulAdd as a constant, so
+        the filter hoists its coefficients.  The parameters stay staged as
+        data; only branch decisions use the literals.  The first setter of
+        a parameter drops it from the set, and the block function for the
+        new set is built once (the JAX package keys its trace cache the
+        same way)."""
+        if self._literals is None:
+            lits = {name: float(r.current)
+                    for name, r in self._params.items() if not r.touched}
+            self._literals = (lits, tuple(sorted(lits.items())))
+        return self._literals[0]
+
+    def _host_params(self) -> Dict[str, float]:
+        """Current host values of the graph value inputs (``host_ins``; a
+        block reads only those staged as block-constant ``[1]``)."""
+        return {name: float(r.current) for name, r in self._params.items()}
+
     def _block_fn(self, B: int):
-        fn = self._block_fns.get(B)
+        lits = self._literal_params()
+        key = (B, self._literals[1])
+        fn = self._block_fns.get(key)
         if fn is None:
             from .block_mode import make_block_fn
-            fn = make_block_fn(self.prog, B)
-            self._block_fns[B] = fn
+            fn = make_block_fn(self.prog, B, literal_params=lits,
+                               host_params=self._host_params)
+            self._block_fns[key] = fn
         return fn
 
     def _control_steady(self) -> bool:

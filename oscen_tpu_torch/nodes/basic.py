@@ -1,9 +1,16 @@
 """Small utility nodes.
 
-Counterpart of ``oscen_tpu/nodes/basic.py``; the port has ``Tremolo``
-(examples/electric-piano/src/tremolo.rs), the stereo stage of the electric
-piano.  The JAX package's stream-epilogue fusion hook (``kernel_epilogue``,
-default off there) is not ported.
+Counterpart of ``oscen_tpu/nodes/basic.py``: Gain (gain/mod.rs), Vca
+(examples/pivot/src/vca.rs), the fm-synth example's Mixer, Crossfade and
+AddValue (examples/fm-synth/src/nodes/), MulAdd, Tremolo
+(examples/electric-piano/src/tremolo.rs) and FmOperator
+(examples/fm-synth/src/nodes/fm_operator.rs).  ``Value``, ``AudioInput``
+and ``HardClip`` come with their slices (ROADMAP.md queue 1).  The JAX
+package's stream-epilogue fusion hook (``kernel_epilogue``, default off
+there) is not ported.
+
+The stateless nodes broadcast: they take a leading instance axis
+(``BATCHED``), so a node array is one call.
 """
 
 from __future__ import annotations
@@ -12,11 +19,133 @@ import math
 
 import torch
 
-from ..core.types import SampleRate, stream, value
+from ..core.types import Kind, SampleRate, stream, value
 from ..graph.node import Node
 from ..ops import fmath
+from ..ops.cuda.fm import fm_operator_scan
 
 TAU = 2.0 * math.pi
+
+
+class _StatelessNode(Node):
+    """Nodes whose output is a pure function of their inputs, applied to
+    whole ``[(C,) B]`` blocks."""
+
+    BATCHED = True
+
+    def init_state(self, sr: SampleRate):
+        return {}
+
+    def const_out_eps(self, const_ins, literal_ins):
+        """Const-output propagation (graph/block_mode.py ``const_outs``): a
+        pure function of block-constant inputs is block-constant."""
+        if all(e.name in const_ins for e in self.INPUTS
+               if e.kind not in (Kind.EVENT, Kind.ASSET)):
+            return tuple(o.name for o in self.OUTPUTS)
+        return ()
+
+
+def _broadcast_shape(*xs):
+    return torch.broadcast_shapes(*[x.shape for x in xs])
+
+
+class Gain(_StatelessNode):
+    """``out = in * gain`` (reference gain/mod.rs)."""
+
+    def __init__(self, initial_gain: float = 1.0):
+        self.INPUTS = (stream("input", 0.0),
+                       stream("gain", float(initial_gain)))
+        self.OUTPUTS = (stream("output"),)
+
+    def const_out_eps(self, const_ins, literal_ins):
+        """With a literal 0.0 gain the output is identically zero whatever
+        the stream input (the fm/pivot voices feed filter_env_gain a
+        0.0-default amount: the envelope modulation folds away until the
+        parameter is first set)."""
+        if literal_ins.get("gain") == 0.0:
+            return ("output",)
+        return super().const_out_eps(const_ins, literal_ins)
+
+    def process_block(self, state, ins, events, sr, block_len,
+                      literal_ins=None):
+        if literal_ins and literal_ins.get("gain") == 0.0:
+            # in*0 is 0 for the finite inputs the graph produces
+            return state, {"output": torch.zeros(
+                _broadcast_shape(ins["input"], ins["gain"]),
+                dtype=torch.float32, device=ins["input"].device)}
+        return state, {"output": ins["input"] * ins["gain"]}
+
+
+class Vca(_StatelessNode):
+    """Voltage-controlled amplifier: ``out = in * control`` (stream ×
+    stream; reference examples/pivot/src/vca.rs:31-36)."""
+
+    INPUTS = (stream("input", 0.0), stream("control", 1.0))
+    OUTPUTS = (stream("output"),)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return state, {"output": ins["input"] * ins["control"]}
+
+
+class Mixer(_StatelessNode):
+    """Two-input adder (reference fm-synth nodes/mixer.rs)."""
+
+    INPUTS = (stream("input_a", 0.0), stream("input_b", 0.0))
+    OUTPUTS = (stream("output"),)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return state, {"output": ins["input_a"] + ins["input_b"]}
+
+
+class Crossfade(_StatelessNode):
+    """Splits the input between two outputs by ``mix`` (fm-synth
+    nodes/crossfade.rs): ``a = in*(1-mix)``, ``b = in*mix``."""
+
+    INPUTS = (stream("input", 0.0), value("mix", 0.0))
+    OUTPUTS = (stream("output_a"), stream("output_b"))
+
+    def process_block(self, state, ins, events, sr, block_len):
+        mix = torch.clamp(ins["mix"], 0.0, 1.0)
+        return state, {"output_a": ins["input"] * (1.0 - mix),
+                       "output_b": ins["input"] * mix}
+
+
+class AddValue(_StatelessNode):
+    """``out = in + value`` (fm-synth nodes/add_value.rs)."""
+
+    def __init__(self, v: float = 0.0):
+        self.INPUTS = (stream("input", 0.0), value("value", float(v)))
+        self.OUTPUTS = (stream("output"),)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return state, {"output": ins["input"] + ins["value"]}
+
+
+class MulAdd(_StatelessNode):
+    """``out = in*gain + value``: a Gain → AddValue pair in one node, the
+    same float32 ops in the same order (the fused pivot voice's
+    filter-envelope cutoff modulation, pivot_voice.rs:126-130)."""
+
+    def __init__(self, gain: float = 1.0, v: float = 0.0):
+        self.INPUTS = (stream("input", 0.0), value("gain", float(gain)),
+                       value("value", float(v)))
+        self.OUTPUTS = (stream("output"),)
+
+    def const_out_eps(self, const_ins, literal_ins):
+        """With a literal 0.0 gain the stream input is multiplied out, so
+        the output is block-constant whenever ``value`` is."""
+        if literal_ins.get("gain") == 0.0 and "value" in const_ins:
+            return ("output",)
+        return super().const_out_eps(const_ins, literal_ins)
+
+    def process_block(self, state, ins, events, sr, block_len,
+                      literal_ins=None):
+        v = ins["value"]
+        if literal_ins and literal_ins.get("gain") == 0.0:
+            # in*0 + value is value for the finite inputs the graph makes
+            return state, {"output": torch.broadcast_to(
+                v, _broadcast_shape(ins["input"], v))}
+        return state, {"output": ins["input"] * ins["gain"] + v}
 
 
 class Tremolo(Node):
@@ -105,3 +234,44 @@ class Tremolo(Node):
         phase = torch.stack(phases)
         return ({"anchor": anchor, "k": k, "dt_last": dt_last},
                 {"output": self._pan(ins["input"], phase, ins["depth"])})
+
+
+class FmOperator(Node):
+    """Sine operator with phase modulation and self-feedback (reference
+    examples/fm-synth/src/nodes/fm_operator.rs).
+
+    The feedback (``prev_output * feedback`` into the phase) is a
+    one-sample nonlinear recurrence: the block path is one
+    ``fm_operator_scan`` over all instances (the kernel on the card), in
+    the tick's op order ``sin_turns(phase + (pm + prev*fb)) * env * lvl``
+    with the ``.fract()`` wrap.  It takes a leading instance axis
+    (``BATCHED``): state ``[C]``, inputs ``[C, B]``.
+    """
+
+    INPUTS = (value("base_freq", 440.0), value("ratio", 1.0),
+              stream("phase_mod", 0.0), value("feedback", 0.0),
+              stream("envelope", 1.0), value("level", 1.0))
+    OUTPUTS = (stream("output"),)
+    BATCHED = True
+
+    def init_state(self, sr: SampleRate):
+        return {"phase": torch.tensor(0.0, dtype=torch.float32),
+                "prev_output": torch.tensor(0.0, dtype=torch.float32)}
+
+    def process_block(self, state, ins, events, sr, block_len):
+        # base_freq*ratio/sr as XLA compiles it in the JAX package's graph
+        dt = fmath.div_const(ins["base_freq"] * ins["ratio"], sr.hz)
+
+        def tbv(v):   # [C, B] -> [B, C]
+            return v.t().contiguous()
+        y, phase, prev = fm_operator_scan(
+            state["phase"].contiguous(), state["prev_output"].contiguous(),
+            tbv(dt), tbv(ins["phase_mod"]), tbv(ins["feedback"]),
+            tbv(ins["envelope"]), tbv(ins["level"]))
+        return ({"phase": phase, "prev_output": prev},
+                {"output": y.t()})
+
+    def process_block_batched(self, state, ins, events, sr, block_len):
+        """All instances through the one kernel call (the JAX package's
+        batched path)."""
+        return self.process_block(state, ins, events, sr, block_len)

@@ -14,15 +14,17 @@ across block sizes.  :class:`AdsrEnvelope` takes a leading instance axis
 ``[C, K]``.  The event offsets stay on the device (the segment loop runs
 ``K + 1`` times, ``K`` the buffer's host-known capacity).  The per-sample
 kernel ``ops/cuda/adsr.py::adsr_scan`` is not wired in, as in the JAX
-package.  ``AdsrBank`` comes with Slice C (ROADMAP.md queue 1).
+package.  :class:`AdsrBank` runs N envelopes that share one gate as
+``C * N`` lanes of the same closed forms.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.events import EventBuffer
 from ..core.types import SampleRate, event, stream, value
-from ..graph.node import Node, select_tree
+from ..graph.node import Node, select_tree, tree_map
 from ..ops import fmath
 
 MIN_TIME_SECONDS = 1.0e-5
@@ -321,3 +323,61 @@ class AdsrEnvelope(Node):
                     fired, self.on_gate(st, buf.values[:, j], sr, p_ev), st)
                 start = end
         return st, {"output": levels}
+
+
+class AdsrBank(Node):
+    """N ADSR envelopes sharing one gate, fused into one node (the fm and
+    pivot voices run four: op3, op2, op1 and the filter; fm_voice.rs:54-63).
+
+    Semantics are exactly N independent :class:`AdsrEnvelope`s; each
+    section has its own ``<section>_<param>`` inputs and its own stream
+    output named after it.  State leaves are ``[N]`` per instance
+    (``[C, N]`` for a node array), as the JAX package stacks them, and a
+    node array of C banks evaluates as ``C * N`` envelope lanes in one
+    :meth:`AdsrEnvelope.process_block`, every lane reading its instance's
+    gate buffer.
+    """
+
+    BATCHED = True
+    _PARAMS = ("attack", "decay", "sustain", "release")
+
+    def __init__(self, sections):
+        """``sections``: iterable of (name, attack, decay, sustain,
+        release)."""
+        sections = list(sections)
+        if not sections:
+            raise ValueError("AdsrBank needs at least one section")
+        self._names = [s[0] for s in sections]
+        if len(set(self._names)) != len(self._names):
+            raise ValueError("duplicate section names")
+        self._subs = [AdsrEnvelope(a, d, s_, r)
+                      for (_, a, d, s_, r) in sections]
+        ins = [event("gate")]
+        for (name, a, d, s_, r) in sections:
+            ins += [value(f"{name}_attack", float(a)),
+                    value(f"{name}_decay", float(d)),
+                    value(f"{name}_sustain", float(s_)),
+                    value(f"{name}_release", float(r))]
+        self.INPUTS = tuple(ins)
+        self.OUTPUTS = tuple(stream(n) for n in self._names)
+
+    def init_state(self, sr: SampleRate):
+        states = [sub.init_state(sr) for sub in self._subs]
+        return tree_map(lambda *xs: torch.stack(xs), *states)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        N = len(self._names)
+        C = state["level"].shape[0]
+        lanes = tree_map(lambda x: x.reshape(C * N), state)
+        lane_ins = {p: torch.stack([ins[f"{n}_{p}"] for n in self._names],
+                                   dim=1).reshape(C * N, block_len)
+                    for p in self._PARAMS}
+        lane_evs = {k: EventBuffer(*(torch.repeat_interleave(x, N, dim=0)
+                                     for x in (b.offsets, b.values,
+                                               b.valid)))
+                    for k, b in events.items()}
+        st, outs = self._subs[0].process_block(lanes, lane_ins, lane_evs, sr,
+                                               block_len)
+        lv = outs["output"].reshape(C, N, block_len)
+        return (tree_map(lambda x: x.reshape(C, N), st),
+                {n: lv[:, i] for i, n in enumerate(self._names)})

@@ -3,9 +3,10 @@
 A JAX ``CompiledGraph.state`` mapped to numpy
 (``jax.tree_util.tree_map(np.asarray, c.state)``) is a nested dict of
 arrays; the port's state has the same keys and nesting.  These tree maps
-keep key names and dtypes (the piano's ``step`` int32 and ``released``
-bool, the ADSR's ``stage``, ``rem``, ``age`` and ``stage_len`` int32, the
-rest float32).
+keep key names, shapes and dtypes (the piano's ``step`` int32 and
+``released`` bool, the ADSR's ``stage``, ``rem``, ``age`` and ``stage_len``
+int32 — ``[C, N]`` in an ``AdsrBank`` array — the FM chains' ``phases`` and
+``prevs`` ``[C, 3]``, the rest float32).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """oscen_tpu_torch on a CUDA card: each kernel against its plain PyTorch
-version, and the electric-piano and poly-synth slices on the card against
-the CPU.
+version, and the electric-piano, poly-synth and FM slices on the card
+against the CPU.
 
 These tests carry the ``cuda`` marker and skip without a card.  This file
 imports no jax; on a machine with a card and no JAX run it with the JAX
@@ -17,10 +17,13 @@ import torch
 
 from oscen_tpu_torch import raw_midi_event
 from oscen_tpu_torch.models.electric_piano import build_electric_piano
+from oscen_tpu_torch.models.fm_synth import build_fm_synth
+from oscen_tpu_torch.models.pivot import build_pivot
 from oscen_tpu_torch.models.poly_synth import build_poly_synth
 from oscen_tpu_torch.nodes.envelope import _cached_steps
 from oscen_tpu_torch.ops.cuda import adsr as kadsr
 from oscen_tpu_torch.ops.cuda import additive as add
+from oscen_tpu_torch.ops.cuda import fm as kfm
 from oscen_tpu_torch.ops.cuda import iir as kiir
 from oscen_tpu_torch.ops.cuda import phase as kphase
 
@@ -267,5 +270,154 @@ def test_poly_synth_on_card_matches_cpu(cuda):
                (p.state["oscs"]["phase"], p.state["filts"]["z0"],
                 p.state["envs"]["stage"]))
     _, b = _poly("cpu")
+    assert float(b.abs().max()) > 0.01
+    assert np.abs(a.numpy() - b.numpy()).max() <= 1e-5
+
+
+# ------------------------------------------------------------------ #
+# the FM slice: fract_phase3, fm_chain3_scan, pivot_chain3_scan,
+# fm_operator_scan
+# ------------------------------------------------------------------ #
+def _on(cuda, a):
+    return torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+
+
+@pytest.mark.parametrize("V,B", SCAN_SHAPES)
+def test_fract_phase3_kernel_equals_plain(cuda, V, B):
+    rng = np.random.default_rng(V + B)
+    p = _on(cuda, rng.uniform(-1, 1, (3, V)))
+    before = kfm.launches["fract_phase3"]
+    for _ in range(3):
+        dt = _on(cuda, rng.uniform(-0.05, 0.4, (3, V)))
+        k = kfm.fract_phase3(p, dt, B)
+        torch.cuda.synchronize()
+        assert _equal(k, kfm.plain_fract_phase3(p, dt, B))
+        p = k[3]
+    assert kfm.launches["fract_phase3"] == before + 3
+
+
+def _chain_args(cuda, rng, V, B, per_sample, fb):
+    """Per-sample dt steps the pitch mid-block (a note-on); levels,
+    feedbacks and route per voice."""
+    f = rng.uniform(100, 1000, V)
+    freq = np.broadcast_to(f, (B, V)).copy()
+    if per_sample:
+        freq[B // 3:, ::2] *= 1.5
+    dt = np.stack([freq * r / 48000.0 for r in (3.0, 2.0, 1.0)])
+    if not per_sample:
+        dt = dt[:, :1]
+    return [_on(cuda, x) for x in (
+        dt, rng.uniform(0.3, 1.0, (3, V)), fb * rng.uniform(0, 1, (3, V)),
+        rng.uniform(0, 1, V), *[rng.uniform(0.1, 1.0, (B, V))
+                                for _ in range(3)])]
+
+
+@pytest.mark.parametrize("fb", [0.0, 0.4], ids=["fb0", "fb"])
+@pytest.mark.parametrize("per_sample", [False, True],
+                         ids=["const_dt", "per_sample_dt"])
+@pytest.mark.parametrize("V,B", SCAN_SHAPES)
+@pytest.mark.parametrize("chain", ["fm", "pivot"])
+def test_chain_kernel_equals_plain(cuda, chain, V, B, per_sample, fb):
+    """3 chained blocks, every output and carry bit for bit."""
+    scan = getattr(kfm, f"{chain}_chain3_scan")
+    plain = getattr(kfm, f"plain_{chain}_chain3_scan")
+    name = f"{chain}_chain3_scan"
+    rng = np.random.default_rng(V * B + per_sample)
+    carry = (_on(cuda, rng.uniform(0, 1, (3, V))),
+             _on(cuda, rng.normal(size=(3, V))))
+    before = kfm.launches[name]
+    for _ in range(3):
+        args = _chain_args(cuda, rng, V, B, per_sample, fb)
+        k = scan(*carry, *args)
+        torch.cuda.synchronize()
+        assert _equal(k, plain(*carry, *args))
+        carry = k[1:]
+    assert kfm.launches[name] == before + 3
+
+
+@pytest.mark.parametrize("V,B", [(3, 64), (40, 128), (256, 1024)])
+@pytest.mark.parametrize("chain", ["fm", "pivot"])
+def test_zero_feedback_branch_equals_chain_kernel(cuda, chain, V, B):
+    """On the card the zero-feedback branch (fract_phase3 and plain
+    PyTorch) and the sequential chain kernel are bit-equal too."""
+    scan = getattr(kfm, f"{chain}_chain3_scan")
+    rng = np.random.default_rng(V + B)
+    fast = seq = (_on(cuda, rng.uniform(0, 1, (3, V))),
+                  _on(cuda, rng.normal(size=(3, V))))
+    before = dict(kfm.launches)
+    for _ in range(3):
+        args = _chain_args(cuda, rng, V, B, False, 0.0)
+        f = scan(*fast, *args, fb_zero=True)
+        s_ = scan(*seq, *args)
+        torch.cuda.synchronize()
+        assert _equal(f, s_)
+        fast, seq = f[1:], s_[1:]
+    assert kfm.launches["fract_phase3"] == before["fract_phase3"] + 3
+    assert kfm.launches[f"{chain}_chain3_scan"] == \
+        before[f"{chain}_chain3_scan"] + 3
+
+
+@pytest.mark.parametrize("V,B", SCAN_SHAPES)
+def test_fm_operator_kernel_equals_plain(cuda, V, B):
+    """Per-sample dt, phase modulation, feedback, envelope and level."""
+    rng = np.random.default_rng(V * 3 + B)
+    carry = (_on(cuda, rng.uniform(0, 1, V)), _on(cuda, rng.normal(size=V)))
+    before = kfm.launches["fm_operator_scan"]
+    for _ in range(3):
+        planes = [_on(cuda, rng.uniform(lo, hi, (B, V))) for lo, hi in (
+            (0.002, 0.03), (-0.2, 0.2), (0.0, 0.6), (0.1, 1.0), (0.3, 1.0))]
+        k = kfm.fm_operator_scan(*carry, *planes)
+        torch.cuda.synchronize()
+        assert _equal(k, kfm.plain_fm_operator_scan(*carry, *planes))
+        carry = k[1:]
+    assert kfm.launches["fm_operator_scan"] == before + 3
+
+
+def test_fm_wrappers_reject_what_they_do_not_take(cuda):
+    z3 = torch.zeros(3, 8, device=cuda)
+    env = torch.zeros(16, 8, device=cuda)
+    dt = torch.zeros(3, 1, 8, device=cuda)
+    row = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kfm.fract_phase3(z3, z3.cpu(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfm.fm_chain3_scan(torch.zeros(8, 3, device=cuda).t(), z3, dt, z3,
+                           z3, row, env, env, env)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kfm.pivot_chain3_scan(z3, z3, dt, z3, z3, row.double(), env, env,
+                              env)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kfm.fm_operator_scan(row, row, env, env, env.cpu(), env, env)
+
+
+def _fm_model(build, device, voices=16, B=256, fused=True):
+    p = build(voices, fused=fused).compile(48000.0, block_size=B,
+                                           device=device)
+    p.set_value("route", 0.4)
+    for i in range(voices):
+        p.queue_event("midi_in", 3 * i, raw_midi_event([0x90, 40 + i, 100]))
+    outs = [p.process_block()["audio_out"] for _ in range(3)]
+    p.queue_event("midi_in", 20, raw_midi_event([0x80, 40, 0]))
+    if build is build_pivot:
+        p.set_value("op3_feedback", 0.3)
+    outs += [p.process_block()["audio_out"] for _ in range(3)]
+    return p, torch.cat(outs).cpu()
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("model", ["fm_synth", "pivot"])
+def test_fm_models_on_card_match_cpu(cuda, model, fused):
+    """Event and steady blocks, a note-off and (pivot) live feedback: the
+    kernels on the card and the plain versions on the CPU, within 1e-5."""
+    build = build_fm_synth if model == "fm_synth" else build_pivot
+    kfm.reset_launches()
+    p, a = _fm_model(build, "cuda", fused=fused)
+    if fused:
+        chain = f"{'fm' if model == 'fm_synth' else 'pivot'}_chain3_scan"
+        assert kfm.launches[chain] > 0 and kfm.launches["fract_phase3"] > 0
+        assert p.state["voices.ops"]["phases"].device.type == "cuda"
+    else:
+        assert kfm.launches["fm_operator_scan"] == 3 * 6
+    _, b = _fm_model(build, "cpu", fused=fused)
     assert float(b.abs().max()) > 0.01
     assert np.abs(a.numpy() - b.numpy()).max() <= 1e-5

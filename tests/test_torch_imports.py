@@ -1,7 +1,7 @@
 """oscen_tpu_torch never imports jax: with ``sys.modules["jax"] = None``
 (any ``import jax`` then raises) the package imports, and the electric
-piano, the poly synth and the README synth build, compile and render on
-the CPU."""
+piano, the poly synth, the README synth, the fm synth and the pivot build,
+compile and render on the CPU."""
 
 import subprocess
 import sys
@@ -33,6 +33,17 @@ def test_port_imports_and_renders_without_jax():
         assert float(s.process_block()["audio_out"].abs().max()) > 0.001
         r = build_simple_synth().compile(48000.0, block_size=64)
         assert abs(r.render_mono(256)).max() > 0.1
+        from oscen_tpu_torch.models.fm_synth import build_fm_synth
+        from oscen_tpu_torch.models.pivot import build_pivot
+        from oscen_tpu_torch.ops import fastmath  # noqa: F401
+        from oscen_tpu_torch.ops.cuda import fm  # noqa: F401
+        for build in (build_fm_synth, build_pivot):
+            for fused in (True, False):
+                m = build(2, fused=fused).compile(48000.0, block_size=64)
+                m.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
+                m.process_block()
+                assert float(m.process_block()["audio_out"].abs().max()) \
+                    > 0.01
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)
