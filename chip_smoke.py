@@ -19,7 +19,11 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             (nonzero feedback, per-sample and block-constant dt) and
             fm_operator_scan (per-sample feedback and level) at V=256,
             B=1024 and 4096 and a ragged V=3, B=37; 3 chained blocks; the
-            chains' zero-feedback branch against their kernels;
+            chains' zero-feedback branch against their kernels; the
+            filter kernels lp18_scan (inputs that saturate its tanh) and
+            biquad_scan (an input that decays below 1e-15, so its snaps
+            fire) at V=2 and 256, B=1024 and 4096 and V=3, B=37, row and
+            per-sample coefficients, 3 chained blocks;
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
@@ -36,12 +40,23 @@ Phases, one line each, any miss fails the run with a non-zero exit:
               0.3 and runs 4 more; half the notes released,
               ``render_steady``, ``steady_checksum``), and the unfused fm
               synth (``fused=False``) for a few blocks;
-            the first blocks of each against the same run on the CPU; and
-            the README synth (``build_simple_synth()``) at 440 Hz;
+            the first blocks of each against the same run on the CPU; the
+            README synth (``build_simple_synth()``) at 440 Hz; the twin
+            peaks (``build_twin_peaks()``, fused and ``fused=False``) at
+            B=1024 and 4096, seeded noise through ``audio_in`` block by
+            block, cutoff_a 640 and resonance 0.8 at block 3, cutoff_b 2500
+            at block 5, exactly 1 (fused) or 2 lp18_scan launches per
+            block, fused equal to two-node, the card equal to the CPU; and
+            a saw -> IirLowpass graph at B=1024 and 33 with a cutoff change
+            mid-run, one biquad_scan per block, against the CPU; both with
+            every block after the first under sync debug mode "error";
 5. timing   each kernel's device time (profiler) and its plain version's
-            time per call (CUDA events), a steady ``process_block``'s
-            time, device-busy share, top device activities and real-time
-            factor per model, and host time per node.
+            time per call (CUDA events) beside its bound (bytes over
+            3.35 TB/s or float ops over 67 TFLOP/s, the larger), a steady
+            ``process_block``'s time, device-busy share, top device
+            activities and real-time factor per model (for the twin peaks
+            a streaming block, staged from the host), and host time per
+            node.
 
 The line before the last is the JSON kernel report, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -72,6 +87,34 @@ MAIN_TOL = 1e-4   # card against CPU, the whole graph
 # only the float32 glue can differ (peak ~0.1-0.5)
 POLY_TOL = 1e-5
 SCAN_SHAPES = ((VOICES, 1024), (VOICES, 4096), (3, 37))
+# the twin peaks runs 2 lanes (fused) or 1; the IIR lowpass graph 1
+FILTER_SHAPES = ((2, 1024), (2, 4096), (VOICES, 1024), (VOICES, 4096),
+                 (3, 37))
+TWIN_TOL = 1e-6   # card against CPU: the kernels equal their plain versions
+# the least time the card could take (NVIDIA H100 SXM data sheet): the
+# bytes a call must move over the memory rate, or its float ops over the
+# float32 rate outside the tensor cores, whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float ops per sample step and lane, counted from each kernel's loop in
+# oscen_tpu_torch/csrc (compares and selects not counted, a transcendental
+# counts 1); the additive kernels' lanes are (harmonic, voice) pairs
+OPS_PER_STEP = {"v4": 21, "parity": 16, "phase_scan": 3, "tpt_svf_scan": 12,
+                "adsr_scan": 26, "fract_phase3": 9, "fm_chain3_scan": 59,
+                "pivot_chain3_scan": 59, "fm_operator_scan": 20,
+                "lp18_scan": 13, "biquad_scan": 9}
+
+
+def bound_of(key, inputs, outputs, steps, lanes):
+    """``bound_ms`` and ``bound_by`` of one call: every input tensor read
+    once and every output written once, against the ops it computes."""
+    tensors = [t for t in list(inputs) + list(outputs)
+               if hasattr(t, "element_size")]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = OPS_PER_STEP[key] * steps * lanes / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase(name, msg):
@@ -397,6 +440,80 @@ def main() -> int:
                   f"equal to {kind}_chain3_scan (torch.equal, 3 chained "
                   f"blocks) ok")
 
+    # the filter kernels: torch.equal on every output of 3 chained blocks
+    def biquad_rows(rng_q, shape):
+        """JUCE lowpass coefficients (iir_lowpass/mod.rs:84-100) for random
+        cutoffs at q = 1/sqrt(2), in float64, rounded once."""
+        cut = rng_q.uniform(1500.0, 8000.0, shape)
+        n = 1.0 / np.tan(np.pi * cut / SR)
+        r2 = math.sqrt(2.0)
+        c1 = 1.0 / (1.0 + r2 * n + n * n)
+        return [on_card(np.asarray(c, np.float32)) for c in
+                (c1, 2 * c1, c1, 2 * c1 * (1 - n * n),
+                 c1 * (1 - r2 * n + n * n))]
+
+    def filter_case(name, V, B, per_sample):
+        """3 chained blocks of kernel and plain version on the same
+        operands (any difference fails the run).  The LP18 gets inputs that
+        drive its tanh into saturation and returns the largest |z0|; the
+        biquad's last block decays below 1e-15, and it returns the share
+        of exact zeros (fired snaps) in its last 100 samples."""
+        rng_f = np.random.default_rng(V + B + per_sample)
+
+        def r(lo, hi, shape):
+            return on_card(rng_f.uniform(lo, hi, shape).astype(np.float32))
+        shape = (B, V) if per_sample else (V,)
+        fn, plain = getattr(kiir, name), getattr(kiir, "plain_" + name)
+        if name == "lp18_scan":
+            carry = (r(-0.8, 0.8, (3, V)),)
+        else:
+            carry = (r(-1, 1, (V,)), r(-1, 1, (V,)))
+            coefs = biquad_rows(rng_f, shape)
+        before = kiir.launches[name]
+        z0_max = 0.0
+        for i in range(3):
+            x = rng_f.standard_normal((B, V))
+            if name == "lp18_scan":
+                args = (on_card((3.0 * x).astype(np.float32)),
+                        r(0.01, 0.9, shape), r(0.0, 1.98, shape))
+            else:
+                if i == 2:
+                    x = x * np.exp(-np.arange(B) / 4.0)[:, None]
+                args = (on_card(x.astype(np.float32)), *coefs)
+            k_out = fn(*args, *carry)
+            torch.cuda.synchronize()
+            p_out = plain(*args, *carry)
+            for a, b in zip(k_out, p_out):
+                if not torch.equal(a, b):
+                    check(False, f"{name} V={V} B={B}: kernel and plain "
+                          f"version differ by "
+                          f"{float((a - b).abs().max()):.3e}")
+            carry = k_out[1:]
+            if name == "lp18_scan":
+                z0_max = max(z0_max, float(carry[0][0].abs().max()))
+        check(kiir.launches[name] == before + 3,
+              f"{name}: launch counter did not advance")
+        if name == "lp18_scan":
+            return z0_max
+        return float((k_out[0][-min(B, 100):] == 0).float().mean())
+
+    for name in ("lp18_scan", "biquad_scan"):
+        report[name] = {"max_abs_err": 0.0}
+        for V, B in FILTER_SHAPES:
+            for per_sample in (False, True):
+                info = filter_case(name, V, B, per_sample)
+                if name == "biquad_scan" and B >= 1024:
+                    check(info > 0.0, f"biquad_scan V={V} B={B}: the "
+                          f"denormal snaps never fired")
+                form = "per-sample" if per_sample else "row"
+                phase("kernels", f"{name} V={V} B={B} {form} coefficients: "
+                      f"equal to the plain version (torch.equal, every "
+                      f"output of 3 chained blocks) ok; " + (
+                          f"largest |z0| (the tanh's output) {info:.4f}"
+                          if name == "lp18_scan" else
+                          f"exact zeros in the last samples of the decaying "
+                          f"block {100 * info:.1f}%"))
+
     # ---- 4. main path ------------------------------------------------
     def chord(p):
         for i in range(VOICES):
@@ -668,6 +785,135 @@ def main() -> int:
     check(np.isfinite(out).all() and abs(peak_hz - 440.0) < 15.0
           and err <= POLY_TOL, "README synth checks failed")
 
+    # the twin peaks: one plugin instance, audio arriving in every block
+    from contextlib import contextmanager
+
+    from oscen_tpu_torch import Graph, IirLowpass, Oscillator
+
+    @contextmanager
+    def no_sync(on):
+        """Any wait for the card inside raises (sync debug mode)."""
+        if on:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            if on:
+                torch.cuda.set_sync_debug_mode("default")
+    from oscen_tpu_torch.models.twin_peaks import build_twin_peaks
+
+    def twin_input(B, n):
+        return (np.random.default_rng(1).standard_normal(n * B) * 0.3
+                ).astype(np.float32)
+
+    def twin_drive(device, fused, B, n=8):
+        """Seeded noise staged block by block through ``audio_in``;
+        cutoff_a 640 and resonance 0.8 at block 3, cutoff_b 2500 at block
+        5 (tests/test_models_aux.py:187-199).  On the card every block
+        after the first runs under sync debug mode "error": a block that
+        waited for the card would fail the run."""
+        x = twin_input(B, n)
+        c = build_twin_peaks(fused=fused).compile(SR, block_size=B,
+                                                  device=device)
+        ys = []
+        for i in range(n):
+            if i == 3:
+                c.set_value("cutoff_a", 640.0)
+                c.set_value("resonance", 0.8)
+            if i == 5:
+                c.set_value("cutoff_b", 2500.0)
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(c.process_block(
+                    stream_inputs={"audio_in": x[i * B:(i + 1) * B]}
+                )["audio_out"])
+        return c, ys
+
+    twin_launches = 0
+    for B in BLOCKS:
+        outs = {}
+        for fused in (True, False):
+            reset_all()
+            t0 = time.perf_counter()
+            c, ys = twin_drive("cuda", fused, B)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = kiir.launches["lp18_scan"]
+            twin_launches += got
+            want = (1 if fused else 2) * len(ys)
+            audio = torch.cat(ys)
+            leaves = []
+            walk(c.state)
+            peak = float(audio.abs().max())
+            checks = {
+                "shape": tuple(ys[0].shape) == (B,)
+                and ys[0].device.type == "cuda",
+                "finite": bool(torch.isfinite(audio).all()),
+                "peak": 0.05 < peak < 10.0,
+                "state_on_cuda": all(x.device.type == "cuda"
+                                     for x in leaves),
+                "lp18_launches": got == want,
+            }
+            label = "fused" if fused else "two-node"
+            phase("main", f"twin peaks {label} B={B}: {len(ys)} blocks of "
+                  f"seeded noise (blocks 2-8 under sync debug mode "
+                  f"'error'), parameter changes at blocks 3 and 5, "
+                  f"peak {peak:.4f}, {secs:.2f} s, lp18_scan launches "
+                  f"{got} (want {want}); checks {checks}")
+            check(all(checks.values()), f"twin peaks checks failed: "
+                  f"{checks}")
+            _, cpu = twin_drive("cpu", fused, B)
+            errs = [float((a.cpu() - b).abs().max()) for a, b in zip(ys, cpu)]
+            phase("main", f"twin peaks {label} B={B}: card against CPU, "
+                  f"max abs per block {['%.3e' % e for e in errs]} (<= "
+                  f"{TWIN_TOL:.0e})")
+            check(max(errs) <= TWIN_TOL, "twin peaks: card and CPU disagree")
+            outs[fused] = audio
+        same = torch.equal(outs[True], outs[False])
+        phase("main", f"twin peaks B={B}: fused equal to two-node "
+              f"(torch.equal, {8 * B} samples) {'ok' if same else 'FAIL'}")
+        check(same, "twin peaks: fused and two-node builds differ")
+
+    # the IIR lowpass: saw -> IirLowpass -> out, a cutoff change mid-run
+    def iir_drive(device, B, n):
+        g = Graph("IirLowpassGraph")
+        g.input("cutoff", "value", default=1000.0)
+        g.output("out", "stream")
+        o = g.add("o", Oscillator.saw(330.0, 0.5))
+        f = g.add("f", IirLowpass(1000.0))
+        g.connect("cutoff", f.cutoff)
+        g.connect(o.output, f.input)
+        g.connect(f.output, "out")
+        c = g.compile(SR, block_size=B, device=device)
+        ys = []
+        for i in range(n):
+            if i == n // 2:
+                c.set_value("cutoff", 2500.0)
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(c.process_block()["out"])
+        return c, ys
+
+    iir_launches = 0
+    for B, n in ((1024, 8), (33, 64)):
+        reset_all()
+        c, ys = iir_drive("cuda", B, n)
+        torch.cuda.synchronize()
+        got = kiir.launches["biquad_scan"]
+        iir_launches += got
+        _, cpu = iir_drive("cpu", B, n)
+        audio = torch.cat(ys).cpu()
+        err = float((audio - torch.cat(cpu)).abs().max())
+        peak = float(audio.abs().max())
+        ok = (got == n and bool(torch.isfinite(audio).all())
+              and 0.1 < peak < 2.0 and err <= TWIN_TOL
+              and c.state["f"]["v1"].device.type == "cuda")
+        phase("main", f"IIR lowpass B={B}: {n} blocks (all but the first "
+              f"under sync debug mode 'error'), cutoff 1000 -> 2500 "
+              f"Hz at block {n // 2}, peak {peak:.4f}, biquad_scan "
+              f"launches {got} (want {n}), card against CPU {err:.3e} (<= "
+              f"{TWIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, "IIR lowpass checks failed")
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -727,7 +973,10 @@ def main() -> int:
                   f"{call_ms * 1e3:.1f} us, plain PyTorch "
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024:
-                report[version].update(ms=ms, plain_ms=plain_ms)
+                report[version].update(
+                    ms=ms, plain_ms=plain_ms,
+                    **bound_of(version, args + [step],
+                               kf(*args, step, B, True), B, H * VOICES))
     for B in BLOCKS:
         p = build_electric_piano(VOICES).compile(SR, block_size=B,
                                                  mode="block", device="cuda")
@@ -764,7 +1013,9 @@ def main() -> int:
                   f"{ms * 1e3:.1f} us (device), plain PyTorch "
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024:
-                report[name].update(ms=ms, plain_ms=plain_ms)
+                report[name].update(ms=ms, plain_ms=plain_ms,
+                                    **bound_of(name, args, fn(*args), B,
+                                               VOICES))
 
     # the steady poly-synth block, and where its device time goes
     for B in BLOCKS:
@@ -841,7 +1092,9 @@ def main() -> int:
                   f"{ms * 1e3:.1f} us (device), plain PyTorch "
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024:
-                report[name].update(ms=ms, plain_ms=plain_ms)
+                report[name].update(ms=ms, plain_ms=plain_ms,
+                                    **bound_of(name, args, fn(*args), B,
+                                               VOICES))
 
     # the steady fm-synth and pivot blocks, and where their device time
     # goes (the pivot also with op3_feedback 0.3: pivot_chain3_scan)
@@ -868,6 +1121,53 @@ def main() -> int:
     host_time_by_node("fm synth", build_fm_synth)
     host_time_by_node("pivot", build_pivot)
 
+    # the filter kernels at the main path's shapes: lp18_scan at V=2 (the
+    # fused twin peaks) and V=1 (two-node), biquad_scan at V=1 with
+    # per-sample planes (the IIR lowpass's latched coefficients)
+    for name, V in (("lp18_scan", 2), ("lp18_scan", 1), ("biquad_scan", 1)):
+        fn, plain = getattr(kiir, name), getattr(kiir, "plain_" + name)
+        for B in BLOCKS:
+            rng_f = np.random.default_rng(B + V)
+            x = on_card((0.3 * rng_f.standard_normal((B, V))).astype(
+                np.float32))
+            if name == "lp18_scan":
+                args = (x, rand(0.05, 0.2, (V,)), rand(1.0, 1.6, (V,)),
+                        rand(-0.1, 0.1, (3, V)))
+            else:
+                args = (x, *biquad_rows(rng_f, (B, V)),
+                        torch.zeros(V, device=dev), torch.zeros(V, device=dev))
+            kname = name.split("_")[0] + "_kernel"
+            ms = device_ms(lambda: fn(*args), 50, kernel=kname)
+            plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
+            b = bound_of(name, args, fn(*args), B, V)
+            phase("timing", f"{name} V={V} B={B}: kernel {ms * 1e3:.1f} us "
+                  f"(device), bound {b['bound_ms'] * 1e3:.3f} us "
+                  f"({b['bound_by']}), plain PyTorch {plain_ms * 1e3:.1f} "
+                  f"us/call ({card})")
+            if B == 1024 and V == (2 if name == "lp18_scan" else 1):
+                report[name].update(ms=ms, plain_ms=plain_ms, **b)
+
+    # the twin peaks' streaming block: the host stages audio_in, then one
+    # (fused) or two lp18_scan launches
+    for fused in (True, False):
+        label = "fused" if fused else "two-node"
+        for B in BLOCKS:
+            tp = build_twin_peaks(fused=fused).compile(SR, block_size=B,
+                                                       device="cuda")
+            xb = {"audio_in": twin_input(B, 1)}
+            tp.process_block(stream_inputs=xb)
+            ms = time_ms(lambda: tp.process_block(stream_inputs=xb), 20)
+            busy, top, n_kern = device_ms(
+                lambda: tp.process_block(stream_inputs=xb), 20, top=6)
+            phase("timing", f"twin peaks {label} process_block B={B} (audio "
+                  f"staged from the host): {ms * 1e3:.1f} us/block, device "
+                  f"busy {busy * 1e3:.1f} us ({100 * busy / ms:.1f}%), "
+                  f"{n_kern:.0f} device activities per block, real-time "
+                  f"factor {(B / SR) / (ms * 1e-3):.1f}x ({card})")
+            phase("timing", f"twin peaks {label} B={B} top device time per "
+                  f"block: " + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c:.0f}"
+                                         for k, t, c in top))
+
     sources = {"v4": ("additive_voice_v4", "additive.cu",
                       "oscen_tpu/ops/pallas/additive.py:260"),
                "parity": ("additive_voice_parity", "additive.cu",
@@ -885,9 +1185,14 @@ def main() -> int:
                "fm_operator_scan": ("fm_operator_scan", "fm.cu",
                                     "oscen_tpu/ops/pallas/fm.py:361"),
                "pivot_chain3_scan": ("pivot_chain3_scan", "fm.cu",
-                                     "oscen_tpu/ops/pallas/fm.py:517")}
-    # main-path launches: the piano, the poly synth, and the FM models
-    # (fract_phase3 from the fm synth's and the pivot's runs together)
+                                     "oscen_tpu/ops/pallas/fm.py:517"),
+               "lp18_scan": ("lp18_scan", "iir.cu",
+                             "oscen_tpu/ops/pallas/iir.py:185"),
+               "biquad_scan": ("biquad_scan", "iir.cu",
+                               "oscen_tpu/ops/pallas/iir.py:262")}
+    # main-path launches: the piano, the poly synth, the FM models
+    # (fract_phase3 from the fm synth's and the pivot's runs together), the
+    # twin peaks (fused and two-node, both block sizes) and the IIR lowpass
     path_launches = {**launches, **poly_launches}
     path_launches["fract_phase3"] = sum(
         fm_launches[m]["fract_phase3"] for m in ("fm synth", "pivot"))
@@ -897,6 +1202,8 @@ def main() -> int:
         "pivot_chain3_scan"]
     path_launches["fm_operator_scan"] = fm_launches["unfused fm synth"][
         "fm_operator_scan"]
+    path_launches["lp18_scan"] = twin_launches
+    path_launches["biquad_scan"] = iir_launches
     kernels = []
     for key, rep in report.items():
         name, src, replaces = sources[key]
@@ -905,7 +1212,11 @@ def main() -> int:
             "source": f"oscen_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": path_launches[key],
             "max_abs_err": rep["max_abs_err"],
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"]})
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            # no single PyTorch call computes these per-sample recurrences
+            # (no lfilter in torch; cumsum is not a wrapped phase)
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

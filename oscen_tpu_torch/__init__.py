@@ -3,13 +3,13 @@
 A port of the JAX package ``oscen_tpu`` (which stays the reference) to
 PyTorch, with its TPU kernels rewritten as CUDA kernels for Hopper.  Module
 paths and names mirror the JAX package.  The port so far holds the
-electric-piano, poly-synth and FM slices: the graph front end, block-mode
-compilation on one device (``Graph.compile(..., device="cpu" | "cuda")``),
-the host MIDI and voice-allocation nodes, the additive voice, the tremolo,
-the oscillators, the TPT filter, the ADSR envelope and bank, the FM
-operator and the small utility nodes.  Tensors on the
-CPU run each kernel's plain PyTorch version; tensors on a CUDA card run the
-kernel.
+electric-piano, poly-synth, FM and twin-peaks slices: the graph front end,
+block-mode compilation on one device (``Graph.compile(...)`` runs on the
+CUDA card; ``device="cpu"`` asks for the CPU), the host MIDI and
+voice-allocation nodes, the additive voice, the tremolo, the oscillators,
+the TPT, IIR and LP18 filters, the ADSR envelope and bank, the FM operator
+and the small utility nodes.  Tensors on the CPU run each kernel's plain
+PyTorch version; tensors on a CUDA card run the kernel.
 """
 
 from .core.events import (EventBuffer, EventInstance, NoteOffEvent,
@@ -24,7 +24,7 @@ from .nodes.basic import (AddValue, Crossfade, FmOperator, Gain, Mixer,
 from .nodes.electric_piano import (AmplitudeSource, ElectricPianoVoice,
                                    OscillatorBank)
 from .nodes.envelope import AdsrBank, AdsrEnvelope
-from .nodes.filters import TptFilter
+from .nodes.filters import DualLP18Diff, IirLowpass, LP18Filter, TptFilter
 from .nodes.midi import (MidiParser, MidiVoiceHandler, midi_note_to_freq,
                          raw_midi_event)
 from .nodes.oscillators import Oscillator, PolyBlepOscillator
@@ -34,9 +34,10 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AddValue", "AdsrBank", "AdsrEnvelope", "AmplitudeSource", "Crossfade",
-    "DEFAULT_MAX_BLOCK_SIZE", "ElectricPianoVoice", "EventBuffer",
-    "EventInstance", "FmOperator", "Frame", "Gain", "Graph", "GraphError",
-    "HostNode", "Kind", "MidiParser", "MidiVoiceHandler", "Mixer", "MulAdd",
+    "DEFAULT_MAX_BLOCK_SIZE", "DualLP18Diff", "ElectricPianoVoice",
+    "EventBuffer", "EventInstance", "FmOperator", "Frame", "Gain", "Graph",
+    "GraphError", "HostNode", "IirLowpass", "Kind", "LP18Filter",
+    "MidiParser", "MidiVoiceHandler", "Mixer", "MulAdd",
     "Node", "NoteOffEvent", "NoteOnEvent", "Oscillator", "OscillatorBank",
     "ParamSpec", "Policy", "PolyBlepOscillator", "RawMidiMessage",
     "SampleRate", "StepValue", "Tremolo", "TptFilter", "ValueRampState",

@@ -1,31 +1,52 @@
 // Sequential-in-time, parallel-in-voice IIR recurrences for Hopper (sm_90a).
 //
-// Holds the TPT state-variable lowpass for now; the LP18, biquad and allpass
-// cascade scans of oscen_tpu/ops/pallas/iir.py join it as their slices land.
+// Three kernels, each replacing one of oscen_tpu/ops/pallas/iir.py with the
+// reference's per-sample op order (so every output is bit-identical across
+// block sizes):
 //
-// tpt_svf_scan replaces oscen_tpu/ops/pallas/iir.py::tpt_svf_scan (the
-// Zavalishin TPT SVF lowpass, reference filters/tpt/mod.rs:108-123) with the
-// reference's per-sample op order:
+// tpt_svf_kernel replaces tpt_svf_scan (_tpt_kernel; the Zavalishin TPT SVF
+// lowpass, reference filters/tpt/mod.rs:108-123):
 //   high = (x - z0 * k - z1) * h;  band = high * g + z0;  low = band * g + z1;
 //   z0 = high * g + band;          z1 = band * g + low;   y = low.
 //
-// Layout: one thread per voice lane; z0 and z1 stay in registers for the
-// whole block.  x and y are time-major [B, V] (a warp's loads and stores of
-// one time step are coalesced).  The coefficients h, g, k are either [V]
-// rows, block-constant (time stride 0, loaded once), or [B, V] per-sample
-// planes (time stride V): the caller passes each one's time stride.
+// lp18_kernel replaces lp18_scan (_lp18_kernel; the three-pole LP18 of
+// nih-twin-peaks/src/lp18_filter.rs, a tanh-saturated first pole):
+//   hp = (x - h * z0 - z1 - z2) / (1 + g);  bp1 = g * hp + z0;
+//   z0 = tanh(bp1);  bp2 = g * bp1 + z1;  z1 = bp2;  z2 = y = g * bp2 + z2.
+// The tanh is evaluated in double and rounded once, (float)tanh((double)b),
+// the correctly rounded float32 value that ops/fmath.py::tanh gives on the
+// CPU and on the card: float32 tanh differs between PyTorch's CPU and CUDA
+// builds.  The quotient is a true IEEE division (nvcc's default
+// -prec-div=true; no fast-math).
 //
-// What bounds it on the card: the integrator chain is serial in time, about
-// 9 dependent float ops per sample, and 256 voices are 8 warps for 132 SMs,
-// so the kernel is bound by the latency of that chain.  It moves 8 bytes
-// per sample and lane (20 with per-sample coefficients), far below the
+// biquad_kernel replaces biquad_scan (_biquad_kernel; the DF-II-T biquad of
+// iir_lowpass/mod.rs:109-132):
+//   out = b0 * x + v1;  v1 = b1 * x - a1 * out + v2;  v2 = b2 * x - a2 * out.
+// It also applies the reference tick's denormal snaps: |x|, |v1| and |v2|
+// below 1e-15 become 0 (the Pallas kernel leaves them out because the TPU
+// flushes denormals; the JAX package's CPU scan keeps them, and so do the
+// kernel and its plain version here).
+//
+// Layout: one thread per voice lane; the filter state stays in registers
+// for the whole block.  x and y are time-major [B, V] (a warp's loads and
+// stores of one time step are coalesced).  Every coefficient is either a
+// [V] row, block-constant (time stride 0, loaded once), or a [B, V]
+// per-sample plane (time stride V): the caller passes each one's time
+// stride, so one kernel serves both forms.
+//
+// What bounds them on the card: each recurrence is serial in time (about
+// 9 dependent float ops per sample for the TPT and the biquad, 13 plus a
+// double-precision tanh for the LP18), and 256 voices are 8 warps for 132
+// SMs; the twin-peaks filter is 1 or 2 lanes of one warp.  So every kernel
+// is bound by the latency of that chain.  They move 8 bytes per sample and
+// lane (up to 28 with per-sample coefficients), far below the 3.35 TB/s
 // memory bound.  One warp per CUDA block spreads the warps over SMs; the
 // unrolled time loop lets the loads run ahead of the chain.  The true block
 // length B bounds the loop; any B >= 1 and any V work.
 //
 // Numerics: built with --fmad=false and without fast-math, so every product
-// and sum rounds as PyTorch's separate elementwise ops do, and y, z0 and z1
-// equal the plain PyTorch version bit for bit.  Denormals are kept
+// and sum rounds as PyTorch's separate elementwise ops do, and every output
+// equals the plain PyTorch version bit for bit.  Denormals are kept
 // (nvcc's default -ftz=false), as on the CPU; the TPU flushed them.
 //
 // Each entry point returns cudaGetLastError() after its launch.
@@ -65,6 +86,70 @@ tpt_svf_kernel(const float* __restrict__ x, const float* __restrict__ h,
   z1_out[v] = z1;
 }
 
+__global__ void __launch_bounds__(kThreads)
+lp18_kernel(const float* __restrict__ x, const float* __restrict__ g,
+            const float* __restrict__ h, const float* __restrict__ z_in,
+            float* __restrict__ y, float* __restrict__ z_out, int V, int B,
+            int gs, int hs) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float z0 = z_in[v];
+  float z1 = z_in[V + v];
+  float z2 = z_in[2 * V + v];
+#pragma unroll 4
+  for (int t = 0; t < B; ++t) {
+    const size_t i = (size_t)t * V + v;
+    const float xt = x[i];
+    const float gt = g[(size_t)t * gs + v];
+    const float ht = h[(size_t)t * hs + v];
+    const float hp = (xt - ht * z0 - z1 - z2) / (1.0f + gt);
+    const float bp1 = gt * hp + z0;
+    z0 = (float)tanh((double)bp1);
+    const float bp2 = gt * bp1 + z1;
+    z1 = bp2;
+    z2 = gt * bp2 + z2;
+    y[i] = z2;
+  }
+  z_out[v] = z0;
+  z_out[V + v] = z1;
+  z_out[2 * V + v] = z2;
+}
+
+__device__ __forceinline__ float snap(float v) {
+  return fabsf(v) < 1e-15f ? 0.0f : v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+biquad_kernel(const float* __restrict__ x, const float* __restrict__ b0,
+              const float* __restrict__ b1, const float* __restrict__ b2,
+              const float* __restrict__ a1, const float* __restrict__ a2,
+              const float* __restrict__ v1_in,
+              const float* __restrict__ v2_in, float* __restrict__ y,
+              float* __restrict__ v1_out, float* __restrict__ v2_out, int V,
+              int B, int b0s, int b1s, int b2s, int a1s, int a2s) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float v1 = v1_in[v];
+  float v2 = v2_in[v];
+#pragma unroll 4
+  for (int t = 0; t < B; ++t) {
+    const size_t i = (size_t)t * V + v;
+    const float xt = snap(x[i]);
+    const float c0 = b0[(size_t)t * b0s + v];
+    const float c1 = b1[(size_t)t * b1s + v];
+    const float c2 = b2[(size_t)t * b2s + v];
+    const float d1 = a1[(size_t)t * a1s + v];
+    const float d2 = a2[(size_t)t * a2s + v];
+    const float out = c0 * xt + v1;
+    const float nv1 = c1 * xt - d1 * out + v2;
+    v2 = snap(c2 * xt - d2 * out);
+    v1 = snap(nv1);
+    y[i] = out;
+  }
+  v1_out[v] = v1;
+  v2_out[v] = v2;
+}
+
 }  // namespace
 
 extern "C" {
@@ -81,6 +166,34 @@ int oscen_tpt_svf_scan(const float* x, const float* h, const float* g,
   tpt_svf_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       x, h, g, k, z0, z1, y, z0_out, z1_out, V, B, h_stride, g_stride,
       k_stride);
+  return (int)cudaGetLastError();
+}
+
+// x [B, V]; g, h [V] (time stride 0) or [B, V] (time stride V); z [3, V]
+// -> y [B, V], z' [3, V].
+int oscen_lp18_scan(const float* x, const float* g, const float* h,
+                    const float* z, float* y, float* z_out, int V, int B,
+                    int g_stride, int h_stride, void* stream) {
+  if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((V + kThreads - 1) / kThreads);
+  lp18_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, g, h, z, y, z_out, V, B, g_stride, h_stride);
+  return (int)cudaGetLastError();
+}
+
+// x [B, V]; b0, b1, b2, a1, a2 [V] (time stride 0) or [B, V] (time stride
+// V); v1, v2 [V] -> y [B, V], v1', v2' [V].
+int oscen_biquad_scan(const float* x, const float* b0, const float* b1,
+                      const float* b2, const float* a1, const float* a2,
+                      const float* v1, const float* v2, float* y,
+                      float* v1_out, float* v2_out, int V, int B,
+                      int b0_stride, int b1_stride, int b2_stride,
+                      int a1_stride, int a2_stride, void* stream) {
+  if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((V + kThreads - 1) / kThreads);
+  biquad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, b0, b1, b2, a1, a2, v1, v2, y, v1_out, v2_out, V, B, b0_stride,
+      b1_stride, b2_stride, a1_stride, a2_stride);
   return (int)cudaGetLastError();
 }
 

@@ -967,11 +967,11 @@ class Graph:
 
     # ------------------------------------------------------------------ #
     def compile(self, sample_rate: float = 44100.0, block_size: int = 512,
-                mode: str = "block", device="cpu"):
+                mode: str = "block", device="cuda"):
         """Compile to a :class:`CompiledGraph` whose state and blocks live
-        on ``device`` (``"cpu"`` or ``"cuda"``; CUDA without a card
-        raises).  Only ``mode="block"`` is ported; ``mode="sample"``
-        raises ``NotImplementedError``."""
+        on ``device``: the CUDA card by default (without a card this
+        raises), or ``"cpu"`` when asked for.  Only ``mode="block"`` is
+        ported; ``mode="sample"`` raises ``NotImplementedError``."""
         from .compile import CompiledGraph
         ir = self.lower()
         return CompiledGraph(ir, sample_rate=sample_rate,

@@ -33,7 +33,7 @@ from .ir import (BinOp, Call, Const, EndpointRef, Expr, FrameCtor, IrEdge,
                  IrGraph, IrNodeInst)
 from .node import StepValue, tree_map
 
-__all__ = ["CompiledGraph"]
+__all__ = ["CompiledGraph", "resolve_device"]
 
 
 class _StepStack:
@@ -166,6 +166,21 @@ class _Program:
                          + tuple(v.shape[1:])).sum(dim=1)
 
 
+def resolve_device(device) -> torch.device:
+    """The device a compiled graph or a carried state lives on: ``"cuda"``
+    (the default of every entry point) or ``"cpu"``, which a caller asks
+    for by name.  ``"cuda"`` without a card raises; nothing falls back to
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} (the default) needs a CUDA card, and "
+            f"torch sees none; pass device='cpu' to run on the CPU")
+    return dev
+
+
 # ===================================================================== #
 # CompiledGraph — stateful host wrapper
 # ===================================================================== #
@@ -174,24 +189,20 @@ class CompiledGraph:
     function.  ``init``, per-input setters (``set_value`` /
     ``set_value_with_ramp`` / ``queue_event``), and ``process_block``
     (sample-accurate events and ramps), as in the JAX package.  ``state``
-    is a nested dict of tensors on ``device`` with the JAX state's keys.
+    is a nested dict of tensors on ``device`` with the JAX state's keys:
+    the CUDA card unless the caller passes ``device="cpu"``.
     """
 
     def __init__(self, ir: IrGraph, sample_rate: float = 44100.0,
                  block_size: int = DEFAULT_MAX_BLOCK_SIZE,
-                 mode: str = "block", device="cpu"):
+                 mode: str = "block", device="cuda"):
         if mode == "sample":
             raise NotImplementedError(
                 "sample mode (the per-sample schedule) is not ported yet "
                 "(ROADMAP.md queue 1, Slice F); use mode='block'")
         if mode != "block":
             raise ValueError(f"unknown mode {mode!r}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' needs a CUDA card, and torch "
-                               "sees none")
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device!r}")
+        self.device = resolve_device(device)
         self.ir = ir
         self.mode = mode
         self.block_size = int(block_size)

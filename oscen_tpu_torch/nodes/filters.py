@@ -1,17 +1,24 @@
 """Filters.
 
-Counterpart of ``oscen_tpu/nodes/filters.py``; holds :class:`TptFilter`,
-the Zavalishin topology-preserving SVF lowpass (reference
-filters/tpt/mod.rs).  ``IirLowpass``, ``LP18Filter`` and ``DualLP18Diff``
-come with their slices (ROADMAP.md queue 1).
+Counterpart of ``oscen_tpu/nodes/filters.py``:
 
-The block path keeps the reference's per-sample op order: one
-``tpt_svf_scan`` over all instances and channels (the kernel on the card),
-with coefficients that are either hoisted ``[C]`` rows or per-sample
-``[C, B]`` planes.  ``TptFilter`` takes a leading instance axis
-(``BATCHED``): state ``[C(, ch)]``, inputs ``[C, B(, ch)]``.  ``tan`` and
-the divisions go through ``ops/fmath.py`` so the CPU and the card compute
-the same float32 values.
+- :class:`TptFilter` — Zavalishin topology-preserving SVF lowpass
+  (reference filters/tpt/mod.rs);
+- :class:`IirLowpass` — JUCE-style biquad, Direct Form II Transposed
+  (reference filters/iir_lowpass/mod.rs);
+- :class:`LP18Filter` — three-pole 18 dB/oct lowpass with a tanh-saturated
+  first pole (reference examples/nih-twin-peaks/src/lp18_filter.rs);
+- :class:`DualLP18Diff` — two LP18s over one input in adjacent lanes of
+  one scan, output their difference (the twin-peaks core).
+
+Every block path keeps the reference's per-sample op order through one
+scan over all instances (the kernel on the card): ``tpt_svf_scan``,
+``biquad_scan`` or ``lp18_scan`` of ``ops/cuda/iir.py``, with coefficients
+that are either hoisted ``[C]`` rows or per-sample ``[C, B]`` planes.  The
+nodes take a leading instance axis (``BATCHED``): state ``[C(, ...)]``,
+inputs ``[C, B(, ch)]``; instances (and the dual node's two filters) are
+the scan's lanes.  ``tan``, ``tanh`` and the divisions go through
+``ops/fmath.py`` so the CPU and the card compute the same float32 values.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from ..core.types import SampleRate, stream, value
 from ..graph import explain
 from ..graph.node import Node
 from ..ops import fmath
-from ..ops.cuda.iir import tpt_svf_scan
+from ..ops.cuda.iir import biquad_scan, lp18_scan, tpt_svf_scan
 
 PI = math.pi
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -164,3 +171,241 @@ class TptFilter(Node):
         explain.note(kernel="tpt_svf_scan",
                      coef_path="hoisted" if hoisted else "sweep")
         return self._filter(state, ins, sr, block_len, hoisted)
+
+
+class IirLowpass(Node):
+    """JUCE-style biquad lowpass, Direct Form II Transposed.
+
+    The coefficients follow the reference's update cadence: recomputed from
+    the ``cutoff`` and ``q`` inputs every 32 frames (``frame_counter``
+    carried across blocks), held in between.  A block latches each
+    sample's candidate coefficients at its update frames into per-sample
+    ``[C, B]`` planes, then runs one ``biquad_scan`` over all instances.
+    """
+
+    BATCHED = True
+    INPUTS = (stream("input", 0.0), value("cutoff", 1000.0),
+              value("q", 1.0 / math.sqrt(2.0)))
+    OUTPUTS = (stream("output"),)
+    FRAMES_PER_UPDATE = 32
+    COEFS = ("b0", "b1", "b2", "a1", "a2")
+
+    def __init__(self, cutoff: float = 1000.0,
+                 q: float = 1.0 / math.sqrt(2.0)):
+        self.cutoff = float(cutoff)
+        self.q = float(q)
+        self.INPUTS = (stream("input", 0.0), value("cutoff", self.cutoff),
+                       value("q", self.q))
+
+    @staticmethod
+    def _coefficients(sr_hz, cutoff, q, div):
+        """JUCE makeLowPass (reference iir_lowpass/mod.rs:84-100).  ``div``
+        is the division by the sample rate: the JAX package computes it as
+        a true quotient eagerly (``init_state``) and as XLA's reciprocal
+        product inside a compiled graph (the blocks)."""
+        nyquist = sr_hz * 0.5 - F32_EPS
+        freq = torch.clamp(cutoff, 20.0, nyquist)
+        q = torch.clamp(q, min=0.01)
+        n = fmath.rdiv(1.0, fmath.tan(div(PI * freq, sr_hz)))
+        n2 = n * n
+        inv_q = fmath.rdiv(1.0, q)
+        c1 = fmath.rdiv(1.0, 1.0 + inv_q * n + n2)
+        return (c1, c1 * 2.0, c1, c1 * 2.0 * (1.0 - n2),
+                c1 * (1.0 - inv_q * n + n2))
+
+    def init_state(self, sr: SampleRate):
+        f32 = torch.float32
+        coefs = self._coefficients(
+            sr.hz, torch.tensor(self.cutoff, dtype=f32),
+            torch.tensor(self.q, dtype=f32), fmath.div)
+        return {**dict(zip(self.COEFS, coefs)),
+                "v1": torch.zeros((), dtype=f32),
+                "v2": torch.zeros((), dtype=f32),
+                "frame_counter": torch.zeros((), dtype=torch.int32)}
+
+    def process_block(self, state, ins, events, sr, block_len):
+        B = block_len
+        x = ins["input"]
+        t = torch.arange(B, dtype=torch.int32, device=x.device)
+        counter = state["frame_counter"]
+        update = (counter[:, None] + t) % self.FRAMES_PER_UPDATE == 0
+        cand = self._coefficients(sr.hz, ins["cutoff"], ins["q"],
+                                  fmath.div_const)
+        # the last update frame at or before each sample (-1: none yet, the
+        # carried coefficients hold): a running max over the frame indices
+        last = torch.cummax(torch.where(update, t.long(), -1), dim=1).values
+        have = last >= 0
+        at = last.clamp(min=0)
+        coefs = [torch.where(have, torch.gather(c, 1, at), state[k][:, None])
+                 for c, k in zip(cand, self.COEFS)]
+        explain.note(kernel="biquad_scan", lanes=x.shape[0],
+                     sequential_exact=True)
+        y, v1, v2 = biquad_scan(x.t().contiguous(),
+                                *[c.t().contiguous() for c in coefs],
+                                state["v1"], state["v2"])
+        return ({**{k: c[:, -1] for k, c in zip(self.COEFS, coefs)},
+                 "v1": v1, "v2": v2,
+                 "frame_counter": (counter + B) % self.FRAMES_PER_UPDATE},
+                {"output": y.t()})
+
+
+def _lp18_g0(cutoff: float, sr_hz: float) -> np.float32:
+    """The LP18's initial ``g``, as the JAX package's eager ``init_state``
+    computes it: numpy's float32 ``tan`` of the clipped cutoff, one value
+    at a time, so a single filter and the dual one agree bit for bit."""
+    fc = np.clip(cutoff / sr_hz, 0.001, 0.33)
+    return np.tan(PI * fc, dtype=np.float32)
+
+
+class _LP18Scan(Node):
+    """The LP18 block path shared by :class:`LP18Filter` (one filter per
+    instance, lane shape ``[C]``) and :class:`DualLP18Diff` (two per
+    instance, ``[C, 2]``).
+
+    Coefficients replay the reference's recompute-on-change cadence: each
+    sample's ``g`` and ``h`` are recomputed where its cutoff, fmod or
+    resonance differs from the values carried from the last block (per
+    sample against the carried values, not a sequential latch, as in the
+    JAX package), and the carried ``last_*`` are taken from the block's
+    last sample.  When every parameter is block-constant (``const_ins``)
+    one ``[C(, 2)]`` row serves the block; the values are the same."""
+
+    BATCHED = True
+    PARAMS = ("cutoff", "fmod", "resonance")
+    LAST = ("last_cutoff", "last_fmod", "last_resonance")
+
+    @staticmethod
+    def _coefficients(state, cutoff, fmod, resonance, sr_hz):
+        """(g, h, last values) from one set of parameters (rows, or
+        per-sample planes against the carried values)."""
+        cut_changed = torch.logical_or(cutoff != state["last_cutoff"],
+                                       fmod != state["last_fmod"])
+        fc = torch.clamp(fmath.div_const(cutoff + fmod, sr_hz), 0.001, 0.33)
+        g = torch.where(cut_changed, fmath.tan(PI * fc), state["g"])
+        res_changed = resonance != state["last_resonance"]
+        h = torch.where(res_changed,
+                        2.0 * torch.clamp(resonance, 0.0, 0.99), state["h"])
+        last = (torch.where(cut_changed, cutoff, state["last_cutoff"]),
+                torch.where(cut_changed, fmod, state["last_fmod"]),
+                torch.where(res_changed, resonance, state["last_resonance"]))
+        return g, h, dict(zip(_LP18Scan.LAST, last))
+
+    def _scan(self, state, x, params, sr, hoisted: bool, **note):
+        """One block for every lane: ``x`` ``[B, L]`` (L lanes, instance
+        major), ``params`` ``[C, B(, 2)]``; returns the new state and
+        ``y`` ``[B, L]``."""
+        B = x.shape[0]
+        if hoisted:
+            g, h, last = self._coefficients(
+                state, *[params[p][:, 0] for p in self.PARAMS], sr.hz)
+            fin = {"g": g, "h": h, **last}
+            g, h = g.reshape(-1), h.reshape(-1)
+        else:
+            carried = {k: state[k][:, None]
+                       for k in ("g", "h") + self.LAST}
+            g, h, last = self._coefficients(
+                carried, *[params[p] for p in self.PARAMS], sr.hz)
+            fin = {k: v[:, -1] for k, v in
+                   {"g": g, "h": h, **last}.items()}
+            g = g.movedim(1, 0).reshape(B, -1).contiguous()
+            h = h.movedim(1, 0).reshape(B, -1).contiguous()
+        explain.note(kernel="lp18_scan", lanes=x.shape[1], **note,
+                     coef_path="hoisted" if hoisted else "sweep",
+                     sequential_exact=True)
+        z = state["z"]                                   # [C, 3(, 2)]
+        y, zn = lp18_scan(x, g, h,
+                          z.movedim(1, 0).reshape(3, -1).contiguous())
+        zn = zn.reshape((3,) + tuple(z.shape[:1]) + tuple(z.shape[2:]))
+        return {**state, **fin, "z": zn.movedim(0, 1)}, y
+
+
+class LP18Filter(_LP18Scan):
+    """Three-pole 18 dB/oct lowpass with a tanh-saturated first pole
+    (reference examples/nih-twin-peaks/src/lp18_filter.rs).
+
+    The tanh makes this a nonlinear recurrence (no associative-scan form),
+    so the block runs the sequential ``lp18_scan``: one lane per instance.
+    """
+
+    INPUTS = (stream("input", 0.0), value("cutoff", 1000.0),
+              value("fmod", 0.0), value("resonance", 0.0))
+    OUTPUTS = (stream("output"),)
+
+    def __init__(self, cutoff: float = 1000.0, resonance: float = 0.0):
+        self.cutoff = float(cutoff)
+        self.resonance = float(np.clip(resonance, 0.0, 0.99))
+        self.INPUTS = (stream("input", 0.0), value("cutoff", self.cutoff),
+                       value("fmod", 0.0), value("resonance", self.resonance))
+
+    def init_state(self, sr: SampleRate):
+        f32 = torch.float32
+        return {"z": torch.zeros((3,), dtype=f32),
+                "g": torch.tensor(_lp18_g0(self.cutoff, sr.hz)),
+                "h": torch.tensor(2.0 * self.resonance, dtype=f32),
+                "last_cutoff": torch.tensor(self.cutoff, dtype=f32),
+                "last_fmod": torch.zeros((), dtype=f32),
+                "last_resonance": torch.tensor(self.resonance, dtype=f32)}
+
+    def process_block(self, state, ins, events, sr, block_len,
+                      const_ins=frozenset()):
+        hoisted = all(p in const_ins for p in self.PARAMS)
+        st, y = self._scan(state, ins["input"].t().contiguous(), ins, sr,
+                           hoisted)
+        return st, {"output": y.t()}
+
+
+class DualLP18Diff(_LP18Scan):
+    """The fused twin-peaks core: two independent LP18s over the same input
+    in adjacent lanes of ONE ``lp18_scan``; the output is their difference
+    (the movable resonant band, reference
+    examples/nih-twin-peaks/src/lib.rs:15-48).
+
+    Every op of the scan and of the coefficient updates is elementwise over
+    lanes, and ``tanh`` rounds once from float64, so the output equals the
+    two-``LP18Filter`` build bit for bit on the CPU and on the card.
+    """
+
+    INPUTS = (stream("input", 0.0), value("cutoff_a", 1000.0),
+              value("cutoff_b", 1900.0), value("fmod", 0.0),
+              value("resonance", 0.54))
+    OUTPUTS = (stream("output"),)
+
+    def __init__(self, cutoff_a: float = 1000.0, cutoff_b: float = 1900.0,
+                 resonance: float = 0.54):
+        self.cutoffs = (float(cutoff_a), float(cutoff_b))
+        self.resonance = float(np.clip(resonance, 0.0, 0.99))
+        self.INPUTS = (stream("input", 0.0),
+                       value("cutoff_a", self.cutoffs[0]),
+                       value("cutoff_b", self.cutoffs[1]),
+                       value("fmod", 0.0),
+                       value("resonance", self.resonance))
+
+    def init_state(self, sr: SampleRate):
+        f32 = torch.float32
+        return {"z": torch.zeros((3, 2), dtype=f32),
+                "g": torch.tensor([_lp18_g0(c, sr.hz)
+                                   for c in self.cutoffs], dtype=f32),
+                "h": torch.full((2,), 2.0 * self.resonance, dtype=f32),
+                "last_cutoff": torch.tensor(self.cutoffs, dtype=f32),
+                "last_fmod": torch.zeros((2,), dtype=f32),
+                "last_resonance": torch.full((2,), self.resonance,
+                                             dtype=f32)}
+
+    def process_block(self, state, ins, events, sr, block_len,
+                      const_ins=frozenset()):
+        B = block_len
+        x = ins["input"]                                     # [C, B]
+        C = x.shape[0]
+        pair = (C, B, 2)
+        params = {"cutoff": torch.stack([ins["cutoff_a"], ins["cutoff_b"]],
+                                        dim=-1),
+                  "fmod": ins["fmod"][..., None].expand(pair),
+                  "resonance": ins["resonance"][..., None].expand(pair)}
+        hoisted = all(p in const_ins for p in
+                      ("cutoff_a", "cutoff_b", "fmod", "resonance"))
+        lanes = x.t()[:, :, None].expand(B, C, 2).reshape(B, 2 * C) \
+            .contiguous()
+        st, y = self._scan(state, lanes, params, sr, hoisted,
+                           fused_dual_filter=True)
+        y = y.reshape(B, C, 2)
+        return st, {"output": (y[..., 0] - y[..., 1]).t()}

@@ -1,14 +1,27 @@
 """Sequential-in-time, parallel-in-voice IIR scans: CUDA kernels and plain
 versions.
 
-Counterpart of ``oscen_tpu/ops/pallas/iir.py``; holds the TPT SVF lowpass
-(the LP18, biquad and allpass-cascade scans come with their slices).  The
-reference's per-sample op order is kept (filters/tpt/mod.rs:108-123), so
-the output is bit-identical across block sizes.
+Counterpart of ``oscen_tpu/ops/pallas/iir.py``; holds the TPT SVF lowpass,
+the LP18 (three poles, the first through ``tanh``) and the DF-II-T biquad
+(the allpass cascade comes with the multirate regions).  Each keeps the
+reference's per-sample op order, so the output is bit-identical across
+block sizes:
+
+- ``tpt_svf_scan``: filters/tpt/mod.rs:108-123;
+- ``lp18_scan``: nih-twin-peaks/src/lp18_filter.rs, with ``tanh`` evaluated
+  in float64 and rounded once (``ops/fmath.py``), so the CPU and the card
+  give the same float32 values;
+- ``biquad_scan``: iir_lowpass/mod.rs:109-132 with the reference tick's
+  denormal snaps: ``|x|``, ``|v1|`` and ``|v2|`` below
+  ``DENORMAL_THRESHOLD`` become 0 (the Pallas kernel leaves them out
+  because the TPU flushes denormals; the card and the CPU keep them).
+
+Every coefficient is a ``[V]`` row (block-constant) or a ``[B, V]``
+per-sample plane; the kernels take a time stride of 0 or V for each.
 
 Selection: a CPU tensor runs the plain version, a CUDA tensor runs the
 kernel of ``csrc/iir.cu`` (built at first use) or raises.  ``launches``
-counts the kernel's launches; the plain version is not counted.
+counts each kernel's launches; the plain versions are not counted.
 """
 
 from __future__ import annotations
@@ -17,14 +30,69 @@ from typing import Dict
 
 import torch
 
-KERNEL = "tpt_svf_scan"
-launches: Dict[str, int] = {KERNEL: 0}
+from .. import fmath
+
+KERNELS = ("tpt_svf_scan", "lp18_scan", "biquad_scan")
+launches: Dict[str, int] = {k: 0 for k in KERNELS}
+
+DENORMAL_THRESHOLD = 1e-15
 
 
 def reset_launches() -> None:
-    launches[KERNEL] = 0
+    for k in launches:
+        launches[k] = 0
 
 
+def _check_shapes(name, x, coefs, states):
+    """``x`` ``[B, V]``; each coefficient ``[V]`` or ``[B, V]``; each state
+    its given shape.  Returns (B, V)."""
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be [B, V] (got {tuple(x.shape)})")
+    B, V = x.shape
+    for nm, c in coefs.items():
+        if tuple(c.shape) not in ((V,), (B, V)):
+            raise ValueError(f"{name}: {nm} must be [{V}] or [{B}, {V}] "
+                             f"(got {tuple(c.shape)})")
+    for nm, (z, rows) in states.items():
+        want = (V,) if rows is None else (rows, V)
+        if tuple(z.shape) != want:
+            raise ValueError(f"{name}: {nm} must be {list(want)} (got "
+                             f"{tuple(z.shape)})")
+    return B, V
+
+
+def _launch(name, symbol, x, ins, outs, V, B, strides):
+    """Launch ``csrc/iir.cu``'s ``symbol`` on ``x``'s stream: pointers of
+    ``ins`` then ``outs``, then V, B and the coefficients' time strides."""
+    from . import build
+    build.check_operands(x.device, **ins)
+    fn = build.entry("iir", symbol, len(ins) + len(outs), 2 + len(strides))
+    rc = fn(*[t.data_ptr() for t in ins.values()],
+            *[t.data_ptr() for t in outs], V, B, *strides,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    launches[name] += 1
+    build.check_launch("iir", rc, name)
+
+
+def _route(name, x):
+    """True for the plain version (a CPU tensor), False for the kernel."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {x.device}")
+    return False
+
+
+def _rows(*coefs):
+    """Each coefficient at sample ``t``: the row itself, or plane ``[t]``."""
+    return [(c, c.dim() == 1) for c in coefs]
+
+
+def _at(rows, t):
+    return [c if row else c[t] for c, row in rows]
+
+
+# --------------------------------------------------------------------- #
 def tpt_svf_scan(x, h, g, k, z0, z1):
     """Zavalishin TPT SVF lowpass over a block, voice-parallel.
 
@@ -32,43 +100,25 @@ def tpt_svf_scan(x, h, g, k, z0, z1):
     (block-constant) or ``[B, V]`` (per-sample); ``z0``/``z1`` ``[V]``.
     Returns (``y`` ``[B, V]``, ``z0'``, ``z1'``).
     """
-    if x.dim() != 2:
-        raise ValueError(f"x must be [B, V] (got {tuple(x.shape)})")
-    B, V = x.shape
-    for nm, c in (("h", h), ("g", g), ("k", k)):
-        if tuple(c.shape) not in ((V,), (B, V)):
-            raise ValueError(f"{nm} must be [{V}] or [{B}, {V}] (got "
-                             f"{tuple(c.shape)})")
-    for nm, z in (("z0", z0), ("z1", z1)):
-        if tuple(z.shape) != (V,):
-            raise ValueError(f"{nm} must be [{V}] (got {tuple(z.shape)})")
-    if x.device.type == "cpu":
+    B, V = _check_shapes("tpt_svf_scan", x, {"h": h, "g": g, "k": k},
+                         {"z0": (z0, None), "z1": (z1, None)})
+    if _route("tpt_svf_scan", x):
         return plain_tpt_svf_scan(x, h, g, k, z0, z1)
-    if x.device.type != "cuda":
-        raise ValueError(f"no tpt_svf_scan kernel for device {x.device}")
-    from . import build
-    build.check_operands(x.device, x=x, h=h, g=g, k=k, z0=z0, z1=z1)
     y = torch.empty_like(x)
     z0o = torch.empty_like(z0)
     z1o = torch.empty_like(z1)
-    fn = build.entry("iir", "oscen_tpt_svf_scan", 9, 5)
-    rc = fn(x.data_ptr(), h.data_ptr(), g.data_ptr(), k.data_ptr(),
-            z0.data_ptr(), z1.data_ptr(), y.data_ptr(), z0o.data_ptr(),
-            z1o.data_ptr(), V, B,
-            *[V if c.dim() == 2 else 0 for c in (h, g, k)],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    launches[KERNEL] += 1
-    build.check_launch("iir", rc, KERNEL)
+    _launch("tpt_svf_scan", "oscen_tpt_svf_scan", x,
+            dict(x=x, h=h, g=g, k=k, z0=z0, z1=z1), (y, z0o, z1o), V, B,
+            [V if c.dim() == 2 else 0 for c in (h, g, k)])
     return y, z0o, z1o
 
 
 def plain_tpt_svf_scan(x, h, g, k, z0, z1):
     """The kernel's per-sample loop in plain PyTorch, over ``[V]`` rows."""
     y = torch.empty_like(x)
-    rows = [c.dim() == 1 for c in (h, g, k)]
+    rows = _rows(h, g, k)
     for t in range(x.shape[0]):
-        ht, gt, kt = (c if row else c[t]
-                      for c, row in zip((h, g, k), rows))
+        ht, gt, kt = _at(rows, t)
         high = (x[t] - z0 * kt - z1) * ht
         band = high * gt + z0
         low = band * gt + z1
@@ -76,3 +126,86 @@ def plain_tpt_svf_scan(x, h, g, k, z0, z1):
         z1 = band * gt + low
         y[t] = low
     return y, z0, z1
+
+
+# --------------------------------------------------------------------- #
+def lp18_scan(x, g, h, z):
+    """LP18 (three poles, a ``tanh`` first pole) over a block,
+    voice-parallel.
+
+    Args: ``x`` ``[B, V]`` time-major; ``g``/``h`` each ``[V]`` or
+    ``[B, V]``; ``z`` ``[3, V]`` pole states.  Returns (``y`` ``[B, V]``,
+    ``z'`` ``[3, V]``).
+    """
+    B, V = _check_shapes("lp18_scan", x, {"g": g, "h": h}, {"z": (z, 3)})
+    if _route("lp18_scan", x):
+        return plain_lp18_scan(x, g, h, z)
+    y = torch.empty_like(x)
+    zo = torch.empty_like(z)
+    _launch("lp18_scan", "oscen_lp18_scan", x, dict(x=x, g=g, h=h, z=z),
+            (y, zo), V, B, [V if c.dim() == 2 else 0 for c in (g, h)])
+    return y, zo
+
+
+def plain_lp18_scan(x, g, h, z):
+    """The kernel's per-sample loop in plain PyTorch, over ``[V]`` rows:
+    ``hp = (x - h*z0 - z1 - z2) / (1 + g)``, ``z0 = tanh(g*hp + z0)``
+    (float64 ``tanh``, rounded once), ``z1 = g*bp1 + z1``,
+    ``z2 = y = g*bp2 + z2``."""
+    y = torch.empty_like(x)
+    z0, z1, z2 = z[0], z[1], z[2]
+    rows = _rows(g, h)
+    for t in range(x.shape[0]):
+        gt, ht = _at(rows, t)
+        hp = (x[t] - ht * z0 - z1 - z2) / (1.0 + gt)
+        bp1 = gt * hp + z0
+        z0 = fmath.tanh(bp1)
+        bp2 = gt * bp1 + z1
+        z1 = bp2
+        z2 = gt * bp2 + z2
+        y[t] = z2
+    return y, torch.stack([z0, z1, z2])
+
+
+# --------------------------------------------------------------------- #
+def biquad_scan(x, b0, b1, b2, a1, a2, v1, v2):
+    """DF-II-T biquad over a block, voice-parallel, with the reference
+    tick's denormal snaps on ``x``, ``v1`` and ``v2``.
+
+    Args: ``x`` ``[B, V]`` time-major; ``b0 b1 b2 a1 a2`` each ``[V]`` or
+    ``[B, V]``; ``v1``/``v2`` ``[V]``.  Returns (``y`` ``[B, V]``, ``v1'``,
+    ``v2'``).
+    """
+    coefs = {"b0": b0, "b1": b1, "b2": b2, "a1": a1, "a2": a2}
+    B, V = _check_shapes("biquad_scan", x, coefs,
+                         {"v1": (v1, None), "v2": (v2, None)})
+    if _route("biquad_scan", x):
+        return plain_biquad_scan(x, b0, b1, b2, a1, a2, v1, v2)
+    y = torch.empty_like(x)
+    v1o = torch.empty_like(v1)
+    v2o = torch.empty_like(v2)
+    _launch("biquad_scan", "oscen_biquad_scan", x,
+            dict(x=x, **coefs, v1=v1, v2=v2), (y, v1o, v2o), V, B,
+            [V if c.dim() == 2 else 0 for c in coefs.values()])
+    return y, v1o, v2o
+
+
+def _snap(v):
+    """``v`` with ``|v| < DENORMAL_THRESHOLD`` set to 0 (the reference's
+    snap, iir_lowpass/mod.rs)."""
+    return torch.where(torch.abs(v) < DENORMAL_THRESHOLD,
+                       torch.zeros_like(v), v)
+
+
+def plain_biquad_scan(x, b0, b1, b2, a1, a2, v1, v2):
+    """The kernel's per-sample loop in plain PyTorch, over ``[V]`` rows."""
+    y = torch.empty_like(x)
+    rows = _rows(b0, b1, b2, a1, a2)
+    for t in range(x.shape[0]):
+        c0, c1, c2, d1, d2 = _at(rows, t)
+        xt = _snap(x[t])
+        out = c0 * xt + v1
+        v1 = _snap(c1 * xt - d1 * out + v2)
+        v2 = _snap(c2 * xt - d2 * out)
+        y[t] = out
+    return y, v1, v2

@@ -1,14 +1,16 @@
 """Float32 math that rounds the same on the CPU and the card.
 
-PyTorch's float32 ``sin``/``cos``/``exp``/``log``/``pow`` differ between
-its CPU and CUDA implementations by an ulp here and there.  On the additive
-voice that matters: a rotation multiplier that differs by an ulp drifts the
-oscillator's phase linearly in time; the 256-voice piano rendered 7.5e-3
-apart (peak 190) on an H100 and on the CPU over its first four
-1024-sample blocks, and 3e-5 apart with this module.
-Evaluated in float64 and rounded once, the results are the correctly
-rounded float32 values on both (the arguments stay float32, as in the JAX
-package).  The operands here are small (``[C, H]`` planes, ``[B]`` rows).
+PyTorch's float32 ``sin``/``cos``/``tan``/``tanh``/``exp``/``log``/``pow``
+differ between its CPU and CUDA implementations by an ulp here and there.
+On the additive voice that matters: a rotation multiplier that differs by
+an ulp drifts the oscillator's phase linearly in time; the 256-voice piano
+rendered 7.5e-3 apart (peak 190) on an H100 and on the CPU over its first
+four 1024-sample blocks, and 3e-5 apart with this module.  Evaluated in
+float64 and rounded once, the results are the correctly rounded float32
+values on both (the arguments stay float32, as in the JAX package).  The
+operands here are small (``[C, H]`` planes, ``[B]`` rows); the LP18's
+``tanh`` runs per sample inside its scan, as ``(float)tanh((double)x)`` in
+``csrc/iir.cu``.
 
 Division by a constant has the same problem: on CUDA, PyTorch computes
 ``tensor / python_float`` as a product with the float32 reciprocal, on the
@@ -45,6 +47,10 @@ def cos(x):
 
 def tan(x):
     return torch.tan(x.double()).float()
+
+
+def tanh(x):
+    return torch.tanh(x.double()).float()
 
 
 def exp(x):

@@ -16,12 +16,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..graph.compile import resolve_device
 from ..graph.node import tree_map
 
 
-def state_from_jax(np_state: Any, device="cpu") -> Any:
-    """Numpy state (from the JAX package) -> torch state on ``device``."""
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device),
+def state_from_jax(np_state: Any, device="cuda") -> Any:
+    """Numpy state (from the JAX package) -> torch state on ``device``:
+    the CUDA card by default (without a card this raises), or ``"cpu"``."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev),
                     np_state)
 
 

@@ -1,6 +1,7 @@
 """oscen_tpu_torch on a CUDA card: each kernel against its plain PyTorch
-version, and the electric-piano, poly-synth and FM slices on the card
-against the CPU.
+version, the electric-piano, poly-synth, FM and twin-peaks slices and an
+IIR-lowpass graph on the card against the CPU, and the card as the
+default device.
 
 These tests carry the ``cuda`` marker and skip without a card.  This file
 imports no jax; on a machine with a card and no JAX run it with the JAX
@@ -421,3 +422,145 @@ def test_fm_models_on_card_match_cpu(cuda, model, fused):
     _, b = _fm_model(build, "cpu", fused=fused)
     assert float(b.abs().max()) > 0.01
     assert np.abs(a.numpy() - b.numpy()).max() <= 1e-5
+
+
+# ------------------------------------------------------------------ #
+# the twin-peaks slice: lp18_scan, biquad_scan, the filters, the device
+# default
+# ------------------------------------------------------------------ #
+FILTER_SHAPES = [(2, 1024), (2, 4096), (256, 1024), (3, 37), (1, 100)]
+
+
+def _on(cuda, a):
+    return torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("V,B", FILTER_SHAPES)
+def test_lp18_scan_kernel_equals_plain(cuda, V, B, per_sample):
+    """3 chained blocks with inputs that saturate the tanh: every output
+    bit for bit (float64 tanh rounded once, IEEE division, no FMA)."""
+    rng = np.random.default_rng(V + B + per_sample)
+    shape = (B, V) if per_sample else (V,)
+    z = _on(cuda, rng.uniform(-0.8, 0.8, (3, V)))
+    before = kiir.launches["lp18_scan"]
+    for _ in range(3):
+        x = _on(cuda, 3.0 * rng.standard_normal((B, V)))
+        g = _on(cuda, rng.uniform(0.01, 0.9, shape))
+        h = _on(cuda, rng.uniform(0.0, 1.98, shape))
+        out = kiir.lp18_scan(x, g, h, z)
+        torch.cuda.synchronize()
+        assert _equal(out, kiir.plain_lp18_scan(x, g, h, z))
+        z = out[1]
+    assert kiir.launches["lp18_scan"] == before + 3
+    assert float(out[0].abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("V,B", FILTER_SHAPES)
+def test_biquad_scan_kernel_equals_plain(cuda, V, B, per_sample):
+    """3 chained blocks, the input decaying below 1e-15 in the last one, so
+    the snaps fire: every output bit for bit; the tail holds exact zeros
+    (a lane may keep a ~1e-15 cycle that the snaps themselves sustain, as
+    in the reference's tick)."""
+    rng = np.random.default_rng(V * B + per_sample)
+    shape = (B, V) if per_sample else (V,)
+    cut = rng.uniform(1500.0, 8000.0, shape)
+    n = 1.0 / np.tan(np.pi * cut / 48000.0)
+    c1 = 1.0 / (1.0 + np.sqrt(2.0) * n + n * n)
+    coefs = [_on(cuda, c) for c in (c1, 2 * c1, c1, 2 * c1 * (1 - n * n),
+                                     c1 * (1 - np.sqrt(2.0) * n + n * n))]
+    v = [_on(cuda, rng.standard_normal(V)) for _ in range(2)]
+    before = kiir.launches["biquad_scan"]
+    for i in range(3):
+        x = rng.standard_normal((B, V))
+        if i == 2:
+            x *= np.exp(-np.arange(B) / 4.0)[:, None]
+        x = _on(cuda, x)
+        out = kiir.biquad_scan(x, *coefs, *v)
+        torch.cuda.synchronize()
+        assert _equal(out, kiir.plain_biquad_scan(x, *coefs, *v))
+        v = list(out[1:])
+    assert kiir.launches["biquad_scan"] == before + 3
+    if B >= 1024:
+        tail = out[0][-100:]
+        assert float(tail.abs().max()) < 1e-14
+        assert bool((tail == 0).any())
+
+
+def test_compile_defaults_to_the_card(cuda):
+    """``compile()``, ``CompiledGraph`` and ``state_from_jax`` with no
+    device put their state on the card."""
+    from oscen_tpu_torch.models.twin_peaks import build_twin_peaks
+    from oscen_tpu_torch.utils.convert import state_from_jax
+    c = build_twin_peaks().compile(48000.0, block_size=64)
+    assert c.device.type == "cuda"
+    assert c.state["filters"]["z"].device.type == "cuda"
+    assert state_from_jax({"z": np.zeros(3, np.float32)})["z"].device.type \
+        == "cuda"
+
+
+def _twin(device, fused, B):
+    """Seeded noise block by block, cutoff_a 640 / resonance 0.8 at block
+    3, cutoff_b 2500 at block 5 (tests/test_models_aux.py:187-199)."""
+    from oscen_tpu_torch.models.twin_peaks import build_twin_peaks
+    x = (np.random.default_rng(1).standard_normal(8 * B) * 0.3).astype(
+        np.float32)
+    c = build_twin_peaks(fused=fused).compile(48000.0, block_size=B,
+                                              device=device)
+    ys = []
+    for i in range(8):
+        if i == 3:
+            c.set_value("cutoff_a", 640.0)
+            c.set_value("resonance", 0.8)
+        if i == 5:
+            c.set_value("cutoff_b", 2500.0)
+        ys.append(c.process_block(
+            stream_inputs={"audio_in": x[i * B:(i + 1) * B]})["audio_out"])
+    return c, torch.cat(ys).cpu()
+
+
+@pytest.mark.parametrize("B", [256, 1024])
+def test_twin_peaks_on_card_matches_cpu(cuda, B):
+    """One lp18_scan per block fused, two unfused; the card equals the CPU
+    and the fused build equals the two-node build, bit for bit."""
+    outs = {}
+    for fused in (True, False):
+        kiir.reset_launches()
+        c, outs[fused] = _twin("cuda", fused, B)
+        assert kiir.launches["lp18_scan"] == (1 if fused else 2) * 8
+        assert c.state["filters" if fused else "filter_a"]["z"].device.type \
+            == "cuda"
+        assert torch.equal(outs[fused], _twin("cpu", fused, B)[1])
+    assert torch.equal(outs[True], outs[False])
+    assert float(outs[True].abs().max()) > 0.3
+
+
+@pytest.mark.parametrize("B", [1024, 33])
+def test_iir_lowpass_on_card_matches_cpu(cuda, B):
+    """saw -> IirLowpass -> out with a cutoff change mid-run: one
+    biquad_scan per block, the card equal to the CPU."""
+    from oscen_tpu_torch import Graph, IirLowpass, Oscillator
+
+    def run(device):
+        g = Graph("I")
+        g.input("cutoff", "value", default=1000.0)
+        g.output("out", "stream")
+        o = g.add("o", Oscillator.saw(330.0, 0.5))
+        f = g.add("f", IirLowpass(1000.0))
+        g.connect("cutoff", f.cutoff)
+        g.connect(o.output, f.input)
+        g.connect(f.output, "out")
+        c = g.compile(48000.0, block_size=B, device=device)
+        ys = []
+        for i in range(6):
+            if i == 3:
+                c.set_value("cutoff", 2500.0)
+            ys.append(c.process_block()["out"])
+        return torch.cat(ys).cpu()
+    kiir.reset_launches()
+    a = run("cuda")
+    assert kiir.launches["biquad_scan"] == 6
+    b = run("cpu")
+    assert float(b.abs().max()) > 0.1
+    assert float((a - b).abs().max()) <= 1e-6

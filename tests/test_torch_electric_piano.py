@@ -25,6 +25,12 @@ from oscen_tpu_torch.utils.convert import state_from_jax, state_to_numpy
 SR = 48000.0
 
 
+def _cpu(pkg):
+    """The port's graphs compile for the card unless asked for the CPU; the
+    JAX package's ``compile`` takes no device."""
+    return {"device": "cpu"} if pkg is T else {}
+
+
 def _sequence(pkg, p):
     outs = []
     for i, n in enumerate((60, 64, 67, 71)):
@@ -44,7 +50,8 @@ def test_slice_matches_jax_composed(fused):
     atol 1e-4 (measured ~2e-5; the power tables and the closed forms'
     transcendentals differ at ulp level)."""
     a = _sequence(J, jbuild(8, fused=fused).compile(SR, block_size=64))
-    b = _sequence(T, tbuild(8, fused=fused).compile(SR, block_size=64))
+    b = _sequence(T, tbuild(8, fused=fused).compile(SR, block_size=64,
+                                                    device="cpu"))
     assert b.shape == a.shape == (8 * 64, 2)
     assert np.abs(a).max() > 0.5
     np.testing.assert_allclose(b, a, atol=1e-4, rtol=0)
@@ -56,7 +63,7 @@ def test_slice_matches_jax_pallas_interpret(monkeypatch):
     port's: max abs 5e-5 (measured ~6e-6)."""
     monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
     a = _sequence(J, jbuild(8).compile(SR, block_size=32))
-    b = _sequence(T, tbuild(8).compile(SR, block_size=32))
+    b = _sequence(T, tbuild(8).compile(SR, block_size=32, device="cpu"))
     assert np.abs(a - b).max() <= 5e-5
 
 
@@ -75,7 +82,7 @@ def test_single_voice_matches_jax():
         g.connect("gate", v.gate)
         g.connect("frequency", v.frequency)
         g.connect(v.output, "out")
-        c = g.compile(SR, block_size=64)
+        c = g.compile(SR, block_size=64, **_cpu(pkg))
         c.queue_event("gate", 10, 1.0)
         out = [c.render_mono(128)]
         c.set_value("frequency", 330.0)
@@ -91,13 +98,15 @@ def test_single_voice_matches_jax():
 def test_fused_matches_subgraph():
     """The fused voice node (one kernel call per steady block) equals the
     two-node subgraph (composed closed forms): RMS < 1e-5."""
-    a = _sequence(T, tbuild(8, fused=True).compile(SR, block_size=64))
-    b = _sequence(T, tbuild(8, fused=False).compile(SR, block_size=64))
+    a = _sequence(T, tbuild(8, fused=True).compile(SR, block_size=64,
+                                                   device="cpu"))
+    b = _sequence(T, tbuild(8, fused=False).compile(SR, block_size=64,
+                                                    device="cpu"))
     assert np.sqrt(np.mean((a - b) ** 2)) < 1e-5
 
 
 def _invariance_run(B):
-    p = tbuild(8).compile(SR, block_size=B)
+    p = tbuild(8).compile(SR, block_size=B, device="cpu")
     for i, n in enumerate((60, 64, 67)):
         p.queue_event("midi_in", 17 * i, T.raw_midi_event([0x90, n, 100]))
     outs = [p.process_block(64)["out"]]    # the same event block in both
@@ -122,14 +131,14 @@ def test_state_from_jax_carries_the_state():
     """Render 2 blocks in JAX, carry its state into the port (whose host
     nodes saw the same events), render one more steady block in both."""
     jp = jbuild(8).compile(SR, block_size=64)
-    tp = tbuild(8).compile(SR, block_size=64)
+    tp = tbuild(8).compile(SR, block_size=64, device="cpu")
     for pkg, p in ((J, jp), (T, tp)):
         for n in (60, 64, 67):
             p.queue_event("midi_in", 9, pkg.raw_midi_event([0x90, n, 100]))
         p.process_block()
         p.process_block()
     np_state = jax.tree_util.tree_map(np.asarray, jp.state)
-    tp.state = state_from_jax(np_state)
+    tp.state = state_from_jax(np_state, device="cpu")
     back = state_to_numpy(tp.state)
     assert back["voices"]["amp"]["step"].dtype == np.int32
     assert back["voices"]["amp"]["released"].dtype == np.bool_
@@ -141,7 +150,7 @@ def test_state_from_jax_carries_the_state():
 
 
 def test_steady_blocks_take_the_kernel_path(monkeypatch):
-    p = tbuild(8).compile(SR, block_size=64)
+    p = tbuild(8).compile(SR, block_size=64, device="cpu")
     p.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
     p.process_block()
     notes = p.explain()
@@ -152,7 +161,7 @@ def test_steady_blocks_take_the_kernel_path(monkeypatch):
     monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "parity")
     assert "kernel=additive_voice_parity" in p.explain(formatted=True)
     # explain() observes: the next block still equals a fresh run's
-    q = tbuild(8).compile(SR, block_size=64)
+    q = tbuild(8).compile(SR, block_size=64, device="cpu")
     q.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
     q.process_block()
     monkeypatch.delenv("OSCEN_ADDITIVE_KERNEL")
@@ -162,7 +171,7 @@ def test_steady_blocks_take_the_kernel_path(monkeypatch):
 def test_partial_blocks_take_the_composed_path():
     """Blocks whose length is not a multiple of 8 have no kernel path
     (process_block_batched returns None) and compose the closed forms."""
-    p = tbuild(4).compile(SR, block_size=100)
+    p = tbuild(4).compile(SR, block_size=100, device="cpu")
     p.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
     out = p.render(990)["out"]  # 9 full blocks + a 90-sample tail
     assert out.shape == (990, 2)
@@ -175,7 +184,7 @@ def test_render_steady_and_checksum():
     checksum is the energy of what render_steady returns."""
     runs = []
     for _ in range(2):
-        p = tbuild(8).compile(SR, block_size=64)
+        p = tbuild(8).compile(SR, block_size=64, device="cpu")
         p.queue_event("midi_in", 0, T.raw_midi_event([0x90, 64, 100]))
         p.process_block()
         runs.append(p)

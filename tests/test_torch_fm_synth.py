@@ -37,6 +37,12 @@ PKGS = {"jax": (J, jbasic, jenv, jfm_mod, jpv_mod),
         "torch": (T, tbasic, tenv, tfm_mod, tpv_mod)}
 
 
+def _cpu(pkg):
+    """The port's graphs compile for the card unless asked for the CPU; the
+    JAX package's ``compile`` takes no device."""
+    return {"device": "cpu"} if pkg is T else {}
+
+
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -79,7 +85,7 @@ def test_batched_method_receives_literal_and_host_ins():
     g.connect(level * 2.0, p.level)
     g.connect("x", p.x)
     g.connect(p.output, "out")
-    c = g.compile(SR, block_size=32)
+    c = g.compile(SR, block_size=32, device="cpu")
     probe = c.ir.nodes["p"].node
     x = {"x": np.ones(32, np.float32)}
     c.process_block(stream_inputs=x)
@@ -130,7 +136,8 @@ def test_literal_zero_gain_makes_the_filter_cutoff_block_constant():
     x = (0.5 * np.sign(np.sin(np.arange(6 * B) / 7.0))).astype(np.float32)
     outs, cs = {}, {}
     for name, (pkg, basic, env, _, _) in PKGS.items():
-        c = _cutoff_mod_graph(pkg, basic, env).compile(SR, block_size=B)
+        c = _cutoff_mod_graph(pkg, basic, env).compile(SR, block_size=B,
+                                                       **_cpu(pkg))
         c.queue_event("gate", 5, 1.0)
         blocks = []
         for i in range(6):
@@ -198,7 +205,8 @@ def test_stateless_nodes_match_jax(count):
     b = rng.uniform(0, 1, B * n).astype(np.float32)
     outs, notes = {}, {}
     for name, (pkg, basic, _, _, _) in PKGS.items():
-        c = _stateless_graph(pkg, basic, count).compile(SR, block_size=B)
+        c = _stateless_graph(pkg, basic, count).compile(SR, block_size=B,
+                                                        **_cpu(pkg))
         blocks = []
         for i in range(n):
             if i == 2:
@@ -242,7 +250,8 @@ def test_fm_operator_matches_jax(count):
     outs = {}
     tfm.reset_launches()
     for name, (pkg, basic, _, _, _) in PKGS.items():
-        c = _fm_operator_graph(pkg, basic, count).compile(SR, block_size=B)
+        c = _fm_operator_graph(pkg, basic, count).compile(
+            SR, block_size=B, **_cpu(pkg))
         blocks = []
         for i in range(n):
             if i == 2:
@@ -281,7 +290,8 @@ def test_adsr_bank_matches_jax(count):
     events = [[(100, 1.0)], [], [(37, 0.0), (300, 0.8)], [(200, 0.0)], []]
     outs, states = {}, {}
     for name, (pkg, _, env, _, _) in PKGS.items():
-        c = _bank_graph(pkg, env, count).compile(SR, block_size=512)
+        c = _bank_graph(pkg, env, count).compile(SR, block_size=512,
+                                                 **_cpu(pkg))
         blocks = []
         for evs in events:
             for off, v in evs:
@@ -338,7 +348,7 @@ def test_model_matches_jax(model, fused):
     fb_at = 3 if model == "pivot" else None
     a = _model_run(J, jb(4, fused=fused).compile(SR, block_size=64), fb_at)
     tfm.reset_launches()
-    c = tb(4, fused=fused).compile(SR, block_size=64)
+    c = tb(4, fused=fused).compile(SR, block_size=64, device="cpu")
     b = _model_run(T, c, fb_at)
     assert b.shape == a.shape == (6 * 64,)
     assert np.abs(a).max() > 0.1
@@ -367,7 +377,7 @@ def test_pivot_block_size_invariance():
     bit (steady blocks take the zero-feedback branch, the note-on block
     the sequential chain; the two are bit-equal)."""
     def run(bs):
-        c = tpv_mod.build_pivot(4).compile(SR, block_size=bs)
+        c = tpv_mod.build_pivot(4).compile(SR, block_size=bs, device="cpu")
         out, pos = [], 0
         while pos < 2048:
             n = min(bs, 2048 - pos)
@@ -391,7 +401,7 @@ def test_explain_reports_the_zero_feedback_branch():
     feedback defaults are literal zeros; a nonzero default disengages the
     branch; a live feedback parameter engages it at 0.0, disengages after
     set_value(1e-6) and, known on the host, engages again at 0.0."""
-    c = tfm_mod.build_fm_synth(4).compile(SR, block_size=64)
+    c = tfm_mod.build_fm_synth(4).compile(SR, block_size=64, device="cpu")
     e = _chain_note(c, "fm_chain3")
     assert (e["fast_path"], e["eligible"], e["engaged"]) == \
         ("zero_feedback", True, True)
@@ -422,9 +432,9 @@ def test_explain_reports_the_zero_feedback_branch():
         g.connect(vs.out, "out")
         return g
 
-    c = synth(fb_default=0.5).compile(SR, block_size=64)
+    c = synth(fb_default=0.5).compile(SR, block_size=64, device="cpu")
     assert _chain_note(c, "fm_chain3")["engaged"] is False
-    c = synth(fb_input=True).compile(SR, block_size=64)
+    c = synth(fb_input=True).compile(SR, block_size=64, device="cpu")
     assert _chain_note(c, "fm_chain3")["engaged"] is True
     c.set_value("fb", 1e-6)
     e = _chain_note(c, "fm_chain3")
@@ -432,7 +442,7 @@ def test_explain_reports_the_zero_feedback_branch():
     c.set_value("fb", 0.0)
     assert _chain_note(c, "fm_chain3")["engaged"] is True
     # the pivot: op3_feedback is a live parameter of the app
-    p = tpv_mod.build_pivot(4).compile(SR, block_size=64)
+    p = tpv_mod.build_pivot(4).compile(SR, block_size=64, device="cpu")
     assert _chain_note(p, "pivot_chain3")["engaged"] is True
     p.set_value("op3_feedback", 0.3)
     assert _chain_note(p, "pivot_chain3")["engaged"] is False
@@ -448,14 +458,14 @@ def test_state_carried_from_jax():
     chain's phases/prevs [C, 3] and the AdsrBank's [C, 4] leaves keep
     their dtypes both ways."""
     jc = jfm_mod.build_fm_synth(4).compile(SR, block_size=64)
-    tc = tfm_mod.build_fm_synth(4).compile(SR, block_size=64)
+    tc = tfm_mod.build_fm_synth(4).compile(SR, block_size=64, device="cpu")
     for c, pkg in ((jc, J), (tc, T)):
         c.set_value("route", 0.4)
         for note in (48, 55, 62, 69):
             c.queue_event("midi_in", 5, pkg.raw_midi_event([0x90, note, 90]))
         c.process_block()
     np_state = jax.tree_util.tree_map(np.asarray, jc.state)
-    tc.state = state_from_jax(np_state)
+    tc.state = state_from_jax(np_state, device="cpu")
     ops, envs = tc.state["voices.ops"], tc.state["voices.envs"]
     assert ops["phases"].shape == ops["prevs"].shape == (4, 3)
     assert ops["phases"].dtype == torch.float32

@@ -87,7 +87,7 @@ def test_expression_nodes_are_the_ports_own():
 def test_unported_paths_raise():
     g = tbuild(4)
     with pytest.raises(NotImplementedError, match="sample mode"):
-        g.compile(48000.0, block_size=64, mode="sample")
+        g.compile(48000.0, block_size=64, mode="sample", device="cpu")
     d = T.Graph("Delayed")
     d.output("out", "stream", channels=2)
     t1 = d.add("t1", T.Tremolo())
@@ -102,3 +102,28 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tbuild(4).compile(48000.0, block_size=64, device="cuda")
+
+
+def test_the_card_is_the_default_device(monkeypatch):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: without a card, ``compile()``, ``CompiledGraph`` and
+    ``state_from_jax`` that name no device raise (they never carry on on
+    the CPU), and ``device="cpu"`` still works."""
+    from oscen_tpu_torch.graph.compile import CompiledGraph
+    from oscen_tpu_torch.models.twin_peaks import build_twin_peaks
+    from oscen_tpu_torch.utils.convert import state_from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = build_twin_peaks()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        g.compile(48000.0, block_size=64)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        CompiledGraph(g.lower(), 48000.0, 64)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        state_from_jax({"f": {"z": [0.0, 0.0, 0.0]}})
+    c = g.compile(48000.0, block_size=64, device="cpu")
+    assert c.device.type == "cpu"
+    assert c.state["filters"]["z"].device.type == "cpu"
+    assert state_from_jax({"z": [1.0]}, device="cpu")["z"].device.type \
+        == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        g.compile(48000.0, block_size=64, device="meta")

@@ -1,7 +1,8 @@
 """oscen_tpu_torch never imports jax: with ``sys.modules["jax"] = None``
 (any ``import jax`` then raises) the package imports, and the electric
-piano, the poly synth, the README synth, the fm synth and the pivot build,
-compile and render on the CPU."""
+piano, the poly synth, the README synth, the fm synth, the pivot, the twin
+peaks (fused and two-node) and an IIR-lowpass graph build, compile and
+render on the CPU."""
 
 import subprocess
 import sys
@@ -20,7 +21,8 @@ def test_port_imports_and_renders_without_jax():
         from oscen_tpu_torch.models.electric_piano import (
             build_electric_piano)
         from oscen_tpu_torch.utils import convert  # noqa: F401
-        p = build_electric_piano(4).compile(48000.0, block_size=64)
+        p = build_electric_piano(4).compile(48000.0, block_size=64,
+                                            device="cpu")
         p.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
         a = p.process_block()["out"]
         b = p.process_block()["out"]
@@ -28,10 +30,10 @@ def test_port_imports_and_renders_without_jax():
         assert float(b.abs().max()) > 0.01
         from oscen_tpu_torch.models.poly_synth import build_poly_synth
         from oscen_tpu_torch.models.simple import build_simple_synth
-        s = build_poly_synth(4).compile(48000.0, block_size=64)
+        s = build_poly_synth(4).compile(48000.0, block_size=64, device="cpu")
         s.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
         assert float(s.process_block()["audio_out"].abs().max()) > 0.001
-        r = build_simple_synth().compile(48000.0, block_size=64)
+        r = build_simple_synth().compile(48000.0, block_size=64, device="cpu")
         assert abs(r.render_mono(256)).max() > 0.1
         from oscen_tpu_torch.models.fm_synth import build_fm_synth
         from oscen_tpu_torch.models.pivot import build_pivot
@@ -39,11 +41,29 @@ def test_port_imports_and_renders_without_jax():
         from oscen_tpu_torch.ops.cuda import fm  # noqa: F401
         for build in (build_fm_synth, build_pivot):
             for fused in (True, False):
-                m = build(2, fused=fused).compile(48000.0, block_size=64)
+                m = build(2, fused=fused).compile(48000.0, block_size=64,
+                                                  device="cpu")
                 m.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
                 m.process_block()
                 assert float(m.process_block()["audio_out"].abs().max()) \
                     > 0.01
+        import numpy as np
+        from oscen_tpu_torch import IirLowpass, Oscillator
+        from oscen_tpu_torch.models.twin_peaks import build_twin_peaks
+        x = np.random.default_rng(0).standard_normal(512).astype("float32")
+        for fused in (True, False):
+            t = build_twin_peaks(fused=fused).compile(48000.0, block_size=64,
+                                                      device="cpu")
+            y = t.render_mono(512, stream_inputs={"audio_in": x})
+            assert y.shape == (512,) and 0.01 < abs(y).max() < 10.0
+        g = oscen_tpu_torch.Graph("I")
+        g.output("out", "stream")
+        o = g.add("o", Oscillator.saw(330.0, 0.5))
+        f = g.add("f", IirLowpass(1000.0))
+        g.connect(o.output, f.input)
+        g.connect(f.output, "out")
+        i = g.compile(48000.0, block_size=33, device="cpu")
+        assert abs(i.render_mono(256)).max() > 0.1
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)

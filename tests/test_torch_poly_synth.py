@@ -35,6 +35,12 @@ SR = 48000.0
 ATOL = 1e-5
 
 
+def _cpu(pkg):
+    """The port's graphs compile for the card unless asked for the CPU; the
+    JAX package's ``compile`` takes no device."""
+    return {"device": "cpu"} if pkg is T else {}
+
+
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -101,7 +107,8 @@ def test_oscillator_matches_jax(name, count):
     fm = {"fm": _VIBRATO}
     a = _run(_osc_graph(J, OSCS[name], count).compile(SR, block_size=64),
              blocks, stream=fm)
-    b = _run(_osc_graph(T, OSCS[name], count).compile(SR, block_size=64),
+    b = _run(_osc_graph(T, OSCS[name], count).compile(SR, block_size=64,
+                                                      device="cpu"),
              blocks, stream=fm)
     assert b.shape == a.shape == (8 * 64,)
     assert np.abs(a).max() > 0.3
@@ -109,7 +116,8 @@ def test_oscillator_matches_jax(name, count):
 
 
 def test_oscillator_array_runs_one_batched_scan():
-    c = _osc_graph(T, OSCS["blep_saw"], 3).compile(SR, block_size=64)
+    c = _osc_graph(T, OSCS["blep_saw"], 3).compile(SR, block_size=64,
+                                                   device="cpu")
     rep = c.explain()
     assert {"node": "o", "kernel": "phase_scan"} in rep
     assert {"node": "o", "path": "batched"} in rep
@@ -149,7 +157,7 @@ def test_tpt_filter_matches_jax(count, channels, fmod):
 
     def run(pkg):
         c = _filter_graph(pkg, count, channels, fmod).compile(
-            SR, block_size=B)
+            SR, block_size=B, **_cpu(pkg))
         outs = []
         for i in range(n):
             if i == 2:
@@ -206,7 +214,8 @@ def test_adsr_envelope_matches_jax(params, events, count):
     blocks = [_gates(e) for e in events]
     a = _run(_env_graph(J, params, count).compile(SR, block_size=512),
              blocks)
-    b = _run(_env_graph(T, params, count).compile(SR, block_size=512),
+    b = _run(_env_graph(T, params, count).compile(SR, block_size=512,
+                                                  device="cpu"),
              blocks)
     assert np.abs(a).max() > 0.5
     np.testing.assert_allclose(b, a, atol=ATOL, rtol=0)
@@ -243,7 +252,7 @@ def test_poly_synth_matches_jax(interpret, monkeypatch):
     a = _poly_sequence(J, jpoly(8).compile(SR, block_size=64))
     tphase.reset_launches()
     tiir.reset_launches()
-    b = _poly_sequence(T, tpoly(8).compile(SR, block_size=64))
+    b = _poly_sequence(T, tpoly(8).compile(SR, block_size=64, device="cpu"))
     assert b.shape == a.shape == (8 * 64,)
     assert np.abs(a).max() > 0.02
     np.testing.assert_allclose(b, a, atol=ATOL, rtol=0)
@@ -262,7 +271,7 @@ def test_poly_synth_lowers_to_the_same_ir():
 
 def test_simple_synth_matches_jax():
     a = jsimple().compile(SR, block_size=512).render_mono(4800)
-    b = tsimple().compile(SR, block_size=512).render_mono(4800)
+    b = tsimple().compile(SR, block_size=512, device="cpu").render_mono(4800)
     assert b.shape == a.shape == (4800,)
     np.testing.assert_allclose(b, a, atol=ATOL, rtol=0)
     # tests/test_models_aux.py:15-21: the saw's fundamental
@@ -283,13 +292,13 @@ def test_state_carried_from_jax():
     into the port's CompiledGraph; four more blocks agree at 1e-5.  The
     ADSR's int32 leaves keep their dtype both ways."""
     jc = jpoly(8).compile(SR, block_size=64)
-    tc = tpoly(8).compile(SR, block_size=64)
+    tc = tpoly(8).compile(SR, block_size=64, device="cpu")
     for c, pkg in ((jc, J), (tc, T)):
         for note in (48, 55, 62, 69):
             c.queue_event("midi_in", 5, pkg.raw_midi_event([0x90, note, 90]))
         c.process_block()
     np_state = jax.tree_util.tree_map(np.asarray, jc.state)
-    tc.state = state_from_jax(np_state)
+    tc.state = state_from_jax(np_state, device="cpu")
     for key in ("stage", "rem", "age", "stage_len"):
         assert tc.state["envs"][key].dtype == torch.int32
         assert state_to_numpy(tc.state)["envs"][key].dtype == np.int32
@@ -312,7 +321,7 @@ def test_state_carried_from_jax():
 def _render_chunked(build, total, sizes, events=()):
     outs = {}
     for bs in sizes:
-        c = build().compile(SR, block_size=bs)
+        c = build().compile(SR, block_size=bs, device="cpu")
         chunks, pos = [], 0
         while pos < total:
             n = min(bs, total - pos)
@@ -436,7 +445,7 @@ def test_batched_method_receives_const_ins():
     g.connect("level", p.level)
     g.connect("x", p.x)
     g.connect(p.output, "out")
-    c = g.compile(SR, block_size=32)
+    c = g.compile(SR, block_size=32, device="cpu")
     probe = c.ir.nodes["p"].node
     x = {"x": np.ones(32, np.float32)}
     c.process_block(stream_inputs=x)
@@ -449,7 +458,7 @@ def test_batched_method_receives_const_ins():
 def test_tpt_filter_coefficient_path_follows_const_ins():
     """In the poly synth the filter hoists its coefficients while cutoff
     and resonance are idle, and sweeps them while the cutoff ramps."""
-    c = tpoly(4).compile(SR, block_size=64)
+    c = tpoly(4).compile(SR, block_size=64, device="cpu")
     c.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
     c.process_block()
     assert {"node": "filts", "kernel": "tpt_svf_scan",
