@@ -23,7 +23,10 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             filter kernels lp18_scan (inputs that saturate its tanh) and
             biquad_scan (an input that decays below 1e-15, so its snaps
             fire) at V=2 and 256, B=1024 and 4096 and V=3, B=37, row and
-            per-sample coefficients, 3 chained blocks;
+            per-sample coefficients, 3 chained blocks; the allpass cascade
+            allpass_cascade_scan (both halfband branches' betas as lanes)
+            at V=1, 2 and 256, B=1024, 2048 and 4096 and V=3, B=37, 3
+            chained blocks;
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
@@ -48,15 +51,24 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             at block 5, exactly 1 (fused) or 2 lp18_scan launches per
             block, fused equal to two-node, the card equal to the CPU; and
             a saw -> IirLowpass graph at B=1024 and 33 with a cutoff change
-            mid-run, one biquad_scan per block, against the CPU; both with
-            every block after the first under sync debug mode "error";
+            mid-run, one biquad_scan per block, against the CPU; the 4x
+            saturator (``build_saturator(4)``, the sinc boundary) and the
+            same graph with the IIR-halfband boundary (``policy=
+            "sinc_iir"``) at B=1024 and 4096, exactly one phase_scan over
+            4B samples and 2 allpass_cascade_scan (IIR) per block; the
+            simple echo at its defaults (``build_simple_echo()``, 0.25 s,
+            a dissolved feedback island) at B=1024 (48 blocks) and 4096
+            (12), seeded noise through ``x``, feedback 0.5 from block 0,
+            mix 0.8 from the middle, one tpt_svf_scan per block; each
+            against the CPU (<= 1e-6), every block after the first under
+            sync debug mode "error";
 5. timing   each kernel's device time (profiler) and its plain version's
             time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger), a steady
             ``process_block``'s time, device-busy share, top device
             activities and real-time factor per model (for the twin peaks
-            a streaming block, staged from the host), and host time per
-            node.
+            a streaming block, staged from the host; the same for the
+            saturators and the echo), and host time per node.
 
 The line before the last is the JSON kernel report, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -91,6 +103,10 @@ SCAN_SHAPES = ((VOICES, 1024), (VOICES, 4096), (3, 37))
 FILTER_SHAPES = ((2, 1024), (2, 4096), (VOICES, 1024), (VOICES, 4096),
                  (3, 37))
 TWIN_TOL = 1e-6   # card against CPU: the kernels equal their plain versions
+# the allpass cascade: the IIR saturator runs V=2 lanes (the two branches of
+# a halfband stage) over 2B and B samples per block at 4x
+ALLPASS_SHAPES = tuple((V, B) for V in (1, 2, VOICES)
+                       for B in (1024, 2048, 4096)) + ((3, 37),)
 # the least time the card could take (NVIDIA H100 SXM data sheet): the
 # bytes a call must move over the memory rate, or its float ops over the
 # float32 rate outside the tensor cores, whichever is larger
@@ -102,7 +118,9 @@ F32_OPS_PER_S = 67e12
 OPS_PER_STEP = {"v4": 21, "parity": 16, "phase_scan": 3, "tpt_svf_scan": 12,
                 "adsr_scan": 26, "fract_phase3": 9, "fm_chain3_scan": 59,
                 "pivot_chain3_scan": 59, "fm_operator_scan": 20,
-                "lp18_scan": 13, "biquad_scan": 9}
+                "lp18_scan": 13, "biquad_scan": 9,
+                # 3 per stage (a subtract, a product, a sum), S = 2 stages
+                "allpass_cascade_scan": 6}
 
 
 def bound_of(key, inputs, outputs, steps, lanes):
@@ -514,6 +532,42 @@ def main() -> int:
                           f"exact zeros in the last samples of the decaying "
                           f"block {100 * info:.1f}%"))
 
+    # the allpass cascade: torch.equal on every output of 3 chained blocks,
+    # per-lane betas (the halfband branches side by side)
+    from oscen_tpu_torch.ops.resample import BRANCH_A_BETAS, BRANCH_B_BETAS
+
+    def allpass_coefs(V):
+        betas = np.array([BRANCH_A_BETAS, BRANCH_B_BETAS], np.float32).T
+        return on_card(np.ascontiguousarray(np.tile(betas, (1, V))[:, :V]))
+
+    def allpass_operands(V, B, rng_a):
+        return (on_card(rng_a.standard_normal((B, V)).astype(np.float32)),
+                allpass_coefs(V),
+                *(on_card(rng_a.uniform(-1, 1, (2, V)).astype(np.float32))
+                  for _ in range(2)))
+
+    report["allpass_cascade_scan"] = {"max_abs_err": 0.0}
+    for V, B in ALLPASS_SHAPES:
+        rng_a = np.random.default_rng(V + B)
+        _, a, *carry = allpass_operands(V, B, rng_a)
+        before = kiir.launches["allpass_cascade_scan"]
+        for _ in range(3):
+            x = on_card(rng_a.standard_normal((B, V)).astype(np.float32))
+            k_out = kiir.allpass_cascade_scan(x, a, *carry)
+            torch.cuda.synchronize()
+            p_out = kiir.plain_allpass_cascade_scan(x, a, *carry)
+            for u, w in zip(k_out, p_out):
+                if not torch.equal(u, w):
+                    check(False, f"allpass_cascade_scan V={V} B={B}: kernel "
+                          f"and plain version differ by "
+                          f"{float((u - w).abs().max()):.3e}")
+            carry = k_out[1:]
+        check(kiir.launches["allpass_cascade_scan"] == before + 3,
+              "allpass_cascade_scan: launch counter did not advance")
+        phase("kernels", f"allpass_cascade_scan V={V} B={B}: equal to the "
+              f"plain version (torch.equal, every output of 3 chained "
+              f"blocks) ok")
+
     # ---- 4. main path ------------------------------------------------
     def chord(p):
         for i in range(VOICES):
@@ -554,6 +608,9 @@ def main() -> int:
         def walk(t):
             if isinstance(t, dict):
                 for v in t.values():
+                    walk(v)
+            elif isinstance(t, (tuple, list)):
+                for v in t:
                     walk(v)
             else:
                 leaves.append(t)
@@ -645,6 +702,9 @@ def main() -> int:
     def walk(t):
         if isinstance(t, dict):
             for v in t.values():
+                walk(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
                 walk(v)
         else:
             leaves.append(t)
@@ -914,6 +974,140 @@ def main() -> int:
               f"{TWIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
         check(ok, "IIR lowpass checks failed")
 
+    # the oversampled saturator: a 2 kHz saw and a hard clip at 4x, the
+    # sinc (build_saturator) or the IIR-halfband boundary
+    from oscen_tpu_torch import HardClip, PolyBlepOscillator
+    from oscen_tpu_torch.models.simple import (build_saturator,
+                                               build_simple_echo)
+
+    def sat_graph(policy):
+        if policy == "sinc":
+            return build_saturator(4)
+        g = Graph("Sat4iir")
+        g.output("audio_out", "stream")
+        osc = g.add("osc", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
+        clip = g.add("clip", HardClip(), rate=4)
+        g.connect(osc.output, clip.input)
+        g.connect(clip.output, "audio_out", policy=policy)
+        return g
+
+    def sat_drive(device, policy, B, n):
+        c = sat_graph(policy).compile(SR, block_size=B, device=device)
+        ys = []
+        for i in range(n):
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(c.process_block()["audio_out"])
+        return c, ys
+
+    def card_vs_cpu(label, ys, cpu):
+        errs = [float((a.cpu() - b).abs().max()) for a, b in zip(ys, cpu)]
+        phase("main", f"{label}: card against CPU, max abs per block "
+              f"{['%.3e' % e for e in errs[:8]]}"
+              + (f" ... (all {len(errs)} blocks: {max(errs):.3e})"
+                 if len(errs) > 8 else "") + f" (<= {TWIN_TOL:.0e})")
+        check(max(errs) <= TWIN_TOL, f"{label}: card and CPU disagree")
+
+    sat_launches = {}
+    for policy in ("sinc", "sinc_iir"):
+        for B in BLOCKS:
+            n = 8 if B == 1024 else 4
+            reset_all()
+            t0 = time.perf_counter()
+            c, ys = sat_drive("cuda", policy, B, n)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {"phase_scan": kphase.launches["phase_scan"],
+                   "allpass_cascade_scan":
+                   kiir.launches["allpass_cascade_scan"]}
+            for k, v in got.items():
+                sat_launches[(policy, k)] = sat_launches.get(
+                    (policy, k), 0) + v
+            want = {"phase_scan": n,
+                    "allpass_cascade_scan": 2 * n if policy == "sinc_iir"
+                    else 0}
+            audio = torch.cat(ys)
+            leaves = []
+            walk(c.state)
+            peak = float(audio.abs().max())
+            checks = {
+                "shape": tuple(ys[0].shape) == (B,)
+                and ys[0].device.type == "cuda",
+                "finite": bool(torch.isfinite(audio).all()),
+                "peak": 0.5 < peak < 1.2,
+                "state_on_cuda": all(x.device.type == "cuda"
+                                     for x in leaves),
+                "launches": got == want,
+            }
+            label = f"saturator 4x {policy} B={B}"
+            phase("main", f"{label}: {n} blocks (all but the first under "
+                  f"sync debug mode 'error'), peak {peak:.4f}, {secs:.2f} s, "
+                  f"kernel launches {got} (want {want}: one phase_scan over "
+                  f"{4 * B} samples per block"
+                  + (", one allpass_cascade_scan per halfband stage"
+                     if policy == "sinc_iir" else "")
+                  + f"); checks {checks}")
+            check(all(checks.values()), f"{label} checks failed: {checks}")
+            card_vs_cpu(label, ys[:4], sat_drive("cpu", policy, B, 4)[1])
+
+    # the simple echo at its defaults: a 0.25 s delay whose feedback island
+    # dissolves (min_delay 12000 >= B + 4)
+    def echo_input(B, n):
+        return (np.random.default_rng(5).standard_normal(n * B) * 0.3
+                ).astype(np.float32)
+
+    def echo_drive(device, B, n):
+        """Seeded noise through ``x`` block by block; feedback 0.5 from
+        block 0, mix 0.8 from block n // 2; every block after the first
+        under sync debug mode "error" on the card."""
+        x = echo_input(B, n)
+        c = build_simple_echo().compile(SR, block_size=B, device=device)
+        c.set_value("feedback", 0.5)
+        ys = []
+        for i in range(n):
+            if i == n // 2:
+                c.set_value("mix", 0.8)
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(c.process_block(
+                    stream_inputs={"x": x[i * B:(i + 1) * B]})["out"])
+        return c, ys
+
+    for B, n in ((1024, 48), (4096, 12)):
+        reset_all()
+        t0 = time.perf_counter()
+        c, ys = echo_drive("cuda", B, n)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = kiir.launches["tpt_svf_scan"]
+        audio = torch.cat(ys).cpu().numpy()
+        # the dry part x * (1 - mix), as the graph computes it in float32
+        keep = np.where(np.arange(n * B) < n // 2 * B,
+                        np.float32(1.0) - np.float32(0.5),
+                        np.float32(1.0) - np.float32(0.8)).astype(np.float32)
+        wet = np.abs(audio - echo_input(B, n) * keep)
+        D = 12000 + 1          # read 12000 samples back, before the push
+        leaves = []
+        walk(c.state)
+        checks = {
+            "shape": tuple(ys[0].shape) == (B,)
+            and ys[0].device.type == "cuda",
+            "finite": bool(np.isfinite(audio).all()),
+            "dry_only_before_the_delay": float(wet[:D].max()) == 0.0,
+            "echoes_return": all(float(wet[k * D:(k + 1) * D].max()) > 0.05
+                                 for k in range(1, n * B // D)),
+            "state_on_cuda": all(x.device.type == "cuda" for x in leaves),
+            "dissolved": {"node": "delay", "path": "dissolved_island_delay"}
+            in c.explain(),
+            "tpt_svf_launches": got == n,
+        }
+        label = f"simple echo B={B}"
+        phase("main", f"{label}: {n} blocks of seeded noise (all but the "
+              f"first under sync debug mode 'error'), feedback 0.5, mix 0.8 "
+              f"from block {n // 2}, peak {float(np.abs(audio).max()):.4f}, "
+              f"{secs:.2f} s, tpt_svf_scan launches {got} (want {n}); "
+              f"checks {checks}")
+        check(all(checks.values()), f"{label} checks failed: {checks}")
+        card_vs_cpu(label, ys, echo_drive("cpu", B, n)[1])
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -1168,6 +1362,46 @@ def main() -> int:
                   f"block: " + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c:.0f}"
                                          for k, t, c in top))
 
+    # the allpass cascade at the IIR saturator's shapes: V=2 lanes (the two
+    # branches of a halfband stage) over 2B then B samples per block at 4x
+    for V, Bp in ((2, 2048), (2, 1024), (2, 8192), (2, 4096)):
+        args = allpass_operands(V, Bp, np.random.default_rng(Bp))
+        fn = kiir.allpass_cascade_scan
+        ms = device_ms(lambda: fn(*args), 50, kernel="allpass_kernel")
+        plain_ms = time_ms(lambda: kiir.plain_allpass_cascade_scan(*args), 1,
+                           warm=1)
+        b = bound_of("allpass_cascade_scan", args, fn(*args), Bp, V)
+        phase("timing", f"allpass_cascade_scan V={V} B={Bp}: kernel "
+              f"{ms * 1e3:.1f} us (device), bound {b['bound_ms'] * 1e3:.3f} "
+              f"us ({b['bound_by']}), plain PyTorch {plain_ms * 1e3:.1f} "
+              f"us/call ({card})")
+        if Bp == 2048:
+            report["allpass_cascade_scan"].update(ms=ms, plain_ms=plain_ms,
+                                                  **b)
+
+    # the saturators' and the echo's steady blocks (the echo's input staged
+    # from the host every block), and where their device time goes
+    for label, make in (
+            ("saturator 4x sinc", lambda B: sat_graph("sinc")),
+            ("saturator 4x sinc_iir", lambda B: sat_graph("sinc_iir")),
+            ("simple echo", lambda B: build_simple_echo())):
+        for B in BLOCKS:
+            c = make(B).compile(SR, block_size=B, device="cuda")
+            kw = ({"stream_inputs": {"x": echo_input(B, 1)}}
+                  if label == "simple echo" else {})
+            c.process_block(**kw)
+            ms = time_ms(lambda: c.process_block(**kw), 20)
+            busy, top, n_kern = device_ms(lambda: c.process_block(**kw), 20,
+                                          top=6)
+            phase("timing", f"{label} process_block B={B}: "
+                  f"{ms * 1e3:.1f} us/block, device busy {busy * 1e3:.1f} us "
+                  f"({100 * busy / ms:.1f}%), {n_kern:.0f} device activities "
+                  f"per block, real-time factor {(B / SR) / (ms * 1e-3):.1f}x "
+                  f"({card})")
+            phase("timing", f"{label} B={B} top device time per block: "
+                  + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c_:.0f}"
+                              for k, t, c_ in top))
+
     sources = {"v4": ("additive_voice_v4", "additive.cu",
                       "oscen_tpu/ops/pallas/additive.py:260"),
                "parity": ("additive_voice_parity", "additive.cu",
@@ -1189,10 +1423,13 @@ def main() -> int:
                "lp18_scan": ("lp18_scan", "iir.cu",
                              "oscen_tpu/ops/pallas/iir.py:185"),
                "biquad_scan": ("biquad_scan", "iir.cu",
-                               "oscen_tpu/ops/pallas/iir.py:262")}
+                               "oscen_tpu/ops/pallas/iir.py:262"),
+               "allpass_cascade_scan": ("allpass_cascade_scan", "iir.cu",
+                                        "oscen_tpu/ops/pallas/iir.py:328")}
     # main-path launches: the piano, the poly synth, the FM models
     # (fract_phase3 from the fm synth's and the pivot's runs together), the
-    # twin peaks (fused and two-node, both block sizes) and the IIR lowpass
+    # twin peaks (fused and two-node, both block sizes), the IIR lowpass and
+    # the IIR-boundary saturator (both block sizes)
     path_launches = {**launches, **poly_launches}
     path_launches["fract_phase3"] = sum(
         fm_launches[m]["fract_phase3"] for m in ("fm synth", "pivot"))
@@ -1204,6 +1441,8 @@ def main() -> int:
         "fm_operator_scan"]
     path_launches["lp18_scan"] = twin_launches
     path_launches["biquad_scan"] = iir_launches
+    path_launches["allpass_cascade_scan"] = sat_launches[
+        ("sinc_iir", "allpass_cascade_scan")]
     kernels = []
     for key, rep in report.items():
         name, src, replaces = sources[key]

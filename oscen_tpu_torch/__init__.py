@@ -3,13 +3,15 @@
 A port of the JAX package ``oscen_tpu`` (which stays the reference) to
 PyTorch, with its TPU kernels rewritten as CUDA kernels for Hopper.  Module
 paths and names mirror the JAX package.  The port so far holds the
-electric-piano, poly-synth, FM and twin-peaks slices: the graph front end,
-block-mode compilation on one device (``Graph.compile(...)`` runs on the
-CUDA card; ``device="cpu"`` asks for the CPU), the host MIDI and
+electric-piano, poly-synth, FM, twin-peaks and echo/saturator slices: the
+graph front end, block-mode compilation on one device (``Graph.compile(...)``
+runs on the CUDA card; ``device="cpu"`` asks for the CPU) with multirate
+regions, feedback edges and dissolved delay islands, the host MIDI and
 voice-allocation nodes, the additive voice, the tremolo, the oscillators,
-the TPT, IIR and LP18 filters, the ADSR envelope and bank, the FM operator
-and the small utility nodes.  Tensors on the CPU run each kernel's plain
-PyTorch version; tensors on a CUDA card run the kernel.
+the TPT, IIR and LP18 filters, the ADSR envelope and bank, the FM operator,
+the delay line, the resamplers and the small utility nodes.  Tensors on
+the CPU run each kernel's plain PyTorch version; tensors on a CUDA card
+run the kernel.
 """
 
 from .core.events import (EventBuffer, EventInstance, NoteOffEvent,
@@ -19,8 +21,9 @@ from .core.types import (DEFAULT_MAX_BLOCK_SIZE, Kind, ParamSpec, Policy,
                          SampleRate)
 from .graph.builder import Frame, Graph, GraphError, call
 from .graph.node import HostNode, Node, StepValue
-from .nodes.basic import (AddValue, Crossfade, FmOperator, Gain, Mixer,
-                          MulAdd, Tremolo, Vca)
+from .nodes.basic import (AddValue, Crossfade, FmOperator, Gain, HardClip,
+                          Mixer, MulAdd, Tremolo, Vca)
+from .nodes.delay import Delay
 from .nodes.electric_piano import (AmplitudeSource, ElectricPianoVoice,
                                    OscillatorBank)
 from .nodes.envelope import AdsrBank, AdsrEnvelope
@@ -34,9 +37,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AddValue", "AdsrBank", "AdsrEnvelope", "AmplitudeSource", "Crossfade",
-    "DEFAULT_MAX_BLOCK_SIZE", "DualLP18Diff", "ElectricPianoVoice",
+    "DEFAULT_MAX_BLOCK_SIZE", "Delay", "DualLP18Diff", "ElectricPianoVoice",
     "EventBuffer", "EventInstance", "FmOperator", "Frame", "Gain", "Graph",
-    "GraphError", "HostNode", "IirLowpass", "Kind", "LP18Filter",
+    "GraphError", "HardClip", "HostNode", "IirLowpass", "Kind", "LP18Filter",
     "MidiParser", "MidiVoiceHandler", "Mixer", "MulAdd",
     "Node", "NoteOffEvent", "NoteOnEvent", "Oscillator", "OscillatorBank",
     "ParamSpec", "Policy", "PolyBlepOscillator", "RawMidiMessage",

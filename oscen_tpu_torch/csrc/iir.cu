@@ -1,6 +1,6 @@
 // Sequential-in-time, parallel-in-voice IIR recurrences for Hopper (sm_90a).
 //
-// Three kernels, each replacing one of oscen_tpu/ops/pallas/iir.py with the
+// Four kernels, each replacing one of oscen_tpu/ops/pallas/iir.py with the
 // reference's per-sample op order (so every output is bit-identical across
 // block sizes):
 //
@@ -27,6 +27,14 @@
 // flushes denormals; the JAX package's CPU scan keeps them, and so do the
 // kernel and its plain version here).
 //
+// allpass_kernel replaces allpass_cascade_scan (_allpass_kernel; the branch of
+// the IIR-halfband resampler, resample/halfband_iir.rs:24-63): S first-order
+// allpasses chained within the sample, per stage
+//   y = a[s] * (x - yp[s]) + xp[s];  xp[s] = x;  yp[s] = y;  x = y.
+// The coefficients and both histories of every stage stay in registers (S is
+// a template parameter, 1 to 8). The wrapper may put both branches of one
+// halfband stage side by side as lanes, each with its own betas in a [S, V].
+//
 // Layout: one thread per voice lane; the filter state stays in registers
 // for the whole block.  x and y are time-major [B, V] (a warp's loads and
 // stores of one time step are coalesced).  Every coefficient is either a
@@ -36,9 +44,10 @@
 //
 // What bounds them on the card: each recurrence is serial in time (about
 // 9 dependent float ops per sample for the TPT and the biquad, 13 plus a
-// double-precision tanh for the LP18), and 256 voices are 8 warps for 132
-// SMs; the twin-peaks filter is 1 or 2 lanes of one warp.  So every kernel
-// is bound by the latency of that chain.  They move 8 bytes per sample and
+// double-precision tanh for the LP18, 3 * S for the allpass cascade), and
+// 256 voices are 8 warps for 132 SMs; the twin-peaks filter is 1 or 2 lanes
+// of one warp, the oversampled saturator's resampler 2 (one per branch).  So
+// every kernel is bound by the latency of that chain.  They move 8 bytes per sample and
 // lane (up to 28 with per-sample coefficients), far below the 3.35 TB/s
 // memory bound.  One warp per CUDA block spreads the warps over SMs; the
 // unrolled time loop lets the loads run ahead of the chain.  The true block
@@ -150,6 +159,51 @@ biquad_kernel(const float* __restrict__ x, const float* __restrict__ b0,
   v2_out[v] = v2;
 }
 
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+allpass_kernel(const float* __restrict__ x, const float* __restrict__ a,
+               const float* __restrict__ xp_in,
+               const float* __restrict__ yp_in, float* __restrict__ y,
+               float* __restrict__ xp_out, float* __restrict__ yp_out, int V,
+               int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float c[S], xp[S], yp[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    c[s] = a[s * V + v];
+    xp[s] = xp_in[s * V + v];
+    yp[s] = yp_in[s * V + v];
+  }
+#pragma unroll 4
+  for (int t = 0; t < B; ++t) {
+    const size_t i = (size_t)t * V + v;
+    float cur = x[i];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float out = c[s] * (cur - yp[s]) + xp[s];
+      xp[s] = cur;
+      yp[s] = out;
+      cur = out;
+    }
+    y[i] = cur;
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    xp_out[s * V + v] = xp[s];
+    yp_out[s * V + v] = yp[s];
+  }
+}
+
+template <int S>
+void launch_allpass(const float* x, const float* a, const float* xp,
+                    const float* yp, float* y, float* xp_out, float* yp_out,
+                    int V, int B, cudaStream_t stream) {
+  const dim3 grid((V + kThreads - 1) / kThreads);
+  allpass_kernel<S><<<grid, kThreads, 0, stream>>>(x, a, xp, yp, y, xp_out,
+                                                    yp_out, V, B);
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,6 +248,33 @@ int oscen_biquad_scan(const float* x, const float* b0, const float* b1,
   biquad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       x, b0, b1, b2, a1, a2, v1, v2, y, v1_out, v2_out, V, B, b0_stride,
       b1_stride, b2_stride, a1_stride, a2_stride);
+  return (int)cudaGetLastError();
+}
+
+// x [B, V]; a, xp, yp [S, V] (stage-major) -> y [B, V], xp', yp' [S, V];
+// 1 <= S <= 8.
+int oscen_allpass_cascade_scan(const float* x, const float* a,
+                               const float* xp, const float* yp, float* y,
+                               float* xp_out, float* yp_out, int V, int B,
+                               int S, void* stream) {
+  if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (S) {
+#define OSCEN_ALLPASS_CASE(n)                                             \
+  case n:                                                                 \
+    launch_allpass<n>(x, a, xp, yp, y, xp_out, yp_out, V, B, st);         \
+    break;
+    OSCEN_ALLPASS_CASE(1)
+    OSCEN_ALLPASS_CASE(2)
+    OSCEN_ALLPASS_CASE(3)
+    OSCEN_ALLPASS_CASE(4)
+    OSCEN_ALLPASS_CASE(5)
+    OSCEN_ALLPASS_CASE(6)
+    OSCEN_ALLPASS_CASE(7)
+    OSCEN_ALLPASS_CASE(8)
+#undef OSCEN_ALLPASS_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,19 @@ instance-leading ``[C, B, ...]`` tensors and run as ONE call with the
 instance axis written out (``Node.BATCHED``), or through their
 ``process_block_batched`` kernel path when the block has no events.
 
-Not ported yet, and refused with ``NotImplementedError``: feedback cycles
-(per-sample scan islands and dissolved delay islands), cross-rate edges,
-voice sharding and the stream-epilogue fusion (ROADMAP.md queue 1).
+A node at ``rate=N`` processes ``B*N`` samples; a cross-rate edge runs its
+resampler on the whole block, with the carried state in
+``state["__rs__"]``.  A feedback edge reads its source one sample late: the
+block shifted by one along time, seeded from ``state["__fb__"]``.  A
+feedback island (a strongly connected component) dissolves when every
+cycle passes through a ``Delay`` whose static ``min_delay >= B + 4``: the
+delays read their whole block first, the rest of the island runs as
+ordinary block nodes, and the delays write last.
+
+Not ported yet, and refused with ``NotImplementedError``: per-sample scan
+islands (a cycle that does not dissolve, including oversampled feedback
+islands; ROADMAP.md queue 1, Slice F), voice sharding and the
+stream-epilogue fusion.
 
 Besides its inputs, a node's block methods may ask, by naming the keyword
 in their signature, for what the compiler knows of them on the host:
@@ -154,18 +164,31 @@ def _signature_kw(fn, names) -> frozenset:
     return frozenset(names) & set(inspect.signature(fn).parameters)
 
 
+
+
+def _scan_island_error(comp, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"feedback cycle through {sorted(comp)}: {why}, so it needs a "
+        f"per-sample scan island, which comes to the port with sample mode "
+        f"(ROADMAP.md queue 1, Slice F)")
+
+
 def make_block_fn(prog, block_len: int, literal_params=None,
                   host_params=None):
     """Build ``(state, per_block, ev_bufs) -> (state, out_blocks)``.
 
     ``literal_params``: values of the graph value inputs never set since
     compile (``literal_ins``); ``host_params``: a callable returning the
-    current host values of the graph value inputs (``host_ins``)."""
+    current host values of the graph value inputs (``host_ins``).  Raises
+    ``NotImplementedError`` for a feedback island that does not dissolve at
+    this block length."""
+    from ..nodes.delay import Delay
+
     ir = prog.ir
     B = block_len
     literal_params = literal_params or {}
 
-    # dependency graph over device nodes
+    # dependency graph over device nodes (normal and feedback edges)
     deps: Dict[str, set] = {n: set() for n in prog.device_nodes}
     for e in ir.edges:
         if e.dst_node not in deps:
@@ -173,19 +196,65 @@ def make_block_fn(prog, block_len: int, literal_params=None,
         for r in e.source.endpoints():
             if r.node and r.node in deps and r.node != e.dst_node:
                 deps[e.dst_node].add(r.node)
-    comps = _sccs(prog.device_nodes, deps)
-    for comp in comps:
-        if len(comp) > 1 or comp[0] in deps[comp[0]]:
-            raise NotImplementedError(
-                f"feedback cycle through {sorted(comp)}: per-sample scan "
-                f"islands are not ported yet (ROADMAP.md queue 1, item 4)")
-    order = [c[0] for c in comps]
+    # components come out dependencies first; inside one, topo order
+    topo_pos = {n: i for i, n in enumerate(ir.order)}
+    comps = [sorted(c, key=topo_pos.get)
+             for c in _sccs(prog.device_nodes, deps)]
+
+    def is_island(comp: List[str]) -> bool:
+        if len(comp) > 1:
+            return True
+        n = comp[0]
+        return n in deps[n] or any(
+            e.is_feedback and e.src_reads_state and e.dst_node == n
+            and all(r.node == n for r in e.source.endpoints() if r.node)
+            for e in ir.edges)
+
+    def dissolve_plan(comp: List[str]):
+        """(delays, the rest in evaluation order) of a feedback island
+        whose every cycle passes through a single-instance Delay promising
+        ``min_delay >= B + 4`` (the JAX package's dissolution rule); every
+        read of such a delay this block addresses pre-block contents."""
+        if any(ir.nodes[n].rate != 1 for n in comp):
+            raise _scan_island_error(comp, "it is oversampled")
+        cset = set(comp)
+        dels = [n for n in comp if isinstance(ir.nodes[n].node, Delay)
+                and ir.nodes[n].node.min_delay >= B + 4
+                and ir.nodes[n].count == 1]
+        if not dels:
+            raise _scan_island_error(
+                comp, f"no single-instance Delay on it promises min_delay "
+                f">= B + 4 = {B + 4}")
+        for d in dels:
+            for epn in ("delay_samples", "feedback"):
+                for e in prog.edges_by_dst.get((d, epn), []):
+                    if any(r.node in cset for r in e.source.endpoints()):
+                        raise _scan_island_error(
+                            comp, f"the {epn} of '{d}' is fed from inside "
+                            f"the island")
+        pending = {n: (deps[n] & cset) - set(dels)
+                   for n in comp if n not in dels}
+        order: List[str] = []
+        while pending:
+            ready = sorted((n for n, d_ in pending.items()
+                            if not d_ & set(pending)), key=topo_pos.get)
+            if not ready:
+                raise _scan_island_error(
+                    comp, "a cycle on it passes through no such Delay")
+            order.extend(ready)
+            for n in ready:
+                del pending[n]
+        return dels, order
+
+    plans = [dissolve_plan(c) if is_island(c) else None for c in comps]
+    island_nodes = {n for c, p in zip(comps, plans) if p is not None
+                    for n in c}
 
     # FanIn fusion: node-array outputs whose ONLY consumers are bare
-    # full-instance fan-in sums (and which feed no graph output
-    # expression) may be pre-reduced inside the producing node's batched
-    # kernel: ``process_block_batched(..., fanin_eps)`` then returns
-    # ``__fanin__<ep>`` for them.
+    # full-instance fan-in sums (and which feed no island, feedback carry
+    # or graph output expression) may be pre-reduced inside the producing
+    # node's batched kernel: ``process_block_batched(..., fanin_eps)`` then
+    # returns ``__fanin__<ep>`` for them.
     consumers: Dict[Tuple[str, str], List[IrEdge]] = {}
     for e in ir.edges:
         for r in e.source.endpoints():
@@ -194,6 +263,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     out_refs = {(r.node, r.endpoint)
                 for expr in ir.output_edges.values()
                 for r in expr.endpoints() if r.node}
+    fb_refs = set(prog.fb_keys)
     fanin_only: Dict[str, frozenset] = {}
     for name in prog.device_nodes:
         inst = ir.nodes[name]
@@ -203,11 +273,13 @@ def make_block_fn(prog, block_len: int, literal_params=None,
         for ep in inst.node.OUTPUTS:
             key = (name, ep.name)
             edges = consumers.get(key, [])
-            if edges and key not in out_refs \
+            if edges and key not in out_refs and key not in fb_refs \
                     and all(isinstance(e.source, EndpointRef)
                             and e.fanout == Fanout.FAN_IN
                             and e.dst_index is None
                             and e.kernel == EdgeKernel.NONE
+                            and not e.is_feedback
+                            and e.dst_node not in island_nodes
                             for e in edges):
                 eps.add(ep.name)
         if eps:
@@ -259,6 +331,23 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     literals = {name: fold_eps(name, literal_leaf)
                 for name in prog.device_nodes}
 
+    def payload_shape(ep):
+        return ep.shape if ep.shape else (
+            () if ep.channels == 1 else (ep.channels,))
+
+    def normalize(v, count, n, payload, is_array):
+        """Shape an edge value as the destination's block ((C,)?, n,
+        *payload): payload dims align at the end, missing time/instance
+        axes are prepended."""
+        target = ((count,) if is_array else ()) + (n,) + payload
+        v = torch.as_tensor(v)
+        while v.dim() < len(target):
+            tail = target[len(target) - v.dim():] if v.dim() else ()
+            compatible = v.dim() > 0 and all(
+                s == t_ or s == 1 for s, t_ in zip(v.shape, tail))
+            v = v[None] if compatible else v[..., None]
+        return torch.broadcast_to(v, target)
+
     def block_fn(state, per_block, ev_bufs):
         per_block = reconstruct_step_values(per_block, B)
         # per_block entries staged as [1] (idle params, block-constant
@@ -273,6 +362,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             for k, v in per_block.items()}
         env: Dict[Tuple[str, str], Any] = {}
         new_state = dict(state)
+        new_state["__rs__"] = dict(state["__rs__"])
+        fb = dict(state["__fb__"])
         # node outputs proven block-constant this block (filled in order by
         # stateless nodes' const_out_eps, e.g. a MulAdd with a literal 0.0
         # gain), so const-ness propagates through modulation chains
@@ -280,36 +371,32 @@ def make_block_fn(prog, block_len: int, literal_params=None,
         const_memo: Dict[str, frozenset] = {}
         params: List[Dict[str, float]] = []
 
-        def resolve(ref: EndpointRef):
-            if ref.node == "":
-                return per_block[ref.endpoint]          # [B] or [B, C]
-            if ref.node in prog.host_set:
-                v = per_block[f"__host__{ref.node}.{ref.endpoint}"]
-                if v.dim() == 2:  # [B, C] -> instance-leading [C, B]
-                    v = v.transpose(0, 1)
+        def resolver(edge):
+            """Endpoint values for ``edge`` (None: a graph output)."""
+            def resolve(ref: EndpointRef):
+                if ref.node == "":
+                    return per_block[ref.endpoint]      # [B] or [B, C]
+                if ref.node in prog.host_set:
+                    v = per_block[f"__host__{ref.node}.{ref.endpoint}"]
+                    if v.dim() == 2:  # [B, C] -> instance-leading [C, B]
+                        v = v.transpose(0, 1)
+                    return v
+                v = env[(ref.node, ref.endpoint)]
+                if edge is not None and edge.is_feedback \
+                        and edge.src_reads_state:
+                    # the previous sample: the block shifted by one along
+                    # time, seeded with the carry of the last block
+                    taxis = 1 if ir.nodes[ref.node].count > 1 else 0
+                    init = state["__fb__"][f"{ref.node}.{ref.endpoint}"]
+                    v = torch.cat([init.unsqueeze(taxis),
+                                   v.narrow(taxis, 0, B - 1)], dim=taxis)
                 return v
-            return env[(ref.node, ref.endpoint)]
-
-        def payload_shape(ep):
-            return ep.shape if ep.shape else (
-                () if ep.channels == 1 else (ep.channels,))
-
-        def normalize(v, count, payload, is_array):
-            """Shape an edge value as the destination's block
-            ((C,)?, B, *payload): payload dims align at the end, missing
-            time/instance axes are prepended."""
-            target = ((count,) if is_array else ()) + (B,) + payload
-            v = torch.as_tensor(v)
-            while v.dim() < len(target):
-                tail = target[len(target) - v.dim():] if v.dim() else ()
-                compatible = v.dim() > 0 and all(
-                    s == t_ or s == 1 for s, t_ in zip(v.shape, tail))
-                v = v[None] if compatible else v[..., None]
-            return torch.broadcast_to(v, target)
+            return resolve
 
         def edge_value(e, inst, ep, indexed: bool):
             """Evaluate one edge for its destination (fan-in sum, parallel
-            truncation, broadcast)."""
+            truncation, broadcast, cross-rate resampling with carried
+            kernel state)."""
             pre = None
             if e.fanout == Fanout.FAN_IN and e.dst_index is None \
                     and isinstance(e.source, EndpointRef):
@@ -318,7 +405,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             if pre is not None:
                 v = pre   # mix-down fused into the producer's kernel
             else:
-                v = prog.eval_expr(e.source, resolve)
+                v = prog.eval_expr(e.source, resolver(e))
                 if e.dst_index is None:
                     if e.fanout == Fanout.FAN_IN:
                         v = torch.sum(v, dim=0)  # instance axis leads
@@ -328,22 +415,39 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                         v = prog.segment_sum(v, e.factor)
             is_array = not indexed and inst.count > 1
             count = 1 if indexed else inst.count
+            n_src = B * (inst.rate if e.kernel == EdgeKernel.NONE else
+                         1 if e.kernel == EdgeKernel.UP else e.rate_factor)
             if is_array and e.fanout == Fanout.PARALLEL and v.dim() >= 1 \
-                    and v.shape[0] not in (count, B):
+                    and v.shape[0] not in (count, n_src):
                 v = v[:count]
-            return normalize(v, count, payload_shape(ep), is_array)
+            v = normalize(v, count, n_src, payload_shape(ep), is_array)
+            if e.kernel in (EdgeKernel.UP, EdgeKernel.DOWN):
+                idx = prog.edge_ids[id(e)]
+                kern = prog.resamplers[idx]
+                explain.note(edge=idx, input=ep.name,
+                             resampler=type(kern).__name__,
+                             factor=e.rate_factor)
+                if is_array:
+                    v = v.movedim(0, -1)    # [n, *payload, C]
+                st, v = kern.process_block(new_state["__rs__"][str(idx)], v)
+                new_state["__rs__"][str(idx)] = st
+                if is_array:
+                    v = v.movedim(-1, 0)
+            return v
 
         def default_block(inst, ep):
             full = ((inst.count,) if inst.count > 1 else ()) \
-                + (B,) + payload_shape(ep)
+                + (B * inst.rate,) + payload_shape(ep)
             return torch.full(full, float(ep.default or 0.0),
                               dtype=torch.float32, device=prog.device)
 
-        def gather_block(name: str) -> Dict[str, Any]:
+        def gather_block(name: str, only_eps=None) -> Dict[str, Any]:
             inst = ir.nodes[name]
             ins: Dict[str, Any] = {}
             for ep in inst.node.INPUTS:
                 if ep.kind in (Kind.EVENT, Kind.ASSET):
+                    continue
+                if only_eps is not None and ep.name not in only_eps:
                     continue
                 val = None
                 for e in prog.edges_by_dst.get((name, ep.name), []):
@@ -423,6 +527,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             inst = ir.nodes[name]
             node = inst.node
             sr = prog.scaled_sr(inst)
+            Bn = B * inst.rate   # an oversampled node runs B*N samples
             ins = gather_block(name)
             evs = {ep.name: ev_bufs[f"{name}.{ep.name}"]
                    for ep in node.INPUTS if ep.kind == Kind.EVENT
@@ -435,7 +540,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 bkw = host_kwargs(name, batched_kw[name])
                 if "fanin_eps" in batched_kw[name]:
                     bkw["fanin_eps"] = fanin_only.get(name, frozenset())
-                batched = node.process_block_batched(st, ins, evs, sr, B,
+                batched = node.process_block_batched(st, ins, evs, sr, Bn,
                                                      **bkw)
             if batched is not None:
                 explain.note(path="batched")
@@ -448,21 +553,21 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 # the JAX package's name for this path (it vmaps there)
                 explain.note(path="vmap")
                 st, outs = node.process_block(
-                    st, ins, evs, sr, B, **host_kwargs(name, block_kw[name]))
+                    st, ins, evs, sr, Bn, **host_kwargs(name, block_kw[name]))
             else:
                 explain.note(path="block")
                 kw = host_kwargs(name, block_kw[name])
                 if node.BATCHED:
                     st1, ins1, evs1 = _add_instance_axis(st, ins, evs)
-                    st, outs = node.process_block(st1, ins1, evs1, sr, B,
+                    st, outs = node.process_block(st1, ins1, evs1, sr, Bn,
                                                   **kw)
                     st = tree_map(lambda x: x[0], st)
                     outs = {k: v[0] for k, v in outs.items()}
                 else:
-                    st, outs = node.process_block(st, ins, evs, sr, B, **kw)
+                    st, outs = node.process_block(st, ins, evs, sr, Bn, **kw)
             new_state[name] = st
             for k, v in outs.items():
-                env[(name, k)] = v  # [C, B, ...] / [B, ...]
+                env[(name, k)] = v  # [C, Bn, ...] / [Bn, ...]
             # const-ness propagation: a stateless node may prove outputs
             # block-constant from its (const, literal) input sets
             cfn = getattr(node, "const_out_eps", None)
@@ -472,9 +577,41 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                     const_outs.update((name, epn) for epn in ceps)
                     explain.note(const_outputs=sorted(ceps))
 
-        for name in order:
+        def run(name: str) -> None:
             with explain.processing(name):
                 run_node(name)
+
+        for comp, plan in zip(comps, plans):
+            if plan is None:
+                run(comp[0])
+                continue
+            # dissolved feedback island: read the delays, run the acyclic
+            # rest, write the delays
+            dels, rest = plan
+            stash = {}
+            for d in dels:
+                explain.note(node=d, path="dissolved_island_delay")
+                ins_p = gather_block(d, only_eps=("delay_samples",
+                                                  "feedback"))
+                delayed, fbc = ir.nodes[d].node.block_read(
+                    new_state[d], ins_p, B, literal_ins=literals[d])
+                env[(d, "output")] = delayed
+                stash[d] = (delayed, fbc)
+            for n in rest:
+                run(n)
+            for d in dels:
+                x = gather_block(d, only_eps=("input",))["input"]
+                new_state[d] = ir.nodes[d].node.block_write(
+                    new_state[d], x, *stash[d], B)
+
+        # refresh the feedback carries: the last sample of the block, at
+        # the producing node's own rate
+        for (n, epn) in prog.fb_keys:
+            v = env.get((n, epn))
+            if v is not None:
+                taxis = 1 if ir.nodes[n].count > 1 else 0
+                fb[f"{n}.{epn}"] = v.select(taxis, B * ir.nodes[n].rate - 1)
+        new_state["__fb__"] = fb
 
         # graph outputs
         outs = {}
@@ -487,7 +624,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 outs[o.name] = torch.zeros(shape, dtype=torch.float32,
                                            device=prog.device)
                 continue
-            v = prog.eval_expr(expr, resolve)
+            v = prog.eval_expr(expr, resolver(None))
             want = 1 if o.channels == 1 else 2
             while v.dim() > want:
                 v = torch.sum(v, dim=0)

@@ -49,13 +49,6 @@ class GraphError(ValueError):
     """Graph compilation diagnostic (the compile_error! analogue)."""
 
 
-def _delay_node(samples: float):
-    """The Delay node a delay via synthesizes; the port has none yet."""
-    raise NotImplementedError(
-        f"a delay via ({samples:g} samples) needs the Delay node, which is "
-        f"not ported yet (ROADMAP.md queue 1, Slice E)")
-
-
 class NodeRef:
     """Handle for a declared node; attribute access yields endpoint refs."""
 
@@ -393,8 +386,9 @@ class Graph:
                     else:
                         via_name = f"__flat_via_{_via_ctr[0]}"
                         _via_ctr[0] += 1
+                        from ..nodes.delay import Delay
                         f._nodes[via_name] = IrNodeInst(
-                            via_name, _delay_node(float(int(via))))
+                            via_name, Delay(float(int(via)), 0.0))
                     passthrough.append({
                         "src": stmt["src"],
                         "dst": EndpointRef(via_name, "input"),
@@ -657,17 +651,25 @@ class Graph:
 
     # ................................................................. #
     def _synthesize_output_taps(self, ir: IrGraph) -> None:
-        """In the JAX package a graph output fed from an oversampled node
-        gets a synthesized base-rate tap node carrying the Down resampler;
-        the port has no resamplers yet and says so."""
-        for name, expr in ir.output_edges.items():
-            if any(r.node and r.node in ir.nodes
-                   and ir.nodes[r.node].rate != 1
-                   for r in expr.endpoints()):
-                raise NotImplementedError(
-                    f"graph output '{name}' is fed from an oversampled "
-                    f"node; multirate regions are not ported yet "
-                    f"(ROADMAP.md queue 1, Slice E)")
+        """A graph output fed from an oversampled node gets a synthesized
+        base-rate tap node so the inner->outer edge carries the Down
+        resampler (the reference allows `[sinc] clip.output -> audio_out`
+        directly; the tap reproduces that with explicit edges)."""
+        from ..nodes.basic import Gain
+
+        for name in list(ir.output_edges):
+            expr = ir.output_edges[name]
+            inner = [r for r in expr.endpoints()
+                     if r.node and r.node in ir.nodes
+                     and ir.nodes[r.node].rate != 1]
+            if not inner:
+                continue
+            tap_name = f"__output_tap_{name}"
+            ir.nodes[tap_name] = IrNodeInst(tap_name, Gain(1.0))
+            ir.edges.append(IrEdge(
+                expr, tap_name, "input", None,
+                ir.output_policies.get(name, Policy.DEFAULT)))
+            ir.output_edges[name] = EndpointRef(tap_name, "output")
 
     # ................................................................. #
     def _lower_stmt(self, ir: IrGraph, stmt: dict) -> None:
@@ -728,7 +730,8 @@ class Graph:
             n = int(via)
             via_name = f"__inline_delay_{self._synth_counter}"
             self._synth_counter += 1
-            ir.nodes[via_name] = IrNodeInst(via_name, _delay_node(float(n)))
+            from ..nodes.delay import Delay
+            ir.nodes[via_name] = IrNodeInst(via_name, Delay(float(n), 0.0))
         # Edge 1: src -> via.input (non-feedback)
         ir.edges.append(IrEdge(src, via_name, "input", None, policy,
                                group=stmt.get("group", 1)))

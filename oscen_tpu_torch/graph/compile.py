@@ -13,8 +13,13 @@ the device in ONE host-to-device copy per block.  Blocks whose control
 plane is idle reuse the staged tensors, which stay on the device, so a
 steady block is one call of the block function.
 
-Sample mode (the per-sample schedule), multirate regions and feedback are
-not ported yet and raise ``NotImplementedError``.
+Multirate regions run as in the JAX package's block mode: a node at
+``rate=N`` processes ``B*N`` samples per block, each cross-rate edge carries
+a resampler (``ops/resample.py``) whose state lives in ``state["__rs__"]``,
+and event offsets into an oversampled node are scaled by ``N`` on the host.
+Feedback edges read the previous sample through the carries in
+``state["__fb__"]``.  Sample mode (the per-sample schedule) and per-sample
+scan islands are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ import torch
 from ..core.events import EventBuffer, EventInstance
 from ..core.ramp import ValueRampState
 from ..core.types import (DEFAULT_MAX_BLOCK_SIZE,
-                          MAX_STATIC_EVENTS_PER_ENDPOINT, Kind, SampleRate)
-from .ir import (BinOp, Call, Const, EndpointRef, Expr, FrameCtor, IrEdge,
-                 IrGraph, IrNodeInst)
+                          MAX_STATIC_EVENTS_PER_ENDPOINT, Kind, Policy,
+                          SampleRate)
+from ..ops import resample as _rs
+from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Expr,
+                 FrameCtor, IrEdge, IrGraph, IrNodeInst)
 from .node import StepValue, tree_map
 
 __all__ = ["CompiledGraph", "resolve_device"]
@@ -76,20 +83,35 @@ class _Program:
             n for n in ir.order if not ir.nodes[n].node.HOST]
         self.host_set = set(self.host_nodes)
 
-        if any(ir.nodes[n].rate != 1 for n in ir.order):
-            raise NotImplementedError(
-                "oversampled nodes (multirate regions) are not ported yet "
-                "(ROADMAP.md queue 1, Slice E)")
-        if any(e.is_feedback for e in ir.edges):
-            raise NotImplementedError(
-                "feedback edges are not ported yet (ROADMAP.md queue 1, "
-                "Slice E)")
+        # a resampler per cross-rate edge (reference dispatch tables:
+        # stream Default -> sinc FIR, value Default -> latch)
+        self.resamplers: Dict[int, Any] = {}
+        self.edge_ids: Dict[int, int] = {}
+        for idx, e in enumerate(ir.edges):
+            self.edge_ids[id(e)] = idx
+            if e.kernel not in (EdgeKernel.UP, EdgeKernel.DOWN):
+                continue
+            if e.policy == Policy.DEFAULT:
+                pol = "latch" if e.kind == Kind.VALUE else "sinc"
+            else:
+                pol = e.policy.value
+            make = (_rs.make_upsampler if e.kernel == EdgeKernel.UP
+                    else _rs.make_downsampler)
+            self.resamplers[idx] = make(pol, e.rate_factor)
 
         # edges grouped by destination (declaration order preserved)
         self.edges_by_dst: Dict[Tuple[str, str], List[IrEdge]] = {}
         for e in ir.edges:
             self.edges_by_dst.setdefault(
                 (e.dst_node, e.dst_endpoint), []).append(e)
+
+        # feedback carries: endpoints read from the previous sample
+        self.fb_keys: List[Tuple[str, str]] = []
+        for e in ir.edges:
+            if e.is_feedback and e.src_reads_state:
+                for r in e.source.endpoints():
+                    if r.node and (r.node, r.endpoint) not in self.fb_keys:
+                        self.fb_keys.append((r.node, r.endpoint))
 
         # device event endpoints (consume staged EventBuffers)
         self.event_endpoints: List[Tuple[str, str]] = [
@@ -121,11 +143,37 @@ class _Program:
                 s = tree_map(lambda x: x.expand(
                     (inst.count,) + tuple(x.shape)).clone(), s)
             state[name] = s
-        # same top-level keys as the JAX package's state (feedback carries
-        # and resampler states; the slice has neither)
-        state["__fb__"] = {}
-        state["__rs__"] = {}
+        fb = {}
+        for (n, ep) in self.fb_keys:
+            inst = self.ir.nodes[n]
+            decl = inst.node.output(ep)
+            shape = decl.shape if decl.shape else (
+                () if decl.channels == 1 else (decl.channels,))
+            if inst.count > 1:
+                shape = (inst.count,) + shape
+            fb[f"{n}.{ep}"] = torch.zeros(shape, dtype=torch.float32,
+                                          device=self.device)
+        state["__fb__"] = fb
+        rs = {}
+        for idx, kern in self.resamplers.items():
+            like = torch.zeros(
+                (1,) + self.edge_payload_shape(self.ir.edges[idx]))
+            rs[str(idx)] = tree_map(lambda x: x.to(self.device),
+                                    kern.init_state(like))
+        state["__rs__"] = rs
         return state
+
+    def edge_payload_shape(self, e: IrEdge) -> tuple:
+        """Trailing (non-time) shape a cross-rate edge carries: the
+        channel axes, then the instance axis of a node array (resamplers
+        broadcast over trailing axes)."""
+        inst = self.ir.nodes[e.dst_node]
+        ep = inst.node.input(e.dst_endpoint)
+        payload = ep.shape if ep.shape else (
+            () if ep.channels == 1 else (ep.channels,))
+        if inst.count > 1 and e.dst_index is None:
+            payload = payload + (inst.count,)
+        return payload
 
     def scaled_sr(self, inst: IrNodeInst) -> SampleRate:
         return SampleRate(self.sr.hz * inst.rate)
@@ -232,6 +280,10 @@ class CompiledGraph:
         self._host_steady: Dict[str, Any] = {}
         self._last_event_outs: Dict[str, list] = {}
         self._control_dirty = True
+        # the block function of the compiled block size, built now so that
+        # a graph the port cannot run yet (a per-sample scan island) fails
+        # at compile time
+        self._block_fn(self.block_size)
 
     # ------------------------------------------------------------------ #
     def init(self, sample_rate: Optional[float] = None) -> None:
@@ -476,7 +528,9 @@ class CompiledGraph:
                     # every instance block-constant: [1, C]
                     val_env[(name, ep)] = rec["const"].reshape(1, cnt)
 
-        # device event buffers (numpy here; staged with everything else)
+        # device event buffers (numpy here; staged with everything else);
+        # offsets into an oversampled node count its inner samples
+        # (reference EdgeKernel::Event{Multiply}, emit_frame.rs)
         ev_bufs: Dict[str, EventBuffer] = {}
         for (name, ep) in prog.event_endpoints:
             inst = ir.nodes[name]
@@ -509,7 +563,8 @@ class CompiledGraph:
                         off[i, j] = ev2.frame_offset
                         val[i, j] = ev2.scalar
                         ok[i, j] = True
-                ev_bufs[f"{name}.{ep}"] = EventBuffer(off, val, ok)
+                ev_bufs[f"{name}.{ep}"] = EventBuffer(off * inst.rate, val,
+                                                      ok)
             else:
                 evs = []
                 for e in edges:  # last-write-wins (connect semantics)
@@ -518,8 +573,11 @@ class CompiledGraph:
                             and isinstance(src_evs[0], list):
                         src_evs = src_evs[e.source.index]
                     evs = list(src_evs)
-                ev_bufs[f"{name}.{ep}"] = EventBuffer.from_events(
-                    evs, _round_capacity(len(evs)))
+                buf = EventBuffer.from_events(evs, _round_capacity(len(evs)))
+                if inst.rate != 1:
+                    buf = EventBuffer(buf.offsets * inst.rate, buf.values,
+                                      buf.valid)
+                ev_bufs[f"{name}.{ep}"] = buf
 
         host_vals = {}
         for (n, ep), arr in val_env.items():
@@ -732,6 +790,14 @@ class CompiledGraph:
     def node_state(self, name: str):
         """A node's current state (nested dict of tensors)."""
         return self.state[name]
+
+    def latency_samples(self) -> int:
+        """Total base-rate latency of the cross-rate Down edges (reference
+        emit_struct.rs:534-570: each down kernel's latency divided by its
+        rate factor)."""
+        return sum(kern.latency_samples() // self.ir.edges[idx].rate_factor
+                   for idx, kern in self.prog.resamplers.items()
+                   if self.ir.edges[idx].kernel == EdgeKernel.DOWN)
 
     def explain(self, block_len: Optional[int] = None,
                 formatted: bool = False):

@@ -30,11 +30,20 @@ State = Dict[str, Any]
 Values = Dict[str, Any]
 
 
-def tree_map(fn: Callable, *trees):
-    """Map ``fn`` over the leaves of nested dicts with equal keys."""
+def tree_map(fn: Callable, *trees, is_leaf=None):
+    """Map ``fn`` over the leaves of nested dicts, tuples and lists of equal
+    structure; containers keep their type (a resampler's state is a tuple
+    of per-stage dicts, ``()`` for the stateless ones).  ``is_leaf(x)``
+    true stops the descent at ``x``, as in ``jax.tree_util.tree_map``."""
     first = trees[0]
+    if is_leaf is not None and is_leaf(first):
+        return fn(*trees)
     if isinstance(first, dict):
-        return {k: tree_map(fn, *[t[k] for t in trees]) for k in first}
+        return {k: tree_map(fn, *[t[k] for t in trees], is_leaf=is_leaf)
+                for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_map(fn, *xs, is_leaf=is_leaf)
+                           for xs in zip(*trees))
     return fn(*trees)
 
 

@@ -4,8 +4,9 @@ Counterpart of ``oscen_tpu/nodes/basic.py``: Gain (gain/mod.rs), Vca
 (examples/pivot/src/vca.rs), the fm-synth example's Mixer, Crossfade and
 AddValue (examples/fm-synth/src/nodes/), MulAdd, Tremolo
 (examples/electric-piano/src/tremolo.rs) and FmOperator
-(examples/fm-synth/src/nodes/fm_operator.rs).  ``Value``, ``AudioInput``
-and ``HardClip`` come with their slices (ROADMAP.md queue 1).  The JAX
+(examples/fm-synth/src/nodes/fm_operator.rs), and HardClip (the
+oversampled saturator's nonlinearity).  ``Value`` and ``AudioInput`` come
+with their slice (ROADMAP.md queue 1).  The JAX
 package's stream-epilogue fusion hook (``kernel_epilogue``, default off
 there) is not ported.
 
@@ -85,6 +86,17 @@ class Vca(_StatelessNode):
 
     def process_block(self, state, ins, events, sr, block_len):
         return state, {"output": ins["input"] * ins["control"]}
+
+
+class HardClip(_StatelessNode):
+    """Drive-then-clip nonlinearity (reference oversampled-saturator
+    main.rs:31-62): ``out = clamp(in * 1.5, -0.7, 0.7)``."""
+
+    INPUTS = (stream("input", 0.0),)
+    OUTPUTS = (stream("output"),)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return state, {"output": torch.clamp(ins["input"] * 1.5, -0.7, 0.7)}
 
 
 class Mixer(_StatelessNode):

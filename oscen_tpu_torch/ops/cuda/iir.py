@@ -2,9 +2,9 @@
 versions.
 
 Counterpart of ``oscen_tpu/ops/pallas/iir.py``; holds the TPT SVF lowpass,
-the LP18 (three poles, the first through ``tanh``) and the DF-II-T biquad
-(the allpass cascade comes with the multirate regions).  Each keeps the
-reference's per-sample op order, so the output is bit-identical across
+the LP18 (three poles, the first through ``tanh``), the DF-II-T biquad and
+the first-order allpass cascade of the IIR-halfband resampler.  Each keeps
+the reference's per-sample op order, so the output is bit-identical across
 block sizes:
 
 - ``tpt_svf_scan``: filters/tpt/mod.rs:108-123;
@@ -14,10 +14,13 @@ block sizes:
 - ``biquad_scan``: iir_lowpass/mod.rs:109-132 with the reference tick's
   denormal snaps: ``|x|``, ``|v1|`` and ``|v2|`` below
   ``DENORMAL_THRESHOLD`` become 0 (the Pallas kernel leaves them out
-  because the TPU flushes denormals; the card and the CPU keep them).
+  because the TPU flushes denormals; the card and the CPU keep them);
+- ``allpass_cascade_scan``: resample/halfband_iir.rs:24-63, S stages of
+  ``y = a*(x - y_prev) + x_prev`` chained within the sample.
 
-Every coefficient is a ``[V]`` row (block-constant) or a ``[B, V]``
-per-sample plane; the kernels take a time stride of 0 or V for each.
+Every coefficient of the first three is a ``[V]`` row (block-constant) or
+a ``[B, V]`` per-sample plane; the kernels take a time stride of 0 or V for
+each.  The allpass cascade takes ``[S, V]`` rows.
 
 Selection: a CPU tensor runs the plain version, a CUDA tensor runs the
 kernel of ``csrc/iir.cu`` (built at first use) or raises.  ``launches``
@@ -32,7 +35,8 @@ import torch
 
 from .. import fmath
 
-KERNELS = ("tpt_svf_scan", "lp18_scan", "biquad_scan")
+KERNELS = ("tpt_svf_scan", "lp18_scan", "biquad_scan",
+           "allpass_cascade_scan")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 DENORMAL_THRESHOLD = 1e-15
@@ -209,3 +213,51 @@ def plain_biquad_scan(x, b0, b1, b2, a1, a2, v1, v2):
         v2 = _snap(c2 * xt - d2 * out)
         y[t] = out
     return y, v1, v2
+
+
+# --------------------------------------------------------------------- #
+def allpass_cascade_scan(x, a, xp, yp):
+    """One block through an S-stage first-order allpass cascade,
+    lane-parallel (the branch of the IIR-halfband resampler;
+    ``_allpass_kernel`` of ``oscen_tpu/ops/pallas/iir.py``).
+
+    Args: ``x`` ``[B, V]`` time-major; ``a``, ``xp``, ``yp`` ``[S, V]``:
+    each stage's coefficient and its input and output histories, per lane
+    (so one launch may carry lanes with different coefficients, e.g. both
+    branches of a halfband stage).  Returns (``y`` ``[B, V]``, ``xp'``,
+    ``yp'``).  On the card, ``csrc/iir.cu``'s ``allpass_kernel`` keeps every
+    stage in registers; it is bound by the serial chain of 3·S dependent
+    float ops per sample step, not by bytes.
+    """
+    if x.dim() != 2 or a.dim() != 2:
+        raise ValueError(f"allpass_cascade_scan: x must be [B, V] and a "
+                         f"[S, V] (got {tuple(x.shape)}, {tuple(a.shape)})")
+    S, V = a.shape
+    if x.shape[1] != V or not 1 <= S <= 8:
+        raise ValueError(f"allpass_cascade_scan: a must be [S, {x.shape[1]}]"
+                         f" with 1 <= S <= 8 (got {tuple(a.shape)})")
+    B, V = _check_shapes("allpass_cascade_scan", x, {},
+                         {"xp": (xp, S), "yp": (yp, S)})
+    if _route("allpass_cascade_scan", x):
+        return plain_allpass_cascade_scan(x, a, xp, yp)
+    y = torch.empty_like(x)
+    xpo = torch.empty_like(xp)
+    ypo = torch.empty_like(yp)
+    _launch("allpass_cascade_scan", "oscen_allpass_cascade_scan", x,
+            dict(x=x, a=a, xp=xp, yp=yp), (y, xpo, ypo), V, B, [S])
+    return y, xpo, ypo
+
+
+def plain_allpass_cascade_scan(x, a, xp, yp):
+    """The kernel's per-sample loop in plain PyTorch, over ``[V]`` rows:
+    per stage ``y = a*(x - yp) + xp``, then ``xp = x``, ``yp = y``."""
+    y = torch.empty_like(x)
+    coef = list(a.unbind(0))
+    xps, yps = list(xp.unbind(0)), list(yp.unbind(0))
+    for t in range(x.shape[0]):
+        cur = x[t]
+        for s in range(len(coef)):
+            out = coef[s] * (cur - yps[s]) + xps[s]
+            xps[s], yps[s], cur = cur, out, out
+        y[t] = cur
+    return y, torch.stack(xps), torch.stack(yps)

@@ -2,11 +2,16 @@
 
 A JAX ``CompiledGraph.state`` mapped to numpy
 (``jax.tree_util.tree_map(np.asarray, c.state)``) is a nested dict of
-arrays; the port's state has the same keys and nesting.  These tree maps
-keep key names, shapes and dtypes (the piano's ``step`` int32 and
-``released`` bool, the ADSR's ``stage``, ``rem``, ``age`` and ``stage_len``
-int32 — ``[C, N]`` in an ``AdsrBank`` array — the FM chains' ``phases`` and
-``prevs`` ``[C, 3]``, the rest float32).
+arrays, tuples and lists; the port's state has the same keys, nesting and
+container types.  These tree maps keep key names, shapes and dtypes (the
+piano's ``step`` int32 and ``released`` bool, the ADSR's ``stage``,
+``rem``, ``age`` and ``stage_len`` int32 — ``[C, N]`` in an ``AdsrBank``
+array — the FM chains' ``phases`` and ``prevs`` ``[C, 3]``, the
+``Delay``'s ``write_pos`` and ``frame_counter`` int32, the rest float32),
+including the feedback carries ``__fb__`` and the resampler states
+``__rs__``: a tuple of per-stage dicts per cross-rate edge (the IIR
+halfband's histories are tuples of per-allpass rows), ``()`` for the
+latch and the linear down.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ def state_from_jax(np_state: Any, device="cuda") -> Any:
     """Numpy state (from the JAX package) -> torch state on ``device``:
     the CUDA card by default (without a card this raises), or ``"cpu"``."""
     dev = resolve_device(device)
+    # the JAX package's states nest dicts and tuples; a list there is an
+    # array value (``np.asarray`` of it), not a container
     return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev),
-                    np_state)
+                    np_state, is_leaf=lambda x: isinstance(x, list))
 
 
 def state_to_numpy(state: Any) -> Any:

@@ -1,7 +1,8 @@
 """oscen_tpu_torch on a CUDA card: each kernel against its plain PyTorch
-version, the electric-piano, poly-synth, FM and twin-peaks slices and an
-IIR-lowpass graph on the card against the CPU, and the card as the
-default device.
+version, the electric-piano, poly-synth, FM and twin-peaks slices, an
+IIR-lowpass graph, the echo and the 4x saturators (sinc and IIR-halfband
+boundaries) on the card against the CPU, and the card as the default
+device.
 
 These tests carry the ``cuda`` marker and skip without a card.  This file
 imports no jax; on a machine with a card and no JAX run it with the JAX
@@ -564,3 +565,124 @@ def test_iir_lowpass_on_card_matches_cpu(cuda, B):
     b = run("cpu")
     assert float(b.abs().max()) > 0.1
     assert float((a - b).abs().max()) <= 1e-6
+
+
+# ------------------------------------------------------------------ #
+# the echo and saturator slice: allpass_cascade_scan, the resamplers,
+# the delay
+# ------------------------------------------------------------------ #
+ALLPASS_SHAPES = [(1, 1024), (2, 2048), (2, 4096), (256, 1024), (3, 37)]
+
+
+@pytest.mark.parametrize("V,B", ALLPASS_SHAPES)
+def test_allpass_cascade_scan_kernel_equals_plain(cuda, V, B):
+    """3 chained blocks, per-lane betas (the two halfband branches side by
+    side): every output bit for bit."""
+    from oscen_tpu_torch.ops.resample import BRANCH_A_BETAS, BRANCH_B_BETAS
+    rng = np.random.default_rng(V + B)
+    betas = np.array([BRANCH_A_BETAS, BRANCH_B_BETAS], np.float32).T
+    a = _on(cuda, np.tile(betas, (1, V))[:, :V])
+    carry = [_on(cuda, rng.uniform(-1, 1, (2, V))) for _ in range(2)]
+    before = kiir.launches["allpass_cascade_scan"]
+    for _ in range(3):
+        x = _on(cuda, rng.standard_normal((B, V)))
+        out = kiir.allpass_cascade_scan(x, a, *carry)
+        torch.cuda.synchronize()
+        assert _equal(out, kiir.plain_allpass_cascade_scan(x, a, *carry))
+        carry = list(out[1:])
+    assert kiir.launches["allpass_cascade_scan"] == before + 3
+
+
+def _echo(device, B, n=8):
+    """A 0.05 s echo (2400 samples, so the island dissolves at B=1024 and
+    echoes return within the run): seeded noise block by block, feedback
+    0.6 from block 0, mix 0.8 from block n // 2."""
+    from oscen_tpu_torch.models.simple import build_simple_echo
+    x = (np.random.default_rng(2).standard_normal(n * B) * 0.3).astype(
+        np.float32)
+    c = build_simple_echo(0.05).compile(48000.0, block_size=B,
+                                        device=device)
+    c.set_value("feedback", 0.6)
+    ys = []
+    for i in range(n):
+        if i == n // 2:
+            c.set_value("mix", 0.8)
+        ys.append(c.process_block(
+            stream_inputs={"x": x[i * B:(i + 1) * B]})["out"])
+    return c, torch.cat(ys).cpu()
+
+
+@pytest.mark.parametrize("B", [512, 1024])
+def test_echo_on_card_matches_cpu(cuda, B):
+    """The dissolved echo: one tpt_svf_scan per block, the delay's ring
+    buffer on the card, the card within 1e-6 of the CPU."""
+    kiir.reset_launches()
+    c, y = _echo("cuda", B)
+    assert kiir.launches["tpt_svf_scan"] == 8
+    assert c.state["delay"]["buf"].device.type == "cuda"
+    assert float((y - _echo("cpu", B)[1]).abs().max()) <= 1e-6
+    assert float(y.abs().max()) > 0.3
+
+
+@pytest.mark.parametrize("policy", ["sinc", "sinc_iir"])
+def test_saturator_on_card_matches_cpu(cuda, policy):
+    """The 4x saturator: one phase_scan per block over 4B samples, and with
+    the IIR boundary two allpass_cascade_scan launches per block (one per
+    halfband stage, both branches as lanes); the card within 1e-6 of the
+    CPU."""
+    from oscen_tpu_torch import Graph, HardClip, PolyBlepOscillator
+
+    def run(device):
+        g = Graph("Sat4")
+        g.output("audio_out", "stream")
+        osc = g.add("osc", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
+        clip = g.add("clip", HardClip(), rate=4)
+        g.connect(osc.output, clip.input)
+        g.connect(clip.output, "audio_out", policy=policy)
+        c = g.compile(48000.0, block_size=1024, device=device)
+        return c, torch.cat([c.process_block()["audio_out"]
+                             for _ in range(4)]).cpu()
+    kiir.reset_launches()
+    kphase.reset_launches()
+    c, y = run("cuda")
+    assert kphase.launches["phase_scan"] == 4
+    assert kiir.launches["allpass_cascade_scan"] == \
+        (8 if policy == "sinc_iir" else 0)
+    from oscen_tpu_torch.graph.node import tree_map
+    leaves = []
+    tree_map(leaves.append, c.state["__rs__"])
+    assert all(t.device.type == "cuda" for t in leaves)
+    assert float((y - run("cpu")[1]).abs().max()) <= 1e-6
+    assert float(y.abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("delay,min_delay,B", [(150.0, 64, 256),
+                                               (77.25, 40, 128)],
+                         ids=["integer", "fractional"])
+def test_chunked_delay_on_card_matches_cpu(cuda, delay, min_delay, B):
+    """The chunked delay (the interpolating read, a gather per chunk, an
+    out-of-place scatter) with feedback 0.6 and its parameters live from
+    graph inputs: the card equal to the CPU within 1e-6."""
+    from oscen_tpu_torch import Delay, Graph
+
+    def run(device):
+        g = Graph("D")
+        g.input("x", "stream")
+        g.input("fb", "value", default=0.6)
+        g.input("dly", "value", default=delay)
+        g.output("out", "stream")
+        d = g.add("d", Delay(delay, 0.0, min_delay=min_delay))
+        g.connect("x", d.input)
+        g.connect("fb", d.feedback)
+        g.connect("dly", d.delay_samples)
+        g.connect(d.output, "out")
+        c = g.compile(48000.0, block_size=B, device=device)
+        c.set_value("dly", delay + 3.5)
+        x = np.random.default_rng(7).standard_normal(4 * B).astype(
+            np.float32)
+        y = c.render_mono(4 * B, stream_inputs={"x": x})
+        assert c.state["d"]["buf"].device.type == device
+        return y
+    y = run("cuda")
+    assert np.abs(y - run("cpu")).max() <= 1e-6
+    assert np.abs(y).max() > 0.5

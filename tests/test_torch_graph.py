@@ -94,8 +94,13 @@ def test_unported_paths_raise():
     t2 = d.add("t2", T.Tremolo())
     d.connect(t1.output[0], t2.input, via=16)
     d.connect(t2.output, "out")
-    with pytest.raises(NotImplementedError, match="Delay"):
-        d.lower()
+    # the via lowers to a real Delay now, but one with no min_delay
+    # promise runs only as the per-sample scan (Slice F)
+    assert any(type(i.node).__name__ == "Delay"
+               for i in d.lower().nodes.values())
+    c = d.compile(48000.0, block_size=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice F"):
+        c.process_block()
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

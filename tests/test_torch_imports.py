@@ -1,8 +1,9 @@
 """oscen_tpu_torch never imports jax: with ``sys.modules["jax"] = None``
 (any ``import jax`` then raises) the package imports, and the electric
 piano, the poly synth, the README synth, the fm synth, the pivot, the twin
-peaks (fused and two-node) and an IIR-lowpass graph build, compile and
-render on the CPU."""
+peaks (fused and two-node), an IIR-lowpass graph, the echo and the
+saturators (sinc and IIR-halfband boundaries) build, compile and render on
+the CPU."""
 
 import subprocess
 import sys
@@ -64,6 +65,27 @@ def test_port_imports_and_renders_without_jax():
         g.connect(f.output, "out")
         i = g.compile(48000.0, block_size=33, device="cpu")
         assert abs(i.render_mono(256)).max() > 0.1
+        from oscen_tpu_torch import Delay, HardClip, PolyBlepOscillator
+        from oscen_tpu_torch.models.simple import (build_saturator,
+                                                   build_simple_echo)
+        from oscen_tpu_torch.ops import resample, ringbuffer  # noqa: F401
+        from oscen_tpu_torch.nodes import delay  # noqa: F401
+        e = build_simple_echo(0.02).compile(48000.0, block_size=256,
+                                            device="cpu")
+        y = e.render_mono(512, stream_inputs={"x": x})
+        assert abs(y).max() > 0.1 and e.explain()[0]["node"] == "delay"
+        for policy in ("sinc", "sinc_iir"):
+            g = oscen_tpu_torch.Graph("S")
+            g.output("out", "stream")
+            o = g.add("o", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
+            k = g.add("k", HardClip(), rate=4)
+            g.connect(o.output, k.input)
+            g.connect(k.output, "out", policy=policy)
+            s4 = g.compile(48000.0, block_size=64, device="cpu")
+            assert abs(s4.render_mono(256)).max() > 0.5
+        assert build_saturator(2).compile(48000.0, block_size=64,
+                                          device="cpu").latency_samples() == 5
+        assert Delay(10.0).min_delay == 0
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)

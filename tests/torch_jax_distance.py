@@ -1,4 +1,5 @@
-"""How far the port's filter slice sits from the JAX package on the CPU.
+"""How far the port's filter and echo/saturator slices sit from the JAX
+package on the CPU.
 
 Not a test (pytest does not collect it): a measurement that prints the
 distances the tests' tolerances rest on.  Run from the repository root:
@@ -16,7 +17,15 @@ It prints, each on one line:
   with a cutoff change mid-run, and the JAX IIR block against the exact
   float32 recurrence (which the port's plain scan equals bit for bit);
 - the port's plain biquad against the Pallas kernel over the chained
-  random blocks of ``tests/test_torch_filters.py``.
+  random blocks of ``tests/test_torch_filters.py``;
+- the simple echo against the JAX dissolved and scan-island graphs, the
+  saturators (sinc at 1x-8x, IIR halfband at 2x and 4x) against the JAX
+  compiled graphs, over the sequences of
+  ``tests/test_torch_echo_saturator.py``;
+- the JAX package's allpass branch (``_allpass_block``, a compiled
+  ``lax.scan``) against the exact float32 recurrence (the port's plain
+  version) and against the same recurrence with each stage's product and
+  sum fused into one rounding (an FMA, emulated in float64).
 """
 
 import os
@@ -32,11 +41,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import test_torch_echo_saturator as tes  # noqa: E402
 import test_torch_filters as tf  # noqa: E402
 import test_torch_twin_peaks as ttp  # noqa: E402
 from oscen_tpu.core.types import SampleRate  # noqa: E402
 from oscen_tpu.models.twin_peaks import build_twin_peaks  # noqa: E402
 from oscen_tpu.nodes.filters import IirLowpass  # noqa: E402
+from oscen_tpu.ops import resample as jrs  # noqa: E402
 from oscen_tpu.ops.pallas.iir import biquad_scan  # noqa: E402
 import oscen_tpu as J  # noqa: E402
 import oscen_tpu_torch as T  # noqa: E402
@@ -111,6 +122,48 @@ def main():
                                                 - np.asarray(yj)).max()))
     print(f"plain biquad vs Pallas interpret, chained random blocks: max "
           f"abs {worst:.3e}")
+
+    b = tes._echo(T).render_mono(4096, stream_inputs={"x": tes.X})
+    for md in (True, False):
+        a = tes._echo(J, md).render_mono(4096, stream_inputs={"x": tes.X})
+        print(f"simple echo (0.02 s, feedback 0.6, B=512) vs JAX "
+              f"{'dissolved' if md else 'scan island'}: max abs "
+              f"{np.abs(a - b).max():.3e} (peak {np.abs(a).max():.3f}, "
+              f"4096 samples)")
+    for policy, factors in (("sinc", (1, 2, 4, 8)), ("sinc_iir", (2, 4))):
+        for f in factors:
+            a = tes._sat_policy(J, policy, f).compile(SR, 256) \
+                .render_mono(2048)
+            b = tes._compile(T, tes._sat_policy(T, policy, f), 256) \
+                .render_mono(2048)
+            print(f"saturator {f}x {policy} vs JAX: max abs "
+                  f"{np.abs(a - b).max():.3e} (peak {np.abs(a).max():.3f}, "
+                  f"2048 samples)")
+
+    x = np.random.default_rng(1).uniform(-4, 4, 4096).astype(np.float32)
+    betas = jrs.BRANCH_A_BETAS
+    cur = jnp.asarray(x)
+    for beta in betas:
+        cur, _, _ = jrs._allpass_block(beta, cur, jnp.float32(0.0),
+                                       jnp.float32(0.0))
+    jax_y = np.asarray(cur)
+    exact, *_ = tiir.plain_allpass_cascade_scan(
+        torch.tensor(x)[:, None],
+        torch.tensor(np.array(betas, np.float32))[:, None],
+        torch.zeros(2, 1), torch.zeros(2, 1))
+    fma = x.copy()
+    for beta in np.array(betas, np.float32):
+        xp = yp = np.float32(0.0)
+        for t in range(fma.shape[0]):
+            xt = fma[t]
+            d = np.float32(xt - yp)
+            yp = np.float32(np.float64(beta) * np.float64(d)
+                            + np.float64(xp))
+            xp, fma[t] = xt, yp
+    print(f"JAX allpass branch (lax.scan, 4096 samples, |x| <= 4) vs the "
+          f"exact float32 recurrence: max abs "
+          f"{np.abs(jax_y - exact[:, 0].numpy()).max():.3e}; vs the FMA "
+          f"recurrence: {np.abs(jax_y - fma).max():.3e}")
 
 
 if __name__ == "__main__":
