@@ -14,10 +14,11 @@ Counterpart of ``oscen_tpu/core/events.py``.  Events live in two domains:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .types import MAX_STATIC_EVENTS_PER_ENDPOINT
 
@@ -87,6 +88,12 @@ class EventBuffer:
         return int(self.offsets.shape[-1])
 
     @staticmethod
+    def empty(capacity: int = 0) -> "EventBuffer":
+        return EventBuffer(np.zeros((capacity,), np.int32),
+                           np.zeros((capacity,), np.float32),
+                           np.zeros((capacity,), bool))
+
+    @staticmethod
     def from_events(events: Sequence[EventInstance],
                     capacity: Optional[int] = None) -> "EventBuffer":
         """Pack a host event list into a sorted dense numpy buffer (stable
@@ -104,3 +111,57 @@ class EventBuffer:
             val[i] = e.scalar
             ok[i] = True
         return EventBuffer(off, val, ok)
+
+    @staticmethod
+    def stack(buffers: Sequence["EventBuffer"]) -> "EventBuffer":
+        """Stack per-instance buffers into a leading instance axis (node
+        arrays, per-voice event demux), padded to the largest capacity."""
+        cap = max((b.capacity for b in buffers), default=0)
+        padded = [b.pad_to(cap) for b in buffers]
+        if padded and isinstance(padded[0].offsets, torch.Tensor):
+            return EventBuffer(*(torch.stack([getattr(b, f) for b in padded])
+                                 for f in ("offsets", "values", "valid")))
+        return EventBuffer(*(np.stack([np.asarray(getattr(b, f))
+                                       for b in padded])
+                             for f in ("offsets", "values", "valid")))
+
+    def pad_to(self, capacity: int) -> "EventBuffer":
+        """The buffer with ``capacity`` slots; the new ones are invalid."""
+        k = self.capacity
+        if k == capacity:
+            return self
+        if k > capacity:
+            raise ValueError("cannot shrink EventBuffer")
+        if isinstance(self.offsets, torch.Tensor):
+            return EventBuffer(*(torch.nn.functional.pad(x, (0, capacity - k))
+                                 for x in (self.offsets, self.values,
+                                           self.valid)))
+        pw = [(0, 0)] * (np.ndim(self.offsets) - 1) + [(0, capacity - k)]
+        return EventBuffer(*(np.pad(np.asarray(x), pw)
+                             for x in (self.offsets, self.values,
+                                       self.valid)))
+
+
+@dataclass
+class EventQueue:
+    """Host-side event queue of the host-domain control nodes: the
+    reference's ``EventInput``/``EventOutput`` ArrayVec queues
+    (types.rs:136-241), which drop what overflows the capacity."""
+
+    events: List[EventInstance] = field(default_factory=list)
+    capacity: int = MAX_STATIC_EVENTS_PER_ENDPOINT
+
+    def try_push(self, ev: EventInstance) -> bool:
+        if len(self.events) >= self.capacity:
+            return False  # dropped, like the reference's try_push
+        self.events.append(ev)
+        return True
+
+    def clear(self) -> None:
+        self.events.clear()
+
+    def __iter__(self):
+        return iter(self.events)
+
+    def __len__(self) -> int:
+        return len(self.events)

@@ -17,10 +17,16 @@ cycle passes through a ``Delay`` whose static ``min_delay >= B + 4``: the
 delays read their whole block first, the rest of the island runs as
 ordinary block nodes, and the delays write last.
 
+Stream-epilogue fusion (``OSCEN_EPILOGUE_FUSION=1``, read when the block
+function is built; default off, as in the JAX package): a fused voice
+mix-down whose single consumer is a scalar node with ``kernel_epilogue``
+(the Tremolo) runs that node inside the producer's kernel, in every block
+whose consumer value inputs are block-constant; the consumer then does not
+run on its own.
+
 Not ported yet, and refused with ``NotImplementedError``: per-sample scan
 islands (a cycle that does not dissolve, including oversampled feedback
-islands; ROADMAP.md queue 1, Slice F), voice sharding and the
-stream-epilogue fusion.
+islands; ROADMAP.md queue 1, Slice F) and voice sharding.
 
 Besides its inputs, a node's block methods may ask, by naming the keyword
 in their signature, for what the compiler knows of them on the host:
@@ -43,6 +49,7 @@ in their signature, for what the compiler knows of them on the host:
 from __future__ import annotations
 
 import inspect
+import os
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -284,6 +291,31 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 eps.add(ep.name)
         if eps:
             fanin_only[name] = frozenset(eps)
+    # stream-epilogue fusion, static half (JAX block_mode.py:228-265): a
+    # fused-mixdown output whose single consumer is a scalar, rate-1 node
+    # with ``kernel_epilogue``, no event inputs, that edge as its only
+    # stream input, and one output
+    epi_static: Dict[str, Tuple[str, str]] = {}
+    if os.environ.get("OSCEN_EPILOGUE_FUSION", "0") != "0":
+        for name, eps in fanin_only.items():
+            for epn in eps:
+                edges = consumers.get((name, epn), [])
+                if len(edges) != 1:
+                    continue
+                t = edges[0].dst_node
+                ti = ir.nodes.get(t)
+                if ti is None or ti.count != 1 or ti.rate != 1 \
+                        or ir.nodes[name].rate != 1 or t in island_nodes \
+                        or not hasattr(ti.node, "kernel_epilogue") \
+                        or len(ti.node.OUTPUTS) != 1:
+                    continue
+                if all(p.kind != Kind.EVENT and (
+                        p.kind != Kind.STREAM
+                        or prog.edges_by_dst.get((t, p.name), []) == (
+                            [edges[0]] if p.name == edges[0].dst_endpoint
+                            else []))
+                       for p in ti.node.INPUTS):
+                    epi_static[name] = (epn, t)
     # the keyword arguments each node's block methods take, read from
     # their signatures as the JAX package does (block_mode.py:642-687)
     host_kw = ("const_ins", "literal_ins", "host_ins")
@@ -292,7 +324,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 for name in prog.device_nodes}
     batched_kw = {
         name: _signature_kw(ir.nodes[name].node.process_block_batched,
-                            ("fanin_eps",) + host_kw)
+                            ("fanin_eps", "epilogue") + host_kw)
         for name in prog.device_nodes
         if hasattr(ir.nodes[name].node, "process_block_batched")}
 
@@ -370,6 +402,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
         const_outs: set = set()
         const_memo: Dict[str, frozenset] = {}
         params: List[Dict[str, float]] = []
+        # consumers that ran inside their producer's kernel epilogue
+        fused_away: set = set()
 
         def resolver(edge):
             """Endpoint values for ``edge`` (None: a graph output)."""
@@ -523,6 +557,23 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                                   if k in value_eps}
             return kw
 
+        def epilogue_for(name: str, Bn: int):
+            """Dynamic half of the epilogue fusion (JAX block_mode.py:
+            625-641): the consumer's value inputs are block-constant THIS
+            block.  Returns ``(ep, C, fn, params, consumer, its new state,
+            its output name)`` or None."""
+            ep, t = epi_static[name]
+            ti = ir.nodes[t]
+            vals_eps = {p.name for p in ti.node.INPUTS
+                        if p.kind == Kind.VALUE}
+            if not vals_eps <= const_eps(t):
+                return None
+            vals = {k: v[0] for k, v in
+                    gather_block(t, only_eps=vals_eps).items()}
+            C, fn, prm, t_state = ti.node.kernel_epilogue(
+                new_state[t], vals, prog.scaled_sr(ti), Bn)
+            return (ep, C, fn, prm, t, t_state, ti.node.OUTPUTS[0].name)
+
         def run_node(name: str) -> None:
             inst = ir.nodes[name]
             node = inst.node
@@ -535,16 +586,27 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                    and ev_bufs[f"{name}.{ep.name}"].capacity > 0}
             st = new_state[name]
             batched = None
+            epi = None
             if inst.count > 1 and not evs and name in batched_kw:
                 # voice-batched kernel path (None: take process_block)
                 bkw = host_kwargs(name, batched_kw[name])
                 if "fanin_eps" in batched_kw[name]:
                     bkw["fanin_eps"] = fanin_only.get(name, frozenset())
+                if name in epi_static and "epilogue" in batched_kw[name]:
+                    epi = epilogue_for(name, Bn)
+                    if epi is not None:
+                        bkw["epilogue"] = epi[:4]
                 batched = node.process_block_batched(st, ins, evs, sr, Bn,
                                                      **bkw)
             if batched is not None:
                 explain.note(path="batched")
                 st, outs = batched
+                if epi is not None and f"__epi__{epi[0]}" in outs:
+                    ep, _, _, _, t, t_state, t_out = epi
+                    env[(t, t_out)] = outs.pop(f"__epi__{ep}")
+                    new_state[t] = t_state
+                    fused_away.add(t)
+                    explain.note(epilogue_fused_consumer=t)
             elif inst.count > 1:
                 if not node.BATCHED:
                     raise NotImplementedError(
@@ -578,6 +640,9 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                     explain.note(const_outputs=sorted(ceps))
 
         def run(name: str) -> None:
+            if name in fused_away:
+                explain.note(node=name, path="fused_into_producer_epilogue")
+                return   # ran inside its producer's kernel epilogue
             with explain.processing(name):
                 run_node(name)
 

@@ -668,20 +668,45 @@ class CompiledGraph:
             pos += size
         return out
 
+    def _holds(self, t: torch.Tensor) -> bool:
+        """True when ``t`` lies on this graph's device (``"cuda"`` names the
+        current card, which a tensor reports with its index)."""
+        d = self.device
+        if t.device.type != d.type:
+            return False
+        if d.type == "cuda" and d.index is None:
+            return t.device.index == torch.cuda.current_device()
+        return t.device == d
+
     def _stage(self, B: int, ev_np: Dict[str, EventBuffer],
                host_vals: Dict[str, np.ndarray], stream_inputs=None):
         """Per-block staging: graph params (materialized ramps), stream
-        inputs, host values and event buffers, in one transfer."""
+        inputs, host values and event buffers, in one transfer.  A stream
+        input that is already a tensor on the graph's device (another
+        graph's output, say) is not copied: it is padded to B with zeros
+        on the device and used as it is."""
         arrays: Dict[Any, np.ndarray] = {}
+        on_device: Dict[str, torch.Tensor] = {}
         for gi in self.ir.inputs:
             if gi.kind == Kind.VALUE:
                 arrays[("pb", gi.name)] = \
                     self._params[gi.name].materialize_block(B)
             elif gi.kind == Kind.STREAM:
                 shape = (B,) if gi.channels == 1 else (B, gi.channels)
+                src = (stream_inputs or {}).get(gi.name)
+                if isinstance(src, torch.Tensor) and self._holds(src):
+                    x = src[:B].to(torch.float32)
+                    if x.shape[0] < B:   # short tails pad with zeros
+                        x = torch.cat([x, torch.zeros(
+                            (B - x.shape[0],) + tuple(x.shape[1:]),
+                            dtype=torch.float32, device=self.device)])
+                    on_device[gi.name] = x
+                    continue
                 arr = np.zeros(shape, np.float32)
-                if stream_inputs and gi.name in stream_inputs:
-                    src = np.asarray(stream_inputs[gi.name], np.float32)[:B]
+                if src is not None:
+                    if isinstance(src, torch.Tensor):
+                        src = src.detach().cpu()
+                    src = np.asarray(src, np.float32)[:B]
                     arr[:src.shape[0]] = src   # short tails pad with zeros
                 arrays[("pb", gi.name)] = arr
         for k, arr in host_vals.items():
@@ -692,6 +717,7 @@ class CompiledGraph:
             arrays[("ok", k)] = b.valid
         dev = self._to_device(arrays)
         per_block = {k: v for (kind, k), v in dev.items() if kind == "pb"}
+        per_block.update(on_device)
         ev_bufs = {k: EventBuffer(dev[("off", k)].to(torch.int32),
                                   dev[("val", k)], dev[("ok", k)] > 0.5)
                    for k in ev_np}
@@ -734,7 +760,8 @@ class CompiledGraph:
             n = min(self.block_size, total - pos)
             si = None
             if stream_inputs:
-                si = {k: np.asarray(v)[pos:pos + n]
+                si = {k: (v[pos:pos + n] if isinstance(v, torch.Tensor)
+                          else np.asarray(v)[pos:pos + n])
                       for k, v in stream_inputs.items()}
             chunks.append(self.process_block(n, si))
             pos += n
@@ -802,12 +829,22 @@ class CompiledGraph:
     def explain(self, block_len: Optional[int] = None,
                 formatted: bool = False):
         """Report how each node executes in the steady-state block path
-        (batched kernel vs composed path, fused mix-down).  Runs one
-        block on the current state and discards the result; host-side
-        state the staging would advance (queued events, ramps, host-node
-        control state) is snapshotted and restored."""
+        (batched kernel vs composed path, fused mix-down, fused epilogue).
+
+        Deviation from the JAX package, which traces the block abstractly
+        (``jax.eval_shape``, no device work): the port runs one real block
+        on the current state, on the device, and discards the result.  The
+        compiled state is untouched (every state update is out of place);
+        the kernels' ``launches`` counters and the host-side state the
+        staging would advance (queued events, ramps, host-node control
+        state) are snapshotted and restored, so a later run is as if
+        ``explain`` had not been called.  It costs one block of device
+        time."""
+        from ..ops.cuda import launch_counters
         from . import explain as _explain
         B = int(block_len or self.block_size)
+        counters = launch_counters()
+        saved_launches = [dict(c) for c in counters]
         saved_queues = {k: list(q) for k, q in self._event_queues.items()}
         saved_params = copy.deepcopy(self._params)
         saved_hosts = {
@@ -835,6 +872,8 @@ class CompiledGraph:
                     n.__dict__.update(s)
             self._host_steady = saved_steady
             self._last_event_outs = saved_ev_outs
+            for c, saved in zip(counters, saved_launches):
+                c.update(saved)
         if formatted:
             return _explain.format_report(entries)
         return entries

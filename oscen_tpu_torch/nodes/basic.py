@@ -1,14 +1,14 @@
 """Small utility nodes.
 
 Counterpart of ``oscen_tpu/nodes/basic.py``: Gain (gain/mod.rs), Vca
-(examples/pivot/src/vca.rs), the fm-synth example's Mixer, Crossfade and
+(examples/pivot/src/vca.rs), Value (value.rs), AudioInput
+(graph/audio_input.rs), the fm-synth example's Mixer, Crossfade and
 AddValue (examples/fm-synth/src/nodes/), MulAdd, Tremolo
 (examples/electric-piano/src/tremolo.rs) and FmOperator
 (examples/fm-synth/src/nodes/fm_operator.rs), and HardClip (the
-oversampled saturator's nonlinearity).  ``Value`` and ``AudioInput`` come
-with their slice (ROADMAP.md queue 1).  The JAX
-package's stream-epilogue fusion hook (``kernel_epilogue``, default off
-there) is not ported.
+oversampled saturator's nonlinearity).  Tremolo implements the
+stream-epilogue fusion hook (``kernel_epilogue``; the block compiler uses
+it under ``OSCEN_EPILOGUE_FUSION=1``, default off as in the JAX package).
 
 The stateless nodes broadcast: they take a leading instance axis
 (``BATCHED``), so a node array is one call.
@@ -16,16 +16,13 @@ The stateless nodes broadcast: they take a leading instance axis
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..core.types import Kind, SampleRate, stream, value
 from ..graph.node import Node
 from ..ops import fmath
+from ..ops.cuda.additive import K_REBASE, TAU, tremolo_pan
 from ..ops.cuda.fm import fm_operator_scan
-
-TAU = 2.0 * math.pi
 
 
 class _StatelessNode(Node):
@@ -86,6 +83,27 @@ class Vca(_StatelessNode):
 
     def process_block(self, state, ins, events, sr, block_len):
         return state, {"output": ins["input"] * ins["control"]}
+
+
+class Value(_StatelessNode):
+    """Pass-through parameter holder (reference value.rs)."""
+
+    def __init__(self, initial_value: float = 0.0):
+        self.INPUTS = (value("input", float(initial_value)),)
+        self.OUTPUTS = (value("output"),)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return state, {"output": ins["input"]}
+
+
+class AudioInput(_StatelessNode):
+    """value→stream bridge (reference graph/audio_input.rs)."""
+
+    INPUTS = (value("input_value", 0.0),)
+    OUTPUTS = (stream("output"),)
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return state, {"output": ins["input_value"]}
 
 
 class HardClip(_StatelessNode):
@@ -174,7 +192,7 @@ class Tremolo(Node):
     INPUTS = (stream("input", 0.0), value("rate", 5.0), value("depth", 0.5))
     OUTPUTS = (stream("output", channels=2),)
 
-    K_REBASE = 1 << 20  # dt·k stays exact well below 2^24
+    K_REBASE = K_REBASE  # dt·k stays exact well below 2^24
 
     def init_state(self, sr: SampleRate):
         return {"anchor": torch.tensor(0.0, dtype=torch.float32),
@@ -226,6 +244,34 @@ class Tremolo(Node):
                      "dt_last": dt0}
         return new_state, {"output": self._pan(ins["input"], phase,
                                                ins["depth"])}
+
+    def kernel_epilogue(self, state, vals, sr, block_len):
+        """Stream-epilogue fusion protocol (graph/block_mode.py): when this
+        node's only stream input is a producer's fused voice mix-down and
+        its value inputs are block-constant, the producer's kernel runs the
+        per-sample pan after its mix.  ``vals`` holds the value inputs as
+        0-dim tensors.  Returns ``(C, fn, params, new_state)``: the channel
+        count, the pan (the kernel's, see ops/cuda/additive.py
+        ``tremolo_pan``), its ``[anchor, k0, dt, depth, a2]`` and the state
+        after the block, advanced here in closed form with the arithmetic
+        of :meth:`process_block`."""
+        dt0 = fmath.div(vals["rate"], sr.hz)
+        K = float(self.K_REBASE)
+        anchor, k0 = self._rebase(state["anchor"], state["k"],
+                                  state["dt_last"], dt0)
+        a2 = self._wrap(anchor + dt0 * K)
+        k_end = k0 + block_len
+        reb = k_end >= self.K_REBASE
+        new_state = {"anchor": torch.where(reb, a2, anchor),
+                     "k": torch.where(reb, k_end - self.K_REBASE, k_end),
+                     "dt_last": dt0}
+        params = torch.stack([anchor, k0.to(torch.float32), dt0,
+                              vals["depth"].to(torch.float32), a2])
+        return 2, Tremolo._epilogue_fn, params, new_state
+
+    # the per-sample pan of the mix at ticks t0.. (mix [U], params
+    # [anchor, k0, dt, depth, a2]) -> the two channel columns
+    _epilogue_fn = staticmethod(tremolo_pan)
 
     def _process_varying(self, state, ins, dt):
         """Per-sample rate (a ramping parameter): the tick recurrence,

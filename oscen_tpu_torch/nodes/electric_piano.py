@@ -431,7 +431,7 @@ class ElectricPianoVoice(Node):
                 {"output": out["output"]})
 
     def process_block_batched(self, state, ins, events, sr, block_len,
-                              fanin_eps=frozenset()):
+                              fanin_eps=frozenset(), epilogue=None):
         """All voices through one fused kernel (no events).  Returns None
         when the block length is not a multiple of the kernel's 8-sample
         granularity; such blocks take the composed path.
@@ -439,16 +439,24 @@ class ElectricPianoVoice(Node):
         When the compiler marks ``output`` as fan-in-only (its sole
         consumers sum over all voices), the mix-down runs inside the
         kernel and only the summed audio comes back, as
-        ``__fanin__output``."""
+        ``__fanin__output``.  ``epilogue`` (``(ep, C, fn, params)``, the
+        block compiler's stream-epilogue fusion) also runs the mix's single
+        consumer inside the kernel; its ``[B, C]`` output comes back as
+        ``__epi__output``."""
         from ..ops.cuda.additive import (_UNROLL, additive_voice_block,
-                                         kernel_version)
+                                         epilogue_supported, kernel_version)
         if block_len % _UNROLL:
             return None
         with_mix = "output" in fanin_eps
+        if epilogue is not None and not (
+                with_mix and epilogue[0] == "output"
+                and epilogue_supported(ins["frequency"].shape[0])):
+            epilogue = None
         from ..graph import explain
         if explain.active():
             explain.note(kernel=f"additive_voice_{kernel_version()}",
-                         fanin_mixdown_fused=with_mix)
+                         fanin_mixdown_fused=with_mix,
+                         stream_epilogue_fused=epilogue is not None)
 
         bank = state["bank"]
         amp = state["amp"]
@@ -468,10 +476,14 @@ class ElectricPianoVoice(Node):
         def plane(x):
             return x.t().contiguous()   # [C, H] -> [H, C]
 
+        epi_kw = {}
+        if epilogue is not None:
+            _, epi_c, epi_fn, epi_params = epilogue
+            epi_kw = dict(epi_fn=epi_fn, epi_c=epi_c, epi_params=epi_params)
         y, or_o, oi_o, cur_o, tgt_o, step_o = additive_voice_block(
             plane(ore), plane(oim), plane(mre), plane(mim),
             plane(amp["current"]), plane(amp["target"]), plane(mult),
-            amp["step"], block_len, with_mix=with_mix)
+            amp["step"], block_len, with_mix=with_mix, **epi_kw)
         new_state = {
             "bank": {**bank, "osc_re": or_o.t(), "osc_im": oi_o.t(),
                      "mul_re": mre, "mul_im": mim,
@@ -479,6 +491,9 @@ class ElectricPianoVoice(Node):
             "amp": {**amp, "current": cur_o.t(), "target": tgt_o.t(),
                     "step": step_o.to(torch.int32)},
         }
+        if epilogue is not None:
+            # y [B, C]: the consumer's output, computed after the mix
+            return new_state, {"__epi__output": y}
         if with_mix:
             return new_state, {"__fanin__output": y}   # [B], pre-summed
         return new_state, {"output": y.t()}

@@ -131,6 +131,17 @@ class MidiVoiceHandler(HostNode):
         return {"gate": gate}, {"frequency": freq}
 
 
+class EventPassthrough(HostNode):
+    """Forwards events in→out (reference event_passthrough.rs); the graph
+    compiler uses it for graph-level event routing."""
+
+    INPUTS = (event("input"),)
+    OUTPUTS = (event("output"),)
+
+    def host_process(self, block_len, events_in, values_in):
+        return {"output": list(events_in.get("input", []))}, {}
+
+
 def raw_midi_event(data) -> RawMidiMessage:
     """Helper to build a raw MIDI payload (reference midi.rs:228-230)."""
     return RawMidiMessage.new(data)

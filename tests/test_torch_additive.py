@@ -54,7 +54,8 @@ def _chain(call, st, step, blocks=2):
 
 
 @pytest.mark.parametrize("with_mix", [False, True])
-@pytest.mark.parametrize("version,B", [("v4", 64), ("parity", 32)])
+@pytest.mark.parametrize("version,B", [("v4", 64), ("parity", 32),
+                                       ("v3", 64), ("v2", 64)])
 def test_plain_matches_pallas_interpret(version, B, with_mix):
     V = 8
     st, step = _additive_state(V)
@@ -134,22 +135,119 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_version_and_shape_errors(monkeypatch):
+    """v3 and v2 run (by name and through OSCEN_ADDITIVE_KERNEL); an unknown
+    version, a ragged block and a device without a kernel raise."""
     st, step = _additive_state(4)
     planes = [torch.as_tensor(st[k]) for k in KEYS]
     s = torch.as_tensor(step)
     for version in ("v2", "v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tadd.additive_voice_block(*planes, s, 16, version=version)
-    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "v3")
-    with pytest.raises(NotImplementedError):
-        tadd.additive_voice_block(*planes, s, 16)
+        y, *_ = tadd.additive_voice_block(*planes, s, 16, version=version)
+        assert y.shape == (16, 4)
+    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "v2")
+    y_env, *_ = tadd.additive_voice_block(*planes, s, 16)
+    assert torch.equal(y_env, tadd.plain_v2(*planes, s, 16, 16)[0])
     with pytest.raises(ValueError, match="multiple of 8"):
         tadd.additive_voice_block(*planes, s, 12, version="v4")
     with pytest.raises(ValueError, match="unknown"):
         tadd.additive_voice_block(*planes, s, 16, version="v5")
+    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "v5")
+    with pytest.raises(ValueError, match="unknown"):
+        tadd.additive_voice_block(*planes, s, 16)
     meta = [p.to("meta") for p in planes]
     with pytest.raises(ValueError, match="no additive kernel"):
         tadd.additive_voice_block(*meta, s.to("meta"), 16, version="v4")
+
+
+def test_plain_v3_equals_plain_v4():
+    """The JAX package's invariant (tests/test_electric_piano.py:255-294):
+    v3 is bit-identical to v4, over 3 chained blocks through the step edge
+    cases 0, 64 and 33, with and without the mix."""
+    st, step = _additive_state(8)
+    mr, mi, mult = (torch.as_tensor(st[k]) for k in
+                    ("mul_re", "mul_im", "mult"))
+    for with_mix in (False, True):
+        outs = {}
+        for version in ("v3", "v4"):
+            def call(ore, oim, cur, tgt, s):
+                return tadd.plain_block(
+                    torch.as_tensor(ore), torch.as_tensor(oim), mr, mi,
+                    torch.as_tensor(cur), torch.as_tensor(tgt), mult,
+                    torch.as_tensor(s), 256, with_mix, version)
+            outs[version] = _chain(call, st, step, blocks=3)
+        (y3, s3), (y4, s4) = outs["v3"], outs["v4"]
+        assert np.array_equal(y3, y4)
+        for a, b in zip(s3, s4):
+            assert np.array_equal(a, b)
+
+
+def test_epilogue_matches_pallas_interpret():
+    """The plain epilogue (Tremolo's pan after the mix) against the JAX
+    package's kernel with ``epi_fn=Tremolo._epilogue_fn`` in interpret
+    mode, V=8, B=64, within the mix bound: a 5 Hz tremolo at tick 100, then
+    a 0.02 Hz one whose ticks cross K_REBASE inside the block (the ``a2``
+    branch).  The slow rate keeps ``dt*k`` below 1 near K_REBASE: at 5 Hz
+    it is ~109 there, where a float32 ulp is 7.6e-6, and XLA contracts
+    ``anchor + dt*k`` into an FMA that the port (and its Tremolo node)
+    rounds twice, which moves the pan by up to ~8e-6 of the mix."""
+    from oscen_tpu.nodes.basic import Tremolo as JTremolo
+    V, B = 8, 64
+    st, step = _additive_state(V)
+    K = float(tadd.K_REBASE)
+    params = [np.array([0.3, 100.0, 5.0 / 48000.0, 0.5, 0.7], np.float32),
+              np.array([0.3, K - 40.0, 0.02 / 48000.0, 0.5, 0.7],
+                       np.float32)]
+
+    def run(call):
+        ore, oim, cur, tgt, s = (st["osc_re"], st["osc_im"], st["cur"],
+                                 st["tgt"], step)
+        ys = []
+        for prm in params:
+            y, ore, oim, cur, tgt, s = call(ore, oim, cur, tgt, s, prm)
+            ys.append(np.asarray(y))
+        return np.concatenate(ys), [np.asarray(x) for x in (ore, oim, cur,
+                                                            tgt, s)]
+
+    def jax_call(ore, oim, cur, tgt, s, prm):
+        return jadd._additive_voice_block(
+            jnp.asarray(ore), jnp.asarray(oim), jnp.asarray(st["mul_re"]),
+            jnp.asarray(st["mul_im"]), jnp.asarray(cur), jnp.asarray(tgt),
+            jnp.asarray(st["mult"]), jnp.asarray(s), block_len=B,
+            interpret=True, with_mix=True, epi_fn=JTremolo._epilogue_fn,
+            epi_c=2, epi_params=jnp.asarray(prm), version="v4", epi_split=2)
+
+    def torch_call(ore, oim, cur, tgt, s, prm):
+        t = torch.as_tensor
+        return tadd.additive_voice_block(
+            t(ore), t(oim), t(st["mul_re"]), t(st["mul_im"]), t(cur),
+            t(tgt), t(st["mult"]), t(s), B, with_mix=True,
+            epi_fn=tadd.tremolo_pan, epi_c=2, epi_params=t(prm))
+
+    y_j, s_j = run(jax_call)
+    y_t, s_t = run(torch_call)
+    assert y_t.shape == y_j.shape == (2 * B, 2)
+    err = np.abs(y_t - y_j)
+    assert err.max() <= 5e-5 * math.sqrt(V), err.max()
+    assert np.sqrt(np.mean(err ** 2)) <= 5e-6 * math.sqrt(V)
+    for a, b in zip(s_t, s_j):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    # the second block's ticks crossed the rebase
+    assert params[1][1] < K < params[1][1] + B
+
+
+def test_epilogue_refusals():
+    st, step = _additive_state(4)
+    planes = [torch.as_tensor(st[k]) for k in KEYS]
+    s = torch.as_tensor(step)
+    prm = torch.zeros(5)
+    with pytest.raises(ValueError, match="with_mix"):
+        tadd.additive_voice_block(*planes, s, 16, epi_fn=tadd.tremolo_pan,
+                                  epi_c=2, epi_params=prm)
+    wide = [torch.zeros(H, 257) for _ in KEYS]
+    with pytest.raises(ValueError, match="one voice tile"):
+        tadd.additive_voice_block(*wide, torch.zeros(257), 16, with_mix=True,
+                                  epi_fn=tadd.tremolo_pan, epi_c=2,
+                                  epi_params=prm)
+    assert tadd.epilogue_supported(256) and not tadd.epilogue_supported(257)
 
 
 def test_env_selects_the_parity_version(monkeypatch):
@@ -160,6 +258,7 @@ def test_env_selects_the_parity_version(monkeypatch):
     y_env, *_ = tadd.additive_voice_block(*planes, s, 32)
     y_par, *_ = tadd.plain_parity(*planes, s, 32)
     assert torch.equal(y_env, y_par)
+    assert not tadd.epilogue_supported(4)   # parity opts out
 
 
 @pytest.mark.parametrize("max_u", [32, 64, 128])

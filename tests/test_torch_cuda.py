@@ -1,8 +1,10 @@
 """oscen_tpu_torch on a CUDA card: each kernel against its plain PyTorch
-version, the electric-piano, poly-synth, FM and twin-peaks slices, an
-IIR-lowpass graph, the echo and the 4x saturators (sinc and IIR-halfband
-boundaries) on the card against the CPU, and the card as the default
-device.
+version (the additive voice in all four versions and with the tremolo
+epilogue), the electric-piano (fused epilogue or not), poly-synth, FM and
+twin-peaks slices, an IIR-lowpass graph, the echo and the 4x saturators
+(sinc and IIR-halfband boundaries) on the card against the CPU, a synth
+chained into the echo through tensors on the card, and the card as the
+default device.
 
 These tests carry the ``cuda`` marker and skip without a card.  This file
 imports no jax; on a machine with a card and no JAX run it with the JAX
@@ -69,17 +71,84 @@ def test_kernel_matches_plain(cuda, version, V, B, with_mix):
                                      version=version)
     torch.cuda.synchronize()
     assert add.launches[version] == before + 1
-    if version == "parity":
-        p_out = add.plain_parity(*planes, s, B, with_mix)
-    else:
-        p_out = add.plain_v4(*planes, s, B, add.subgroup_len(B, version),
-                             with_mix)
+    p_out = add.plain_block(*planes, s, B, with_mix, version)
     assert k_out[0].shape == p_out[0].shape
     tol = 5e-5 * (math.sqrt(V) if with_mix else 1.0)
     assert float((k_out[0] - p_out[0]).abs().max()) <= tol
     # built with --fmad=false: the state rounds exactly as the plain ops
     for a, b in zip(k_out[1:], p_out[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("V,B", [(3, 40), (40, 48), (256, 1024),
+                                 (256, 4096), (41, 72)])
+def test_v3_kernel_equals_v4_kernel(cuda, V, B):
+    """K3 computes K1's float values in K1's order: y and every state plane
+    torch.equal over 3 chained blocks, with and without the mix."""
+    planes_np, step_np = _inputs(V)
+    mr, mi, mult = (torch.as_tensor(planes_np[i], device=cuda)
+                    for i in (2, 3, 6))
+    for with_mix in (False, True):
+        outs = {}
+        for version in ("v3", "v4"):
+            ore, oim, _, _, cur, tgt, _ = (torch.as_tensor(p, device=cuda)
+                                           for p in planes_np)
+            s = torch.as_tensor(step_np, device=cuda)
+            ys = []
+            for _ in range(3):
+                y, ore, oim, cur, tgt, s = add.additive_voice_block(
+                    ore, oim, mr, mi, cur, tgt, mult, s, B,
+                    with_mix=with_mix, version=version)
+                ys.append(y)
+            outs[version] = ys + [ore, oim, cur, tgt, s]
+        torch.cuda.synchronize()
+        assert _equal(outs["v3"], outs["v4"])
+
+
+def _pan_params(cuda, k0, rate=5.0):
+    """Tremolo epilogue parameters [anchor, k0, dt, depth, a2] as
+    Tremolo.kernel_epilogue builds them."""
+    from oscen_tpu_torch import SampleRate, Tremolo
+    t = Tremolo()
+    st = {"anchor": torch.tensor(0.3, device=cuda),
+          "k": torch.tensor(int(k0), dtype=torch.int32, device=cuda),
+          "dt_last": torch.tensor(rate / 48000.0, device=cuda)}
+    vals = {"rate": torch.tensor(rate, device=cuda),
+            "depth": torch.tensor(0.3, device=cuda)}
+    return t, st, vals, SampleRate(48000.0)
+
+
+@pytest.mark.parametrize("V,B,k0", [(3, 40, 10), (256, 1024, 1000),
+                                    (256, 4096, (1 << 20) - 1000)])
+def test_epilogue_kernel_matches_plain(cuda, V, B, k0):
+    """K5 (v4 with the tremolo pan after the mix): state planes torch.equal
+    to the plain version and y within the mix bound; y torch.equal to K1's
+    mix followed by the plain pan on the card (one mix order, one pan);
+    the tremolo's closed-form state advance as Tremolo.process_block."""
+    planes_np, step_np = _inputs(V)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
+    s = torch.as_tensor(step_np, device=cuda)
+    trem, st, vals, sr = _pan_params(cuda, k0)
+    C, fn, prm, new_st = trem.kernel_epilogue(st, vals, sr, B)
+    before = add.launches[add.EPILOGUE]
+    k_out = add.additive_voice_block(*planes, s, B, with_mix=True,
+                                     epi_fn=fn, epi_c=C, epi_params=prm)
+    torch.cuda.synchronize()
+    assert add.launches[add.EPILOGUE] == before + 1
+    p_mix = add.plain_block(*planes, s, B, True, "v4")
+    p_y = torch.stack(fn(p_mix[0], 0, prm), dim=-1)
+    assert k_out[0].shape == (B, 2)
+    assert float((k_out[0] - p_y).abs().max()) <= 5e-5 * math.sqrt(V)
+    assert _equal(k_out[1:], p_mix[1:])
+    k1 = add.additive_voice_block(*planes, s, B, with_mix=True,
+                                  version="v4")
+    assert torch.equal(k_out[0], torch.stack(fn(k1[0], 0, prm), dim=-1))
+    ref_st, ref_out = trem.process_block(
+        st, {"input": k1[0], "rate": vals["rate"].expand(B),
+             "depth": vals["depth"].expand(B)}, {}, sr, B,
+        const_ins=frozenset({"rate", "depth"}))
+    assert torch.equal(k_out[0], ref_out["output"])
+    assert all(torch.equal(new_st[k], ref_st[k]) for k in ref_st)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -109,6 +178,35 @@ def _slice(device):
     p.queue_event("midi_in", 5, raw_midi_event([0x80, 60, 0]))
     outs += [p.process_block()["out"] for _ in range(3)]
     return p, torch.cat(outs).cpu()
+
+
+def test_fused_epilogue_piano_equals_unfused_on_card(cuda, monkeypatch):
+    """OSCEN_EPILOGUE_FUSION=1 on the card: one K5 launch per steady block
+    and no K1, the output torch.equal to the unfused piano's, including a
+    tremolo rate change at a block boundary and a ramping rate (staged
+    [B], so the fusion steps aside)."""
+    def run(fused):
+        monkeypatch.setenv("OSCEN_EPILOGUE_FUSION", "1" if fused else "0")
+        add.reset_launches()
+        p = build_electric_piano(16).compile(48000.0, block_size=256,
+                                             device="cuda")
+        for i in range(4):
+            p.queue_event("midi_in", 0, raw_midi_event([0x90, 50 + 5 * i,
+                                                        100]))
+        outs = [p.process_block()["out"] for _ in range(5)]
+        p.set_value("vibrato_speed", 8.0)
+        outs += [p.process_block()["out"] for _ in range(2)]
+        p.set_value_with_ramp("vibrato_speed", 3.0, 300)
+        outs += [p.process_block()["out"] for _ in range(2)]
+        return torch.cat(outs), p, dict(add.launches)
+    a, pa, la = run(True)
+    b, pb, lb = run(False)
+    assert torch.equal(a, b)
+    assert all(torch.equal(pa.state["tremolo"][k], pb.state["tremolo"][k])
+               for k in pb.state["tremolo"])
+    # blocks 2-7 steady with a constant rate (K5), 8-9 ramping (K1)
+    assert la[add.EPILOGUE] == 6 and la["v4"] == 2
+    assert lb[add.EPILOGUE] == 0 and lb["v4"] == 8
 
 
 @pytest.mark.parametrize("version", add.KERNELS)
@@ -686,3 +784,42 @@ def test_chunked_delay_on_card_matches_cpu(cuda, delay, min_delay, B):
     y = run("cuda")
     assert np.abs(y - run("cpu")).max() <= 1e-6
     assert np.abs(y).max() > 0.5
+
+
+def _chain_synth_echo(device, B=512, n=6, on_card=True):
+    """The README synth (mono) into the echo's ``x`` block by block; with
+    ``on_card`` each synth block goes in as the tensor the synth returned
+    (every block after the first under sync debug mode "error" on the
+    card), else as numpy."""
+    from oscen_tpu_torch.models.simple import (build_simple_echo,
+                                               build_simple_synth)
+    synth = build_simple_synth().compile(48000.0, block_size=B,
+                                         device=device)
+    echo = build_simple_echo(0.05).compile(48000.0, block_size=B,
+                                           device=device)
+    echo.set_value("feedback", 0.5)
+    ys = []
+    for i in range(n):
+        card = device == "cuda" and i > 0 and on_card
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            x = synth.process_block()["out"]
+            if not on_card:
+                x = x.cpu().numpy()
+            ys.append(echo.process_block(stream_inputs={"x": x})["out"])
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode("default")
+    return torch.cat(ys)
+
+
+def test_synth_into_echo_through_card_tensors(cuda):
+    """A stream input already on the card is staged without a host copy
+    (no sync in any block after the first) and gives the numpy-fed chain
+    bit for bit."""
+    a = _chain_synth_echo("cuda")
+    b = _chain_synth_echo("cuda", on_card=False)
+    assert torch.equal(a, b)
+    assert float(a.abs().max()) > 0.1

@@ -156,7 +156,7 @@ def test_steady_blocks_take_the_kernel_path(monkeypatch):
     notes = p.explain()
     voices = [e for e in notes if e["node"] == "voices"]
     assert {"kernel": "additive_voice_v4", "fanin_mixdown_fused": True,
-            "node": "voices"} in voices
+            "stream_epilogue_fused": False, "node": "voices"} in voices
     assert any(e.get("path") == "batched" for e in voices)
     monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "parity")
     assert "kernel=additive_voice_parity" in p.explain(formatted=True)
@@ -197,3 +197,62 @@ def test_render_steady_and_checksum():
     for a, b in zip(jax.tree_util.tree_leaves(state_to_numpy(runs[0].state)),
                     jax.tree_util.tree_leaves(state_to_numpy(runs[1].state))):
         np.testing.assert_array_equal(a, b)
+
+
+def _tremolo_run(pkg, build, **kw):
+    """The JAX package's epilogue-fusion sequence
+    (tests/test_electric_piano.py:394-420) at 4 voices, B=256: a chord,
+    1536 samples, a tremolo rate change at a block boundary, 512 samples,
+    a ramping rate (staged [B]: the fusion steps aside), 512 samples."""
+    s = build(4).compile(SR, block_size=256, **kw)
+    for i in range(4):
+        s.queue_event("midi_in", 0, pkg.raw_midi_event([0x90, 50 + 5 * i,
+                                                        100]))
+    out = s.render(1536)["out"]
+    s.set_value("vibrato_speed", 8.0)
+    out2 = s.render(512)["out"]
+    s.set_value_with_ramp("vibrato_speed", 3.0, 300)
+    out3 = s.render(512)["out"]
+    return np.concatenate([out, out2, out3]), s
+
+
+def test_tremolo_epilogue_fusion_parity(monkeypatch):
+    """OSCEN_EPILOGUE_FUSION=1: the tremolo's pan runs after the mix in the
+    voice kernel's plain version, bit-identical to the unfused piano and
+    with the same tremolo state; the unfused piano within the slice's
+    1e-4 of the JAX package's composed render (which the JAX package pins
+    bit-equal to its fused one)."""
+    runs = {}
+    for fused in (True, False):
+        monkeypatch.setenv("OSCEN_EPILOGUE_FUSION", "1" if fused else "0")
+        runs[fused] = _tremolo_run(T, tbuild, device="cpu")
+        notes = runs[fused][1].explain()
+        assert ({"node": "tremolo", "path": "fused_into_producer_epilogue"}
+                in notes) == fused
+    (a, sa), (b, sb) = runs[True], runs[False]
+    np.testing.assert_array_equal(a, b)
+    for k in sb.node_state("tremolo"):
+        assert torch.equal(sa.node_state("tremolo")[k],
+                           sb.node_state("tremolo")[k])
+    monkeypatch.setenv("OSCEN_EPILOGUE_FUSION", "0")
+    j, _ = _tremolo_run(J, jbuild)
+    assert np.abs(j).max() > 0.5
+    np.testing.assert_allclose(b, j, atol=1e-4, rtol=0)
+
+
+def test_epilogue_fusion_steps_aside_for_a_ramp(monkeypatch):
+    """The dynamic half: a rate ramping through the block is staged [B], so
+    that block runs the tremolo on its own; a parity kernel never fuses."""
+    monkeypatch.setenv("OSCEN_EPILOGUE_FUSION", "1")
+    p = tbuild(4).compile(SR, block_size=64, device="cpu")
+    p.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
+    p.process_block()
+    fused = {"node": "voices", "epilogue_fused_consumer": "tremolo"}
+    assert fused in p.explain()
+    p.set_value_with_ramp("vibrato_speed", 3.0, 300)
+    assert fused not in p.explain()
+    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "parity")
+    q = tbuild(4).compile(SR, block_size=64, device="cpu")
+    q.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
+    q.process_block()
+    assert fused not in q.explain()

@@ -1,7 +1,9 @@
 """oscen_tpu_torch's graph front end against the JAX package's: the
 electric piano lowers to the same IR, and diagnostics and unported paths
-fail loudly."""
+fail loudly; explain() disturbs no later run, and stream inputs given as
+tensors stage as numpy ones do."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -132,3 +134,75 @@ def test_the_card_is_the_default_device(monkeypatch):
         == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         g.compile(48000.0, block_size=64, device="meta")
+
+
+def _leaves(state):
+    from oscen_tpu_torch.graph.node import tree_map
+    out = []
+    tree_map(out.append, state)
+    return out
+
+
+def test_explain_leaves_counters_and_state(monkeypatch):
+    """explain() runs one real block (the JAX package traces abstractly):
+    the kernels' launch counters and every state leaf are as they were,
+    and the next block equals a run without the call.  The additive
+    wrapper's plain version is made to count here, as the kernel does on
+    the card."""
+    from oscen_tpu_torch.ops.cuda import additive as tadd
+    real = tadd.plain_block
+
+    def counting(*a, **kw):
+        tadd.launches["v4"] += 1
+        return real(*a, **kw)
+    monkeypatch.setattr(tadd, "plain_block", counting)
+
+    def started():
+        p = tbuild(4).compile(48000.0, block_size=64, device="cpu")
+        p.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
+        p.process_block()
+        p.process_block()
+        return p
+    p, q = started(), started()
+    before = dict(tadd.launches)
+    leaves = [x.clone() for x in _leaves(p.state)]
+    assert any(e.get("kernel") == "additive_voice_v4" for e in p.explain())
+    assert tadd.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(leaves, _leaves(p.state)))
+    assert torch.equal(p.process_block()["out"], q.process_block()["out"])
+    assert tadd.launches["v4"] == before["v4"] + 2
+
+
+def test_stream_tensors_stage_like_numpy(monkeypatch):
+    """A stream input given as a tensor on the graph's device goes in as it
+    is, not through the packed host copy (a short tail padded with zeros
+    on the device); process_block and render give what the same samples
+    give from numpy."""
+    from oscen_tpu_torch.graph.compile import CompiledGraph
+    from oscen_tpu_torch.models.simple import build_simple_echo
+    x = np.random.default_rng(3).standard_normal(700).astype(np.float32)
+    copied = []
+    real = CompiledGraph._to_device
+
+    def to_device(self, arrays):
+        copied.append({k[1] for k in arrays if k[0] == "pb"})
+        return real(self, arrays)
+    monkeypatch.setattr(CompiledGraph, "_to_device", to_device)
+
+    def echo():
+        e = build_simple_echo(0.02).compile(48000.0, block_size=256,
+                                           device="cpu")
+        e.set_value("feedback", 0.5)
+        return e
+    a, b = echo(), echo()
+    for lo, hi in ((0, 256), (256, 512), (512, 700)):
+        ya = a.process_block(stream_inputs={"x": torch.from_numpy(x[lo:hi])})
+        assert "x" not in copied[-1]
+        yb = b.process_block(stream_inputs={"x": x[lo:hi]})
+        assert "x" in copied[-1]
+        assert torch.equal(ya["out"], yb["out"])
+    ra = echo().render(700, stream_inputs={"x": torch.from_numpy(x)},
+                       tail=100)["out"]
+    rb = echo().render(700, stream_inputs={"x": x}, tail=100)["out"]
+    assert ra.shape == (800,) and np.array_equal(ra, rb)
+    assert np.abs(ra).max() > 0.1

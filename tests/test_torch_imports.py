@@ -1,9 +1,10 @@
 """oscen_tpu_torch never imports jax: with ``sys.modules["jax"] = None``
 (any ``import jax`` then raises) the package imports, and the electric
 piano, the poly synth, the README synth, the fm synth, the pivot, the twin
-peaks (fused and two-node), an IIR-lowpass graph, the echo and the
-saturators (sinc and IIR-halfband boundaries) build, compile and render on
-the CPU."""
+peaks (fused and two-node), an IIR-lowpass graph, the echo, the
+saturators (sinc and IIR-halfband boundaries), a graph parsed from the DSL
+and the piano with the epilogue fusion and the v3 / v2 kernels build,
+compile and render on the CPU."""
 
 import subprocess
 import sys
@@ -86,6 +87,29 @@ def test_port_imports_and_renders_without_jax():
         assert build_saturator(2).compile(48000.0, block_size=64,
                                           device="cpu").latency_samples() == 5
         assert Delay(10.0).min_delay == 0
+        import os
+        from oscen_tpu_torch import (AudioInput, EventPassthrough,  # noqa
+                                     EventQueue, Value, parse_graph,
+                                     parse_oversample_variants)
+        from oscen_tpu_torch.graph import dsl  # noqa: F401
+        d = parse_graph("output o: stream; nodes { s = Oscillator::sine("
+                        "100.0, 1.0); v = Value::new(1.0); } connections "
+                        "{ s.output -> o; }")
+        assert abs(d.compile(48000.0, block_size=64, device="cpu")
+                   .render_mono(128)).max() > 0.5
+        v = parse_oversample_variants("base_name: S; factors: [2]; body: "
+                                      "{ output o: stream; }")
+        assert list(v) == ["S_2x"]
+        os.environ["OSCEN_EPILOGUE_FUSION"] = "1"
+        os.environ["OSCEN_ADDITIVE_KERNEL"] = "v3"
+        p = build_electric_piano(4).compile(48000.0, block_size=64,
+                                            device="cpu")
+        p.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
+        p.process_block()
+        assert {"node": "tremolo", "path": "fused_into_producer_epilogue"} \
+            in p.explain()
+        os.environ["OSCEN_ADDITIVE_KERNEL"] = "v2"
+        assert float(p.process_block()["out"].abs().max()) > 0.01
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)
