@@ -81,7 +81,18 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             activities and real-time factor per model (the piano with v4,
             v3, v2 and the epilogue fusion; for the twin peaks
             a streaming block, staged from the host; the same for the
-            saturators and the echo), and host time per node.
+            saturators and the echo), and host time per node;
+6. ablations the tools' ablation kernels (K16: ``kabl_tick`` and
+            ``kabl_mma`` of ``csrc/kabl.cu``, ``kabl_hmaj`` of
+            ``csrc/kabl_hmaj.cu``; K17: ``fract_abl`` of
+            ``csrc/fractabl.cu``): every variant of every
+            ``oscen_tpu_torch/tools`` driver at H=32, V=256, B=1024 (K17
+            also 4096) against its plain version (state planes and every
+            K17 output torch.equal, y within ``kabl.y_bound``), one launch
+            counted each, its device time, bound and plain time and its
+            delta against K3 and K1 at SUB=32 (or K12); the build phase
+            counts the shuffles and mma of every ``kabl.cu`` instance in its
+            SASS.  On no model's main path: 0 launches in the kernels JSON.
 
 The line before the last is the JSON kernel report, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -195,6 +206,199 @@ def chain(fn, planes, step, B, with_mix, blocks=3):
         ys.append(y)
     return ys, (ore, oim, cur, tgt, s)
 
+# the ablation kernels (K16, K17): the kernels JSON's name, source and the
+# TPU kernels they replace; on no model's main path
+ABLATION_KERNELS = {
+    "kabl_tick": ("kabl_tick", "kabl.cu",
+                  "tools/kabl.py:129; tools/kabl2.py:185; tools/kabl3.py:152;"
+                  " tools/kabl4.py:193; tools/kabl5.py:239; "
+                  "tools/kabl6.py:157"),
+    "kabl_mma": ("kabl_mma", "kabl.cu",
+                 "tools/kabl2.py:185; tools/kabl3.py:152"),
+    "kabl_hmaj": ("kabl_hmaj", "kabl_hmaj.cu", "tools/kabl5.py:254"),
+    "fract_abl": ("fract_abl", "fractabl.cu",
+                  "tools/fractabl.py:67; tools/fractabl2.py:81; "
+                  "tools/fractabl2.py:135"),
+}
+# float ops per tick and (harmonic, voice) lane of each ablation body,
+# counted from the loops of csrc/kabl.cu as for K3 (23: the row chain 6,
+# amp 4, rotation 5, product 1, the running power 6, the harmonic sum 1);
+# the h-major body per tick, harmonic and voice (im 3, amp 4, accumulate
+# 2); bf16 ops counted as float ops, tensor-core products not counted
+OPS_PER_STEP.update({f"kabl:{k}": v for k, v in {
+    "full": 23, "no_amp": 19, "no_rows": 19, "no_env": 18, "no_reduce": 22,
+    "base": 19, "recur": 23, "loads": 17, "sub64": 23, "bf16_vpu": 23,
+    "const_rows": 17, "noim": 12, "noout": 23, "defmix": 23, "defmix64": 23,
+    "scan": 18, "scan64": 18, "dot32": 19, "dot4": 19, "onehot_sub": 18,
+    "onehot_all": 17, "bf16_mxu": 22, "hmaj_cp": 9, "hmaj_x": 9,
+    "hmaj_t2": 9, "k3": 23, "k1": 21}.items()})
+
+
+def sass_counts(build):
+    """Instruction, shuffle and tensor-core counts of every kernel instance
+    of csrc/kabl.cu from its SASS.  The variants whose results nothing
+    reads must keep their work: noout its 32 shuffles (as full), dot32 one
+    mma per k-tile (5) and dot4 four whole-block dots (20)."""
+    import glob
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = sorted(glob.glob(str(build.BUILD_DIR / "libkabl-*.so")),
+                  key=os.path.getmtime)
+    check(bool(libs) and os.path.exists(tool),
+          "kabl.cu SASS: no library or no cuobjdump to count it")
+    out = subprocess.run([tool, "-sass", libs[-1]], capture_output=True,
+                         text=True, timeout=120).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0, 0]
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            counts[fn][0] += 1
+            counts[fn][1] += "SHFL" in ln
+            counts[fn][2] += "HMMA" in ln
+    parts, by_inst = [], {}
+    for fn, (n, shfl, hmma) in counts.items():
+        m = re.search(r"(kabl_(?:tick|mma)_kernel)I((?:Li\d+E)+)E", fn)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            by_inst[f"{m.group(1)}<{args}>"] = (shfl, hmma)
+            parts.append(f"{m.group(1)}<{args}> {n} instr, SHFL {shfl}, "
+                         f"HMMA {hmma}")
+    phase("build", "kabl.cu SASS (SUB, ROWS, AMP, IM, RED, OUT, PREC): "
+          + "; ".join(parts))
+    full = by_inst.get("kabl_tick_kernel<32,0,0,0,0,0,0>", (0, 0))
+    noout = by_inst.get("kabl_tick_kernel<32,0,0,0,0,1,0>", (-1, 0))
+    dot32 = by_inst.get("kabl_mma_kernel<32,7,0,0,0,0,0>", (0, 0))
+    dot4 = by_inst.get("kabl_mma_kernel<32,8,0,0,0,0,0>", (0, 0))
+    check(full[0] > 0 and noout[0] == full[0] and dot32[1] >= 5
+          and dot4[1] >= 20,
+          f"kabl.cu SASS: the discarded work was deleted (noout SHFL "
+          f"{noout[0]}, full {full[0]}; dot32 HMMA {dot32[1]} < 5 or dot4 "
+          f"HMMA {dot4[1]} < 20)")
+
+
+def ablations(torch, dev, card, report, device_ms, time_ms):
+    """K16 and K17 on the card: every variant of every ablation tool at
+    its full width (H=32, V=256, B=1024; K17 also B=4096), its kernel
+    against its plain version (state planes and every K17 output
+    torch.equal, y within ``kabl.y_bound``), its device time, bound and
+    plain time, and the deltas against K3 and K1 at SUB=32 (kabl6's v3b
+    and v4) or against K12.  Fills the report's kabl_tick, kabl_mma,
+    kabl_hmaj and fract_abl entries."""
+    import importlib
+
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.ops.cuda import fm as kfm
+    from oscen_tpu_torch.ops.cuda import fractabl as kfa
+    from oscen_tpu_torch.ops.cuda import kabl as kab
+    B = 1024
+    timed = {}    # body -> (device ms, plain ms, bound), timed once
+    errs = {k: 0.0 for k in ABLATION_KERNELS}
+    rows = []
+    t0 = time.perf_counter()
+    for tool, variants in kab.TOOLS.items():
+        mod = importlib.import_module(f"oscen_tpu_torch.tools.{tool}")
+        x = {k: torch.as_tensor(v, device=dev)
+             for k, v in mod.inputs(B).items()}
+        xc = x   # the check's inputs
+        if "tbl" in x:
+            # the tool's table is zeros, which it times; the check takes a
+            # seeded random one, so that the one-hot rows are not 0
+            x["tbl"] = x["tbl"].to(torch.bfloat16)
+            tbl = np.random.default_rng(B).uniform(0, 0.5, x["tbl"].shape)
+            xc = dict(x, tbl=torch.as_tensor(tbl.astype(np.float32),
+                                             device=dev).to(torch.bfloat16))
+        for v, run in variants.items():
+            body = run.body
+            prod = body in ("k3", "k1")
+            kern = "additive_closed" if prod else kab.kernel_of(body)
+            counters = add.launches if prod else kab.launches
+            before = sum(counters.values())
+            out = kab.run_variant(tool, v, xc, B)
+            torch.cuda.synchronize()
+            check(sum(counters.values()) == before + 1,
+                  f"{tool} {v}: launch counter did not advance")
+            plain = kab.run_variant(tool, v, xc, B, plain=True)
+            err = float((out[0] - plain[0]).abs().max())
+            bound = kab.y_bound(tool, v, plain[0], VOICES)
+            same = all(torch.equal(a, b) for a, b in zip(out[1:], plain[1:]))
+            check(err <= bound and same,
+                  f"{tool} {v}: kernel and plain version disagree (y "
+                  f"{err:.3e} > {bound:.3e} or state planes differ)")
+            if kern in errs:
+                errs[kern] = max(errs[kern], err)
+            if body not in timed:
+                ms = device_ms(lambda: kab.run_variant(tool, v, x, B), 20,
+                               kernel=kern + "_kernel")
+                plain_ms = time_ms(
+                    lambda: kab.run_variant(tool, v, x, B, plain=True), 1,
+                    warm=0)
+                ins = [t for k, t in x.items() if k in kab.HMAJ_PLANES
+                       + kab.PLANES + ("step",)
+                       or (k == "tbl" and body in kab.VARIANTS
+                           and kab.VARIANTS[body].rows in kab.ONEHOT_ROWS)
+                       or (k in ("r1", "r2") and body == "hmaj_x")]
+                timed[body] = (ms, plain_ms, bound_of(
+                    f"kabl:{body}", ins, out, B, H * VOICES))
+            rows.append((tool, v, body, kern, err, bound))
+    k3, k1 = timed["k3"][0], timed["k1"][0]
+    for tool, v, body, kern, err, bound in rows:
+        ms, plain_ms, b = timed[body]
+        phase("ablations", f"{tool} {v} ({kern} {body}): kernel "
+              f"{ms * 1e3:.2f} us (device), bound {b['bound_ms'] * 1e3:.3f} "
+              f"us ({b['bound_by']}), plain {plain_ms * 1e3:.1f} us/call; "
+              f"delta against K3 at SUB=32 {(ms - k3) * 1e3:+.2f} us, "
+              f"against K1 {(ms - k1) * 1e3:+.2f} us; y max abs {err:.3e} "
+              f"(<= {bound:.3e}), state planes equal ok ({card})")
+    for key, body in (("kabl_tick", "full"), ("kabl_mma", "onehot_all"),
+                      ("kabl_hmaj", "hmaj_cp")):
+        ms, plain_ms, b = timed[body]
+        report[key] = dict(max_abs_err=errs[key], ms=ms, plain_ms=plain_ms,
+                           **b)
+
+    # K17: every layout against K12, B=1024 and 4096
+    rng = np.random.default_rng(17)
+    for B in (1024, 4096):
+        p = torch.as_tensor(rng.uniform(0, 1, (3, VOICES)).astype(np.float32),
+                            device=dev)
+        dt = torch.as_tensor(np.full((3, VOICES), 440.0 / SR, np.float32),
+                             device=dev)
+        k12 = kfm.fract_phase3(p, dt, B)
+        k12_ms = device_ms(lambda: kfm.fract_phase3(p, dt, B), 20,
+                           kernel="fract_phase3_kernel")
+        for layout in kfa.LAYOUTS:
+            before = kfa.launches[kfa.KERNEL]
+            got = kfa.fract_layout(layout, p, dt, B)
+            torch.cuda.synchronize()
+            raw, c = kfa.PLAIN[layout](p, dt, B)
+            same = all(torch.equal(a, b) for a, b in zip(got, k12)) and all(
+                torch.equal(a, b) for a, b in zip(
+                    got, (*kfa.planes(layout, raw), c)))
+            check(same and kfa.launches[kfa.KERNEL] == before + 1,
+                  f"fract_abl {layout} B={B}: not equal to K12 and the "
+                  f"plain version, or the launch was not counted")
+            ms = device_ms(lambda: kfa.fract_layout_raw(layout, p, dt, B),
+                           20, kernel="fract_abl_kernel")
+            plain_ms = time_ms(lambda: kfa.PLAIN[layout](p, dt, B), 1,
+                               warm=0)
+            b = bound_of("fract_phase3", (p, dt),
+                         kfa.fract_layout_raw(layout, p, dt, B), B, VOICES)
+            phase("ablations", f"fract_abl {layout} V={VOICES} B={B}: "
+                  f"equal to K12 and to the plain version (torch.equal, "
+                  f"every output) ok; kernel {ms * 1e3:.2f} us (device), "
+                  f"K12 {k12_ms * 1e3:.2f} us, delta "
+                  f"{(ms - k12_ms) * 1e3:+.2f} us, bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}),"
+                  f" plain {plain_ms * 1e3:.1f} us/call ({card})")
+            if B == 1024 and layout == "direct":
+                report["fract_abl"] = dict(max_abs_err=0.0, ms=ms,
+                                           plain_ms=plain_ms, **b)
+    phase("ablations", f"{len(rows)} K16 variants and "
+          f"{2 * len(kfa.LAYOUTS)} K17 cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+
 
 def main() -> int:
     import torch
@@ -239,7 +443,8 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
-    libs = ("additive", "phase", "iir", "adsr", "fm")
+    libs = ("additive", "phase", "iir", "adsr", "fm", "kabl", "kabl_hmaj",
+            "fractabl")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(build.load_library, libs))   # raises on failure
@@ -251,6 +456,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         phase("build", f"{name}.cu (nvcc {secs:.2f} s): "
               + " | ".join(regs))
+    sass_counts(build)
 
     # ---- 3. kernels against their plain versions ---------------------
     def on_card(a):
@@ -1285,13 +1491,14 @@ def main() -> int:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            total, rows = 0.0, []
+            total, rows, seen = 0.0, [], 0
             for e in prof.key_averages():
                 us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
                 if e.device_type == torch.autograd.DeviceType.CUDA \
                         and (kernel is None or kernel in e.key):
                     total += us
+                    seen += e.count
                     rows.append((e.key, us / reps / 1e3, e.count / reps))
             if total > 0:
                 break
@@ -1301,7 +1508,12 @@ def main() -> int:
         if top is not None:
             rows.sort(key=lambda r: -r[1])
             return total / reps / 1e3, rows[:top], sum(r[2] for r in rows)
-        return total / reps / 1e3
+        if seen != reps:
+            # late in a long run the profiler has kept only some of the
+            # launches (15 of 20 seen): time per launch it recorded
+            phase("timing", f"the profiler recorded {seen} of {reps} "
+                  f"launches of {kernel}")
+        return total / seen / 1e3
 
     phase("timing", f"card {card}")
     args = [planes[k] for k in ("osc_re", "osc_im", "mul_re", "mul_im",
@@ -1588,6 +1800,9 @@ def main() -> int:
                   + "; ".join(f"{k[:60]} {t * 1e3:.1f} us x{c_:.0f}"
                               for k, t, c_ in top))
 
+    # ---- 6. ablations of K1 and K12 (K16, K17) -----------------------
+    ablations(torch, dev, card, report, device_ms, time_ms)
+
     # host time by node last: a CPU-only profiler session before a device
     # one left the device one empty once (H100, torch 2.11)
     host_time_by_node("poly synth", build_poly_synth)
@@ -1644,6 +1859,9 @@ def main() -> int:
     path_launches["biquad_scan"] = iir_launches
     path_launches["allpass_cascade_scan"] = sat_launches[
         ("sinc_iir", "allpass_cascade_scan")]
+    # the ablation kernels are on no model's main path
+    path_launches.update({k: 0 for k in ABLATION_KERNELS})
+    sources.update(ABLATION_KERNELS)
     kernels = []
     for key, rep in report.items():
         name, src, replaces = sources[key]

@@ -1,0 +1,201 @@
+"""Ablation drivers on the card: the port's counterparts of the JAX
+package's ``tools/kabl*.py`` (K16, attributing the additive kernels K1 and
+K3) and ``tools/fractabl*.py`` (K17, attributing ``fract_phase3``, K12).
+
+Each module builds the inputs its TPU twin builds (the same numpy seed and
+formulas; ``fractabl``'s JAX random draws become numpy draws of the same
+distributions), runs every variant once and prints a parity line, then
+times the variants round-robin over 7 windows:
+
+- device µs per launch, from ``torch.profiler``'s kernel time;
+- wall µs per block, from CUDA events around a chain of n launches with
+  the state fed back.
+
+This replaces the TPU tools' protocol (host spans of a jitted scan of n
+and of n' blocks, differenced): CUDA events time the card's own clock, and
+the profiler separates the kernel from the launch overhead.  Run from the
+repository root, on the card unless ``--device cpu`` is given (the CPU runs
+the plain versions, prints the parity line and times nothing):
+
+    python -m oscen_tpu_torch.tools.kabl4 [variants...] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+WINDOWS = 7
+
+
+def parse_args(argv, variants: Sequence[str], doc: str):
+    """(variants to run, device) from the command line."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("variants", nargs="*", default=list(variants),
+                    help=f"any of {', '.join(variants)}")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    bad = [v for v in args.variants if v not in variants]
+    if bad:
+        ap.error(f"unknown variants {bad}; choose from {list(variants)}")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA card: the drivers time the card (give --device "
+                 "cpu for the parity line alone)")
+    return args
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 \
+        else torch.cuda.get_device_name(0)
+
+
+def uniform_inputs(H=32, V=256, seed=0):
+    """The planes of ``tools/kabl.py:147-157`` (kabl-kabl5): harmonic
+    rotations of 55 Hz multiples, a fresh oscillator, envelopes at
+    ``cur * 0.999``, steps 0-63; returns (numpy dict, ``th``)."""
+    rng = np.random.default_rng(seed)
+    th = (2 * np.pi * (55.0 * (1 + rng.integers(0, 48, V))[None, :]
+                       * np.arange(1, H + 1)[:, None]) / 48000.0)
+    cur = rng.uniform(0.01, 0.3, (H, V)).astype(np.float32)
+    planes = dict(osc_re=np.ones((H, V)), osc_im=np.zeros((H, V)),
+                  mul_re=np.cos(th), mul_im=np.sin(th), cur=cur,
+                  tgt=cur * np.float32(0.999),
+                  mult=np.full((H, V), 0.999),
+                  step=rng.integers(0, 64, (1, V)))
+    return {k: np.asarray(v, np.float32) for k, v in planes.items()}, th
+
+
+def device_us(fn: Callable[[], object], kernel: str, reps: int = 20) -> float:
+    """Device time per launch of the kernels whose name contains
+    ``kernel`` (torch.profiler), in µs; ``fn`` launches one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):   # a second session if the first saw nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.key]
+        total = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in ev)
+        if total > 0:   # per launch the profiler recorded (it may drop some)
+            return total / sum(e.count for e in ev)
+    raise RuntimeError(f"the profiler saw no device time for {kernel}")
+
+
+def chain_us(step: Callable, state, n: int = 64) -> float:
+    """Wall µs per block on the card's clock: CUDA events around ``n``
+    launches of ``state = step(state)``."""
+    state = step(state)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        state = step(state)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
+
+
+def round_robin(variants: Sequence[str], measure: Callable[[str], tuple]
+                ) -> Dict[str, List[tuple]]:
+    """``measure(variant)`` for every variant in turn, ``WINDOWS`` times,
+    so that drift on the card hits every variant alike."""
+    res: Dict[str, List[tuple]] = {v: [] for v in variants}
+    for _ in range(WINDOWS):
+        for v in variants:
+            res[v].append(measure(v))
+    return res
+
+
+def report(res: Dict[str, List[tuple]], base: str, labels=("device",
+                                                            "wall")):
+    """Print median and min of each measure and the median's delta
+    against ``base``."""
+    med = {v: [statistics.median(x[i] for x in xs) for i in
+               range(len(labels))] for v, xs in res.items()}
+    ref = med.get(base)
+    print(f"[timing] {card()}; µs per block, median and min over "
+          f"{len(next(iter(res.values())))} windows"
+          + (f", delta of the median against {base}" if ref else ""))
+    for v, xs in res.items():
+        cols = []
+        for i, lab in enumerate(labels):
+            d = (f" ({med[v][i] - ref[i]:+.2f})" if ref else "")
+            cols.append(f"{lab} med {med[v][i]:8.2f} min "
+                        f"{min(x[i] for x in xs):8.2f}{d}")
+        print(f"{v:9s}: " + "  ".join(cols), flush=True)
+    return med
+
+
+def kabl_main(tool: str, argv, doc: str, make_inputs: Callable) -> int:
+    """The K16 drivers' common run: parity, then round-robin timing.
+
+    ``make_inputs(B)`` gives the tool's inputs as numpy arrays.  The parity
+    line holds each variant's kernel against its plain version on the card
+    (y max abs, state planes ``torch.equal``), and its y against the
+    baseline (``v3b``, or kabl's ``full``, kabl2's ``recur``) with the
+    scale, as kabl5 and kabl6 print it."""
+    from ..ops.cuda import kabl
+    variants = list(kabl.TOOLS[tool])
+    args = parse_args(argv, variants, doc)
+    B = 1024
+    x = make_inputs(B)
+    x = {k: torch.as_tensor(v, device=args.device) for k, v in x.items()}
+    if "tbl" in x:
+        x["tbl"] = x["tbl"].to(torch.bfloat16)
+    base = next(v for v in ("v3b", "full", "recur") if v in variants)
+    ref = kabl.run_variant(tool, base, x, B)[0]
+    scale = float(ref.abs().max())
+    card_run = args.device == "cuda"
+    for v in args.variants:
+        out = kabl.run_variant(tool, v, x, B)
+        line = f"[{tool}] {v}: "
+        if card_run:
+            plain = kabl.run_variant(tool, v, x, B, plain=True)
+            err = float((out[0] - plain[0]).abs().max())
+            same = all(torch.equal(a, b) for a, b in zip(out[1:], plain[1:]))
+            line += (f"kernel against plain y max abs {err:.3e}, state "
+                     f"planes equal {same}; ")
+        y = out[0] if out[0].shape[1] == 1 else out[0][:, ::128].sum(
+            dim=1, keepdim=True)
+        line += (f"y against {base} max abs "
+                 f"{float((y - ref).abs().max()):.3e} (scale {scale:.3e})")
+        print(line, flush=True)
+    if not card_run:
+        print(f"[{tool}] timing needs a CUDA card")
+        return 0
+
+    def kernel_name(v):
+        body = kabl.TOOLS[tool][v].body
+        return ("additive_closed_kernel" if body in ("k3", "k1")
+                else kabl.kernel_of(body) + "_kernel")
+
+    def step(v):
+        def fn(st):
+            out = kabl.run_variant(tool, v, st, B)
+            return dict(st, osc_re=out[1], osc_im=out[2], cur=out[3],
+                        tgt=out[4], step=out[5])
+        return fn
+
+    def measure(v):
+        return (device_us(lambda: kabl.run_variant(tool, v, x, B),
+                          kernel_name(v)),
+                chain_us(step(v), x))
+    report(round_robin(args.variants, measure), base)
+    return 0

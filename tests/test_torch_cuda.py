@@ -823,3 +823,84 @@ def test_synth_into_echo_through_card_tensors(cuda):
     b = _chain_synth_echo("cuda", on_card=False)
     assert torch.equal(a, b)
     assert float(a.abs().max()) > 0.1
+
+
+# ------------------------------------------------------------------ #
+# K16 / K17: the ablation kernels against their plain versions
+# ------------------------------------------------------------------ #
+from oscen_tpu_torch.ops.cuda import fractabl as kfa  # noqa: E402
+from oscen_tpu_torch.ops.cuda import kabl as kab  # noqa: E402
+
+KABL_CASES = [(t, v) for t, vs in kab.TOOLS.items() for v in vs]
+
+
+def _tool_inputs(cuda, tool, B=1024):
+    import importlib
+    x = importlib.import_module(f"oscen_tpu_torch.tools.{tool}").inputs(B)
+    x = {k: torch.as_tensor(v, device=cuda) for k, v in x.items()}
+    if "tbl" in x:   # a random table, so that the one-hot rows are not 0
+        rng = np.random.default_rng(B)
+        x["tbl"] = torch.as_tensor(rng.uniform(0, 0.5, tuple(x["tbl"].shape))
+                                   .astype(np.float32), device=cuda
+                                   ).to(torch.bfloat16)
+    return x
+
+
+@pytest.mark.parametrize("tool,variant", KABL_CASES)
+def test_kabl_kernel_matches_plain(cuda, tool, variant):
+    """Every K16 variant at its tool's full width (H=32, V=256, B=1024),
+    2 chained blocks: every state plane torch.equal to the plain version,
+    y within ``kabl.y_bound``; exactly one launch of its kernel."""
+    x = _tool_inputs(cuda, tool)
+    body = kab.TOOLS[tool][variant].body
+    counters = add.launches if body in ("k3", "k1") else kab.launches
+    before = sum(counters.values())
+    for _ in range(2):
+        out = kab.run_variant(tool, variant, x, 1024)
+        torch.cuda.synchronize()
+        plain = kab.run_variant(tool, variant, x, 1024, plain=True)
+        err = float((out[0] - plain[0]).abs().max())
+        assert err <= kab.y_bound(tool, variant, plain[0], 256), err
+        for a, b in zip(out[1:], plain[1:]):
+            assert torch.equal(a, b)
+        x = dict(x, osc_re=out[1], osc_im=out[2], cur=out[3], tgt=out[4],
+                 step=out[5])
+    assert sum(counters.values()) == before + 2
+
+
+@pytest.mark.parametrize("V,B", [(256, 1024), (256, 4096), (6, 40)])
+@pytest.mark.parametrize("layout", kfa.LAYOUTS)
+def test_fract_layout_kernel_equals_k12(cuda, layout, V, B):
+    """Every output of every K17 layout torch.equal to K12 (fract_phase3's
+    kernel) and to its plain version, 2 chained blocks."""
+    rng = np.random.default_rng(V + B)
+    p = torch.as_tensor(rng.uniform(-1, 1, (3, V)).astype(np.float32),
+                        device=cuda)
+    before = kfa.launches[kfa.KERNEL]
+    for _ in range(2):
+        dt = torch.as_tensor(rng.uniform(-0.05, 0.4, (3, V))
+                             .astype(np.float32), device=cuda)
+        got = kfa.fract_layout(layout, p, dt, B)
+        k12 = kfm.fract_phase3(p, dt, B)
+        raw, _ = kfa.PLAIN[layout](p, dt, B)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, k12, (*kfa.planes(layout, raw), got[3])):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        p = got[3]
+    assert kfa.launches[kfa.KERNEL] == before + 2
+
+
+def test_ablation_wrappers_reject_what_they_do_not_take(cuda):
+    x = _tool_inputs(cuda, "kabl4", B=64)
+    planes = [x[k] for k in kab.PLANES]
+    with pytest.raises(ValueError, match="harmonics"):
+        kab.kabl_block("full", *[t[:8].contiguous() for t in planes],
+                       x["step"], 64)
+    with pytest.raises(ValueError, match="float32"):
+        kab.kabl_block("full", *planes[:-1], planes[-1].double(),
+                       x["step"], 64)
+    with pytest.raises(ValueError, match="float32"):
+        kfa.fract_layout("direct", torch.zeros(3, 8, device=cuda,
+                                               dtype=torch.float64),
+                         torch.zeros(3, 8, device=cuda,
+                                     dtype=torch.float64), 8)

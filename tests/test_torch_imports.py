@@ -4,7 +4,10 @@ piano, the poly synth, the README synth, the fm synth, the pivot, the twin
 peaks (fused and two-node), an IIR-lowpass graph, the echo, the
 saturators (sinc and IIR-halfband boundaries), a graph parsed from the DSL
 and the piano with the epilogue fusion and the v3 / v2 kernels build,
-compile and render on the CPU."""
+compile and render on the CPU; the ablation kernels' modules
+(``ops/cuda/kabl.py``, ``ops/cuda/fractabl.py``) and every driver of
+``oscen_tpu_torch.tools`` import, and a variant of each runs, without jax,
+the JAX package or the JAX package's ``tools/``."""
 
 import subprocess
 import sys
@@ -110,8 +113,22 @@ def test_port_imports_and_renders_without_jax():
             in p.explain()
         os.environ["OSCEN_ADDITIVE_KERNEL"] = "v2"
         assert float(p.process_block()["out"].abs().max()) > 0.01
+        import importlib
+        import torch
+        from oscen_tpu_torch.ops.cuda import fractabl, kabl
+        for t in ("kabl", "kabl2", "kabl3", "kabl4", "kabl5", "kabl6",
+                  "fractabl", "fractabl2"):
+            importlib.import_module("oscen_tpu_torch.tools." + t)
+        x = {k: torch.as_tensor(v) for k, v in importlib.import_module(
+            "oscen_tpu_torch.tools.kabl6").inputs(64, H=4, V=8).items()}
+        assert kabl.run_variant("kabl6", "v5", x, 64)[0].shape == (64, 1)
+        ph = torch.zeros(3, 8)
+        assert fractabl.fract_layout("seg", ph, ph + 0.01, 64)[0].shape \
+            == (64, 8)
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
+                       for m in sys.modules)
+        assert not any(m == "tools" or m.startswith("tools.")
                        for m in sys.modules)
         print("ok")
     """)
