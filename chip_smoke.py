@@ -31,7 +31,13 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             per-sample coefficients, 3 chained blocks; the allpass cascade
             allpass_cascade_scan (both halfband branches' betas as lanes)
             at V=1, 2 and 256, B=1024, 2048 and 4096 and V=3, B=37, 3
-            chained blocks;
+            chained blocks; tpt_svf_scan and lp18_scan on their staged
+            input ring at V=1, 2, 3, 33 and 256 and B=1, 2, 31, 32, 33,
+            1024 and 4096, rows and per-sample planes, and lp18_scan on
+            silence, denormal and 1e20-sized x and signed zeros; lp18_scan's
+            tanh over all 2^32 float32 inputs against (float)tanh((double)b)
+            and its division over every finite float32 and 70 divisors
+            against the true quotient;
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
@@ -58,7 +64,8 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             B=1024 and 4096, seeded noise through ``audio_in`` block by
             block, cutoff_a 640 and resonance 0.8 at block 3, cutoff_b 2500
             at block 5, exactly 1 (fused) or 2 lp18_scan launches per
-            block, fused equal to two-node, the card equal to the CPU; and
+            block, fused equal to two-node, the card equal to the CPU, and
+            how often lp18_scan's tanh took its fallback on that input; and
             a saw -> IirLowpass graph at B=1024 and 33 with a cutoff change
             mid-run, one biquad_scan per block, against the CPU; the 4x
             saturator (``build_saturator(4)``, the sinc boundary) and the
@@ -76,7 +83,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             mode "error"), equal to the same chain fed from numpy;
 5. timing   each kernel's device time (profiler) and its plain version's
             time per call (CUDA events) beside its bound (bytes over
-            3.35 TB/s or float ops over 67 TFLOP/s, the larger), a steady
+            3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
+            one-thread-per-lane scan, its chain floor (B x CHAIN_OPS x 4
+            cycles at the SM clock nvidia-smi reads under load), a steady
             ``process_block``'s time, device-busy share, top device
             activities and real-time factor per model (the piano with v4,
             v3, v2 and the epilogue fusion; for the twin peaks
@@ -94,7 +103,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             counts the shuffles and mma of every ``kabl.cu`` instance in its
             SASS.  On no model's main path: 0 launches in the kernels JSON.
 
-The line before the last is the JSON kernel report, the last line
+The line before the last is the JSON kernel report (with
+``chain_floor_ms``, null where a kernel has no serial chain per lane), the
+last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -133,6 +144,29 @@ TWIN_TOL = 1e-6   # card against CPU: the kernels equal their plain versions
 # a halfband stage) over 2B and B samples per block at 4x
 ALLPASS_SHAPES = tuple((V, B) for V in (1, 2, VOICES)
                        for B in (1024, 2048, 4096)) + ((3, 37),)
+# K7 and K8 read x and their per-sample planes through a ring of 32-step
+# chunks (oscen_tpu_torch/csrc/scan_stage.cuh): every B around the chunk
+RING_B = (1, 2, 31, 32, 33, 1024, 4096)
+RING_V = (1, 2, 3, 33, VOICES)
+# the chain floor of a one-thread-per-lane scan: B x the dependent ops on
+# its loop-carried cycle x CHAIN_CYCLES each, at the SM clock nvidia-smi
+# reads during this run.  Counted from each kernel's loop in
+# oscen_tpu_torch/csrc (a select, a floor or a clamp counts 1; a division,
+# a tanh and the FM sine's polynomial count as their ops: the division 1,
+# the tanh 1, sin_turns 12): phase 3 (add, floor, subtract); TPT 7 (the
+# z1 cycle: - z1, * h, * g, + z0, * g, + z1, + low); ADSR 6 (the level:
+# subtract, multiply, add, clamp 2, stage select); fract 3; the FM chains
+# 15 (an operator's own feedback: * fb, + phase, sin 12, * env); the FM
+# operator 17 (* fb, + pm, + phase, sin 12, * env, * lvl); LP18 8 (* h,
+# - x, - z1, - z2, the division, * g, + z0, the tanh); biquad 6 (+ v1,
+# * a1, -, + v2, the snap 2); the allpass cascade 3 (each stage's own
+# cycle; the stages follow each other within the sample).  The additive
+# kernels (a warp per voice) and the ablation bodies have none.
+CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 6,
+             "fract_phase3": 3, "fm_chain3_scan": 15,
+             "pivot_chain3_scan": 15, "fm_operator_scan": 17,
+             "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3}
+CHAIN_CYCLES = 4   # dependent float32 issue latency on Hopper
 # the least time the card could take (NVIDIA H100 SXM data sheet): the
 # bytes a call must move over the memory rate, or its float ops over the
 # float32 rate outside the tensor cores, whichever is larger
@@ -400,13 +434,138 @@ def ablations(torch, dev, card, report, device_ms, time_ms):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def ring_checks(torch, dev, kiir):
+    """K7 and K8 on their staged input ring, and K8's two short paths:
+    tpt_svf_scan and lp18_scan against their plain versions (torch.equal,
+    every output of 3 chained blocks) at every B around the ring's 32-step
+    chunk and ragged V, rows and per-sample planes (the LP18 with g and h
+    over the twin peaks' ranges and x that saturates its tanh); the LP18 on
+    silence, denormal and 1e20-sized x and signed zeros; its tanh over all
+    2^32 float32 inputs against (float)tanh((double)b); its division over
+    every finite float32 and 70 divisors against the true quotient.  Any
+    mismatch fails the run."""
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def twin_g(rng, shape):
+        return np.tan(np.pi * rng.uniform(0.001, 0.33, shape))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    cases = 0
+    for V in RING_V:
+        for B in RING_B:
+            for per_sample in (False, True):
+                rng = np.random.default_rng(V * 41 + B + per_sample)
+                shape = (B, V) if per_sample else (V,)
+                zt = [on_card(rng.standard_normal(V)) for _ in range(2)]
+                z8 = on_card(rng.uniform(-0.8, 0.8, (3, V)))
+                for _ in range(3):
+                    x = on_card(rng.standard_normal((B, V)))
+                    h, g, k = (on_card(rng.uniform(0.3, 0.9, shape)),
+                               on_card(rng.uniform(0.05, 0.5, shape)),
+                               on_card(rng.uniform(1.0, 2.0, shape)))
+                    out = kiir.tpt_svf_scan(x, h, g, k, *zt)
+                    x8 = on_card(3.0 * rng.standard_normal((B, V)))
+                    g8 = on_card(twin_g(rng, shape))
+                    h8 = on_card(rng.uniform(0.0, 1.98, shape))
+                    out8 = kiir.lp18_scan(x8, g8, h8, z8)
+                    torch.cuda.synchronize()
+                    check(same(out, kiir.plain_tpt_svf_scan(x, h, g, k, *zt)),
+                          f"tpt_svf_scan V={V} B={B} per_sample={per_sample}:"
+                          f" kernel and plain version differ")
+                    check(same(out8, kiir.plain_lp18_scan(x8, g8, h8, z8)),
+                          f"lp18_scan V={V} B={B} per_sample={per_sample}: "
+                          f"kernel and plain version differ")
+                    zt, z8 = list(out[1:]), out8[1]
+                cases += 2
+    phase("kernels", f"tpt_svf_scan and lp18_scan on the ring: V in {RING_V}"
+          f", B in {RING_B}, rows and per-sample planes, 3 chained blocks "
+          f"each: {cases} cases equal to the plain versions (torch.equal) "
+          f"ok ({time.perf_counter() - t0:.1f} s)")
+    # the LP18's edge inputs: the division's zero and guard paths
+    for per_sample in (False, True):
+        V, B = 4, 1024
+        rng = np.random.default_rng(11 + per_sample)
+        shape = (B, V) if per_sample else (V,)
+        z = torch.zeros(3, V, device=dev)
+        blocks = [np.zeros((B, V)), 1e-40 * rng.standard_normal((B, V)),
+                  np.where(rng.uniform(size=(B, V)) < 0.01, 1e20, 0.0)
+                  * np.sign(rng.standard_normal((B, V))),
+                  np.full((B, V), -0.0), 0.5 * rng.standard_normal((B, V))]
+        for xb in blocks:
+            x = on_card(xb)
+            g = on_card(twin_g(rng, shape))
+            h = on_card(rng.uniform(0.0, 1.98, shape))
+            out = kiir.lp18_scan(x, g, h, z)
+            torch.cuda.synchronize()
+            plain = kiir.plain_lp18_scan(x, g, h, z)
+            check(same(out, plain) and all(
+                torch.equal(torch.signbit(a), torch.signbit(b))
+                for a, b in zip(out, plain)),
+                f"lp18_scan edge inputs (per_sample={per_sample}): kernel "
+                f"and plain version differ")
+            z = out[1]
+    phase("kernels", "lp18_scan on silence, denormal x, |x| = 1e20 and "
+          "signed zeros, rows and per-sample planes: equal to the plain "
+          "version, signs of zeros included, ok")
+    t0 = time.perf_counter()
+    wrong, undecided, first = kiir.tanh_exact_sweep()
+    secs = time.perf_counter() - t0
+    nans = 2 * (2 ** 23 - 1)
+    phase("kernels", f"lp18_scan's tanh over all 2^32 float32 inputs: "
+          f"{wrong} differ from (float)tanh((double)b); the rounding test "
+          f"left {undecided} undecided ({nans} NaN patterns, "
+          f"{(undecided - nans) / (2 ** 32 - nans):.2e} of the rest) "
+          f"({secs:.2f} s)")
+    check(wrong == 0, f"lp18_scan's tanh differs from the float64 tanh "
+          f"(first at the bit pattern {first})")
+    fc = np.array([0.001, 0.33, 700 / SR, 1000 / SR, 2100 / SR])
+    d = np.concatenate([
+        1.0 + np.tan(np.pi * fc).astype(np.float32),
+        [1.0, 2.0, 4.0, np.nextafter(np.float32(2), np.float32(0)),
+         np.nextafter(np.float32(4), np.float32(0)),
+         np.nextafter(np.float32(1), np.float32(2))],
+        np.random.default_rng(5).uniform(1.0, 4.0, 59)]).astype(np.float32)
+    t0 = time.perf_counter()
+    wrong = kiir.div_sweep(on_card(d))
+    phase("kernels", f"lp18_scan's division over every finite float32 and "
+          f"{len(d)} divisors in [1, 4] (the twin peaks' 1 + g among "
+          f"them): {wrong} pairs differ from a / d "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(wrong == 0, "lp18_scan's division differs from the true quotient")
+
+
+def tanh_fallback_share(torch, kiir, x, g, h, z):
+    """The share of one lp18_scan call's samples whose tanh the rounding
+    test left undecided: the plain loop's bp1 values through
+    ``kiir.tanh_exact`` on the card."""
+    rows = [(c, c.dim() == 1) for c in (g, h)]
+    z0, z1, z2 = z[0], z[1], z[2]
+    bps = []
+    for t in range(x.shape[0]):
+        gt, ht = [c if row else c[t] for c, row in rows]
+        hp = (x[t] - ht * z0 - z1 - z2) / (1.0 + gt)
+        bp1 = gt * hp + z0
+        bps.append(bp1)
+        z0 = torch.tanh(bp1.double()).float()
+        bp2 = gt * bp1 + z1
+        z1, z2 = bp2, gt * bp2 + z2
+    b = torch.stack(bps).reshape(-1).contiguous()
+    y, undecided = kiir.tanh_exact(b)
+    return undecided, b.numel(), bool(torch.equal(
+        y, torch.tanh(b.double()).float()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from oscen_tpu_torch import raw_midi_event
+    from oscen_tpu_torch import raw_midi_event, tools
     from oscen_tpu_torch.models.electric_piano import build_electric_piano
     from oscen_tpu_torch.models.fm_synth import build_fm_synth
     from oscen_tpu_torch.models.pivot import build_pivot
@@ -833,6 +992,8 @@ def main() -> int:
                           if name == "lp18_scan" else
                           f"exact zeros in the last samples of the decaying "
                           f"block {100 * info:.1f}%"))
+
+    ring_checks(torch, dev, kiir)
 
     # the allpass cascade: torch.equal on every output of 3 chained blocks,
     # per-lane betas (the halfband branches side by side)
@@ -1262,6 +1423,29 @@ def main() -> int:
               f"(torch.equal, {8 * B} samples) {'ok' if same else 'FAIL'}")
         check(same, "twin peaks: fused and two-node builds differ")
 
+    # how often lp18_scan's tanh took its fallback on the twin peaks' own
+    # input: every lp18_scan call of a fused B=1024 run, recorded on the way
+    import oscen_tpu_torch.nodes.filters as nfilters
+    calls = []
+
+    def recording(x, g, h, z):
+        calls.append((x, g, h, z))
+        return kiir.lp18_scan(x, g, h, z)
+    nfilters.lp18_scan = recording
+    try:
+        twin_drive("cuda", True, 1024)
+    finally:
+        nfilters.lp18_scan = kiir.lp18_scan
+    shares = [tanh_fallback_share(torch, kiir, *c) for c in calls]
+    undecided = sum(u for u, _, _ in shares)
+    samples = sum(n for _, n, _ in shares)
+    phase("main", f"twin peaks fused B=1024: lp18_scan's tanh left "
+          f"{undecided} of {samples} samples (2 lanes x {len(calls)} "
+          f"blocks) to its fallback; the short path equals the float64 "
+          f"tanh on all of them: {all(ok for _, _, ok in shares)}")
+    check(all(ok for _, _, ok in shares), "twin peaks: tanh_exact differs "
+          "from the float64 tanh on the filter's own input")
+
     # the IIR lowpass: saw -> IirLowpass -> out, a cutoff change mid-run
     def iir_drive(device, B, n):
         g = Graph("IirLowpassGraph")
@@ -1477,45 +1661,35 @@ def main() -> int:
         return a.elapsed_time(b) / reps
 
     def device_ms(fn, reps, kernel=None, top=None):
-        """Device time per call from the profiler: the named kernel's, or
-        the sum over all device activity (the busy time).  With ``top``,
-        also the ``top`` largest device activities as (name, ms per call,
-        launches per call)."""
-        from torch.profiler import ProfilerActivity, profile
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        for _ in range(2):   # a second session if the first saw nothing
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            total, rows, seen = 0.0, [], 0
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-                if e.device_type == torch.autograd.DeviceType.CUDA \
-                        and (kernel is None or kernel in e.key):
-                    total += us
-                    seen += e.count
-                    rows.append((e.key, us / reps / 1e3, e.count / reps))
-            if total > 0:
-                break
-            phase("timing", f"the profiler saw no device time "
-                  f"({kernel or 'all'}); profiling again")
-        check(total > 0, "the profiler saw no device time")
-        if top is not None:
-            rows.sort(key=lambda r: -r[1])
-            return total / reps / 1e3, rows[:top], sum(r[2] for r in rows)
-        if seen != reps:
-            # late in a long run the profiler has kept only some of the
-            # launches (15 of 20 seen): time per launch it recorded
-            phase("timing", f"the profiler recorded {seen} of {reps} "
-                  f"launches of {kernel}")
-        return total / seen / 1e3
+        """Device time per call (``oscen_tpu_torch.tools.device_ms``, the
+        profiler); a missing device time fails the run."""
+        try:
+            return tools.device_ms(fn, reps, kernel=kernel, top=top,
+                                   note=lambda m: phase("timing", m))
+        except RuntimeError as e:
+            check(False, str(e))
 
     phase("timing", f"card {card}")
+    # the SM clock under load: nvidia-smi read while ~0.7 s of lp18_scan
+    # launches run (the chain floors below use it)
+    xs = torch.zeros(4096, 2, device=dev)
+    rs = torch.full((2,), 0.1, device=dev)
+    zs = torch.zeros(3, 2, device=dev)
+    for _ in range(2000):
+        kiir.lp18_scan(xs, rs, rs, zs)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    torch.cuda.synchronize()
+    phase("timing", f"SM clock under load {sm_mhz:.0f} MHz (nvidia-smi)")
+
+    def chain_floor_ms(key, B):
+        """B steps x the kernel's loop-carried dependent ops x
+        CHAIN_CYCLES at the SM clock (None: no serial chain per lane)."""
+        if key not in CHAIN_OPS:
+            return None
+        return B * CHAIN_OPS[key] * CHAIN_CYCLES / (sm_mhz * 1e6) * 1e3
     args = [planes[k] for k in ("osc_re", "osc_im", "mul_re", "mul_im",
                                 "cur", "tgt", "mult")]
     def additive_kernel_name(version):
@@ -1605,7 +1779,8 @@ def main() -> int:
             plain_ms = time_ms(lambda: plain(*args), plain_reps[name],
                                warm=1)
             phase("timing", f"{name} V={VOICES} B={B}: kernel "
-                  f"{ms * 1e3:.1f} us (device), plain PyTorch "
+                  f"{ms * 1e3:.1f} us (device), chain floor "
+                  f"{chain_floor_ms(name, B) * 1e3:.1f} us, plain PyTorch "
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024:
                 report[name].update(ms=ms, plain_ms=plain_ms,
@@ -1734,8 +1909,9 @@ def main() -> int:
             b = bound_of(name, args, fn(*args), B, V)
             phase("timing", f"{name} V={V} B={B}: kernel {ms * 1e3:.1f} us "
                   f"(device), bound {b['bound_ms'] * 1e3:.3f} us "
-                  f"({b['bound_by']}), plain PyTorch {plain_ms * 1e3:.1f} "
-                  f"us/call ({card})")
+                  f"({b['bound_by']}), chain floor "
+                  f"{chain_floor_ms(name, B) * 1e3:.1f} us, plain PyTorch "
+                  f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024 and V == (2 if name == "lp18_scan" else 1):
                 report[name].update(ms=ms, plain_ms=plain_ms, **b)
 
@@ -1872,6 +2048,10 @@ def main() -> int:
             "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            # the timed calls ran B=1024 (the allpass cascade's first 4x
+            # stage 2048)
+            "chain_floor_ms": chain_floor_ms(
+                key, 2048 if key == "allpass_cascade_scan" else 1024),
             # no single PyTorch call computes these per-sample recurrences
             # (no lfilter in torch; cumsum is not a wrapped phase)
             "library_ms": None})

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``oscen_tpu_torch/_build/lib<name>-<digest>.so`` at first use and loaded
-with ``ctypes``.  The digest covers the source and the flags, so an edited
-source rebuilds.  The build uses only the sources in the package; a missing
+with ``ctypes``.  The digest covers the source, every header under
+``csrc/`` (``*.cuh``, which the sources include) and the flags, so an
+edited source or header rebuilds.  The build uses only the sources in the package; a missing
 ``nvcc`` or a failed compile raises.
 """
 
@@ -49,15 +50,26 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (once per source digest) and load ``csrc/<name>.cu``."""
-    lib = _libs.get(name)
+def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
+    """The build key of ``csrc/<name>.cu``: its bytes, every ``*.cuh``
+    beside it (name and bytes, in name order) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for hdr in sorted(csrc.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def load_library(name: str, csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """Build (once per source digest) and load ``csrc/<name>.cu``; another
+    ``csrc`` directory (an older tree's, for an A/B timing) builds beside
+    the package's own libraries under its own digest."""
+    key = name if csrc == CSRC_DIR else f"{name}@{csrc}"
+    lib = _libs.get(key)
     if lib is not None:
         return lib
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    src = csrc / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name, csrc)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -70,10 +82,10 @@ def load_library(name: str) -> ctypes.CDLL:
                 f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
-        build_info[name] = (time.perf_counter() - t0,
-                            proc.stdout + proc.stderr)
+        build_info[key] = (time.perf_counter() - t0,
+                           proc.stdout + proc.stderr)
     lib = ctypes.CDLL(str(out))
-    _libs[name] = lib
+    _libs[key] = lib
     return lib
 
 

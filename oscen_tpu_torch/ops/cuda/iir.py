@@ -25,6 +25,11 @@ each.  The allpass cascade takes ``[S, V]`` rows.
 Selection: a CPU tensor runs the plain version, a CUDA tensor runs the
 kernel of ``csrc/iir.cu`` (built at first use) or raises.  ``launches``
 counts each kernel's launches; the plain versions are not counted.
+
+On the card ``lp18_scan`` evaluates the ``tanh`` and the division by short
+exact paths (``csrc/iir.cu``: ``tanh_exact_fast``, ``div_by``);
+``tanh_exact``, ``tanh_exact_sweep`` and ``div_sweep`` hold them to the
+float64 ``tanh`` rounded once and to the true quotient.
 """
 
 from __future__ import annotations
@@ -169,6 +174,70 @@ def plain_lp18_scan(x, g, h, z):
         z2 = gt * bp2 + z2
         y[t] = z2
     return y, torch.stack([z0, z1, z2])
+
+
+def _counts(dev):
+    return torch.zeros(2, dtype=torch.int64, device=dev)
+
+
+def _card_only(name, dev):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} checks the card's kernels: give it a CUDA "
+                         f"device (got {dev})")
+
+
+def tanh_exact(b):
+    """``(float)tanh((double)b)`` by K8's short path: (``y``, the count
+    of inputs its rounding test left undecided, which took the float64
+    ``tanh``).  On the CPU: ``fmath.tanh`` and the count of
+    ``tanh_table.model``."""
+    if b.device.type == "cpu":
+        from . import tanh_table
+        from .build import CSRC_DIR
+        coef = tanh_table.parse((CSRC_DIR / "tanh_table.cuh").read_text())
+        _, kept = tanh_table.model(b.numpy(), coef)
+        return fmath.tanh(b), int((~kept).sum())
+    from . import build
+    _card_only("tanh_exact", b.device)
+    build.check_operands(b.device, b=b)
+    y, counts = torch.empty_like(b), _counts(b.device)
+    fn = build.entry("iir", "oscen_tanh_exact_map", 3, 1)
+    build.check_launch("iir", fn(b.data_ptr(), y.data_ptr(),
+                                 counts.data_ptr(), b.numel(),
+                                 torch.cuda.current_stream(b.device)
+                                 .cuda_stream), "tanh_exact")
+    return y, int(counts[1])
+
+
+def tanh_exact_sweep(device="cuda"):
+    """K8's ``tanh`` over all 2^32 float32 bit patterns on the card:
+    (patterns where it differs from ``(float)tanh((double)b)``, NaN equal
+    to NaN; patterns its rounding test left undecided; the first differing
+    pattern, or None)."""
+    from . import build
+    dev = torch.device(device)
+    _card_only("tanh_exact_sweep", dev)
+    counts = torch.tensor([0, 0, -1], dtype=torch.int64, device=dev)
+    fn = build.entry("iir", "oscen_tanh_exact_sweep", 1, 0)
+    build.check_launch("iir", fn(counts.data_ptr(), torch.cuda.current_stream(
+        dev).cuda_stream), "tanh_exact_sweep")
+    wrong, undecided, first = counts.tolist()
+    return wrong, undecided, (first & 0xFFFFFFFF) if wrong else None
+
+
+def div_sweep(d):
+    """K8's division over every finite float32 ``a`` and each divisor of
+    ``d`` (a CUDA tensor): the pairs where it differs from ``a / d`` bit for
+    bit."""
+    from . import build
+    _card_only("div_sweep", d.device)
+    build.check_operands(d.device, d=d)
+    counts = _counts(d.device)
+    fn = build.entry("iir", "oscen_div_sweep", 2, 1)
+    build.check_launch("iir", fn(d.data_ptr(), counts.data_ptr(), d.numel(),
+                                 torch.cuda.current_stream(d.device)
+                                 .cuda_stream), "div_sweep")
+    return int(counts[0])
 
 
 # --------------------------------------------------------------------- #

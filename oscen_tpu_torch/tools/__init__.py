@@ -25,7 +25,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import subprocess
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,27 +74,55 @@ def uniform_inputs(H=32, V=256, seed=0):
     return {k: np.asarray(v, np.float32) for k, v in planes.items()}, th
 
 
-def device_us(fn: Callable[[], object], kernel: str, reps: int = 20) -> float:
-    """Device time per launch of the kernels whose name contains
-    ``kernel`` (torch.profiler), in µs; ``fn`` launches one."""
+def device_ms(fn: Callable[[], object], reps: int = 20,
+              kernel: Optional[str] = None, top: Optional[int] = None,
+              note: Callable[[str], None] = print):
+    """Device time per call from ``torch.profiler``, in ms: that of the
+    kernels whose name contains ``kernel`` per launch the profiler recorded
+    (late in a long run it keeps only some; ``note`` is told when it kept
+    fewer than ``reps``), or with ``kernel=None`` the sum over all device
+    activity per call (the busy time).  With ``top``, returns (busy ms, the
+    ``top`` largest activities as (name, ms per call, launches per call),
+    device activities per call).  ``fn`` runs twice first, to warm up."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    for _ in range(2):
+        fn()
     torch.cuda.synchronize()
-    for _ in range(2):   # a second session if the first saw nothing
+    for attempt in range(2):   # profile again if the first saw nothing
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.key]
-        total = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-                    for e in ev)
-        if total > 0:   # per launch the profiler recorded (it may drop some)
-            return total / sum(e.count for e in ev)
-    raise RuntimeError(f"the profiler saw no device time for {kernel}")
+        total, rows, seen = 0.0, [], 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and (kernel is None or kernel in e.key):
+                total += us
+                seen += e.count
+                rows.append((e.key, us / reps / 1e3, e.count / reps))
+        if total > 0:
+            break
+        if attempt == 0:
+            note(f"the profiler saw no device time ({kernel or 'all'}); "
+                 f"profiling again")
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no device time for "
+                           f"{kernel or 'any kernel'}")
+    if top is not None:
+        rows.sort(key=lambda r: -r[1])
+        return total / reps / 1e3, rows[:top], sum(r[2] for r in rows)
+    if seen != reps:
+        note(f"the profiler recorded {seen} of {reps} launches of {kernel}")
+    return total / seen / 1e3
+
+
+def device_us(fn: Callable[[], object], kernel: str, reps: int = 20) -> float:
+    """Device time per launch of the kernels whose name contains
+    ``kernel`` (``device_ms``), in µs; ``fn`` launches one."""
+    return device_ms(fn, reps, kernel=kernel, note=lambda _: None) * 1e3
 
 
 def chain_us(step: Callable, state, n: int = 64) -> float:

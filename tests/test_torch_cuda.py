@@ -555,6 +555,108 @@ def test_lp18_scan_kernel_equals_plain(cuda, V, B, per_sample):
     assert float(out[0].abs().max()) > 0.1
 
 
+# K7 and K8 read x and their per-sample planes through a ring of 32-step
+# chunks (csrc/scan_stage.cuh): every B around the chunk, ragged V
+RING_B = (1, 2, 31, 32, 33, 1024, 4096)
+RING_V = (1, 2, 3, 33, 256)
+
+
+def _twin_g(rng, shape):
+    """The twin peaks' g = tan(pi fc), fc in [0.001, 0.33]
+    (nodes/filters.py)."""
+    return np.tan(np.pi * rng.uniform(0.001, 0.33, shape))
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("V", RING_V)
+def test_tpt_svf_ring_equals_plain(cuda, V, per_sample):
+    for B in RING_B:
+        rng = np.random.default_rng(V * 31 + B + per_sample)
+        shape = (B, V) if per_sample else (V,)
+        z = [_on(cuda, rng.standard_normal(V)) for _ in range(2)]
+        for _ in range(3):
+            x = _on(cuda, rng.standard_normal((B, V)))
+            h, g, k = (_on(cuda, rng.uniform(0.3, 0.9, shape)),
+                       _on(cuda, rng.uniform(0.05, 0.5, shape)),
+                       _on(cuda, rng.uniform(1.0, 2.0, shape)))
+            out = kiir.tpt_svf_scan(x, h, g, k, *z)
+            torch.cuda.synchronize()
+            assert _equal(out, kiir.plain_tpt_svf_scan(x, h, g, k, *z)), B
+            z = list(out[1:])
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("V", RING_V)
+def test_lp18_ring_equals_plain(cuda, V, per_sample):
+    """g and h over the twin peaks' ranges, x that saturates the tanh."""
+    for B in RING_B:
+        rng = np.random.default_rng(V * 37 + B + per_sample)
+        shape = (B, V) if per_sample else (V,)
+        z = _on(cuda, rng.uniform(-0.8, 0.8, (3, V)))
+        for _ in range(3):
+            x = _on(cuda, 3.0 * rng.standard_normal((B, V)))
+            g = _on(cuda, _twin_g(rng, shape))
+            h = _on(cuda, rng.uniform(0.0, 1.98, shape))
+            out = kiir.lp18_scan(x, g, h, z)
+            torch.cuda.synchronize()
+            assert _equal(out, kiir.plain_lp18_scan(x, g, h, z)), B
+            z = out[1]
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_lp18_edge_inputs_equal_plain(cuda, per_sample):
+    """Silence from a zero state (a zero numerator), denormal x, x of
+    1e20 (past the division's guard at 2^60) and signed zeros, in chained
+    blocks."""
+    V, B = 4, 1024
+    rng = np.random.default_rng(11 + per_sample)
+    shape = (B, V) if per_sample else (V,)
+    z = torch.zeros(3, V, device=cuda)
+    blocks = [np.zeros((B, V)),
+              1e-40 * rng.standard_normal((B, V)),
+              np.where(rng.uniform(size=(B, V)) < 0.01, 1e20, 0.0)
+              * np.sign(rng.standard_normal((B, V))),
+              np.full((B, V), -0.0),
+              0.5 * rng.standard_normal((B, V))]
+    for xb in blocks:
+        x = _on(cuda, xb)
+        g = _on(cuda, _twin_g(rng, shape))
+        h = _on(cuda, rng.uniform(0.0, 1.98, shape))
+        out = kiir.lp18_scan(x, g, h, z)
+        torch.cuda.synchronize()
+        plain = kiir.plain_lp18_scan(x, g, h, z)
+        assert _equal(out, plain)
+        # the signs of zeros too
+        assert all(torch.equal(torch.signbit(a), torch.signbit(b))
+                   for a, b in zip(out, plain))
+        z = out[1]
+
+
+def test_tanh_exact_equals_the_float64_tanh_everywhere(cuda):
+    """K8's tanh over all 2^32 float32 inputs equals (float)tanh((double)b)
+    (NaN equal to NaN); the rounding test leaves the NaNs and about 2 in
+    10^6 of the rest undecided."""
+    wrong, undecided, first = kiir.tanh_exact_sweep()
+    assert wrong == 0, f"first differing input: {first:#010x}"
+    nans = 2 * (2 ** 23 - 1)
+    assert nans <= undecided <= nans + 2 ** 32 * 1e-4
+
+
+def test_division_equals_the_ieee_quotient(cuda):
+    """K8's division over every finite float32 a and 70 divisors in
+    [1, 4]: the twin peaks' 1 + g at its cutoff limits and defaults,
+    mantissas of all ones, powers of two, and seeded draws."""
+    fc = np.array([0.001, 0.33, 700 / 48000, 1000 / 48000, 2100 / 48000])
+    d = np.concatenate([
+        1.0 + np.tan(np.pi * fc).astype(np.float32),
+        [1.0, 2.0, 4.0, np.nextafter(np.float32(2), np.float32(0)),
+         np.nextafter(np.float32(4), np.float32(0)),
+         np.nextafter(np.float32(1), np.float32(2))],
+        np.random.default_rng(5).uniform(1.0, 4.0, 59)]).astype(np.float32)
+    assert len(d) >= 64
+    assert kiir.div_sweep(_on(cuda, d)) == 0
+
+
 @pytest.mark.parametrize("per_sample", [False, True])
 @pytest.mark.parametrize("V,B", FILTER_SHAPES)
 def test_biquad_scan_kernel_equals_plain(cuda, V, B, per_sample):

@@ -300,18 +300,36 @@ def test_scans_reject_bad_shapes(name, args):
 
 
 def test_iir_source_pins_the_tanh_and_the_snaps():
-    """The card only equals the CPU if the kernel rounds tanh once from
-    float64 (as ``ops/fmath.py::tanh``) and snaps at 1e-15 (as the
-    reference tick); a float32 ``tanhf`` or a dropped snap would show only
-    on the card."""
+    """The card only equals the CPU if the kernel's tanh is the float64
+    tanh rounded once (as ``ops/fmath.py::tanh``), its quotient the true
+    one, and the biquad snaps at 1e-15 (as the reference tick); a float32
+    ``tanhf``, a fast division or a dropped snap would show only on the
+    card.  K8's short paths keep the reference beside them: a chunk whose
+    rounding test left a lane undecided re-runs the reference body, with
+    ``(float)tanh((double)`` and the true ``/``."""
     src = (ROOT / "oscen_tpu_torch" / "csrc" / "iir.cu").read_text()
     code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
-    assert "(float)tanh((double)bp1)" in code
-    assert "tanhf" not in code and "__tanhf" not in code
+    # the reference body (the re-run) and the sweeps' yardstick
+    assert code.count("(float)tanh((double)bp1)") == 1
+    assert "(float)tanh((double)b)" in code
+    assert "/ (1.0f + gt)" in code
+    assert "if (body.undecided)" in code
+    assert "tanh_exact_fast(bp1, tab, undecided)" in code
+    # the short division: a float64 reciprocal refined by two Newton steps,
+    # one product, one rounding; NaN (a re-run) outside [1, 4)
+    assert "__double2float_rn(__dmul_rn((double)a, rd))" in code
+    assert code.count("r = __fma_rn(r, __fma_rn(-dd, r, 1.0), r);") == 2
+    assert "(d >= 1.0f) & (d < 4.0f) ? r :" in code
+    for banned in ("tanhf", "__tanhf", "__fdividef", "__frcp_", "__expf",
+                   "__drcp_rz", "use_fast_math", "tanh.approx"):
+        assert banned not in code, banned
+    from oscen_tpu_torch.ops.cuda import build
+    assert not any("fast-math" in f or "fast_math" in f or "ftz=true" in f
+                   for f in build.NVCC_FLAGS)
+    # the biquad's snaps
     assert "fabsf(v) < 1e-15f ? 0.0f : v" in code
     for operand in ("snap(x[i])", "snap(c2 * xt - d2 * out)", "snap(nv1)"):
         assert operand in code, operand
-    assert "/ (1.0f + gt)" in code and "__fdividef" not in code
     assert tiir.DENORMAL_THRESHOLD == jfilters.DENORMAL_THRESHOLD == 1e-15
 
 
