@@ -84,8 +84,8 @@ Phases, one line each, any miss fails the run with a non-zero exit:
 5. timing   each kernel's device time (profiler) and its plain version's
             time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
-            one-thread-per-lane scan, its chain floor (B x CHAIN_OPS x 4
-            cycles at the SM clock nvidia-smi reads under load), a steady
+            one-thread-per-lane scan, its chain floor (B x
+            ``tools.CHAIN_OPS`` x 4 cycles at the SM clock nvidia-smi reads under load), a steady
             ``process_block``'s time, device-busy share, top device
             activities and real-time factor per model (the piano with v4,
             v3, v2 and the epilogue fusion; for the twin peaks
@@ -146,27 +146,9 @@ ALLPASS_SHAPES = tuple((V, B) for V in (1, 2, VOICES)
                        for B in (1024, 2048, 4096)) + ((3, 37),)
 # K7 and K8 read x and their per-sample planes through a ring of 32-step
 # chunks (oscen_tpu_torch/csrc/scan_stage.cuh): every B around the chunk
-RING_B = (1, 2, 31, 32, 33, 1024, 4096)
+RING_CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
+RING_B = (1, 2, RING_CHUNK - 1, RING_CHUNK, RING_CHUNK + 1, 1024, 4096)
 RING_V = (1, 2, 3, 33, VOICES)
-# the chain floor of a one-thread-per-lane scan: B x the dependent ops on
-# its loop-carried cycle x CHAIN_CYCLES each, at the SM clock nvidia-smi
-# reads during this run.  Counted from each kernel's loop in
-# oscen_tpu_torch/csrc (a select, a floor or a clamp counts 1; a division,
-# a tanh and the FM sine's polynomial count as their ops: the division 1,
-# the tanh 1, sin_turns 12): phase 3 (add, floor, subtract); TPT 7 (the
-# z1 cycle: - z1, * h, * g, + z0, * g, + z1, + low); ADSR 6 (the level:
-# subtract, multiply, add, clamp 2, stage select); fract 3; the FM chains
-# 15 (an operator's own feedback: * fb, + phase, sin 12, * env); the FM
-# operator 17 (* fb, + pm, + phase, sin 12, * env, * lvl); LP18 8 (* h,
-# - x, - z1, - z2, the division, * g, + z0, the tanh); biquad 6 (+ v1,
-# * a1, -, + v2, the snap 2); the allpass cascade 3 (each stage's own
-# cycle; the stages follow each other within the sample).  The additive
-# kernels (a warp per voice) and the ablation bodies have none.
-CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 6,
-             "fract_phase3": 3, "fm_chain3_scan": 15,
-             "pivot_chain3_scan": 15, "fm_operator_scan": 17,
-             "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3}
-CHAIN_CYCLES = 4   # dependent float32 issue latency on Hopper
 # the least time the card could take (NVIDIA H100 SXM data sheet): the
 # bytes a call must move over the memory rate, or its float ops over the
 # float32 rate outside the tensor cores, whichever is larger
@@ -539,9 +521,12 @@ def ring_checks(torch, dev, kiir):
 
 
 def tanh_fallback_share(torch, kiir, x, g, h, z):
-    """The share of one lp18_scan call's samples whose tanh the rounding
-    test left undecided: the plain loop's bp1 values through
-    ``kiir.tanh_exact`` on the card."""
+    """How often one lp18_scan call's tanh was left undecided by its
+    rounding test: the plain loop's bp1 values through ``kiir.tanh_exact``
+    on the card.  Returns (undecided samples, samples, chunks with an
+    undecided sample, chunks, the short path equal to the float64 tanh):
+    the kernel re-runs a whole chunk of RING_CHUNK steps for any
+    undecided sample in it."""
     rows = [(c, c.dim() == 1) for c in (g, h)]
     z0, z1, z2 = z[0], z[1], z[2]
     bps = []
@@ -553,10 +538,13 @@ def tanh_fallback_share(torch, kiir, x, g, h, z):
         z0 = torch.tanh(bp1.double()).float()
         bp2 = gt * bp1 + z1
         z1, z2 = bp2, gt * bp2 + z2
-    b = torch.stack(bps).reshape(-1).contiguous()
-    y, undecided = kiir.tanh_exact(b)
-    return undecided, b.numel(), bool(torch.equal(
-        y, torch.tanh(b.double()).float()))
+    b = torch.stack(bps)
+    y, undecided = kiir.tanh_exact(b.reshape(-1).contiguous())
+    chunks = list(torch.split(b, RING_CHUNK))
+    redone = sum(kiir.tanh_exact(c.reshape(-1).contiguous())[1] > 0
+                 for c in chunks)
+    return undecided, b.numel(), redone, len(chunks), bool(torch.equal(
+        y, torch.tanh(b.reshape(-1).double()).float()))
 
 
 def main() -> int:
@@ -1437,14 +1425,20 @@ def main() -> int:
     finally:
         nfilters.lp18_scan = kiir.lp18_scan
     shares = [tanh_fallback_share(torch, kiir, *c) for c in calls]
-    undecided = sum(u for u, _, _ in shares)
-    samples = sum(n for _, n, _ in shares)
+    undecided, samples, redone, chunks = (sum(s[i] for s in shares)
+                                          for i in range(4))
+    equal = all(s[4] for s in shares)
     phase("main", f"twin peaks fused B=1024: lp18_scan's tanh left "
           f"{undecided} of {samples} samples (2 lanes x {len(calls)} "
-          f"blocks) to its fallback; the short path equals the float64 "
-          f"tanh on all of them: {all(ok for _, _, ok in shares)}")
-    check(all(ok for _, _, ok in shares), "twin peaks: tanh_exact differs "
-          "from the float64 tanh on the filter's own input")
+          f"blocks) to its fallback, in {redone} of {chunks} "
+          f"{RING_CHUNK}-step chunks (each re-run whole by the reference "
+          f"body); the short path equals the float64 tanh on all of them: "
+          f"{equal}")
+    check(len(calls) == 8 and samples == 2 * 8 * 1024, f"twin peaks: the "
+          f"recorder saw {len(calls)} lp18_scan calls and {samples} "
+          f"samples (want 8 and {2 * 8 * 1024})")
+    check(equal, "twin peaks: tanh_exact differs from the float64 tanh on "
+          "the filter's own input")
 
     # the IIR lowpass: saw -> IirLowpass -> out, a cutoff change mid-run
     def iir_drive(device, B, n):
@@ -1670,26 +1664,14 @@ def main() -> int:
             check(False, str(e))
 
     phase("timing", f"card {card}")
-    # the SM clock under load: nvidia-smi read while ~0.7 s of lp18_scan
-    # launches run (the chain floors below use it)
-    xs = torch.zeros(4096, 2, device=dev)
-    rs = torch.full((2,), 0.1, device=dev)
-    zs = torch.zeros(3, 2, device=dev)
-    for _ in range(2000):
-        kiir.lp18_scan(xs, rs, rs, zs)
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.split()[0])
-    torch.cuda.synchronize()
+    # the SM clock under load (the chain floors below use it)
+    sm_mhz = tools.sm_clock_mhz(dev)
     phase("timing", f"SM clock under load {sm_mhz:.0f} MHz (nvidia-smi)")
 
     def chain_floor_ms(key, B):
-        """B steps x the kernel's loop-carried dependent ops x
-        CHAIN_CYCLES at the SM clock (None: no serial chain per lane)."""
-        if key not in CHAIN_OPS:
-            return None
-        return B * CHAIN_OPS[key] * CHAIN_CYCLES / (sm_mhz * 1e6) * 1e3
+        """``tools.chain_floor_us`` in ms (None: no serial chain)."""
+        us = tools.chain_floor_us(key, B, sm_mhz)
+        return None if us is None else us / 1e3
     args = [planes[k] for k in ("osc_re", "osc_im", "mul_re", "mul_im",
                                 "cur", "tgt", "mult")]
     def additive_kernel_name(version):

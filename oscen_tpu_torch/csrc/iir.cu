@@ -640,14 +640,14 @@ void launch_allpass(const float* x, const float* a, const float* xp,
 }
 
 // Static and dynamic shared memory above 48 KB together need the kernel's
-// opt-in (K8's table is 36 KB, the ring's slots 12 KB each): granted once
-// per kernel for the most any launch asks, 5 slots.
+// opt-in (K8's table is 36 KB, the ring's slots 12 KB each), for the most
+// any launch asks, 5 slots.  The attribute holds for the current device
+// only, so it is set at every launch (a host call, as in kabl.cu).
 template <auto kKernel>
 cudaError_t allow_ring() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)oscen_stage::ring_bytes(5));
-  return err;
+  return cudaFuncSetAttribute(kKernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)oscen_stage::ring_bytes(5));
 }
 
 }  // namespace

@@ -31,6 +31,50 @@ import numpy as np
 import torch
 
 WINDOWS = 7
+# the chain floor of a one-thread-per-lane scan: B x the dependent ops on
+# its loop-carried cycle x CHAIN_CYCLES each, at the SM clock nvidia-smi
+# reads under load (``sm_clock_mhz``).  Counted from each kernel's loop in
+# oscen_tpu_torch/csrc (a select, a floor or a clamp counts 1; a division,
+# a tanh and the FM sine's polynomial count as their ops: the division 1,
+# the tanh 1, sin_turns 12): phase 3 (add, floor, subtract); TPT 7 (the
+# z1 cycle: - z1, * h, * g, + z0, * g, + z1, + low); ADSR 6 (the level:
+# subtract, multiply, add, clamp 2, stage select); fract 3; the FM chains
+# 15 (an operator's own feedback: * fb, + phase, sin 12, * env); the FM
+# operator 17 (* fb, + pm, + phase, sin 12, * env, * lvl); LP18 8 (* h,
+# - x, - z1, - z2, the division, * g, + z0, the tanh); biquad 6 (+ v1,
+# * a1, -, + v2, the snap 2); the allpass cascade 3 (each stage's own
+# cycle; the stages follow each other within the sample).  The additive
+# kernels (a warp per voice) and the ablation bodies have none.
+CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 6,
+             "fract_phase3": 3, "fm_chain3_scan": 15,
+             "pivot_chain3_scan": 15, "fm_operator_scan": 17,
+             "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3}
+CHAIN_CYCLES = 4   # dependent float32 issue latency on Hopper
+
+
+def chain_floor_us(kernel: str, B: int, mhz: float) -> Optional[float]:
+    """The chain floor of ``kernel`` over ``B`` steps at ``mhz``, in µs
+    (None: no serial chain per lane)."""
+    if kernel not in CHAIN_OPS:
+        return None
+    return B * CHAIN_OPS[kernel] * CHAIN_CYCLES / mhz
+
+
+def sm_clock_mhz(dev) -> float:
+    """nvidia-smi's SM clock while ~0.7 s of ``lp18_scan`` launches run on
+    ``dev`` (the card's clock under load)."""
+    from ..ops.cuda import iir
+    x = torch.zeros(4096, 2, device=dev)
+    r = torch.full((2,), 0.1, device=dev)
+    z = torch.zeros(3, 2, device=dev)
+    for _ in range(2000):
+        iir.lp18_scan(x, r, r, z)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
 
 
 def parse_args(argv, variants: Sequence[str], doc: str):

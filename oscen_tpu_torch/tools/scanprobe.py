@@ -1,7 +1,7 @@
 """Where K7's and K8's time per step goes, and the redesign against the old
 bodies, on the card.
 
-    python -m oscen_tpu_torch.tools.scanprobe [--old DIR] [--windows N]
+    python -m oscen_tpu_torch.tools.scanprobe [--old DIR]
 
 Three parts, one line each:
 
@@ -21,10 +21,10 @@ Three parts, one line each:
   4096, rows and a sweep), both checked equal to the plain version first.
 
 Times are device µs per launch from CUDA events around 20 back-to-back
-launches (the profiler drops device time late in long runs), the median
-over the windows, beside each call's chain floor (steps x
-``chip_smoke.CHAIN_OPS`` x 4 cycles at the SM clock nvidia-smi reads under
-load).  On the card only.
+launches (``tools.chain_us``; the profiler drops device time late in long
+runs), the median over 5 windows, beside each call's chain floor
+(``tools.chain_floor_us`` at the SM clock ``tools.sm_clock_mhz`` reads).
+On the card only.
 """
 
 from __future__ import annotations
@@ -32,18 +32,15 @@ from __future__ import annotations
 import argparse
 import ctypes
 import statistics
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import card
+from . import card, chain_floor_us, chain_us, sm_clock_mhz
 from ..ops.cuda import build, iir
 
-# the loop-carried dependent ops per step (chip_smoke.py's CHAIN_OPS)
-CHAIN_OPS = {"tpt_svf_scan": 7, "lp18_scan": 8}
-CHAIN_CYCLES = 4
+WINDOWS = 5
 TPT_PROBES = {0: "as is", 1: "x from a register", 2: "unroll 16",
               3: "unroll 1"}
 LP18_PROBES = {0: "(a) as is", 1: "(b) x from a register",
@@ -53,34 +50,9 @@ LP18_PROBES = {0: "(a) as is", 1: "(b) x from a register",
 LAT = ("FMUL+FADD", "DFMA", "F2F+DADD+F2F", "LDS", "DMUL", "FADD+div")
 
 
-def event_us(fn, reps: int = 20) -> float:
-    """Device µs per launch: CUDA events around ``reps`` launches of ``fn``
-    queued back to back (after 3 to warm up)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(True), torch.cuda.Event(True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) * 1e3 / reps
-
-
-def sm_clock_mhz(dev) -> float:
-    """nvidia-smi's SM clock while ~0.5 s of K8 launches run."""
-    x = torch.zeros(4096, 2, device=dev)
-    r = torch.full((2,), 0.1, device=dev)
-    z = torch.zeros(3, 2, device=dev)
-    for _ in range(2000):
-        iir.lp18_scan(x, r, r, z)
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True,
-                         timeout=60).stdout
-    torch.cuda.synchronize()
-    return float(out.split()[0])
+def event_us(fn) -> float:
+    """Device µs per launch: CUDA events around 20 launches of ``fn``."""
+    return chain_us(lambda _: fn(), None, 20)
 
 
 def _probe_lib():
@@ -161,7 +133,7 @@ def latency(dev):
         f"{k} {v:.1f}" for k, v in zip(LAT, c)), flush=True)
 
 
-def probe(dev, windows, mhz):
+def probe(dev, mhz):
     lib = _probe_lib()
     rng = np.random.default_rng(0)
     rows = []
@@ -175,7 +147,7 @@ def probe(dev, windows, mhz):
                             ops, strides)
             rows.append((kernel, label, B, name, run))
     res = {i: [] for i in range(len(rows))}
-    for _ in range(windows):
+    for _ in range(WINDOWS):
         for i, (kernel, *_, run) in enumerate(rows):
             res[i].append(event_us(run))
     for i, (kernel, label, B, name, _) in enumerate(rows):
@@ -185,7 +157,7 @@ def probe(dev, windows, mhz):
               f"{mhz:.0f} MHz", flush=True)
 
 
-def ab(dev, old: Path, windows, mhz):
+def ab(dev, old: Path, mhz):
     """Old and new bodies in turns (old, new, new, old) per window."""
     old_fns = _entries(old / "oscen_tpu_torch" / "csrc")
     new_fns = _entries(build.CSRC_DIR)
@@ -204,16 +176,16 @@ def ab(dev, old: Path, windows, mhz):
                 raise SystemExit(f"{w} {kernel} {label}: not equal to the "
                                  f"plain version")
         t = {"old": [], "new": []}
-        for _ in range(windows):
+        for _ in range(WINDOWS):
             for w in ("old", "new", "new", "old"):
                 t[w].append(event_us(runs[w]))
         o, n = statistics.median(t["old"]), statistics.median(t["new"])
-        floor = B * CHAIN_OPS[kernel] * CHAIN_CYCLES / mhz
+        floor = chain_floor_us(kernel, B, mhz)
         print(f"[ab] {kernel} {label}: old {o:.2f} us, new {n:.2f} us "
               f"(x{o / n:.2f}), chain floor {floor:.2f} us; old "
               f"{min(t['old']):.2f}-{max(t['old']):.2f}, new "
               f"{min(t['new']):.2f}-{max(t['new']):.2f} over "
-              f"{windows} windows", flush=True)
+              f"{WINDOWS} windows", flush=True)
 
 
 def main(argv=None) -> int:
@@ -221,8 +193,6 @@ def main(argv=None) -> int:
     ap.add_argument("--old", type=Path, default=None,
                     help="a tree of the parent commit: time its iir.cu "
                          "against the package's")
-    ap.add_argument("--windows", type=int, default=5)
-    ap.add_argument("--no-probe", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         ap.error("no CUDA card: the probes time the card")
@@ -230,11 +200,10 @@ def main(argv=None) -> int:
     mhz = sm_clock_mhz(dev)
     print(f"[scanprobe] {card()}; SM clock under load {mhz:.0f} MHz",
           flush=True)
-    if not args.no_probe:
-        latency(dev)
-        probe(dev, args.windows, mhz)
+    latency(dev)
+    probe(dev, mhz)
     if args.old is not None:
-        ab(dev, args.old, args.windows, mhz)
+        ab(dev, args.old, mhz)
     return 0
 
 
