@@ -9,7 +9,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
 
 1. device   torch/CUDA versions, the card's name and power limit;
 2. build    the CUDA kernels from ``oscen_tpu_torch/csrc`` (one nvcc per
-            source, all started together; sm_90a), with register use;
+            source, all started together; sm_90a), with register use; from
+            the SASS, no local memory (LDL / STL) in any additive kernel
+            instance and the kept work of every ``kabl.cu`` instance;
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main paths' shapes: the additive voice in its four
             versions v4, parity, v3 and v2 (V=256, H=32, B=1024 and 4096
@@ -17,7 +19,11 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             fused mix; v3 equal to v4 bit for bit) and v4 with the tremolo
             epilogue (a tremolo state whose tick count crosses K_REBASE in
             the block; equal to v4's mix panned by the plain version, its
-            state advance equal to Tremolo.process_block's), phase_scan,
+            state advance equal to Tremolo.process_block's);
+            v4 with and without the mix and with the epilogue at V=1, 3,
+            33, 256 and 257 and B=64, 128, 1024 and 4096 against the plain
+            version, every time-segment count equal to the one the kernel
+            picks (which the library and the wrapper agree on); phase_scan,
             tpt_svf_scan (row and per-sample coefficients), adsr_scan
             (A -> D -> S, then a gate-off through R -> idle), and the FM
             kernels fract_phase3, fm_chain3_scan and pivot_chain3_scan
@@ -37,13 +43,20 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             silence, denormal and 1e20-sized x and signed zeros; lp18_scan's
             tanh over all 2^32 float32 inputs against (float)tanh((double)b)
             and its division over every finite float32 and 70 divisors
-            against the true quotient;
+            against the true quotient; phase_scan on its ring with the
+            short exact wrap at V=1, 2, 3, 33 and 256 and B=1, 31, 33, 1024,
+            4096 and 16384, on the main paths' dt and on dt with -0,
+            denormals, negatives, values >= 1, +-inf and NaN (bit patterns
+            of every output of 3 chained blocks), every body of phase.cu,
+            and its short wrap over all 2^32 float32 q against
+            q - floor(q);
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
               (``build_electric_piano(256).compile(..., device="cuda")``, a
               256-note chord, steady blocks, note-offs, ``render_steady``,
-              ``steady_checksum``), once per kernel version (v4, parity,
+              ``steady_checksum``; 8 steady blocks under sync debug mode
+              "error"), once per kernel version (v4, parity,
               v3, v2) and once with ``OSCEN_EPILOGUE_FUSION=1`` (one
               epilogue launch per steady block, ``explain()`` shows the
               tremolo fused away and advances no counter, the output equal
@@ -80,7 +93,10 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             sync debug mode "error"; the README synth chained block by
             block into the echo through the tensors it returns on the card
             (no host copy, every block after the first under sync debug
-            mode "error"), equal to the same chain fed from numpy;
+            mode "error", one phase_scan per synth block), equal to the
+            same chain fed from numpy; how many phase_scan chunks the short
+            wrap re-ran on the poly synth's, the saturator's and the README
+            synth's own input;
 5. timing   each kernel's device time (profiler) and its plain version's
             time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
@@ -136,6 +152,10 @@ POLY_TOL = 1e-5
 SCAN_SHAPES = ((VOICES, 1024), (VOICES, 4096), (3, 37))
 # the additive voice: the piano's shapes and a ragged one (B a multiple of 8)
 ADD_SHAPES = ((VOICES, 1024), (VOICES, 4096), (3, 40))
+# K1's time segments: ragged V around the 2-voice CUDA block and B around
+# the 64-tick subgroup (B <= 64: one segment)
+SEG_V = (1, 3, 33, VOICES, VOICES + 1)
+SEG_B = (64, 128, 1024, 4096)
 # the twin peaks runs 2 lanes (fused) or 1; the IIR lowpass graph 1
 FILTER_SHAPES = ((2, 1024), (2, 4096), (VOICES, 1024), (VOICES, 4096),
                  (3, 37))
@@ -149,6 +169,9 @@ ALLPASS_SHAPES = tuple((V, B) for V in (1, 2, VOICES)
 RING_CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
 RING_B = (1, 2, RING_CHUNK - 1, RING_CHUNK, RING_CHUNK + 1, 1024, 4096)
 RING_V = (1, 2, 3, 33, VOICES)
+# K6 on the same ring: the saturator's 4x lane reaches 16384 steps
+PHASE_RING_V = (1, 2, 3, 33, VOICES)
+PHASE_RING_B = (1, 31, 33, 1024, 4096, 16384)
 # the least time the card could take (NVIDIA H100 SXM data sheet): the
 # bytes a call must move over the memory rate, or its float ops over the
 # float32 rate outside the tensor cores, whichever is larger
@@ -200,7 +223,7 @@ def additive_inputs(V, seed=0):
     rng = np.random.default_rng(seed)
     th = rng.uniform(0, 0.2, (H, V))
     step = rng.integers(0, 65, (V,)).astype(np.float32)
-    step[:3] = (0.0, 64.0, 33.0)
+    step[:min(V, 3)] = (0.0, 64.0, 33.0)[:min(V, 3)]
     planes = dict(
         osc_re=rng.normal(size=(H, V)), osc_im=rng.normal(size=(H, V)),
         mul_re=np.cos(th), mul_im=np.sin(th),
@@ -250,39 +273,54 @@ OPS_PER_STEP.update({f"kabl:{k}": v for k, v in {
     "hmaj_t2": 9, "k3": 23, "k1": 21}.items()})
 
 
-def sass_counts(build):
-    """Instruction, shuffle and tensor-core counts of every kernel instance
-    of csrc/kabl.cu from its SASS.  The variants whose results nothing
-    reads must keep their work: noout its 32 shuffles (as full), dot32 one
+def sass_checks(build, tools):
+    """From the SASS of the built libraries: the additive kernels keep
+    their harmonic samples in registers (no LDL or STL in any
+    ``additive_closed_kernel`` or ``additive_parity_kernel`` instance; the
+    epilogue's instances, ``<SUB, 4, true>``, keep the local array of the
+    float64 sine's slow path for huge arguments, which the tremolo's phase
+    in [0, 2 pi) never takes, and are counted apart), and
+    every kernel instance of csrc/kabl.cu keeps its work: the variants
+    whose results nothing reads, noout its 32 shuffles (as full), dot32 one
     mma per k-tile (5) and dot4 four whole-block dots (20)."""
     import glob
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    libs = sorted(glob.glob(str(build.BUILD_DIR / "libkabl-*.so")),
-                  key=os.path.getmtime)
-    check(bool(libs) and os.path.exists(tool),
-          "kabl.cu SASS: no library or no cuobjdump to count it")
-    out = subprocess.run([tool, "-sass", libs[-1]], capture_output=True,
-                         text=True, timeout=120).stdout
-    counts, fn = {}, None
-    for ln in out.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
+
+    def newest(name):
+        libs = sorted(glob.glob(str(build.BUILD_DIR / f"lib{name}-*.so")),
+                      key=os.path.getmtime)
+        check(bool(libs), f"{name}.cu SASS: no library to count it in")
+        return libs[-1]
+    try:
+        add_c = tools.sass_counts(newest("additive"), ("LDL", "STL"))
+        kabl_c = tools.sass_counts(newest("kabl"), ("SHFL", "HMMA"))
+    except (RuntimeError, subprocess.SubprocessError) as e:
+        check(False, f"SASS: {e}")
+    parts, local, epi = [], 0, 0
+    for fn, c in add_c.items():
+        m = re.search(r"(additive_(?:closed|parity)_kernel)I((?:L[ib]\d+E)+)E",
+                      fn)
         if m:
-            fn = m.group(1)
-            counts[fn] = [0, 0, 0]
-        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
-            counts[fn][0] += 1
-            counts[fn][1] += "SHFL" in ln
-            counts[fn][2] += "HMMA" in ln
+            args = re.findall(r"L[ib](\d+)E", m.group(2))
+            parts.append(f"{m.group(1)}<{','.join(args)}> {c['instr']} "
+                         f"instr, LDL {c['LDL']}, STL {c['STL']}")
+            if len(args) == 3 and args[2] == "1":
+                epi += 1
+            else:
+                local += c["LDL"] + c["STL"]
+    phase("build", "additive.cu SASS: " + "; ".join(parts))
+    check(len(parts) == 19 and epi == 4 and local == 0,
+          f"additive.cu SASS: {local} local-memory instructions in the "
+          f"{len(parts) - epi} instances without the epilogue (want 0, and "
+          f"15 such instances and 4 with it)")
     parts, by_inst = [], {}
-    for fn, (n, shfl, hmma) in counts.items():
+    for fn, c in kabl_c.items():
         m = re.search(r"(kabl_(?:tick|mma)_kernel)I((?:Li\d+E)+)E", fn)
         if m:
             args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
-            by_inst[f"{m.group(1)}<{args}>"] = (shfl, hmma)
-            parts.append(f"{m.group(1)}<{args}> {n} instr, SHFL {shfl}, "
-                         f"HMMA {hmma}")
+            by_inst[f"{m.group(1)}<{args}>"] = (c["SHFL"], c["HMMA"])
+            parts.append(f"{m.group(1)}<{args}> {c['instr']} instr, SHFL "
+                         f"{c['SHFL']}, HMMA {c['HMMA']}")
     phase("build", "kabl.cu SASS (SUB, ROWS, AMP, IM, RED, OUT, PREC): "
           + "; ".join(parts))
     full = by_inst.get("kabl_tick_kernel<32,0,0,0,0,0,0>", (0, 0))
@@ -520,6 +558,91 @@ def ring_checks(torch, dev, kiir):
     check(wrong == 0, "lp18_scan's division differs from the true quotient")
 
 
+def phase_checks(torch, dev, kphase):
+    """K6 on its staged ring with the short exact wrap: phase_scan against
+    its plain version (torch.equal on the int32 patterns of every output
+    of 3 chained blocks, so signs of zeros and NaN payloads count) at V in
+    PHASE_RING_V and B in PHASE_RING_B, on the main paths' dt and on dt
+    with -0, denormals, negatives, values >= 1, +-inf and NaN (which
+    re-run their chunks with floor); every other body of phase.cu on the
+    main paths' shapes; the wrap over all 2^32 float32 q against
+    q - floor(q).  Any mismatch fails the run."""
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def same(a, b):
+        return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+    f32 = np.float32
+    edges = np.array([-0.0, 0.0, 1e-40, -1e-40, np.nextafter(f32(1), f32(0)),
+                      1.0, np.nextafter(f32(1), f32(2)), 1.5, 2.0, 2.5,
+                      -0.25, -1.0, -3.5, 7.0, np.inf, -np.inf, np.nan],
+                     np.float32)
+    t0 = time.perf_counter()
+    cases, reruns = 0, {False: 0, True: 0}
+    for V in PHASE_RING_V:
+        for B in PHASE_RING_B:
+            for edge in (False, True):
+                rng = np.random.default_rng(V * 43 + B + edge)
+                p0 = rng.uniform(0, 1, V).astype(np.float32)
+                if edge:
+                    p0[0] = -0.0
+                p = torch.as_tensor(p0, device=dev)
+                for _ in range(3):
+                    dt = rng.uniform(0.0, 0.5, (B, V)).astype(np.float32)
+                    if edge:
+                        idx = rng.integers(0, B * V, min(B * V, 64))
+                        dt.reshape(-1)[idx] = rng.choice(edges, len(idx))
+                    dt = torch.as_tensor(dt, device=dev)
+                    before = kphase.launches["phase_scan"]
+                    out = kphase.phase_scan(p, dt)
+                    var = kphase.phase_scan_variant(p, dt)
+                    torch.cuda.synchronize()
+                    check(kphase.launches["phase_scan"] == before + 1,
+                          "phase_scan: launch counter did not advance")
+                    plain = kphase.plain_phase_scan(p, dt)
+                    check(same(out, plain) and same(var[:2], plain),
+                          f"phase_scan V={V} B={B} edges={edge}: kernel and "
+                          f"plain version differ")
+                    reruns[edge] += int(var[2])
+                    p = out[1]
+                cases += 1
+    phase("kernels", f"phase_scan on the ring: V in {PHASE_RING_V}, B in "
+          f"{PHASE_RING_B}, the main paths' dt and dt with -0, denormals, "
+          f"negatives, >= 1, +-inf and NaN, 3 chained blocks each: {cases} "
+          f"cases equal to the plain version (bit patterns) ok; chunks "
+          f"re-run with floor: {reruns[False]} on the main paths' dt, "
+          f"{reruns[True]} on the edge dt "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(reruns[False] == 0 and reruns[True] > 0,
+          "phase_scan: the short wrap re-ran a chunk of in-range dt, or "
+          "none of the edge dt")
+    for V, B in ((VOICES, 1024), (VOICES, 4096), (1, 4096), (1, 16384)):
+        rng = np.random.default_rng(V + B)
+        p = torch.as_tensor(rng.uniform(0, 1, V).astype(np.float32),
+                            device=dev)
+        dt = torch.as_tensor(rng.uniform(0.001, 0.5, (B, V)).astype(
+            np.float32), device=dev)
+        plain = kphase.plain_phase_scan(p, dt)
+        for name in kphase.VARIANTS:
+            got = kphase.phase_scan_variant(p, dt, name)
+            torch.cuda.synchronize()
+            check(same(got[:2], plain) and int(got[2]) == 0,
+                  f"phase_scan body {name} V={V} B={B}: differs from the "
+                  f"plain version")
+    phase("kernels", f"phase_scan's bodies {list(kphase.VARIANTS)} at V=256 "
+          f"B=1024, 4096 and V=1 B=4096, 16384: equal to the plain version "
+          f"ok")
+    t0 = time.perf_counter()
+    wrong, taken = kphase.wrap_sweep()
+    phase("kernels", f"phase_scan's short wrap over all 2^32 float32 q: "
+          f"{wrong} differ from q - floor(q) (bit patterns); the short path "
+          f"takes {taken} (2^30 = {2 ** 30}) "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(wrong == 0 and taken == 2 ** 30,
+          "phase_scan's short wrap differs from q - floor(q)")
+
+
 def tanh_fallback_share(torch, kiir, x, g, h, z):
     """How often one lp18_scan call's tanh was left undecided by its
     rounding test: the plain loop's bp1 values through ``kiir.tanh_exact``
@@ -603,7 +726,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         phase("build", f"{name}.cu (nvcc {secs:.2f} s): "
               + " | ".join(regs))
-    sass_counts(build)
+    sass_checks(build, tools)
 
     # ---- 3. kernels against their plain versions ---------------------
     def on_card(a):
@@ -725,6 +848,64 @@ def main() -> int:
             check(ok, "v4_epilogue disagrees with its plain version")
             tst = new_t
             _, ore, oim, cur, tgt, s = k_out
+
+    # K1's time segments: v4 with and without the mix, and with the
+    # epilogue, at ragged V and B against the plain version at its bounds;
+    # every segment count's outputs equal to the shipped choice's
+    t0 = time.perf_counter()
+    seg_used = {}
+    for V in SEG_V:
+        pn, sn = additive_inputs(V, seed=V)
+        pl = [on_card(pn[k]) for k in ("osc_re", "osc_im", "mul_re",
+                                       "mul_im", "cur", "tgt", "mult")]
+        s = on_card(sn)
+        for B in SEG_B:
+            sub = add.subgroup_len(B, "v4")
+            S = add.segments(V, B, sub)
+            check(add.card_segments(V, B, sub) == S,
+                  f"segments V={V} B={B}: the library picks "
+                  f"{add.card_segments(V, B, sub)}, the wrapper {S}")
+            seg_used[(V, B)] = S
+            y_tol = {m: Y_TOL * (math.sqrt(V) if m else 1.0)
+                     for m in (False, True)}
+            mixes = {}
+            for with_mix in (False, True):
+                k_out = add.additive_voice_block(*pl, s, B,
+                                                 with_mix=with_mix,
+                                                 version="v4")
+                p_out = add.plain_block(*pl, s, B, with_mix, "v4")
+                torch.cuda.synchronize()
+                y_err = float((k_out[0] - p_out[0]).abs().max())
+                ok = y_err <= y_tol[with_mix] and all(
+                    torch.equal(a, b) for a, b in zip(k_out[1:], p_out[1:]))
+                for S2 in (1, 2, 4):
+                    if (B // sub) % S2 == 0:
+                        o2 = add.closed_block_segments(*pl, s, B, S2,
+                                                       with_mix)
+                        ok = ok and all(torch.equal(a, b)
+                                        for a, b in zip(o2, k_out))
+                check(ok, f"v4 V={V} B={B} with_mix={with_mix} ({S} "
+                      f"segments): y max abs {y_err:.3e} (<= "
+                      f"{y_tol[with_mix]:.1e}), or a state plane, or another "
+                      f"segment count differs")
+                mixes[with_mix] = k_out[0]
+            if add.EPILOGUE_TILE >= V + (-V % 128):
+                tst, vals = trem_state(add.K_REBASE - B // 2)
+                C, fn, prm, _ = trem.kernel_epilogue(tst, vals,
+                                                     SampleRate(SR), B)
+                e_out = add.additive_voice_block(*pl, s, B, with_mix=True,
+                                                 epi_fn=fn, epi_c=C,
+                                                 epi_params=prm)
+                torch.cuda.synchronize()
+                check(torch.equal(e_out[0], torch.stack(
+                    fn(mixes[True], 0, prm), dim=-1)),
+                    f"v4_epilogue V={V} B={B}: not v4's mix panned")
+    phase("kernels", f"v4 (with and without the mix) and v4_epilogue at V in "
+          f"{SEG_V}, B in {SEG_B} against the plain version (y <= 5e-5, x "
+          f"sqrt(V) with the mix; state torch.equal), every segment count "
+          f"equal to the shipped one, the epilogue equal to v4's mix panned "
+          f"(V <= 256) ok; segments used (V, B): {seg_used} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # the scan kernels: torch.equal on every output of 3 chained blocks
     rng = np.random.default_rng(1)
@@ -982,6 +1163,7 @@ def main() -> int:
                           f"block {100 * info:.1f}%"))
 
     ring_checks(torch, dev, kiir)
+    phase_checks(torch, dev, kphase)
 
     # the allpass cascade: torch.equal on every output of 3 chained blocks,
     # per-lane betas (the halfband branches side by side)
@@ -1037,7 +1219,14 @@ def main() -> int:
                                                  mode="block", device=device)
         chord(p)
         blocks = [p.process_block()["out"]]
-        blocks += [p.process_block()["out"] for _ in range(8)]
+        if device == "cuda":   # a steady block must not wait for the card
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            blocks += [p.process_block()["out"] for _ in range(8)]
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
         release_half(p)
         blocks.append(p.process_block()["out"])
         steady = p.render_steady(16)["out"]
@@ -1097,9 +1286,9 @@ def main() -> int:
             "state_on_cuda": all(x.device.type == "cuda" for x in leaves),
         }
         phase("main", f"{version}: 256-voice piano B=1024, 8+16+32 steady "
-              f"blocks, checksum {ck:.6e}, peak "
-              f"{float(np.abs(audio).max()):.4f}, {secs:.2f} s; checks "
-              f"{checks}")
+              f"blocks (the 8 under sync debug mode 'error'), checksum "
+              f"{ck:.6e}, peak {float(np.abs(audio).max()):.4f}, "
+              f"{secs:.2f} s; checks {checks}")
         check(all(checks.values()), f"main path checks failed: {checks}")
     steady_blocks = 8 + 16 + 32
     phase("main", f"kernel launches in the main-path runs: {launches} "
@@ -1631,13 +1820,57 @@ def main() -> int:
     reset_all()
     chained = chain_drive(True)
     got = kiir.launches["tpt_svf_scan"]
+    got_ph = kphase.launches["phase_scan"]
     same = torch.equal(chained, chain_drive(False))
     phase("main", f"README synth -> simple echo B=1024: 16 blocks through "
           f"card tensors (blocks 2-16 under sync debug mode 'error'), "
           f"tpt_svf_scan launches {got} (want 32: the synth's filter and "
-          f"the echo's), peak {float(chained.abs().max()):.4f}, equal to "
+          f"the echo's), phase_scan launches {got_ph} (want 16: the "
+          f"synth's saw), peak {float(chained.abs().max()):.4f}, equal to "
           f"the numpy-fed chain (torch.equal) {'ok' if same else 'FAIL'}")
-    check(same and got == 32, "synth -> echo chain checks failed")
+    check(same and got == 32 and got_ph == 16,
+          "synth -> echo chain checks failed")
+
+    # how often phase_scan's short wrap re-ran a chunk on each model's own
+    # input: every phase_scan call of the poly synth (B=1024, 10 blocks),
+    # the 4x sinc saturator (B=1024 and 4096, 4 blocks) and the README
+    # synth (16 blocks), recorded on the way and run again through the
+    # kernel's counted entry
+    import oscen_tpu_torch.ops.scan as oscan
+    ph_calls = []
+
+    def ph_recording(p0, dt):
+        ph_calls.append((p0.clone(), dt.clone()))
+        return kphase.phase_scan(p0, dt)
+    reruns = {}
+    oscan.phase_scan = ph_recording
+    try:
+        for label, run in (
+                ("poly synth", lambda: poly_drive("cuda")),
+                ("saturator 4x sinc B=1024",
+                 lambda: sat_drive("cuda", "sinc", 1024, 4)),
+                ("saturator 4x sinc B=4096",
+                 lambda: sat_drive("cuda", "sinc", 4096, 4)),
+                ("README synth", lambda: chain_drive(True))):
+            ph_calls.clear()
+            run()
+            n = 0
+            for p0, dt in ph_calls:
+                out = kphase.phase_scan_variant(p0, dt)
+                n += int(out[2])
+                check(all(torch.equal(a, b) for a, b in zip(
+                    out[:2], kphase.plain_phase_scan(p0, dt))),
+                    f"{label}: phase_scan differs from its plain version on "
+                    f"the model's input")
+            shapes = sorted({tuple(dt.shape) for _, dt in ph_calls})
+            reruns[label] = (n, len(ph_calls), shapes)
+    finally:
+        oscan.phase_scan = kphase.phase_scan
+    phase("main", "phase_scan's short wrap on each model's own input, "
+          "(lane, chunk)s re-run with floor / calls [B, V]: " + "; ".join(
+              f"{k} {n} / {c} {sh}" for k, (n, c, sh) in reruns.items()))
+    check(all(c > 0 for _, c, _ in reruns.values()),
+          "phase_scan: a model ran no phase_scan")
 
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
@@ -1686,9 +1919,13 @@ def main() -> int:
             call_ms = time_ms(lambda: kf(*args, step, B, True), 50)
             plain_ms = time_ms(lambda: pf(*args, step, B, True),
                                3 if version == "parity" else 5)
+            segs = (1 if version == "parity" else add.segments(
+                VOICES, B, add.subgroup_len(B, version)))
             phase("timing", f"{version} V={VOICES} B={B} with_mix: kernel "
-                  f"{ms * 1e3:.1f} us (device), wrapper call "
-                  f"{call_ms * 1e3:.1f} us, plain PyTorch "
+                  f"{ms * 1e3:.1f} us (device; {segs} time segments per "
+                  f"voice, chain floor "
+                  f"{chain_floor_ms(version, B // segs) * 1e3:.2f} us), "
+                  f"wrapper call {call_ms * 1e3:.1f} us, plain PyTorch "
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024:
                 report[version].update(
@@ -1741,7 +1978,7 @@ def main() -> int:
     os.environ.pop("OSCEN_EPILOGUE_FUSION", None)
 
     # the scan kernels at the poly synth's shapes (V=256 voices)
-    cuda_name = {"phase_scan": "phase_scan_kernel",
+    cuda_name = {"phase_scan": "phase_ring_kernel",
                  "tpt_svf_scan": "tpt_svf_kernel",
                  "adsr_scan": "adsr_kernel"}
     plain_reps = {"phase_scan": 3, "tpt_svf_scan": 2, "adsr_scan": 1}
@@ -1768,6 +2005,16 @@ def main() -> int:
                 report[name].update(ms=ms, plain_ms=plain_ms,
                                     **bound_of(name, args, fn(*args), B,
                                                VOICES))
+    # phase_scan at the 4x saturator's shape: one lane over 4B steps
+    for B in (4096, 16384):
+        args = (rand(0, 1, (1,)), rand(0.001, 0.5, (B, 1)))
+        ms = device_ms(lambda: kphase.phase_scan(*args), 50,
+                       kernel=cuda_name["phase_scan"])
+        b = bound_of("phase_scan", args, kphase.phase_scan(*args), B, 1)
+        phase("timing", f"phase_scan V=1 B={B} (the 4x saturator's lane): "
+              f"kernel {ms * 1e3:.1f} us (device), bound "
+              f"{b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}), chain floor "
+              f"{chain_floor_ms('phase_scan', B) * 1e3:.1f} us ({card})")
 
     # the steady poly-synth block, and where its device time goes
     for B in BLOCKS:
@@ -2031,9 +2278,11 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             # the timed calls ran B=1024 (the allpass cascade's first 4x
-            # stage 2048)
+            # stage 2048); an additive warp runs B / segments ticks
             "chain_floor_ms": chain_floor_ms(
-                key, 2048 if key == "allpass_cascade_scan" else 1024),
+                key, 2048 if key == "allpass_cascade_scan" else
+                1024 // add.segments(VOICES, 1024, 64)
+                if key in ("v4", "v3", "v2", add.EPILOGUE) else 1024),
             # no single PyTorch call computes these per-sample recurrences
             # (no lfilter in torch; cumsum is not a wrapped phase)
             "library_ms": None})

@@ -9,38 +9,60 @@
 // AmplitudeSource -> OscillatorBank for every voice, optionally with the
 // graph's FanIn voice mix-down fused in (with_mix).
 //
-// Layout: one warp per voice, one lane per harmonic (H = 32 = the warp
-// width).  The complex oscillator, the envelope and the step counter stay in
-// registers for the whole block; no [B, V, H] product reaches device memory.
-// The per-voice row math of v4 / v3 / v2 (wrap tick, envelope product p, the
-// row coefficients) is computed redundantly in every lane of the warp.
+// Layout: one warp per (voice, time segment), one lane per harmonic (H = 32
+// = the warp width).  The complex oscillator, the envelope and the step
+// counter stay in registers for the whole segment; no [B, V, H] product
+// reaches device memory.  The per-voice row math of v4 / v3 / v2 (wrap
+// tick, envelope product p, the row coefficients) is computed redundantly
+// in every lane of the warp.
 //
 // What bounds it on the card: each voice is a serial chain per sample (the
 // envelope recurrence and the complex rotation) plus a 32-lane harmonic sum,
-// and the flagship has only V = 256 voices, i.e. 256 warps for 132 SMs.  The
-// kernel reads seven [H, V] planes once and writes [B, V] (or [B] with the
-// mix), so it is bound by instruction latency, not by bytes.  The design
-// answers with:
+// ~30 instructions a tick per warp; the kernel reads seven [H, V] planes
+// once and writes [B, V] (or [B] with the mix), so it is bound by
+// instruction latency, not by bytes or peak ops.  One warp per voice gave
+// the flagship's 256 voices 256 warps, fewer than the card's 528 schedulers
+// (132 SMs x 4), so each warp's latency was exposed.  The design answers
+// with:
+//  - time segments (the closed-form kernels v4, v3, v2 and the epilogue,
+//    which share one template, so K3-K5 take them with K1): each voice's
+//    block is split at subgroup boundaries into S segments (segments(),
+//    below: S = 4 up to 512 voices, 2 up to 1024, else 1, and only as far
+//    as S divides the B / SUB subgroups, so S = 1 for B <= SUB; SUB is the
+//    largest power of two up to 64 dividing B, so S > 1 needs SUB = 64),
+//    one warp each, so V x S warps fill the schedulers.  A segment starting at subgroup K
+//    replays the state the sequential kernel holds there (replay(), below):
+//    the oscillator rotated K times by m^SUB, the cycle's (tgt, D) and the
+//    step counter over the K subgroups, each with the kernel's own ops, and
+//    the envelope product p from the last wrap tick before the segment (at
+//    most 65 ticks back; p = 1 at the block start) with the kernel's own
+//    per-tick factors.  So every segment computes the float values the
+//    sequential kernel computes, and its outputs are those of one warp per
+//    voice bit for bit.  The parity kernel keeps S = 1: its per-sample
+//    envelope has no closed form to replay from;
 //  - the harmonic sums as a warp reduce-scatter over N = min(32, SUB)
-//    samples at once: N - 1 + log2(32 / N) shuffles per N samples instead of
-//    5 per sample, and lane L ends up holding the sum of sample L, so each
-//    lane stores one value;
+//    samples at once (additive_common.cuh): N - 1 + log2(32 / N) shuffles
+//    per N samples instead of 5 per sample, lane L ends up holding the sum
+//    of sample L, so each lane stores one value; its stages are template
+//    instances, so the samples stay in registers (no local memory);
 //  - the m^j tables (j = 1..SUB, 128 floats per lane at SUB = 64) replaced
 //    by a running product per lane that restarts every subgroup; it is the
 //    recurrence the tables were built with, so the values are the same and
 //    no table occupies registers.  v3's and v2's per-tick rows are computed
 //    inline in the same loop, in their order, instead of as a SUB-long
 //    pre-pass array;
-//  - the mix-down in a fixed order, inside the kernel: each block sums its
-//    warps through shared memory and stores a partial row; the last block of
-//    each group of kMixGroup blocks (a ticket from a device counter) sums its
-//    group's rows in block order, and the last group finisher sums the group
-//    rows in group order and writes the mix, or, with the epilogue, the two
-//    tremolo channels (every block computes the pan factors of a share of
-//    the ticks first; they depend on the tick alone).  The finishers keep
-//    32 row loads in flight per thread.  No float atomics: the order, and so
-//    the result, is the same in every run, and the fused and unfused pianos
-//    sum alike.
+//  - the mix-down in a fixed order, inside the kernel (additive_common.cuh
+//    finish_rows): each CUDA block (two voices, one segment) sums its warps
+//    through shared memory into its voice block's partial row, for its
+//    segment's ticks; the last block of each group of kMixGroup voice
+//    blocks (a ticket per segment) sums its group's rows in block order,
+//    and the segment's last group finisher sums the group rows in group
+//    order and writes the mix, or, with the epilogue, the two tremolo
+//    channels (the segment's blocks compute the pan factors of its ticks
+//    first; they depend on the tick alone).  The tree over the voices of
+//    every tick is the one-warp-per-voice kernel's, so the mix is too.  No
+//    float atomics: the order, and so the result, is the same in every run,
+//    and the fused and unfused pianos sum alike.
 //
 // Numerics: the library is built with --fmad=false, so every product and sum
 // rounds as the separate elementwise ops of the plain PyTorch version do.
@@ -56,36 +78,28 @@
 
 #include <cuda_runtime.h>
 
+#include "additive_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using oscen_additive::block_row;
+using oscen_additive::reduce_scatter;
+
 constexpr int kMaxWarps = 32;
-// blocks per first-level group of the fixed-order mix
-constexpr int kMixGroup = 16;
+// time segments per voice: at most 4, so that every segment's tickets fit
+// an 8-bit field of the counter words
+constexpr int kMaxSegments = 4;
 // Tremolo: the tick count at which the anchored phase rebases (K_REBASE)
 constexpr float kRebase = 1048576.0f;
 // 2*pi rounded to float, as PyTorch multiplies a float32 tensor by it
 constexpr float kTau = (float)(2.0 * 3.14159265358979323846);
 
-// Sum vals[0..N) over the 32 lanes.  Afterwards lane L holds the sum of
-// sample L % N.  Stage c -> c/2: the lanes whose bit c/2 is set keep the
-// upper half of the samples and receive it from their partner.
-template <int N>
-__device__ __forceinline__ float reduce_scatter(float (&vals)[N], int lane) {
-#pragma unroll
-  for (int c = N; c > 1; c /= 2) {
-    const int half = c / 2;
-    const bool upper = (lane & half) != 0;
-#pragma unroll
-    for (int k = 0; k < half; ++k) {
-      const float send = upper ? vals[k] : vals[k + half];
-      const float keep = upper ? vals[k + half] : vals[k];
-      vals[k] = keep + __shfl_xor_sync(kFull, send, half);
-    }
-  }
-  float s = vals[0];
-#pragma unroll
-  for (int o = N; o < 32; o *= 2) s += __shfl_xor_sync(kFull, s, o);
+// Segments per voice for V voices, B ticks and subgroups of sub ticks:
+// enough warps to fill the schedulers (V x S up to ~2048 warps), a divisor
+// of the B / sub subgroups.
+int segments(int V, int B, int sub) {
+  int s = V <= 512 ? 4 : V <= 1024 ? 2 : 1;
+  while (s > 1 && (B / sub) % s) s /= 2;
   return s;
 }
 
@@ -99,7 +113,7 @@ struct Planes {
   const float* mult;
   const float* step;
   float* y;          // [B, V]; with the mix [B], or [B, 2] with the epilogue
-  float* part;       // with the mix: [gridDim.x + groups + 1, B] scratch
+  float* part;       // with the mix: [voice blocks + groups + 1, B] scratch
   unsigned* cnt;     // with the mix: [1 + groups] tickets, zero between calls
   const float* epi;  // the epilogue's [anchor, k0, dt, depth, a2], or null
   float* osc_re_out;
@@ -111,64 +125,19 @@ struct Planes {
 
 // Store the N per-sample sums of one chunk starting at sample t0.  Without
 // the mix, y is [B, V]; with it, this block's partial row (its warps summed
-// in warp order) goes to part[blockIdx.x].
+// in warp order) goes to row[t0 ..].
 template <int N>
 __device__ __forceinline__ void store_chunk(float ysum, int t0, int lane,
-                                            int warp, int nw, int v, int V,
-                                            int B, bool live, int with_mix,
-                                            const Planes& P,
+                                            int warp, int v, int V,
+                                            bool live, int with_mix,
+                                            const Planes& P, float* row,
                                             float (*red)[33]) {
   if (!with_mix) {
     if (live && lane < N) P.y[(size_t)(t0 + lane) * V + v] = ysum;
     return;
   }
   if (lane < N) red[warp][lane] = ysum;
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float acc = 0.f;
-    for (int w = 0; w < nw; ++w) acc += red[w][threadIdx.x];
-    P.part[(size_t)blockIdx.x * B + t0 + threadIdx.x] = acc;
-  }
-  __syncthreads();
-}
-
-// Sum n rows of B floats (row stride B) in row order, 4 samples per load,
-// for the float4 columns c0 and c1 (c1 < 0: none).  The rows were written
-// by other blocks: read them from L2 (__ldcg).  Up to kMixGroup rows of
-// both columns are loaded before any is added, so one thread keeps 32
-// loads in flight; the adds keep the row order.
-__device__ __forceinline__ void sum_rows2(const float* rows, int n, int B,
-                                          int c0, int c1, float4& a0,
-                                          float4& a1) {
-  const float4* r = reinterpret_cast<const float4*>(rows);
-  const size_t stride = B / 4;
-  a0 = make_float4(0.f, 0.f, 0.f, 0.f);
-  a1 = a0;
-  for (int i0 = 0; i0 < n; i0 += kMixGroup) {
-    float4 x0[kMixGroup], x1[kMixGroup];
-#pragma unroll
-    for (int i = 0; i < kMixGroup; ++i) {
-      if (i0 + i < n) {
-        x0[i] = __ldcg(r + (i0 + i) * stride + c0);
-        if (c1 >= 0) x1[i] = __ldcg(r + (i0 + i) * stride + c1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMixGroup; ++i) {
-      if (i0 + i < n) {
-        a0.x += x0[i].x;
-        a0.y += x0[i].y;
-        a0.z += x0[i].z;
-        a0.w += x0[i].w;
-        if (c1 >= 0) {
-          a1.x += x1[i].x;
-          a1.y += x1[i].y;
-          a1.z += x1[i].z;
-          a1.w += x1[i].w;
-        }
-      }
-    }
-  }
+  block_row(red, N, row + t0);
 }
 
 // Tremolo's pan of tick t of the block (Tremolo._epilogue_fn): the
@@ -184,74 +153,126 @@ __device__ __forceinline__ float tremolo_pan(const float* epi, int t) {
 }
 
 // Store the mix of the float4 column c: the 4 samples, or with the
-// epilogue their two panned channels ([B, 2]).
-__device__ __forceinline__ void store_mix(const Planes& P, const float* pan,
-                                          int c, float4 m) {
-  if (P.epi == nullptr) {
-    reinterpret_cast<float4*>(P.y)[c] = m;
+// epilogue (epi not null) their two panned channels ([B, 2]).
+__device__ __forceinline__ void store_mix(float* y, const float* epi,
+                                          const float* pan, int c,
+                                          float4 m) {
+  if (epi == nullptr) {
+    reinterpret_cast<float4*>(y)[c] = m;
     return;
   }
   const float4 pn = __ldcg(reinterpret_cast<const float4*>(pan) + c);
-  float4* out = reinterpret_cast<float4*>(P.y) + 2 * c;  // samples 4c..4c+3
+  float4* out = reinterpret_cast<float4*>(y) + 2 * c;  // samples 4c..4c+3
   out[0] = make_float4(m.x * pn.x, m.x * (1.f - pn.x),
                        m.y * pn.y, m.y * (1.f - pn.y));
   out[1] = make_float4(m.z * pn.z, m.z * (1.f - pn.z),
                        m.w * pn.w, m.w * (1.f - pn.w));
 }
 
-// The fixed-order mix: every thread of every block calls this last, after
-// its block's partial rows are stored.  With the epilogue, every block
-// first computes the pan factors of a share of the ticks (they depend on
-// the tick alone), and the last finisher applies them to the mix.
-__device__ void finish_mix(const Planes& P, int B) {
-  __shared__ int s_last;
-  const int nb = gridDim.x;
-  const int ng = (nb + kMixGroup - 1) / kMixGroup;
-  const int g = blockIdx.x / kMixGroup;
-  const int n = min(kMixGroup, nb - g * kMixGroup);
+// The fixed-order mix of one segment (ticks [T0, T1)) over the nb voice
+// blocks: every thread of every block calls this last, after its block's
+// partial rows are stored.  With the epilogue (EPI, P.epi given), the
+// segment's blocks first compute the pan factors of a share of its ticks
+// (they depend on the tick alone), and its last finisher applies them to
+// the mix.  A compile-time switch: the float64 sine's slow path for huge
+// arguments (never taken here) keeps a local array, so only the epilogue's
+// instances carry local memory.  Segment seg of segs counts its tickets in
+// field seg of 32 / segs bits.
+template <bool EPI>
+__device__ __forceinline__ void finish_mix(const Planes& P, int B, int nb,
+                                           int vb, int seg, int segs, int T0,
+                                           int T1) {
+  const int ng = (nb + oscen_additive::kMixGroup - 1) /
+                 oscen_additive::kMixGroup;
   float* pan = P.part + (size_t)(nb + ng) * B;
-  if (P.epi != nullptr)
-    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < B;
-         t += nb * blockDim.x)
+  if constexpr (EPI)
+    for (int t = T0 + vb * (int)blockDim.x + (int)threadIdx.x; t < T1;
+         t += nb * (int)blockDim.x)
       pan[t] = tremolo_pan(P.epi, t);
-  // publish this block's rows, then take a ticket of its group
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&P.cnt[1 + g], 1u) == (unsigned)(n - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // the group's last block: its rows in block order -> group row
-  const int cols = B / 4;
-  const int step = 2 * blockDim.x;
-  float4* grow = reinterpret_cast<float4*>(P.part + (size_t)(nb + g) * B);
-  for (int c = threadIdx.x; c < cols; c += step) {
-    const int c1 = c + blockDim.x < cols ? c + blockDim.x : -1;
-    float4 a0, a1;
-    sum_rows2(P.part + (size_t)g * kMixGroup * B, n, B, c, c1, a0, a1);
-    grow[c] = a0;
-    if (c1 >= 0) grow[c1] = a1;
+  const int bits = 32 / segs;
+  const unsigned unit = 1u << (bits * seg);
+  const unsigned mask = bits == 32 ? 0xffffffffu : (1u << bits) - 1u;
+  // the store captures plain pointers by value: a reference to the
+  // kernel's parameters would put them in local memory
+  float* y = P.y;
+  const float* epi = EPI ? P.epi : nullptr;
+  oscen_additive::finish_rows(P.part, P.cnt, nb, vb, B, T0 / 4, T1 / 4, unit,
+                              mask, [=](int c, float4 m) {
+                                store_mix(y, epi, pan, c, m);
+                              });
+}
+
+// The state the sequential kernel holds at the start of subgroup K, from
+// the block-start state (zr, zi, tgt, D, s, p = 1): K subgroup steps of
+// the oscillator (x m^SUB), the cycle's (tgt, D) and the step counter,
+// each with the kernel's ops; then p from its last reset.  The step counter
+// holds small integers, exactly: v4 advances it by SUB mod 65 per subgroup,
+// v3 and v2 by one per tick, which reaches the same value, and a subgroup
+// wraps (v3 and v2: some tick sees s == 0) exactly where v4's closed-form
+// wrap tick jw falls inside it.  p is reset to C at every wrap tick and is
+// 1 at the block start: it is replayed tick by tick, with the version's own
+// per-tick factors, from the start of the last subgroup before K that
+// wrapped (the ticks before its wrap tick are overwritten by the reset),
+// or from tick 0 if none did; a cycle is 65 ticks, so that is at most 64 +
+// SUB ticks.
+template <int SUB, int VER>
+__device__ __forceinline__ void replay(int K, float msr, float msi,
+                                       float mult, float& zr, float& zi,
+                                       float& tgt, float& D, float& s,
+                                       float& p) {
+  const float C = 63.f / 64.f;
+  int kw = -1;        // the last subgroup before K with a wrap
+  float sw = 0.f;     // its entry step
+  const float s0 = s;
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    const float tgtm = tgt * mult;
+    const float G1 = tgtm - tgt;
+    const float D2 = tgt - tgtm;
+    const bool at0 = s == 0.f;
+    const float jw = at0 ? 0.f : 65.f - s;
+    const bool w_last = jw <= (float)(SUB - 1);
+    if (w_last) {
+      kw = k;
+      sw = s;
+    }
+    const float nzr = zr * msr - zi * msi;
+    const float nzi = zr * msi + zi * msr;
+    zr = nzr;
+    zi = nzi;
+    tgt = w_last ? tgtm : tgt;
+    D = w_last ? (VER == 2 ? D2 : -G1) : D;
+    const float t = s + (float)SUB;
+    s = t >= 65.f ? t - 65.f : t;
   }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    P.cnt[1 + g] = 0;  // ready for the next launch on this stream
-    s_last = atomicAdd(&P.cnt[0], 1u) == (unsigned)(ng - 1);
+  int k = kw >= 0 ? kw : 0;
+  float sk = kw >= 0 ? sw : s0;
+  p = 1.f;
+#pragma unroll 1
+  for (; k < K; ++k) {
+    if constexpr (VER == 4) {
+      const bool at0 = sk == 0.f;
+      const float jw = at0 ? 0.f : 65.f - sk;
+      const float basef = sk * (-1.f / 64.f);
+      const float addf = at0 ? 0.f : 65.f / 64.f;
+#pragma unroll 8
+      for (int j = 0; j < SUB; ++j) {
+        const bool wfb = jw <= (float)j;
+        const float cjb = basef + (63.f - (float)j) * (1.f / 64.f);
+        const float f = cjb + (wfb ? addf : 0.f);
+        p = (jw == (float)j) ? C : p * f;
+      }
+      const float t = sk + (float)SUB;
+      sk = t >= 65.f ? t - 65.f : t;
+    } else {
+#pragma unroll 8
+      for (int j = 0; j < SUB; ++j) {
+        const bool wrap = sk == 0.f;
+        p = wrap ? C : p * (1.f - (sk + 1.f) / 64.f);
+        sk = sk < 64.f ? sk + 1.f : 0.f;
+      }
+    }
   }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // the last group finisher: the group rows in group order -> the mix
-  const float* rows = P.part + (size_t)nb * B;
-  for (int c = threadIdx.x; c < cols; c += step) {
-    const int c1 = c + blockDim.x < cols ? c + blockDim.x : -1;
-    float4 a0, a1;
-    sum_rows2(rows, ng, B, c, c1, a0, a1);
-    store_mix(P, pan, c, a0);
-    if (c1 >= 0) store_mix(P, pan, c1, a1);
-  }
-  if (threadIdx.x == 0) P.cnt[0] = 0;
 }
 
 // The closed-form kernels over subgroups of SUB ticks (at most one envelope
@@ -259,17 +280,26 @@ __device__ void finish_mix(const Planes& P, int B) {
 // math: 4 = _kernel_v4 (the wrap tick jw in closed form), 3 = _kernel_v3
 // (P recurrence and the wrapped flag carried tick by tick, the same amp
 // expression as v4), 2 = _kernel (per-tick selects of (tgt, D) against the
-// next cycle's (tgt2, D2), amp = tgtE + DE * P).
-template <int SUB, int VER>
-__global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix) {
+// next cycle's (tgt2, D2), amp = tgtE + DE * P).  EPI: v4 with the
+// tremolo epilogue after the mix.  Block b runs voices (b % nb) * nw ..
+// + nw - 1 over segment b / nb of `segs`.
+template <int SUB, int VER, bool EPI>
+__global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix,
+                                       int segs) {
+  static_assert(!EPI || VER == 4, "the epilogue runs the v4 body");
   constexpr int N = SUB < 32 ? SUB : 32;
   __shared__ float red[kMaxWarps][33];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int v = blockIdx.x * nw + warp;
+  const int nb = gridDim.x / segs;
+  const int vb = blockIdx.x % nb;    // voice block: row vb of the mix
+  const int seg = blockIdx.x / nb;
+  const int v = vb * nw + warp;
   const bool live = v < V;
   const int at = lane * V + v;
+  const int len = B / segs;           // a multiple of SUB
+  const int T0 = seg * len, T1 = T0 + len;
 
   float zr = live ? P.osc_re[at] : 0.f;
   float zi = live ? P.osc_im[at] : 0.f;
@@ -294,8 +324,11 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix) {
   float p = 1.f;
   float last_amp = cur0;
   const float C = 63.f / 64.f;
+  if (T0 > 0) replay<SUB, VER>(T0 / SUB, msr, msi, mult, zr, zi, tgt, D, s,
+                               p);
+  float* row = with_mix ? P.part + (size_t)vb * B : nullptr;
 
-  for (int t0 = 0; t0 < B; t0 += SUB) {
+  for (int t0 = T0; t0 < T1; t0 += SUB) {
     // next cycle's target, if a wrap occurs (v2 names it tgt2, D2 = -G1)
     const float tgtm = tgt * mult;
     const float G1 = tgtm - tgt;
@@ -306,14 +339,18 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix) {
     const float addf = at0 ? 0.f : 65.f / 64.f;
     bool wrapped = false;  // v3 / v2: a wrap seen in this subgroup so far
     float wr = mr, wi = mi;  // m^(j+1)
-#pragma unroll
+    // v4 and v3 unroll the subgroup's chunks, so one chunk's harmonic sum
+    // overlaps the next chunk's ticks; v2's per-tick selects of (tgt, D)
+    // need more than 255 registers that way, so its chunks run in turn
+    constexpr int kChunkUnroll = VER == 2 ? 1 : SUB / N;
+#pragma unroll kChunkUnroll
     for (int c = 0; c < SUB / N; ++c) {
       float vals[N];
 #pragma unroll
       for (int jj = 0; jj < N; ++jj) {
-        const int j = c * N + jj;
         float amp;
         if constexpr (VER == 4) {
+          const int j = c * N + jj;
           const bool wfb = jw <= (float)j;
           const float cjb = basef + (63.f - (float)j) * (1.f / 64.f);
           const float f = cjb + (wfb ? addf : 0.f);
@@ -344,8 +381,8 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix) {
         wi = pr * mi + pi * mr;
       }
       const float ysum = reduce_scatter<N>(vals, lane);
-      store_chunk<N>(ysum, t0 + c * N, lane, warp, nw, v, V, B, live,
-                     with_mix, P, red);
+      store_chunk<N>(ysum, t0 + c * N, lane, warp, v, V, live, with_mix, P,
+                     row, red);
     }
     const float nzr = zr * msr - zi * msi;
     const float nzi = zr * msi + zi * msr;
@@ -367,14 +404,14 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix) {
     }
   }
 
-  if (live) {
+  if (live && seg == segs - 1) {
     P.osc_re_out[at] = zr;
     P.osc_im_out[at] = zi;
     P.cur_out[at] = last_amp;
     P.tgt_out[at] = tgt;
     if (lane == 0) P.step_out[v] = s;
   }
-  if (with_mix) finish_mix(P, B);
+  if (with_mix) finish_mix<EPI>(P, B, nb, vb, seg, segs, T0, T1);
 }
 
 // _kernel_parity: per sample, the envelope tick (target refresh at step 0,
@@ -399,6 +436,7 @@ __global__ void additive_parity_kernel(Planes P, int V, int B,
   float tgt = live ? P.tgt[at] : 0.f;
   const float mult = live ? P.mult[at] : 0.f;
   float s = live ? P.step[v] : 0.f;
+  float* row = with_mix ? P.part + (size_t)blockIdx.x * B : nullptr;
 
   for (int t0 = 0; t0 < B; t0 += N) {
     float vals[N];
@@ -417,8 +455,7 @@ __global__ void additive_parity_kernel(Planes P, int V, int B,
       vals[k] = nim * cur;
     }
     const float ysum = reduce_scatter<N>(vals, lane) * 3.f;
-    store_chunk<N>(ysum, t0, lane, warp, nw, v, V, B, live, with_mix, P,
-                   red);
+    store_chunk<N>(ysum, t0, lane, warp, v, V, live, with_mix, P, row, red);
   }
 
   if (live) {
@@ -428,7 +465,7 @@ __global__ void additive_parity_kernel(Planes P, int V, int B,
     P.tgt_out[at] = tgt;
     if (lane == 0) P.step_out[v] = s;
   }
-  if (with_mix) finish_mix(P, B);
+  if (with_mix) finish_mix<false>(P, B, gridDim.x, blockIdx.x, 0, 1, 0, B);
 }
 
 Planes make_planes(const float* osc_re, const float* osc_im,
@@ -442,29 +479,26 @@ Planes make_planes(const float* osc_re, const float* osc_im,
                 osc_re_out, osc_im_out, cur_out, tgt_out, step_out};
 }
 
-template <int VER>
+template <int VER, bool EPI = false>
 int launch_closed(const Planes& P, int V, int B, int sub, int with_mix,
-                  int warps_per_block, void* stream) {
+                  int warps_per_block, int segs, void* stream) {
+  if (segs < 1 || segs > kMaxSegments || (segs & (segs - 1)) ||
+      (B / sub) % segs)
+    return (int)cudaErrorInvalidValue;
   const dim3 block(32 * warps_per_block);
-  const dim3 grid((V + warps_per_block - 1) / warps_per_block);
+  const dim3 grid(((V + warps_per_block - 1) / warps_per_block) * segs);
   cudaStream_t st = (cudaStream_t)stream;
   switch (sub) {
-    case 8:
-      additive_closed_kernel<8, VER><<<grid, block, 0, st>>>(P, V, B,
-                                                             with_mix);
-      break;
-    case 16:
-      additive_closed_kernel<16, VER><<<grid, block, 0, st>>>(P, V, B,
-                                                              with_mix);
-      break;
-    case 32:
-      additive_closed_kernel<32, VER><<<grid, block, 0, st>>>(P, V, B,
-                                                              with_mix);
-      break;
-    case 64:
-      additive_closed_kernel<64, VER><<<grid, block, 0, st>>>(P, V, B,
-                                                              with_mix);
-      break;
+#define OSCEN_CLOSED_CASE(n)                                              \
+  case n:                                                                 \
+    additive_closed_kernel<n, VER, EPI><<<grid, block, 0, st>>>(           \
+        P, V, B, with_mix, segs);                                         \
+    break;
+    OSCEN_CLOSED_CASE(8)
+    OSCEN_CLOSED_CASE(16)
+    OSCEN_CLOSED_CASE(32)
+    OSCEN_CLOSED_CASE(64)
+#undef OSCEN_CLOSED_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -479,42 +513,78 @@ extern "C" {
 // Without the mix y is [B, V] and part, cnt and epi are null.  With it, y is
 // the [B] mix, or with epi (the Tremolo parameters [anchor, k0, dt, depth,
 // a2]) the [B, 2] panned channels; part is [ceil(V / warps_per_block) +
-// groups + 1, B] scratch (the block rows, the group rows, the pan factors)
-// and cnt [1 + groups] zeroed counters (groups = ceil(blocks / 16)), which
-// the launch leaves zeroed.  sub is the subgroup
-// length (8, 16, 32 or 64; divides B).  The epilogue runs in the v4 body
-// only.
-#define OSCEN_ADDITIVE_ARGS                                                  \
+// groups + 1, B] scratch (the voice blocks' rows, the group rows, the pan
+// factors) and cnt [1 + groups] zeroed counters (groups = ceil(voice blocks
+// / 16)), which the launch leaves zeroed.  sub is the subgroup length (8,
+// 16, 32 or 64; divides B).  The closed-form versions split each voice
+// into oscen_additive_segments(V, B, sub) time segments.  The epilogue runs
+// in the v4 body only.
+#define OSCEN_ADDITIVE_ARGS_NO_STREAM                                        \
   const float *osc_re, const float *osc_im, const float *mul_re,             \
       const float *mul_im, const float *cur, const float *tgt,               \
       const float *mult, const float *step, float *y, float *part,           \
       unsigned *cnt, const float *epi, float *osc_re_out, float *osc_im_out, \
       float *cur_out, float *tgt_out, float *step_out, int V, int B,         \
-      int sub, int with_mix, int warps_per_block, void *stream
+      int sub, int with_mix, int warps_per_block
+#define OSCEN_ADDITIVE_ARGS OSCEN_ADDITIVE_ARGS_NO_STREAM, void *stream
 #define OSCEN_ADDITIVE_PLANES                                             \
   make_planes(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult, step, y,    \
               part, cnt, epi, osc_re_out, osc_im_out, cur_out, tgt_out,   \
               step_out)
 
+// The time segments per voice the closed-form versions run.
+int oscen_additive_segments(int V, int B, int sub) {
+  return segments(V, B, sub);
+}
+
 int oscen_additive_v4(OSCEN_ADDITIVE_ARGS) {
-  if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4)
+  if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 ||
+      (epi && !with_mix))
     return (int)cudaErrorInvalidValue;
+  if (epi)
+    return launch_closed<4, true>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
+                                  warps_per_block, segments(V, B, sub),
+                                  stream);
   return launch_closed<4>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                          warps_per_block, stream);
+                          warps_per_block, segments(V, B, sub), stream);
 }
 
 int oscen_additive_v3(OSCEN_ADDITIVE_ARGS) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
     return (int)cudaErrorInvalidValue;
   return launch_closed<3>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                          warps_per_block, stream);
+                          warps_per_block, segments(V, B, sub), stream);
 }
 
 int oscen_additive_v2(OSCEN_ADDITIVE_ARGS) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
     return (int)cudaErrorInvalidValue;
   return launch_closed<2>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                          warps_per_block, stream);
+                          warps_per_block, segments(V, B, sub), stream);
+}
+
+// The closed-form body `ver` (4, 3 or 2) with `segs` segments per voice
+// (1, 2 or 4, dividing B / sub) instead of segments()' choice, arguments
+// as above: for tools/scanprobe.py, which prices the segment count, and
+// the card tests.
+int oscen_additive_closed_segs(OSCEN_ADDITIVE_ARGS_NO_STREAM, int ver,
+                               int segs, void* stream) {
+  if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
+    return (int)cudaErrorInvalidValue;
+  const Planes P = OSCEN_ADDITIVE_PLANES;
+  switch (ver) {
+    case 4:
+      return launch_closed<4>(P, V, B, sub, with_mix, warps_per_block, segs,
+                              stream);
+    case 3:
+      return launch_closed<3>(P, V, B, sub, with_mix, warps_per_block, segs,
+                              stream);
+    case 2:
+      return launch_closed<2>(P, V, B, sub, with_mix, warps_per_block, segs,
+                              stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The exact-op-order kernel; sub (8, 16 or 32, divides B) is the number of

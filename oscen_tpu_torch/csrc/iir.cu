@@ -92,66 +92,9 @@ namespace {
 
 using oscen_stage::kChunk;
 using oscen_stage::kLanes;
+using oscen_stage::run_chunk;
+using oscen_stage::stage_ptrs;
 constexpr int kThreads = kLanes;
-
-// The staged scan loop of K7 and K8.  kP planes are staged (x first,
-// then each per-sample coefficient); row coefficients stay in registers.
-// A chunk's steps read their inputs from registers that were loaded from
-// shared memory a group of kGroup steps ahead (double-buffered), so no
-// load waits inside the chain; `body.step(in, t)` runs step t of the chunk
-// on the staged inputs in[0 .. kP - 1].
-constexpr int kGroup = 8;
-
-template <int kP>
-__device__ __forceinline__ void load_group(float (&dst)[kP][kGroup],
-                                           const float* const (&src)[kP],
-                                           int t0) {
-#pragma unroll
-  for (int p = 0; p < kP; ++p)
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) dst[p][j] = src[p][(t0 + j) * kLanes];
-}
-
-template <int kP, class Body>
-__device__ __forceinline__ void run_chunk(const float* const (&src)[kP], int n,
-                                          Body& body) {
-  if (n == kChunk) {
-    float cur[kP][kGroup], nxt[kP][kGroup];
-    load_group<kP>(cur, src, 0);
-#pragma unroll 1
-    for (int t0 = 0; t0 < kChunk; t0 += kGroup) {
-      // the next group (the first again after the last: a harmless read)
-      load_group<kP>(nxt, src, (t0 + kGroup) % kChunk);
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        float in[kP];
-#pragma unroll
-        for (int p = 0; p < kP; ++p) in[p] = cur[p][j];
-        body.step(in, t0 + j);
-      }
-#pragma unroll
-      for (int p = 0; p < kP; ++p)
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) cur[p][j] = nxt[p][j];
-    }
-  } else {   // the ragged last chunk
-    for (int t = 0; t < n; ++t) {
-      float in[kP];
-#pragma unroll
-      for (int p = 0; p < kP; ++p) in[p] = src[p][t * kLanes];
-      body.step(in, t);
-    }
-  }
-}
-
-// This lane's pointers into chunk c's stage of the kP staged slots.
-template <int kP>
-__device__ __forceinline__ void stage_ptrs(const float* smem, int c,
-                                           const float* (&src)[kP]) {
-  const int off = (c % oscen_stage::kStages) * kChunk * kLanes + threadIdx.x;
-#pragma unroll
-  for (int p = 0; p < kP; ++p) src[p] = smem + p * oscen_stage::kSlotFloats + off;
-}
 
 // A coefficient at this step: staged input i, or the row.
 template <bool kStaged, int kP>

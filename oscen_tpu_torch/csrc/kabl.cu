@@ -38,11 +38,9 @@
 // [B] out) or peak ops.  The design keeps every variant on K3's layout so
 // that the deltas price one mechanism each on this card:
 //  - RED: the TPU's per-tick sublane Sum_H is the warp reduce-scatter of
-//    K1 (32 ticks per 31 shuffles), its stages spelled out so that the
-//    tick values stay in registers (K1's loop form is not unrolled by nvcc
-//    and keeps them in local memory; see reduce_scatter); lane0 (nored,
-//    no_reduce) takes lane 0's
-//    product; defer (defmix, defmix64) keeps every lane's product of a body
+//    K1 (32 ticks per 31 shuffles; additive_common.cuh, its stages template
+//    instances, so the tick values stay in registers); lane0 (nored,
+//    no_reduce) takes lane 0's product; defer (defmix, defmix64) keeps every lane's product of a body
 //    of U ticks in shared memory and finishes the U ticks with one
 //    block-level pairwise tree.  That finish does not use the tensor
 //    cores: an f32 ones-product there runs in TF32 and would round the
@@ -64,7 +62,8 @@
 //    0 per body as the tool does (kabl4.py:149-150); the dots are inline
 //    asm volatile, so none is removed, and their results go to shared
 //    memory ("keep alive" stores, kabl2.py:79, :108).
-//  - The voice mix is K1's fixed-order finish (its code): each block stores
+//  - The voice mix is K1's fixed-order finish (additive_common.cuh, the
+//    same code, one segment per launch): each block stores
 //    its warps' row sum, the last block of each group of 16 (a ticket) sums
 //    its group in block order, the last group finisher sums the group rows,
 //    float4 columns with 32 loads in flight per thread.
@@ -81,10 +80,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "additive_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMixGroup = 16;
+using oscen_additive::block_row;
+using oscen_additive::kFull;
+using oscen_additive::reduce_scatter;
 constexpr int kTblCols = 72;   // the tools' PAD: one-hot table width
 constexpr int kTblTiles = 5;   // 72 padded to 80 = 5 k-tiles of 16
 constexpr int kMmaWarps = 8;   // voices per block of kernel B = mma's N
@@ -135,131 +137,19 @@ struct Args {
   int V, B, U, cur_in;
 };
 
-// One stage of the reduce-scatter: the lanes whose bit HALF is set keep
-// the upper half of the ticks and receive it from their partner.
-template <int HALF>
-__device__ __forceinline__ void rs_stage(float (&vals)[32], int lane) {
-  const bool upper = (lane & HALF) != 0;
-#pragma unroll
-  for (int k = 0; k < HALF; ++k) {
-    const float send = upper ? vals[k] : vals[k + HALF];
-    const float keep = upper ? vals[k + HALF] : vals[k];
-    vals[k] = keep + __shfl_xor_sync(kFull, send, HALF);
-  }
+// The voice mix (K1's, additive_common.cuh): this block's row of n ticks
+// from t0, its warps summed in warp order, and the fixed-order finish of
+// all blocks' rows into y.
+__device__ __forceinline__ void kabl_row(float (*red)[33], int n, int t0,
+                                         const Args& A) {
+  block_row(red, n, A.part + (size_t)blockIdx.x * A.B + t0);
 }
 
-// Sum vals[0..32) over the 32 lanes; lane L ends with the sum of tick L
-// (K1's reduce-scatter: 31 shuffles for 32 ticks, in its order).  The
-// stages are spelled out so that every index is a constant: K1's loop
-// form (c = N; c > 1; c /= 2) is not unrolled by nvcc, and its dynamic
-// indices put vals in local memory (LDL / STL in K1's SASS).
-__device__ __forceinline__ float reduce_scatter(float (&vals)[32], int lane) {
-  rs_stage<16>(vals, lane);
-  rs_stage<8>(vals, lane);
-  rs_stage<4>(vals, lane);
-  rs_stage<2>(vals, lane);
-  rs_stage<1>(vals, lane);
-  return vals[0];
-}
-
-// The block's row of n ticks from t0: red[w][i] summed over the warps in
-// warp order into part[blockIdx.x][t0 + i].
-__device__ __forceinline__ void block_row(float (*red)[33], int n, int t0,
-                                          const Args& A) {
-  __syncthreads();
-  if (threadIdx.x < n) {
-    float acc = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w)
-      acc += red[w][threadIdx.x];
-    A.part[(size_t)blockIdx.x * A.B + t0 + threadIdx.x] = acc;
-  }
-  __syncthreads();
-}
-
-// Sum n rows of B floats (row stride B) in row order, 4 ticks per load,
-// for the float4 columns c0 and c1 (c1 < 0: none): K1's sum_rows2.  The
-// rows were written by other blocks: read from L2 (__ldcg), up to
-// kMixGroup rows of both columns in flight before any is added.
-__device__ __forceinline__ void sum_rows2(const float* rows, int n, int B,
-                                          int c0, int c1, float4& a0,
-                                          float4& a1) {
-  const float4* r = reinterpret_cast<const float4*>(rows);
-  const size_t stride = B / 4;
-  a0 = make_float4(0.f, 0.f, 0.f, 0.f);
-  a1 = a0;
-  for (int i0 = 0; i0 < n; i0 += kMixGroup) {
-    float4 x0[kMixGroup], x1[kMixGroup];
-#pragma unroll
-    for (int i = 0; i < kMixGroup; ++i) {
-      if (i0 + i < n) {
-        x0[i] = __ldcg(r + (i0 + i) * stride + c0);
-        if (c1 >= 0) x1[i] = __ldcg(r + (i0 + i) * stride + c1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMixGroup; ++i) {
-      if (i0 + i < n) {
-        a0.x += x0[i].x;
-        a0.y += x0[i].y;
-        a0.z += x0[i].z;
-        a0.w += x0[i].w;
-        if (c1 >= 0) {
-          a1.x += x1[i].x;
-          a1.y += x1[i].y;
-          a1.z += x1[i].z;
-          a1.w += x1[i].w;
-        }
-      }
-    }
-  }
-}
-
-// The fixed-order voice mix (K1's finish): called by every thread of
-// every block after its rows are stored.  The last block of each group of
-// kMixGroup blocks (a ticket) sums its group's rows in block order, the
-// last group finisher sums the group rows in group order into y.
 __device__ void finish_mix(const Args& A) {
-  __shared__ int s_last;
-  const int B = A.B;
-  const int nb = gridDim.x;
-  const int ng = (nb + kMixGroup - 1) / kMixGroup;
-  const int g = blockIdx.x / kMixGroup;
-  const int n = min(kMixGroup, nb - g * kMixGroup);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&A.cnt[1 + g], 1u) == (unsigned)(n - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  const int cols = B / 4;
-  const int step = 2 * blockDim.x;
-  float4* grow = reinterpret_cast<float4*>(A.part + (size_t)(nb + g) * B);
-  for (int c = threadIdx.x; c < cols; c += step) {
-    const int c1 = c + blockDim.x < cols ? c + blockDim.x : -1;
-    float4 a0, a1;
-    sum_rows2(A.part + (size_t)g * kMixGroup * B, n, B, c, c1, a0, a1);
-    grow[c] = a0;
-    if (c1 >= 0) grow[c1] = a1;
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    A.cnt[1 + g] = 0;  // ready for the next launch on this stream
-    s_last = atomicAdd(&A.cnt[0], 1u) == (unsigned)(ng - 1);
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
   float4* y = reinterpret_cast<float4*>(A.y);
-  for (int c = threadIdx.x; c < cols; c += step) {
-    const int c1 = c + blockDim.x < cols ? c + blockDim.x : -1;
-    float4 a0, a1;
-    sum_rows2(A.part + (size_t)nb * B, ng, B, c, c1, a0, a1);
-    y[c] = a0;
-    if (c1 >= 0) y[c1] = a1;
-  }
-  if (threadIdx.x == 0) A.cnt[0] = 0;
+  oscen_additive::finish_rows(A.part, A.cnt, gridDim.x, blockIdx.x, A.B, 0,
+                              A.B / 4, 1u, 0xffffffffu,
+                              [=](int c, float4 a) { y[c] = a; });
 }
 
 // ---- tensor cores: mma.sync m16n8k16, bf16 x bf16 -> f32 --------------
@@ -553,13 +443,13 @@ __device__ __forceinline__ void kabl_body(const Args& A) {
         if (v == 0) A.y[tc + lane] = 0.f + y00 * 0.f;
       } else if constexpr (RED == kRedSum) {
         red[warp][lane] = reduce_scatter(vals, lane);
-        block_row(red, 32, tc, A);
+        kabl_row(red, 32, tc, A);
       } else if constexpr (RED == kRedLane0) {
         if (lane == 0) {
 #pragma unroll
           for (int k = 0; k < 32; ++k) red[warp][k] = vals[k];
         }
-        block_row(red, 32, tc, A);
+        kabl_row(red, 32, tc, A);
       }
     }
     if constexpr (RED == kRedDefer) {

@@ -35,9 +35,9 @@
 // __syncthreads per subgroup.
 //
 // The voice mix per tick: a warp butterfly over its 32 voices, the block
-// rows summed in a fixed order per tile (the last block of each group of 16
-// takes a ticket and sums its group, the last group finisher the group
-// rows).  No float atomics.
+// rows summed in a fixed order per tile by K1's finish (additive_common.cuh:
+// the last block of each group of 16 takes a ticket and sums its group, the
+// last group finisher the group rows).  No float atomics.
 //
 // Numerics: --fmad=false; the state planes equal the plain PyTorch version
 // (oscen_tpu_torch/ops/cuda/kabl.py::plain_hmaj) bit for bit, y differs by
@@ -47,13 +47,15 @@
 
 #include <cuda_runtime.h>
 
+#include "additive_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using oscen_additive::kFull;
+using oscen_additive::kMixGroup;
 constexpr int kH = 32;     // harmonics
 constexpr int kSub = 32;   // ticks per subgroup
 constexpr int kVoices = 32;  // voices per block
-constexpr int kMixGroup = 16;
 
 struct HArgs {
   const float* osc_re;
@@ -79,67 +81,28 @@ struct HArgs {
   int V, B;
 };
 
-// The tile's fixed-order mix, written across its 128 columns of y.
+// The tile's fixed-order mix (additive_common.cuh's finish, the tile's
+// rows and tickets its own), each tick's mix written across the tile's 128
+// columns of y.
 __device__ void finish_tile(const HArgs& A, int tiles) {
-  __shared__ int s_last;
   const int B = A.B;
   const int nb = gridDim.x / tiles;           // blocks per tile
   const int tile = blockIdx.x / nb;
-  const int b = blockIdx.x - tile * nb;
   const int ng = (nb + kMixGroup - 1) / kMixGroup;
-  float* part = A.part + (size_t)tile * (nb + ng) * B;
-  unsigned* cnt = A.cnt + tile * (1 + ng);
-  const int g = b / kMixGroup;
-  const int n = min(kMixGroup, nb - g * kMixGroup);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&cnt[1 + g], 1u) == (unsigned)(n - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // the group's rows in block order, float4 columns, all rows in flight
-  const float4* rows = reinterpret_cast<const float4*>(
-      part + (size_t)g * kMixGroup * B);
-  float4* grow = reinterpret_cast<float4*>(part + (size_t)(nb + g) * B);
-  for (int c = threadIdx.x; c < B / 4; c += blockDim.x) {
-    float4 x[kMixGroup];
-#pragma unroll
-    for (int i = 0; i < kMixGroup; ++i)
-      if (i < n) x[i] = __ldcg(rows + (size_t)i * (B / 4) + c);
-    float4 a = x[0];
-#pragma unroll
-    for (int i = 1; i < kMixGroup; ++i) {
-      if (i < n) {
-        a.x += x[i].x;
-        a.y += x[i].y;
-        a.z += x[i].z;
-        a.w += x[i].w;
-      }
-    }
-    grow[c] = a;
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    cnt[1 + g] = 0;  // ready for the next launch on this stream
-    s_last = atomicAdd(&cnt[0], 1u) == (unsigned)(ng - 1);
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // the group rows in group order, each tick's mix across the tile's 128
-  // columns (float4 stores; a warp's 32 threads share one tick)
-  const float* grows = part + (size_t)nb * B;
   const int ld = 128 * tiles;
-  for (int i = threadIdx.x; i < B * 32; i += blockDim.x) {
-    const int t = i >> 5;
-    float a = __ldcg(grows + t);
-    for (int k = 1; k < ng; ++k) a += __ldcg(grows + (size_t)k * B + t);
-    reinterpret_cast<float4*>(A.y + (size_t)t * ld + tile * 128)[i & 31] =
-        make_float4(a, a, a, a);
-  }
-  if (threadIdx.x == 0) cnt[0] = 0;
+  oscen_additive::finish_rows(
+      A.part + (size_t)tile * (nb + ng) * B, A.cnt + tile * (1 + ng), nb,
+      blockIdx.x - tile * nb, B, 0, B / 4, 1u, 0xffffffffu,
+      [=](int c, float4 a) {
+        const float m[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float4* row = reinterpret_cast<float4*>(
+              A.y + (size_t)(4 * c + k) * ld + tile * 128);
+          for (int i = 0; i < 32; ++i)
+            row[i] = make_float4(m[k], m[k], m[k], m[k]);
+        }
+      });
 }
 
 template <int EXT_ROWS, int TILES>

@@ -4,48 +4,280 @@
 // every voice lane, out[t] = p; p = p + dt[t]; p = p - floor(p), the
 // reference's per-sample rem_euclid(1.0) wrap in its exact op order.
 //
-// Layout: one thread per voice lane; the phase stays in a register for the
-// whole block.  dt and the output are time-major [B, V], so the 32 lanes of
-// a warp load and store 32 neighbouring floats per time step (coalesced).
+// Layout: one thread per voice lane, the phase in a register for the whole
+// block; dt and the output are time-major [B, V].  V = 256 for the poly
+// synth's voices, V = 1 for the saturator's saw (4B steps per block at 4x)
+// and the README synth.
 //
-// What bounds it on the card: the add-floor-subtract chain is serial in
-// time, ~3 dependent float ops per sample, and the flagship has V = 256
-// voices, i.e. 256 threads: 8 warps for 132 SMs.  It moves 8 bytes per
-// sample and lane, so it is bound by the latency of the chain (and of the
-// first loads), not by bytes or issue rate.  The design keeps one warp per
-// CUDA block, so the warps spread over 8 SMs instead of sharing one, and
-// unrolls the time loop so that the loads of dt run ahead of the chain.
+// What bounds it on the card: the wrap is serial in time, ~3 dependent
+// float ops per step, and the main paths have 8 warps (V = 256) or one
+// lane (V = 1) for 132 SMs; it moves 8 bytes per step and lane.  So it is
+// bound by the latency of the chain, and of every load that sits on it
+// (the old body, dt loaded inside the loop, took ~70 cycles a step; with
+// dt from a register ~27, its FADD -> FRND.FLOOR -> FADD chain 25.5:
+// tools/scanprobe.py, PERF.md).  The design takes both off:
+//  - the staged ring (scan_stage.cuh, at K7's and K8's depth of 3 chunks;
+//    deeper rings measured no faster): a producer warp brings dt into
+//    shared memory with cp.async (16-byte pieces for aligned 32-lane rows,
+//    V = 256; 4-byte elements for any other V), and the chain warp reads
+//    each group of 8 steps from registers loaded a group ahead, so no load
+//    waits on the chain.  For 32 lanes the chain warp stores `before`
+//    itself; for fewer (one lane on the main paths) it stores into a
+//    second shared slot and the producer writes each chunk back, which
+//    measured faster there and slower for full rows (launch_shipped);
+//  - the short exact wrap: with q = p + dt, q - floorf(q) is q for q in
+//    [+0, 1) and q - 1 for q in [1, 2) (exact by Sterbenz's lemma), so the
+//    step is q - c with c = (q >= 1) as 1.0f or 0.0f from one FSET: the
+//    chain is FADD -> FSET -> FADD, 14.5 cycles a step against FRND's
+//    25.5 (a compare into a predicate and a select, FSETP -> FSEL, cost
+//    22.5: the probe's latency rows).  Every other q (negative, -0, >= 2,
+//    inf, NaN) sets bit 31 or bit 30 of its pattern: the chain warp ORs
+//    every q's bits into a per-chunk word (one LOP3 a step, no branch), and
+//    a chunk whose word has either bit set is run again from its start
+//    state with floorf, the reference's op (as K8's undecided chunks
+//    re-run, iir.cu).  On the main paths dt lies in (0, 0.5) and the phase
+//    in [0, 1): no chunk re-runs.
+// What the probe does not explain yet: the ring's chain warp runs ~12
+// cycles a step above its chain, for every wrap and depth (PERF.md).
 // The true block length B bounds the loop; any B >= 1 and any V work.
 //
 // Numerics: built with --fmad=false and without fast-math; floorf and the
-// two IEEE operations round as PyTorch's elementwise ops do, so the output
-// and the carry equal the plain PyTorch version bit for bit.  The wrap is
-// p - floorf(p) (rem_euclid), never truncf.
+// IEEE operations round as PyTorch's elementwise ops do, so the output and
+// the carry equal the plain PyTorch version bit for bit (the short wrap
+// returns the same bits as q - floorf(q) wherever it is taken; the 2^32
+// sweep below checks every q).  The wrap is p - floorf(p) (rem_euclid),
+// never truncf.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 
+#include "scan_stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 32;
+using oscen_stage::kChunk;
+using oscen_stage::kLanes;
 
-__global__ void __launch_bounds__(kThreads)
-phase_scan_kernel(const float* __restrict__ phase0,
-                  const float* __restrict__ dt, float* __restrict__ before,
-                  float* __restrict__ carry, int V, int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  float p = phase0[v];
-  const float* d = dt + v;
-  float* o = before + v;
-#pragma unroll 8
-  for (int t = 0; t < B; ++t) {
-    o[(size_t)t * V] = p;
-    p = p + d[(size_t)t * V];
-    p = p - floorf(p);
+// the wrap of q = p + dt
+constexpr int kFloor = 0;   // q - floorf(q): the reference's op
+constexpr int kSet = 1;     // q - (q >= 1 as 1.0f or 0.0f): exact on [+0, 2)
+// the bits of a q outside [+0, 2): the sign (negatives, -0) or bit 30
+// (exponent >= 128: q >= 2, inf, NaN)
+constexpr unsigned kOutside = 0xC0000000u;
+
+// the shipped body's wrap and ring depth (launch_shipped)
+constexpr int kShipWrap = kSet;
+constexpr int kShipStages = oscen_stage::kStages;
+constexpr int kDeep = oscen_stage::kMaxStages;
+
+template <int kWrap>
+__device__ __forceinline__ float wrap(float q) {
+  if constexpr (kWrap == kFloor) {
+    return q - floorf(q);
+  } else {
+    float c;   // 1.0f where q >= 1, else 0.0f: one FSET, no predicate
+    asm("set.ge.f32.f32 %0, %1, 0f3F800000;" : "=f"(c) : "f"(q));
+    return q - c;
   }
-  carry[v] = p;
+}
+
+// One lane's steps on the staged dt: before[t] to o[t * stride], the wrap,
+// and (short wraps) the OR of every q's bits.
+template <int kWrap>
+struct PhaseBody {
+  float p;
+  float* o;
+  int stride;
+  unsigned bits;
+  __device__ __forceinline__ void step(const float (&in)[1], int t) {
+    o[t * stride] = p;
+    const float q = p + in[0];
+    if constexpr (kWrap != kFloor) bits |= __float_as_uint(q);
+    p = wrap<kWrap>(q);
+  }
+};
+
+// The producer's write-back of chunk k's staged `before` values (the
+// staged-output variant): the same element pattern as its copies in.
+template <int S>
+__device__ __forceinline__ void write_back(
+    const oscen_stage::Producer<1, S>& pr, const float* out_slot,
+    float* before, int k) {
+  const int t0 = k * kChunk;
+  const float* src = out_slot + (k % S) * kChunk * kLanes;
+  if (pr.vec16) {
+    const int row = pr.lane / 8, col = (pr.lane % 8) * 4;
+#pragma unroll
+    for (int m = 0; m < kChunk / 4; ++m) {
+      const int t = row + 4 * m;
+      if (t0 + t < pr.B)
+        *reinterpret_cast<float4*>(before + (size_t)(t0 + t) * pr.V + pr.l0 +
+                                   col) =
+            *reinterpret_cast<const float4*>(src + t * kLanes + col);
+    }
+  } else {
+    int t = pr.t_first, j = pr.j_first;
+    for (int m = 0; m < pr.W; ++m) {
+      if (t0 + t < pr.B)
+        before[(size_t)(t0 + t) * pr.V + pr.l0 + j] = src[t * kLanes + j];
+      t += pr.dt;
+      j += pr.dj;
+      if (j >= pr.W) {
+        j -= pr.W;
+        ++t;
+      }
+    }
+  }
+}
+
+// S: the ring's depth.  kStaged: the chain warp stores `before` into a
+// second shared slot and the producer writes it back once the chunk is
+// done (every chunk hands its EMPTY barrier over, the last S after the
+// copies in).  `reruns`, if given, counts the (lane, chunk)s the short
+// wrap re-ran.
+template <int kWrap, bool kStaged, int S>
+__global__ void __launch_bounds__(oscen_stage::kBlock)
+phase_ring_kernel(const float* __restrict__ phase0,
+                  const float* __restrict__ dt, float* __restrict__ before,
+                  float* __restrict__ carry, int V, int B,
+                  unsigned* __restrict__ reruns) {
+  extern __shared__ __align__(16) float smem[];
+  float* out_slot = smem + oscen_stage::slot_floats<S>();
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {   // the producer warp
+    const float* planes[1] = {dt};
+    oscen_stage::Producer<1, S> prod;
+    prod.init(smem, planes, 1, V, B, l0);
+    if constexpr (!kStaged) {
+      prod.run(chunks, [](int) {});
+    } else {
+      constexpr int kAhead = S - 2;
+      for (int k = 0; k < chunks; ++k) {
+        if (k >= S) {
+          oscen_stage::bar_sync(oscen_stage::empty_id<S>(k));
+          write_back<S>(prod, out_slot, before, k - S);
+        }
+        prod.issue(k);
+        if (k >= kAhead) {
+          oscen_stage::wait_groups<kAhead>();
+          __syncwarp();
+          oscen_stage::bar_arrive(oscen_stage::full_id<S>(k - kAhead));
+        }
+      }
+      oscen_stage::wait_groups<0>();
+      __syncwarp();
+      for (int k = max(0, chunks - kAhead); k < chunks; ++k)
+        oscen_stage::bar_arrive(oscen_stage::full_id<S>(k));
+      for (int k = max(0, chunks - S); k < chunks; ++k) {
+        oscen_stage::bar_sync(oscen_stage::empty_id<S>(k));
+        write_back<S>(prod, out_slot, before, k);
+      }
+    }
+    return;
+  }
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;   // every thread syncs; live ones scan
+  float p = live ? phase0[v] : 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready<S>(c);
+    if (live) {
+      const float* src[1];
+      oscen_stage::stage_ptrs<1, S>(smem, c, src);
+      const int n = min(kChunk, B - c * kChunk);
+      PhaseBody<kWrap> body{
+          p,
+          kStaged ? out_slot + (c % S) * kChunk * kLanes + threadIdx.x
+                  : before + (size_t)c * kChunk * V + v,
+          kStaged ? kLanes : V, 0u};
+      oscen_stage::run_chunk<1>(src, n, body);
+      if (kWrap != kFloor && (body.bits & kOutside)) {
+        // rare: the chunk again from its start state, with floorf
+        float q = p;
+        for (int t = 0; t < n; ++t) {
+          body.o[t * body.stride] = q;
+          q = q + src[0][t * kLanes];
+          q = q - floorf(q);
+        }
+        body.p = q;
+        if (reruns != nullptr) atomicAdd(reruns, 1u);
+      }
+      p = body.p;
+    }
+    if constexpr (kStaged)
+      oscen_stage::bar_arrive(oscen_stage::empty_id<S>(c));
+    else
+      oscen_stage::chunk_done<S>(c, chunks);
+  }
+  if (live) carry[v] = p;
+}
+
+// Dynamic shared memory above 48 KB (the staged variant at depth 7)
+// needs the kernel's opt-in; the attribute holds for the current device
+// only, so it is set at every launch that needs it (a host call).
+template <int kWrap, bool kStaged, int S = kShipStages>
+int launch(const float* phase0, const float* dt, float* before, float* carry,
+           unsigned* reruns, int V, int B, cudaStream_t st) {
+  const dim3 grid((V + kLanes - 1) / kLanes);
+  const size_t bytes = oscen_stage::ring_bytes<S>(kStaged ? 2 : 1);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        phase_ring_kernel<kWrap, kStaged, S>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  phase_ring_kernel<kWrap, kStaged, S>
+      <<<grid, oscen_stage::kBlock, bytes, st>>>(phase0, dt, before, carry,
+                                                 V, B, reruns);
+  return (int)cudaGetLastError();
+}
+
+// The shipped body: the FSET wrap; `before` staged and written back by the
+// producer for fewer than 32 lanes (one lane's 4-byte global stores cost
+// the chain warp more than shared-memory stores), stored by the chain warp
+// for full rows of 32 lanes (there the producer's write-back would delay
+// its next chunk's copies).
+int launch_shipped(const float* phase0, const float* dt, float* before,
+                   float* carry, unsigned* reruns, int V, int B,
+                   cudaStream_t st) {
+  if (V < kLanes)
+    return launch<kShipWrap, true>(phase0, dt, before, carry, reruns, V, B,
+                                   st);
+  return launch<kShipWrap, false>(phase0, dt, before, carry, reruns, V, B,
+                                  st);
+}
+
+// The short wrap over every float32 bit pattern q: counts[0] += patterns
+// where the kernel's wrap (the short one on [+0, 2), the reference's
+// q - floorf(q) elsewhere) differs from q - floorf(q) bit for bit (a NaN
+// is equal only to its own pattern), counts[1] += patterns the short wrap
+// takes.
+constexpr int kSweepBlocks = 132 * 16, kSweepThreads = 256;
+
+template <int kWrap>
+__global__ void __launch_bounds__(kSweepThreads)
+wrap_sweep(unsigned long long* counts) {
+  unsigned long long wrong = 0, taken = 0;
+  const unsigned long long stride =
+      (unsigned long long)kSweepBlocks * kSweepThreads;
+  for (unsigned long long k = blockIdx.x * kSweepThreads + threadIdx.x;
+       k < (1ull << 32); k += stride) {
+    const float q = __uint_as_float((unsigned)k);
+    const bool short_path = ((unsigned)k & kOutside) == 0u;
+    const float ref = q - floorf(q);
+    const float got = short_path ? wrap<kWrap>(q) : ref;
+    wrong += __float_as_uint(got) != __float_as_uint(ref);
+    taken += short_path;
+  }
+  for (int o = 16; o > 0; o /= 2) {
+    wrong += __shfl_down_sync(0xffffffffu, wrong, o);
+    taken += __shfl_down_sync(0xffffffffu, taken, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (wrong) atomicAdd(&counts[0], wrong);
+    atomicAdd(&counts[1], taken);
+  }
 }
 
 }  // namespace
@@ -56,9 +288,45 @@ extern "C" {
 int oscen_phase_scan(const float* phase0, const float* dt, float* before,
                      float* carry, int V, int B, void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((V + kThreads - 1) / kThreads);
-  phase_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      phase0, dt, before, carry, V, B);
+  return launch_shipped(phase0, dt, before, carry, nullptr, V, B,
+                        (cudaStream_t)stream);
+}
+
+// The same function by body `variant` (tools/scanprobe.py, chip_smoke.py
+// and the card tests; ops/cuda/phase.py's VARIANTS): 0 the shipped body;
+// on the ring at the shipped depth, 1 floorf and 2 the FSET wrap with
+// `before` stored by the chain warp, 3 the FSET wrap with `before` staged
+// and written back by the producer; 4 as 2 on a ring 7 chunks deep.
+// reruns (a zeroed counter, or null) += the (lane, chunk)s the short wrap
+// re-ran.
+int oscen_phase_scan_variant(const float* phase0, const float* dt,
+                             float* before, float* carry, unsigned* reruns,
+                             int V, int B, int variant, void* stream) {
+  if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case 0:
+      return launch_shipped(phase0, dt, before, carry, reruns, V, B, st);
+    case 1:
+      return launch<kFloor, false>(phase0, dt, before, carry, reruns, V, B,
+                                   st);
+    case 2:
+      return launch<kSet, false>(phase0, dt, before, carry, reruns, V, B, st);
+    case 3:
+      return launch<kSet, true>(phase0, dt, before, carry, reruns, V, B, st);
+    case 4:
+      return launch<kSet, false, kDeep>(phase0, dt, before, carry, reruns, V,
+                                        B, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shipped short wrap over all 2^32 float32 patterns: counts [2] (u64)
+// += (mismatches against q - floorf(q), patterns it takes).
+int oscen_phase_wrap_sweep(unsigned long long* counts, void* stream) {
+  wrap_sweep<kShipWrap>
+      <<<kSweepBlocks, kSweepThreads, 0, (cudaStream_t)stream>>>(counts);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // A staged input ring for one-thread-per-lane scans (sm_90a).
 //
-// A scan kernel runs one chain warp per CUDA block, one thread per lane of
-// a time-major [B, V] problem, with the lane's state in registers; its
-// per-step work is a serial chain.  Reading x[t] (and each per-sample
+// A scan kernel (K6, K7, K8) runs one chain warp per CUDA block, one
+// thread per lane of a time-major [B, V] problem, with the lane's state in
+// registers; its per-step work is a serial chain.  Reading x[t] (and each per-sample
 // coefficient) from global memory inside that loop puts an L2 / HBM
 // latency on the chain every few steps: nothing else on the SM hides it
 // (V=256 is 8 blocks on 132 SMs; the twin peaks is 2 lanes of one warp).
@@ -10,9 +10,12 @@
 // The ring takes those loads off the chain, and off the chain warp.  A
 // second warp of the block, the producer, brings the block's lanes of
 // every per-sample plane into shared memory in chunks of kChunk steps,
-// with cp.async, up to kStages - 1 chunks ahead of the chunk the chain
-// warp reads; named barriers hand each stage over (FULL: the producer's
-// copies of a chunk have landed; EMPTY: the chain warp is done with it).
+// with cp.async, up to S - 1 chunks ahead of the chunk the chain warp
+// reads (S, the ring's depth, a template parameter: kStages = 3 for every
+// shipped kernel; K6 measured no faster on a ring 7 chunks deep,
+// tools/scanprobe.py); named barriers hand each stage over (FULL: the
+// producer's copies of a chunk have landed; EMPTY: the chain warp is done
+// with it).
 // So the chain warp's instruction stream holds only its arithmetic, its
 // stores and shared-memory loads that depend on no state (scheduled ahead
 // of the steps that use them).  A kernel may have the producer derive
@@ -41,8 +44,16 @@ namespace oscen_stage {
 constexpr int kLanes = 32;    // one chain warp, one thread per lane
 constexpr int kBlock = 2 * kLanes;   // the chain warp, then the producer
 constexpr int kChunk = 32;    // time steps per ring stage (== kLanes)
-constexpr int kStages = 3;    // ring depth: 2 chunks in flight ahead
+constexpr int kStages = 3;    // the default ring depth
+constexpr int kMaxStages = 7; // 2 x 7 named barriers after barrier 0
 constexpr int kSlotFloats = kStages * kChunk * kLanes;   // one plane
+
+// One staged plane of a ring of depth S, in floats.
+template <int S = kStages>
+__host__ __device__ constexpr int slot_floats() {
+  static_assert(S >= 3 && S <= kMaxStages, "ring depth 3 to 7");
+  return S * kChunk * kLanes;
+}
 
 static_assert(kChunk == kLanes, "each thread copies W elements per chunk");
 
@@ -71,9 +82,11 @@ __device__ __forceinline__ void wait_groups() {
 
 // Named barriers of the two warps (0 is __syncthreads'): FULL and EMPTY
 // per stage.
-__device__ __forceinline__ int full_id(int k) { return 1 + k % kStages; }
+template <int S = kStages>
+__device__ __forceinline__ int full_id(int k) { return 1 + k % S; }
+template <int S = kStages>
 __device__ __forceinline__ int empty_id(int k) {
-  return 1 + kStages + k % kStages;
+  return 1 + S + k % S;
 }
 
 __device__ __forceinline__ void bar_sync(int id) {
@@ -85,25 +98,31 @@ __device__ __forceinline__ void bar_arrive(int id) {
 }
 
 // Bytes of dynamic shared memory for `slots` staged planes.
+template <int S = kStages>
 inline size_t ring_bytes(int slots) {
-  return (size_t)slots * kSlotFloats * sizeof(float);
+  return (size_t)slots * slot_floats<S>() * sizeof(float);
 }
 
 // The chain warp's side: wait for chunk k's stage; hand it back when done
 // (the producer waits only for the stages it will refill).
-__device__ __forceinline__ void chunk_ready(int k) { bar_sync(full_id(k)); }
+template <int S = kStages>
+__device__ __forceinline__ void chunk_ready(int k) {
+  bar_sync(full_id<S>(k));
+}
 
+template <int S = kStages>
 __device__ __forceinline__ void chunk_done(int k, int chunks) {
-  if (k + kStages < chunks) bar_arrive(empty_id(k));
+  if (k + S < chunks) bar_arrive(empty_id<S>(k));
 }
 
 // The producer warp's side: up to kMaxPlanes [B, V] planes, each staged
-// into its own slot of kSlotFloats floats ([kStages][kChunk][kLanes]) of
+// into its own slot of slot_floats<S>() floats ([S][kChunk][kLanes]) of
 // `smem`; lane = threadIdx.x - kLanes.
-template <int kMaxPlanes>
+template <int kMaxPlanes, int S = kStages>
 struct Producer {
+  static constexpr int kSlot = slot_floats<S>();
   const float* src[kMaxPlanes];
-  float* base;         // slot p at base + p * kSlotFloats
+  float* base;         // slot p at base + p * kSlot
   int planes;          // staged planes
   int V, B, l0, W;     // the block's lanes l0 .. l0 + W - 1
   int lane;
@@ -142,13 +161,13 @@ struct Producer {
   // This thread's copies of chunk k (all planes), committed as one group.
   __device__ void issue(int k) {
     const int t0 = k * kChunk;
-    const int stage = (k % kStages) * kChunk * kLanes;
+    const int stage = (k % S) * kChunk * kLanes;
     if (vec16) {
       const int row = lane / 8, col = (lane % 8) * 4;
 #pragma unroll
       for (int p = 0; p < kMaxPlanes; ++p) {
         if (p >= planes) break;
-        float* dst = base + p * kSlotFloats + stage + row * kLanes + col;
+        float* dst = base + p * kSlot + stage + row * kLanes + col;
         const float* from = src[p] + (size_t)(t0 + row) * V + l0 + col;
 #pragma unroll
         for (int m = 0; m < kChunk / 4; ++m)
@@ -162,7 +181,7 @@ struct Producer {
         int t = t_first, j = j_first;
         for (int m = 0; m < W; ++m) {
           if (t0 + t < B)
-            cp_async4(base + p * kSlotFloats + stage + t * kLanes + j,
+            cp_async4(base + p * kSlot + stage + t * kLanes + j,
                       src[p] + (size_t)(t0 + t) * V + l0 + j);
           t += dt;
           j += dj;
@@ -176,28 +195,90 @@ struct Producer {
     commit();
   }
 
-  // The producer's whole run: chunk k goes into the stage chunk
-  // k - kStages used once the chain warp has handed that back; when chunk
-  // k's copies have landed (at most one newer chunk still in flight),
-  // `landed(k)` derives what it derives and FULL is signalled.  Copies the
-  // caller issued before run() (e.g. a table) land with chunk 0.
+  // The producer's whole run: chunk k goes into the stage chunk k - S
+  // used once the chain warp has handed that back; when chunk k's copies
+  // have landed (at most S - 2 newer chunks still in flight), `landed(k)`
+  // derives what it derives and FULL is signalled.  Copies the caller
+  // issued before run() (e.g. a table) land with chunk 0.
   template <class Landed>
   __device__ void run(int chunks, Landed&& landed) {
+    constexpr int kAhead = S - 2;
     for (int k = 0; k < chunks; ++k) {
-      if (k >= kStages) bar_sync(empty_id(k));
+      if (k >= S) bar_sync(empty_id<S>(k));
       issue(k);
-      if (k >= 1) {
-        wait_groups<1>();
+      if (k >= kAhead) {
+        wait_groups<kAhead>();
         __syncwarp();   // every producer thread's copies, to all of them
-        landed(k - 1);
-        bar_arrive(full_id(k - 1));
+        landed(k - kAhead);
+        bar_arrive(full_id<S>(k - kAhead));
       }
     }
     wait_groups<0>();
     __syncwarp();
-    landed(chunks - 1);
-    bar_arrive(full_id(chunks - 1));
+    for (int k = max(0, chunks - kAhead); k < chunks; ++k) {
+      landed(k);
+      bar_arrive(full_id<S>(k));
+    }
   }
 };
+
+// The chain warp's loop over one staged chunk.  kP planes are staged
+// (x first, then each per-sample coefficient); row coefficients stay in
+// the body's registers.  A chunk's steps read their inputs from registers
+// that were loaded from shared memory a group of kGroup steps ahead
+// (double-buffered), so no load waits inside the chain; `body.step(in,
+// t)` runs step t of the chunk on the staged inputs in[0 .. kP - 1].
+constexpr int kGroup = 8;
+
+template <int kP>
+__device__ __forceinline__ void load_group(float (&dst)[kP][kGroup],
+                                           const float* const (&src)[kP],
+                                           int t0) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) dst[p][j] = src[p][(t0 + j) * kLanes];
+}
+
+template <int kP, class Body>
+__device__ __forceinline__ void run_chunk(const float* const (&src)[kP],
+                                          int n, Body& body) {
+  if (n == kChunk) {
+    float cur[kP][kGroup], nxt[kP][kGroup];
+    load_group<kP>(cur, src, 0);
+#pragma unroll 1
+    for (int t0 = 0; t0 < kChunk; t0 += kGroup) {
+      // the next group (the first again after the last: a harmless read)
+      load_group<kP>(nxt, src, (t0 + kGroup) % kChunk);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        float in[kP];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) in[p] = cur[p][j];
+        body.step(in, t0 + j);
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) cur[p][j] = nxt[p][j];
+    }
+  } else {   // the ragged last chunk
+    for (int t = 0; t < n; ++t) {
+      float in[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) in[p] = src[p][t * kLanes];
+      body.step(in, t);
+    }
+  }
+}
+
+// This lane's pointers into chunk c's stage of the kP staged slots.
+template <int kP, int S = kStages>
+__device__ __forceinline__ void stage_ptrs(const float* smem, int c,
+                                           const float* (&src)[kP]) {
+  const int off = (c % S) * kChunk * kLanes + threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) src[p] = smem + p * slot_floats<S>() + off;
+}
 
 }  // namespace oscen_stage

@@ -1,8 +1,11 @@
-// Probes of K7's and K8's per-step time (tools/scanprobe.py): the bodies
-// of csrc/iir.cu before their redesign, each with one cost taken out, and
-// a latency probe of the dependent ops their chains are made of.  On no
-// model's path.
+// Probes of the scans' per-step time (tools/scanprobe.py): the bodies of
+// K6 (csrc/phase.cu), K7 and K8 (csrc/iir.cu) before their redesign, each
+// with one cost taken out, and a latency probe of the dependent ops their
+// chains are made of.  On no model's path.
 //
+// phase_probe<XC>: K6's old body (one thread per lane, dt loaded and
+// before stored inside the loop, #pragma unroll 8); XC reads dt once into
+// a register instead of per step.
 // tpt_probe<XC, U>: K7's old body (loads inside the loop, #pragma unroll
 // U); XC reads x once into a register instead of per step.
 // lp18_probe<XC, TANH, DIV, U>: K8's old body; TANH 0 replaces the float64
@@ -15,6 +18,26 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+template <int XC>
+__global__ void __launch_bounds__(32)
+phase_probe(const float* __restrict__ phase0, const float* __restrict__ dt,
+            float* __restrict__ before, float* __restrict__ carry, int V,
+            int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float p = phase0[v];
+  const float* d = dt + v;
+  const float d0 = d[0];
+  float* o = before + v;
+#pragma unroll 8
+  for (int t = 0; t < B; ++t) {
+    o[(size_t)t * V] = p;
+    p = p + (XC ? d0 : d[(size_t)t * V]);
+    p = p - floorf(p);
+  }
+  carry[v] = p;
+}
 
 template <int XC, int U>
 __global__ void __launch_bounds__(32)
@@ -83,6 +106,22 @@ lp18_probe(const float* __restrict__ x, const float* __restrict__ g,
 
 extern "C" {
 
+int probe_phase(int variant, const float* phase0, const float* dt,
+                float* before, float* carry, int V, int B, void* stream) {
+  const dim3 grid((V + 31) / 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case 0:   // (a) as is
+      phase_probe<0><<<grid, 32, 0, st>>>(phase0, dt, before, carry, V, B);
+      break;
+    case 1:   // (b) dt from a register
+      phase_probe<1><<<grid, 32, 0, st>>>(phase0, dt, before, carry, V, B);
+      break;
+    default: return 1;
+  }
+  return (int)cudaGetLastError();
+}
+
 int probe_tpt(int variant, const float* x, const float* h, const float* g,
               const float* k, const float* z0, const float* z1, float* y,
               float* z0o, float* z1o, int V, int B, int hs, int gs, int ks,
@@ -146,9 +185,34 @@ __global__ void lat_kernel(float* out, long long* cyc, float seed, int n) {
   float q = f;
   for (int i = 0; i < n; ++i) q = 1.0f / (q + 1.5f);            // IEEE div
   long long t6 = clock64();
-  out[0] = f + (float)d + j + q;
+  // K6's wrap chains, one step each (values cycle in [0, 1))
+  float r = q - floorf(q);
+  for (int i = 0; i < n; ++i) {                                 // FADD,
+    r = r + 0.37f;                                              // FRND.FLOOR,
+    r = r - floorf(r);                                          // FADD
+  }
+  long long t7 = clock64();
+  for (int i = 0; i < n; ++i) {                                 // FADD, FSETP,
+    const float u = r + 0.37f;                                  // FSEL, FADD
+    r = u + (u >= 1.0f ? -1.0f : 0.0f);
+  }
+  long long t8 = clock64();
+  for (int i = 0; i < n; ++i) {                                 // FADD, FSETP
+    const float u = r + 0.37f;                                  // and FADD,
+    r = u >= 1.0f ? u - 1.0f : u;                               // FSEL
+  }
+  long long t9 = clock64();
+  for (int i = 0; i < n; ++i) {                                 // FADD, FSET,
+    const float u = r + 0.37f;                                  // FADD
+    float c;
+    asm("set.ge.f32.f32 %0, %1, 0f3F800000;" : "=f"(c) : "f"(u));
+    r = u - c;
+  }
+  long long t10 = clock64();
+  out[0] = f + (float)d + j + q + r;
   cyc[0] = t1 - t0; cyc[1] = t2 - t1; cyc[2] = t3 - t2; cyc[3] = t4 - t3;
-  cyc[4] = t5 - t4; cyc[5] = t6 - t5;
+  cyc[4] = t5 - t4; cyc[5] = t6 - t5; cyc[6] = t7 - t6; cyc[7] = t8 - t7;
+  cyc[8] = t9 - t8; cyc[9] = t10 - t9;
 }
 
 extern "C" int probe_lat(float* out, long long* cyc, int n) {

@@ -61,8 +61,20 @@ _P_TABLE[1:] = np.cumprod(
     / INTERPOLATION_STEPS)
 
 
+# the module's numpy constants on each device they were asked for there
+_DEVICE_CONSTS: dict = {}
+
+
 def _f32(x, like):
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """The module constant ``x`` (a numpy array) as float32 on ``like``'s
+    device, copied there once: a host-to-device copy inside a steady block
+    would wait for the card."""
+    key = (id(x), like.device)
+    hit = _DEVICE_CONSTS.get(key)
+    if hit is None or hit[0] is not x:
+        hit = (x, torch.as_tensor(x, dtype=torch.float32, device=like.device))
+        _DEVICE_CONSTS[key] = hit
+    return hit[1]
 
 
 def _powers(z_re, z_im, n: int):

@@ -84,6 +84,46 @@ def subgroup_len(block_len: int, version: str) -> int:
     return min(pick_unroll(block_len, max_u=128), 64)
 
 
+def segments(num_voices: int, block_len: int, sub: int) -> int:
+    """Time segments per voice of the closed-form kernels (v4, v3, v2) on
+    the card, as ``csrc/additive.cu`` picks them: 4 up to 512 voices, 2 up
+    to 1024, else 1, halved until it divides the ``block_len / sub``
+    subgroups.  Each segment is one warp that replays the state at its
+    first subgroup; the outputs are those of one warp per voice."""
+    s = 4 if num_voices <= 512 else 2 if num_voices <= 1024 else 1
+    while s > 1 and (block_len // sub) % s:
+        s //= 2
+    return s
+
+
+def card_segments(num_voices: int, block_len: int, sub: int) -> int:
+    """:func:`segments` as the built library answers it (the card)."""
+    import ctypes
+
+    from . import build
+    fn = build.load_library("additive").oscen_additive_segments
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(num_voices, block_len, sub)
+
+
+def closed_block_segments(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
+                          step, block_len: int, segs: int,
+                          with_mix: bool = False, version: str = "v4"):
+    """One block of the closed-form kernel ``version`` on the card with
+    ``segs`` time segments per voice (1, 2 or 4, dividing the subgroups)
+    instead of :func:`segments`' choice: the probes price the segment
+    count, the card tests hold every count to the plain version.  Not
+    counted in ``launches``."""
+    planes = (osc_re, osc_im, mul_re, mul_im, cur, tgt, mult)
+    if osc_re.device.type != "cuda" or version not in _CLOSED:
+        raise ValueError("closed_block_segments runs a closed-form kernel "
+                         "(v4, v3, v2) on the card")
+    return _launch(version, planes, step, block_len,
+                   subgroup_len(block_len, version), with_mix, None,
+                   segs=segs)
+
+
 def epilogue_supported(num_voices: int) -> bool:
     """True where the reference fuses a stream epilogue: the padded voice
     count fits one 256-voice tile, and not with the parity version (its
@@ -159,7 +199,8 @@ def _mix_counters(dev, n: int) -> torch.Tensor:
     return c
 
 
-def _launch(version, planes, step, block_len, sub, with_mix, epi):
+def _launch(version, planes, step, block_len, sub, with_mix, epi,
+            segs=None):
     from . import build
     H, V = planes[0].shape
     dev = planes[0].device
@@ -179,7 +220,13 @@ def _launch(version, planes, step, block_len, sub, with_mix, epi):
         epi = epi.to(torch.float32).contiguous()
         if epi.device != dev or tuple(epi.shape) != (5,):
             raise ValueError(f"epi_params must be [5] on {dev}")
-    fn = build.entry("additive", _ENTRY[version], 17, 5)
+    if segs is None:
+        fn = build.entry("additive", _ENTRY[version], 17, 5)
+    else:   # the closed-form body with an explicit segment count
+        entry = build.entry("additive", "oscen_additive_closed_segs", 17, 7)
+
+        def fn(*a):
+            return entry(*a[:-1], int(version[1]), segs, a[-1])
     n_blk = -(-V // WARPS_PER_BLOCK)
     part = cnt = None
     if with_mix:
@@ -203,7 +250,8 @@ def _launch(version, planes, step, block_len, sub, with_mix, epi):
             ptr(part), ptr(cnt), ptr(epi), *[t.data_ptr() for t in outs],
             step_o.data_ptr(), V, block_len, sub, int(with_mix),
             WARPS_PER_BLOCK, stream)
-    launches[EPILOGUE if epi is not None else version] += 1
+    if segs is None:
+        launches[EPILOGUE if epi is not None else version] += 1
     build.check_launch("additive", rc, f"additive {version}")
     return (y, *outs, step_o)
 

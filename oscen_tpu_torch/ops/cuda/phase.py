@@ -9,6 +9,12 @@ reassociate the adds and drift).
 Selection: a CPU tensor runs :func:`plain_phase_scan`, a CUDA tensor runs
 the kernel of ``csrc/phase.cu`` (built at first use) or raises.
 ``launches`` counts the kernel's launches; the plain version is not counted.
+
+The kernel wraps ``q = p + dt`` by a short exact path on ``[+0, 2)``
+(``q - (q >= 1)``, the comparison as 1.0 or 0.0) and re-runs any 32-step chunk in which some ``q``
+lies outside it with ``floor`` (:func:`short_wrap` models both);
+:func:`phase_scan_variant` and :func:`wrap_sweep` reach the kernel's other
+bodies and its check over all 2^32 float32 ``q`` on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +25,12 @@ import torch
 
 KERNEL = "phase_scan"
 launches: Dict[str, int] = {KERNEL: 0}
+# the kernel's bodies by number (csrc/phase.cu oscen_phase_scan_variant)
+VARIANTS = {"shipped": 0, "ring_floor": 1, "ring_set": 2,
+            "ring_set_staged": 3, "ring_set_deep": 4}
+CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
+# a q outside [+0, 2) has its sign bit or bit 30 set
+OUTSIDE = 0xC0000000
 
 
 def reset_launches() -> None:
@@ -62,3 +74,86 @@ def plain_phase_scan(phase0, dt):
         p = p + dt[t]
         p = p - torch.floor(p)   # rem_euclid(1.0), never trunc
     return before, p
+
+
+def short_wrap(q):
+    """The kernel's wrap of ``q = p + dt`` on its short path: ``q - c``
+    with ``c`` 1.0 where ``q >= 1``, else 0.0 (one FSET on the card); and
+    where that is not ``q - floor(q)`` bit for bit, i.e. outside ``[+0, 2)``
+    (the sign bit or bit 30 of ``q``'s pattern set: negatives, ``-0``,
+    ``q >= 2``, inf and NaN).  Returns (the short wrap, the mask of ``q``
+    outside its domain)."""
+    outside = (q.view(torch.int32) & (OUTSIDE - (1 << 32))) != 0  # int32
+    return q - (q >= 1.0).to(q.dtype), outside
+
+
+def chunked_phase_scan(phase0, dt, chunk: int = CHUNK):
+    """The kernel's algorithm in plain PyTorch: each chunk of ``chunk``
+    steps by :func:`short_wrap`, and a lane's chunk in which some ``q`` fell
+    outside its domain run again from the chunk's start state with
+    ``floor``.  Returns (before, carry, the re-run (lane, chunk) count);
+    equal to :func:`plain_phase_scan` bit for bit."""
+    B = dt.shape[0]
+    before = torch.empty_like(dt)
+    p = phase0
+    reruns = 0
+    for c0 in range(0, B, chunk):
+        p_start, out = p, torch.zeros_like(p, dtype=torch.bool)
+        for t in range(c0, min(B, c0 + chunk)):
+            before[t] = p
+            p, o = short_wrap(p + dt[t])
+            out |= o
+        if bool(out.any()):
+            reruns += int(out.sum())
+            q = p_start
+            for t in range(c0, min(B, c0 + chunk)):
+                before[t] = torch.where(out, q, before[t])
+                q = q + dt[t]
+                q = q - torch.floor(q)
+            p = torch.where(out, q, p)
+    return before, p, reruns
+
+
+def _card_only(name, dev):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs the card's kernel: give it a CUDA "
+                         f"tensor (got {dev})")
+
+
+def phase_scan_variant(phase0, dt, variant: str = "shipped"):
+    """:func:`phase_scan` on the card by the body ``variant``
+    (:data:`VARIANTS`, ``csrc/phase.cu``'s ``oscen_phase_scan_variant``:
+    the shipped body; on its ring the ``floor`` wrap, the short wrap with
+    ``before`` stored by the chain warp, or staged and written back by the
+    producer; the short wrap on a ring 7 chunks deep).  Returns (before,
+    carry, the (lane, chunk)s the short wrap re-ran as a ``[1]`` int32
+    tensor on the card).  Not counted in ``launches``: the probes and checks
+    call it, never a model."""
+    from . import build
+    _card_only("phase_scan_variant", dt.device)
+    build.check_operands(dt.device, phase0=phase0, dt=dt)
+    B, V = dt.shape
+    before, carry = torch.empty_like(dt), torch.empty_like(phase0)
+    reruns = torch.zeros(1, dtype=torch.int32, device=dt.device)
+    fn = build.entry("phase", "oscen_phase_scan_variant", 5, 3)
+    rc = fn(phase0.data_ptr(), dt.data_ptr(), before.data_ptr(),
+            carry.data_ptr(), reruns.data_ptr(), V, B, VARIANTS[variant],
+            torch.cuda.current_stream(dt.device).cuda_stream)
+    build.check_launch("phase", rc, f"phase_scan {variant}")
+    return before, carry, reruns
+
+
+def wrap_sweep(device="cuda"):
+    """The kernel's short wrap over all 2^32 float32 patterns ``q`` on the
+    card: (patterns where it differs from ``q - floor(q)`` bit for bit,
+    patterns its short path takes)."""
+    from . import build
+    dev = torch.device(device)
+    _card_only("wrap_sweep", dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    fn = build.entry("phase", "oscen_phase_wrap_sweep", 1, 0)
+    build.check_launch("phase", fn(
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "wrap_sweep")
+    wrong, taken = counts.tolist()
+    return wrong, taken

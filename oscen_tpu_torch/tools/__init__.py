@@ -44,17 +44,25 @@ WINDOWS = 7
 # - x, - z1, - z2, the division, * g, + z0, the tanh); biquad 6 (+ v1,
 # * a1, -, + v2, the snap 2); the allpass cascade 3 (each stage's own
 # cycle; the stages follow each other within the sample).  The additive
-# kernels (a warp per voice) and the ablation bodies have none.
+# kernels' warps (a voice's time segment, one lane per harmonic) carry
+# per tick: v4, v3, v2 and the epilogue 2 (the running power m^(j+1):
+# * m, then the complex sum; the envelope product p: * f, then the wrap
+# select; v3's and v2's step counter: + 1, then its select), parity 3 (cur:
+# * (1 - tau), + tgt * tau, the interp select); their chain is the ticks
+# one warp runs in order, B / segments (``additive.segments``).  The
+# ablation bodies have none.
 CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 6,
              "fract_phase3": 3, "fm_chain3_scan": 15,
              "pivot_chain3_scan": 15, "fm_operator_scan": 17,
-             "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3}
+             "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3,
+             "v4": 2, "v3": 2, "v2": 2, "v4_epilogue": 2, "parity": 3}
 CHAIN_CYCLES = 4   # dependent float32 issue latency on Hopper
 
 
 def chain_floor_us(kernel: str, B: int, mhz: float) -> Optional[float]:
-    """The chain floor of ``kernel`` over ``B`` steps at ``mhz``, in µs
-    (None: no serial chain per lane)."""
+    """The chain floor of ``kernel`` over ``B`` steps in order (one lane's,
+    or one additive warp's ticks) at ``mhz``, in µs (None: no serial chain
+    per lane)."""
     if kernel not in CHAIN_OPS:
         return None
     return B * CHAIN_OPS[kernel] * CHAIN_CYCLES / mhz
@@ -75,6 +83,33 @@ def sm_clock_mhz(dev) -> float:
                          timeout=60).stdout
     torch.cuda.synchronize()
     return float(out.split()[0])
+
+
+def sass_counts(lib, ops: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """Per kernel function of the built library ``lib`` (a path), its
+    instruction count (``instr``) and how many of its instructions contain
+    each of ``ops`` (e.g. "LDL", "SHFL"), from ``cuobjdump -sass``; raises
+    if cuobjdump or the library is missing."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists() or not Path(lib).exists():
+        raise RuntimeError(f"no cuobjdump or no {lib} to count SASS in")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(("instr",) + tuple(ops), 0)
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            counts[fn]["instr"] += 1
+            for op in ops:
+                counts[fn][op] += op in ln
+    return counts
 
 
 def parse_args(argv, variants: Sequence[str], doc: str):

@@ -1006,3 +1006,122 @@ def test_ablation_wrappers_reject_what_they_do_not_take(cuda):
                                                dtype=torch.float64),
                          torch.zeros(3, 8, device=cuda,
                                      dtype=torch.float64), 8)
+
+
+# ------------------------------------------------------------------ #
+# K6 on its staged ring with the short exact wrap; K1's time segments
+# ------------------------------------------------------------------ #
+PHASE_RING_B = (1, 31, 33, 1024, 4096, 16384)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("edges", [False, True], ids=["main", "edges"])
+@pytest.mark.parametrize("V", RING_V)
+def test_phase_ring_equals_plain(cuda, V, edges):
+    """Every B around the ring's chunk up to the 4x saturator's 16384
+    steps, 3 chained blocks, bit patterns of every output; the edge dt
+    (-0, denormals, negatives, >= 1, +-inf, NaN) re-run their chunks with
+    floor, the main paths' dt in (0, 0.5) re-run none."""
+    f32 = np.float32
+    e = np.array([-0.0, 1e-40, -1e-40, np.nextafter(f32(1), f32(0)), 1.0,
+                  1.5, 2.0, -0.25, -3.5, 7.0, np.inf, -np.inf, np.nan], f32)
+    reruns = 0
+    for B in PHASE_RING_B:
+        rng = np.random.default_rng(V * 53 + B + edges)
+        p0 = rng.uniform(0, 1, V).astype(np.float32)
+        if edges:
+            p0[0] = -0.0
+        p = _on(cuda, p0)
+        for _ in range(3):
+            dt = rng.uniform(0.0, 0.5, (B, V)).astype(np.float32)
+            if edges:
+                idx = rng.integers(0, B * V, min(B * V, 48))
+                dt.reshape(-1)[idx] = rng.choice(e, len(idx))
+            dt = _on(cuda, dt)
+            out = kphase.phase_scan(p, dt)
+            var = kphase.phase_scan_variant(p, dt)
+            torch.cuda.synchronize()
+            plain = kphase.plain_phase_scan(p, dt)
+            assert _same_bits(out, plain), B
+            assert _same_bits(var[:2], plain), B
+            reruns += int(var[2])
+            p = out[1]
+    assert (reruns > 0) == edges
+
+
+@pytest.mark.parametrize("V,B", [(256, 1024), (256, 4096), (1, 4096),
+                                 (3, 100)])
+def test_phase_bodies_equal_plain(cuda, V, B):
+    rng = np.random.default_rng(V + B)
+    p = _on(cuda, rng.uniform(0, 1, V))
+    dt = _on(cuda, rng.uniform(0.001, 0.5, (B, V)))
+    plain = kphase.plain_phase_scan(p, dt)
+    for name in kphase.VARIANTS:
+        got = kphase.phase_scan_variant(p, dt, name)
+        torch.cuda.synchronize()
+        assert _same_bits(got[:2], plain), name
+        assert int(got[2]) == 0, name
+
+
+def test_phase_wrap_equals_floor_everywhere(cuda):
+    """The short wrap over all 2^32 float32 q against q - floorf(q), bit
+    patterns (NaN equal only to itself); it takes exactly [+0, 2)."""
+    wrong, taken = kphase.wrap_sweep()
+    assert wrong == 0
+    assert taken == 2 ** 30
+
+
+@pytest.mark.parametrize("version", ["v4", "v3", "v2"])
+@pytest.mark.parametrize("V", [1, 3, 33, 256, 257])
+def test_additive_segments_match_plain(cuda, version, V):
+    """The closed-form kernels with every segment count at B from one
+    subgroup up: y within the bounds, state planes torch.equal, every
+    count's outputs equal; the library's choice is the wrapper's."""
+    planes_np, step_np = _inputs(V, seed=V)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
+    s = torch.as_tensor(step_np, device=cuda)
+    for B in (64, 128, 1024, 4096):
+        sub = add.subgroup_len(B, version)
+        assert add.card_segments(V, B, sub) == add.segments(V, B, sub)
+        for with_mix in (False, True):
+            k_out = add.additive_voice_block(*planes, s, B,
+                                             with_mix=with_mix,
+                                             version=version)
+            torch.cuda.synchronize()
+            p_out = add.plain_block(*planes, s, B, with_mix, version)
+            tol = 5e-5 * (math.sqrt(V) if with_mix else 1.0)
+            assert float((k_out[0] - p_out[0]).abs().max()) <= tol
+            assert _equal(k_out[1:], p_out[1:])
+            for S in (1, 2, 4):
+                if (B // sub) % S == 0:
+                    got = add.closed_block_segments(*planes, s, B, S,
+                                                    with_mix, version)
+                    torch.cuda.synchronize()
+                    assert _equal(got, k_out), (B, S, with_mix)
+
+
+@pytest.mark.parametrize("version", add.KERNELS)
+def test_piano_steady_blocks_never_wait_for_the_card(cuda, version,
+                                                     monkeypatch):
+    """After the chord's block, steady piano blocks run under sync debug
+    mode "error": no host copy or read of the card inside a block."""
+    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", version)
+    p = build_electric_piano(16).compile(48000.0, block_size=256,
+                                         mode="block", device="cuda")
+    for n in range(16):
+        p.queue_event("midi_in", 0, raw_midi_event([0x90, 40 + n, 100]))
+    p.process_block()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [p.process_block()["out"] for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(o.device.type == "cuda" for o in outs)

@@ -256,3 +256,29 @@ def test_epilogue_fusion_steps_aside_for_a_ramp(monkeypatch):
     q.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
     q.process_block()
     assert fused not in q.explain()
+
+
+def test_steady_blocks_copy_no_constant_to_the_device(monkeypatch):
+    """The voice's numpy constants (harmonic numbers, velocity spectra, the
+    envelope table) reach a block's device once, not in every block: on
+    the card each copy would make the block wait for it (the card test
+    runs the piano's steady blocks under sync debug mode "error")."""
+    from oscen_tpu_torch.nodes import electric_piano as ep
+    copies = []
+    real = torch.as_tensor
+
+    def counting(x, *a, **kw):
+        if isinstance(x, np.ndarray):
+            copies.append(x.shape)
+        return real(x, *a, **kw)
+    p = tbuild(8).compile(SR, block_size=64, device="cpu")
+    for n in (60, 64, 67):
+        p.queue_event("midi_in", 0, T.raw_midi_event([0x90, n, 100]))
+    p.process_block()
+    p.process_block()
+    monkeypatch.setattr(ep.torch, "as_tensor", counting)
+    for _ in range(3):
+        p.process_block()
+    assert copies == []
+    x = ep.HARMONIC_NUMBERS
+    assert ep._f32(x, torch.zeros(1)) is ep._f32(x, torch.zeros(2))
