@@ -23,7 +23,7 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             v4 with and without the mix and with the epilogue at V=1, 3,
             33, 256 and 257 and B=64, 128, 1024 and 4096 against the plain
             version, every time-segment count equal to the one the kernel
-            picks (which the library and the wrapper agree on); phase_scan,
+            picks; phase_scan,
             tpt_svf_scan (row and per-sample coefficients), adsr_scan
             (A -> D -> S, then a gate-off through R -> idle), and the FM
             kernels fract_phase3, fm_chain3_scan and pivot_chain3_scan
@@ -47,9 +47,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             short exact wrap at V=1, 2, 3, 33 and 256 and B=1, 31, 33, 1024,
             4096 and 16384, on the main paths' dt and on dt with -0,
             denormals, negatives, values >= 1, +-inf and NaN (bit patterns
-            of every output of 3 chained blocks), every body of phase.cu,
-            and its short wrap over all 2^32 float32 q against
-            q - floor(q);
+            of every output of 3 chained blocks; the plain version over
+            all cases' lanes side by side), and its short wrap over all
+            2^32 float32 q against q - floor(q);
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
@@ -95,13 +95,14 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             (no host copy, every block after the first under sync debug
             mode "error", one phase_scan per synth block), equal to the
             same chain fed from numpy; how many phase_scan chunks the short
-            wrap re-ran on the poly synth's, the saturator's and the README
-            synth's own input;
+            wrap re-ran in the poly synth's, the saturators' and the README
+            synth's runs (the kernel's device count, read after each);
 5. timing   each kernel's device time (profiler) and its plain version's
             time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
             one-thread-per-lane scan, its chain floor (B x
-            ``tools.CHAIN_OPS`` x 4 cycles at the SM clock nvidia-smi reads under load), a steady
+            ``tools.CHAIN_OPS`` x 4 cycles at the SM clock nvidia-smi
+            reads under load), a steady
             ``process_block``'s time, device-busy share, top device
             activities and real-time factor per model (the piano with v4,
             v3, v2 and the epilogue fusion; for the twin peaks
@@ -119,7 +120,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             counts the shuffles and mma of every ``kabl.cu`` instance in its
             SASS.  On no model's main path: 0 launches in the kernels JSON.
 
-The line before the last is the JSON kernel report (with
+Each phase line goes to the phase's seconds (the time since the line
+before it); a "[total]" line sums them.  The line before the last is the
+JSON kernel report (with
 ``chain_floor_ms``, null where a kernel has no serial chain per lane), the
 last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -208,7 +211,17 @@ def bound_of(key, inputs, outputs, steps, lanes, extra_ops=0):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# seconds per phase: the time since the previous phase line goes to the
+# phase of the line that reports the work
+PHASE_SECONDS = {}
+T_START = time.perf_counter()
+_LAST_LINE = [T_START]
+
+
 def phase(name, msg):
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -283,17 +296,16 @@ def sass_checks(build, tools):
     every kernel instance of csrc/kabl.cu keeps its work: the variants
     whose results nothing reads, noout its 32 shuffles (as full), dot32 one
     mma per k-tile (5) and dot4 four whole-block dots (20)."""
-    import glob
     import re
 
-    def newest(name):
-        libs = sorted(glob.glob(str(build.BUILD_DIR / f"lib{name}-*.so")),
-                      key=os.path.getmtime)
-        check(bool(libs), f"{name}.cu SASS: no library to count it in")
-        return libs[-1]
+    def built(name):
+        # this tree's build (a build of another tree may sit beside it)
+        lib = build.BUILD_DIR / f"lib{name}-{build.source_digest(name)}.so"
+        check(lib.exists(), f"{name}.cu SASS: no library to count it in")
+        return str(lib)
     try:
-        add_c = tools.sass_counts(newest("additive"), ("LDL", "STL"))
-        kabl_c = tools.sass_counts(newest("kabl"), ("SHFL", "HMMA"))
+        add_c = tools.sass_counts(built("additive"), ("LDL", "STL"))
+        kabl_c = tools.sass_counts(built("kabl"), ("SHFL", "HMMA"))
     except (RuntimeError, subprocess.SubprocessError) as e:
         check(False, f"SASS: {e}")
     parts, local, epi = [], 0, 0
@@ -564,14 +576,12 @@ def phase_checks(torch, dev, kphase):
     of 3 chained blocks, so signs of zeros and NaN payloads count) at V in
     PHASE_RING_V and B in PHASE_RING_B, on the main paths' dt and on dt
     with -0, denormals, negatives, values >= 1, +-inf and NaN (which
-    re-run their chunks with floor); every other body of phase.cu on the
-    main paths' shapes; the wrap over all 2^32 float32 q against
-    q - floor(q).  Any mismatch fails the run."""
+    re-run their chunks with floor); the wrap over all 2^32 float32 q
+    against q - floor(q).  The plain version runs once per B and block
+    over every case's lanes side by side (its lanes are independent).
+    Any mismatch fails the run."""
     def bits(t):
         return t.contiguous().view(torch.int32)
-
-    def same(a, b):
-        return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
 
     f32 = np.float32
     edges = np.array([-0.0, 0.0, 1e-40, -1e-40, np.nextafter(f32(1), f32(0)),
@@ -579,60 +589,55 @@ def phase_checks(torch, dev, kphase):
                       -0.25, -1.0, -3.5, 7.0, np.inf, -np.inf, np.nan],
                      np.float32)
     t0 = time.perf_counter()
-    cases, reruns = 0, {False: 0, True: 0}
-    for V in PHASE_RING_V:
-        for B in PHASE_RING_B:
-            for edge in (False, True):
-                rng = np.random.default_rng(V * 43 + B + edge)
-                p0 = rng.uniform(0, 1, V).astype(np.float32)
+    reruns = {False: 0, True: 0}
+    kphase.take_reruns(dev)
+    for B in PHASE_RING_B:
+        cases = [(V, edge) for V in PHASE_RING_V for edge in (False, True)]
+        rngs, ps = {}, {}
+        for V, edge in cases:
+            rngs[V, edge] = rng = np.random.default_rng(V * 43 + B + edge)
+            p0 = rng.uniform(0, 1, V).astype(np.float32)
+            if edge:
+                p0[0] = -0.0
+            ps[V, edge] = torch.as_tensor(p0, device=dev)
+        for _ in range(3):
+            dts, outs = [], []
+            for V, edge in cases:
+                rng = rngs[V, edge]
+                dt = rng.uniform(0.0, 0.5, (B, V)).astype(np.float32)
                 if edge:
-                    p0[0] = -0.0
-                p = torch.as_tensor(p0, device=dev)
-                for _ in range(3):
-                    dt = rng.uniform(0.0, 0.5, (B, V)).astype(np.float32)
-                    if edge:
-                        idx = rng.integers(0, B * V, min(B * V, 64))
-                        dt.reshape(-1)[idx] = rng.choice(edges, len(idx))
-                    dt = torch.as_tensor(dt, device=dev)
-                    before = kphase.launches["phase_scan"]
-                    out = kphase.phase_scan(p, dt)
-                    var = kphase.phase_scan_variant(p, dt)
-                    torch.cuda.synchronize()
-                    check(kphase.launches["phase_scan"] == before + 1,
-                          "phase_scan: launch counter did not advance")
-                    plain = kphase.plain_phase_scan(p, dt)
-                    check(same(out, plain) and same(var[:2], plain),
-                          f"phase_scan V={V} B={B} edges={edge}: kernel and "
-                          f"plain version differ")
-                    reruns[edge] += int(var[2])
-                    p = out[1]
-                cases += 1
+                    idx = rng.integers(0, B * V, min(B * V, 64))
+                    dt.reshape(-1)[idx] = rng.choice(edges, len(idx))
+                dt = torch.as_tensor(dt, device=dev)
+                before = kphase.launches["phase_scan"]
+                out = kphase.phase_scan(ps[V, edge], dt)
+                torch.cuda.synchronize()
+                check(kphase.launches["phase_scan"] == before + 1,
+                      "phase_scan: launch counter did not advance")
+                reruns[edge] += kphase.take_reruns(dev)
+                dts.append(dt)
+                outs.append(out)
+            plain = kphase.plain_phase_scan(
+                torch.cat([ps[c] for c in cases]), torch.cat(dts, dim=1))
+            lo = 0
+            for (V, edge), out in zip(cases, outs):
+                check(torch.equal(bits(out[0]), bits(plain[0][:, lo:lo + V]))
+                      and torch.equal(bits(out[1]), bits(plain[1][lo:lo + V])),
+                      f"phase_scan V={V} B={B} edges={edge}: kernel and "
+                      f"plain version differ")
+                ps[V, edge] = out[1]
+                lo += V
+    n_cases = len(PHASE_RING_B) * len(PHASE_RING_V) * 2
     phase("kernels", f"phase_scan on the ring: V in {PHASE_RING_V}, B in "
           f"{PHASE_RING_B}, the main paths' dt and dt with -0, denormals, "
-          f"negatives, >= 1, +-inf and NaN, 3 chained blocks each: {cases} "
-          f"cases equal to the plain version (bit patterns) ok; chunks "
-          f"re-run with floor: {reruns[False]} on the main paths' dt, "
-          f"{reruns[True]} on the edge dt "
+          f"negatives, >= 1, +-inf and NaN, 3 chained blocks each: "
+          f"{n_cases} cases equal to the plain version (bit patterns) ok; "
+          f"chunks re-run with floor: {reruns[False]} on the main paths' "
+          f"dt, {reruns[True]} on the edge dt "
           f"({time.perf_counter() - t0:.1f} s)")
     check(reruns[False] == 0 and reruns[True] > 0,
           "phase_scan: the short wrap re-ran a chunk of in-range dt, or "
           "none of the edge dt")
-    for V, B in ((VOICES, 1024), (VOICES, 4096), (1, 4096), (1, 16384)):
-        rng = np.random.default_rng(V + B)
-        p = torch.as_tensor(rng.uniform(0, 1, V).astype(np.float32),
-                            device=dev)
-        dt = torch.as_tensor(rng.uniform(0.001, 0.5, (B, V)).astype(
-            np.float32), device=dev)
-        plain = kphase.plain_phase_scan(p, dt)
-        for name in kphase.VARIANTS:
-            got = kphase.phase_scan_variant(p, dt, name)
-            torch.cuda.synchronize()
-            check(same(got[:2], plain) and int(got[2]) == 0,
-                  f"phase_scan body {name} V={V} B={B}: differs from the "
-                  f"plain version")
-    phase("kernels", f"phase_scan's bodies {list(kphase.VARIANTS)} at V=256 "
-          f"B=1024, 4096 and V=1 B=4096, 16384: equal to the plain version "
-          f"ok")
     t0 = time.perf_counter()
     wrong, taken = kphase.wrap_sweep()
     phase("kernels", f"phase_scan's short wrap over all 2^32 float32 q: "
@@ -692,10 +697,16 @@ def main() -> int:
     scans = {"phase_scan": kphase, "tpt_svf_scan": kiir, "adsr_scan": kadsr}
 
     def reset_all():
+        """Every launch count to 0, and phase_scan's re-run count."""
         add.reset_launches()
         kfm.reset_launches()
         for mod in scans.values():
             mod.reset_launches()
+        kphase.take_reruns()
+
+    # (lane, chunk)s phase_scan's short wrap re-ran with floor in each
+    # model's main-path run (the device count after the run)
+    main_reruns = {}
 
     # ---- 1. device ---------------------------------------------------
     smi = subprocess.run(
@@ -862,9 +873,6 @@ def main() -> int:
         for B in SEG_B:
             sub = add.subgroup_len(B, "v4")
             S = add.segments(V, B, sub)
-            check(add.card_segments(V, B, sub) == S,
-                  f"segments V={V} B={B}: the library picks "
-                  f"{add.card_segments(V, B, sub)}, the wrapper {S}")
             seg_used[(V, B)] = S
             y_tol = {m: Y_TOL * (math.sqrt(V) if m else 1.0)
                      for m in (False, True)}
@@ -1361,6 +1369,7 @@ def main() -> int:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     poly_launches = {k: mod.launches[k] for k, mod in scans.items()}
+    main_reruns["poly synth"] = kphase.take_reruns()
     poly_blocks = 1 + 8 + 1 + 16 + 32
     audio = torch.cat(blocks + [steady]).cpu().numpy()
     leaves = []
@@ -1711,6 +1720,7 @@ def main() -> int:
             c, ys = sat_drive("cuda", policy, B, n)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            main_reruns[f"saturator 4x {policy} B={B}"] = kphase.take_reruns()
             got = {"phase_scan": kphase.launches["phase_scan"],
                    "allpass_cascade_scan":
                    kiir.launches["allpass_cascade_scan"]}
@@ -1821,6 +1831,7 @@ def main() -> int:
     chained = chain_drive(True)
     got = kiir.launches["tpt_svf_scan"]
     got_ph = kphase.launches["phase_scan"]
+    main_reruns["README synth"] = kphase.take_reruns()
     same = torch.equal(chained, chain_drive(False))
     phase("main", f"README synth -> simple echo B=1024: 16 blocks through "
           f"card tensors (blocks 2-16 under sync debug mode 'error'), "
@@ -1831,46 +1842,11 @@ def main() -> int:
     check(same and got == 32 and got_ph == 16,
           "synth -> echo chain checks failed")
 
-    # how often phase_scan's short wrap re-ran a chunk on each model's own
-    # input: every phase_scan call of the poly synth (B=1024, 10 blocks),
-    # the 4x sinc saturator (B=1024 and 4096, 4 blocks) and the README
-    # synth (16 blocks), recorded on the way and run again through the
-    # kernel's counted entry
-    import oscen_tpu_torch.ops.scan as oscan
-    ph_calls = []
-
-    def ph_recording(p0, dt):
-        ph_calls.append((p0.clone(), dt.clone()))
-        return kphase.phase_scan(p0, dt)
-    reruns = {}
-    oscan.phase_scan = ph_recording
-    try:
-        for label, run in (
-                ("poly synth", lambda: poly_drive("cuda")),
-                ("saturator 4x sinc B=1024",
-                 lambda: sat_drive("cuda", "sinc", 1024, 4)),
-                ("saturator 4x sinc B=4096",
-                 lambda: sat_drive("cuda", "sinc", 4096, 4)),
-                ("README synth", lambda: chain_drive(True))):
-            ph_calls.clear()
-            run()
-            n = 0
-            for p0, dt in ph_calls:
-                out = kphase.phase_scan_variant(p0, dt)
-                n += int(out[2])
-                check(all(torch.equal(a, b) for a, b in zip(
-                    out[:2], kphase.plain_phase_scan(p0, dt))),
-                    f"{label}: phase_scan differs from its plain version on "
-                    f"the model's input")
-            shapes = sorted({tuple(dt.shape) for _, dt in ph_calls})
-            reruns[label] = (n, len(ph_calls), shapes)
-    finally:
-        oscan.phase_scan = kphase.phase_scan
     phase("main", "phase_scan's short wrap on each model's own input, "
-          "(lane, chunk)s re-run with floor / calls [B, V]: " + "; ".join(
-              f"{k} {n} / {c} {sh}" for k, (n, c, sh) in reruns.items()))
-    check(all(c > 0 for _, c, _ in reruns.values()),
-          "phase_scan: a model ran no phase_scan")
+          "(lane, chunk)s re-run with floor in its main-path run: "
+          + "; ".join(f"{k} {n}" for k, n in main_reruns.items()))
+    check(not any(main_reruns.values()),
+          "phase_scan: the short wrap re-ran a chunk on a model's input")
 
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
@@ -2286,6 +2262,9 @@ def main() -> int:
             # no single PyTorch call computes these per-sample recurrences
             # (no lfilter in torch; cumsum is not a wrapped phase)
             "library_ms": None})
+    phase("total", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()) + f"; all "
+        f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,20 +26,22 @@
 // with:
 //  - time segments (the closed-form kernels v4, v3, v2 and the epilogue,
 //    which share one template, so K3-K5 take them with K1): each voice's
-//    block is split at subgroup boundaries into S segments (segments(),
-//    below: S = 4 up to 512 voices, 2 up to 1024, else 1, and only as far
-//    as S divides the B / SUB subgroups, so S = 1 for B <= SUB; SUB is the
-//    largest power of two up to 64 dividing B, so S > 1 needs SUB = 64),
-//    one warp each, so V x S warps fill the schedulers.  A segment starting at subgroup K
-//    replays the state the sequential kernel holds there (replay(), below):
-//    the oscillator rotated K times by m^SUB, the cycle's (tgt, D) and the
-//    step counter over the K subgroups, each with the kernel's own ops, and
-//    the envelope product p from the last wrap tick before the segment (at
-//    most 65 ticks back; p = 1 at the block start) with the kernel's own
-//    per-tick factors.  So every segment computes the float values the
-//    sequential kernel computes, and its outputs are those of one warp per
-//    voice bit for bit.  The parity kernel keeps S = 1: its per-sample
-//    envelope has no closed form to replay from;
+//    block is split at subgroup boundaries into S segments, one warp each,
+//    so V x S warps fill the schedulers.  segments() (below, the one place
+//    the choice is made; ops/cuda/additive.py asks it) takes S = 4, halved
+//    until S divides the B / SUB subgroups and each segment's ticket field
+//    (32 / S bits of the mix's counters) holds its arrivals: S = 4 at the
+//    piano's 256 voices for every B >= 4 SUB, S = 1 for B <= SUB, and
+//    S = 4 up to ~8k voices.  SUB is the largest power of two up to 64
+//    dividing B, so S > 1 needs SUB = 64.  (4 segments measured 19.0 µs
+//    at V=256 B=1024 against 21.0 for 2 and 32.9 for 1: PERF.md.)  A
+//    segment starting at subgroup K replays the state the sequential
+//    kernel holds there (replay(), below) with the kernel's own ops in its
+//    own order, so every segment computes the float values the sequential
+//    kernel computes, for any input (an entry step outside 0..64 too), and
+//    its outputs are those of one warp per voice bit for bit.  The parity
+//    kernel keeps S = 1: its per-sample envelope has no closed form to
+//    replay from;
 //  - the harmonic sums as a warp reduce-scatter over N = min(32, SUB)
 //    samples at once (additive_common.cuh): N - 1 + log2(32 / N) shuffles
 //    per N samples instead of 5 per sample, lane L ends up holding the sum
@@ -86,20 +88,31 @@ using oscen_additive::block_row;
 using oscen_additive::reduce_scatter;
 
 constexpr int kMaxWarps = 32;
-// time segments per voice: at most 4, so that every segment's tickets fit
-// an 8-bit field of the counter words
+// time segments per voice: at most 4 (a ticket field of 8 bits or more)
 constexpr int kMaxSegments = 4;
 // Tremolo: the tick count at which the anchored phase rebases (K_REBASE)
 constexpr float kRebase = 1048576.0f;
 // 2*pi rounded to float, as PyTorch multiplies a float32 tensor by it
 constexpr float kTau = (float)(2.0 * 3.14159265358979323846);
 
-// Segments per voice for V voices, B ticks and subgroups of sub ticks:
-// enough warps to fill the schedulers (V x S up to ~2048 warps), a divisor
-// of the B / sub subgroups.
-int segments(int V, int B, int sub) {
-  int s = V <= 512 ? 4 : V <= 1024 ? 2 : 1;
-  while (s > 1 && (B / sub) % s) s /= 2;
+// Whether segs segments' tickets fit their counter fields: segment seg
+// counts in field seg of 32 / segs bits, which must hold the arrivals of a
+// group (up to kMixGroup voice blocks) and of the groups.
+bool tickets_fit(int segs, int V, int warps_per_block) {
+  if (segs == 1) return true;
+  const long long mask = (1ll << (32 / segs)) - 1;
+  const int nb = (V + warps_per_block - 1) / warps_per_block;
+  const int ng = (nb + oscen_additive::kMixGroup - 1) /
+                 oscen_additive::kMixGroup;
+  return ng <= mask && oscen_additive::kMixGroup <= mask;
+}
+
+// Segments per voice for V voices, B ticks and subgroups of sub ticks
+// (the source note above).
+int segments(int V, int B, int sub, int warps_per_block) {
+  int s = kMaxSegments;
+  while (s > 1 && ((B / sub) % s || !tickets_fit(s, V, warps_per_block)))
+    s /= 2;
   return s;
 }
 
@@ -203,54 +216,51 @@ __device__ __forceinline__ void finish_mix(const Planes& P, int B, int nb,
 }
 
 // The state the sequential kernel holds at the start of subgroup K, from
-// the block-start state (zr, zi, tgt, D, s, p = 1): K subgroup steps of
-// the oscillator (x m^SUB), the cycle's (tgt, D) and the step counter,
-// each with the kernel's ops; then p from its last reset.  The step counter
-// holds small integers, exactly: v4 advances it by SUB mod 65 per subgroup,
-// v3 and v2 by one per tick, which reaches the same value, and a subgroup
-// wraps (v3 and v2: some tick sees s == 0) exactly where v4's closed-form
-// wrap tick jw falls inside it.  p is reset to C at every wrap tick and is
-// 1 at the block start: it is replayed tick by tick, with the version's own
-// per-tick factors, from the start of the last subgroup before K that
-// wrapped (the ticks before its wrap tick are overwritten by the reset),
-// or from tick 0 if none did; a cycle is 65 ticks, so that is at most 64 +
-// SUB ticks.
+// the block-start state (zr, zi, tgt, D, s, p = 1), with the kernel's ops
+// in its order: K subgroup steps of the oscillator (x m^SUB) and of the
+// cycle's (tgt, D).
+//  - v3 and v2 carry s and p tick by tick: their replay is their own loop
+//    without the harmonic sums.
+//  - v4 steps s by its closed form, once per subgroup, and resets p at the
+//    tick j where jw == j: p is replayed tick by tick, with v4's factors,
+//    from the start of the last subgroup before K that holds such a tick
+//    (its ticks before the reset are overwritten by it), or from tick 0 if
+//    none does.  For an entry step in 0..64 a subgroup resets at least
+//    once every 65 ticks, so that is at most 64 + SUB ticks.
 template <int SUB, int VER>
 __device__ __forceinline__ void replay(int K, float msr, float msi,
                                        float mult, float& zr, float& zi,
                                        float& tgt, float& D, float& s,
                                        float& p) {
   const float C = 63.f / 64.f;
-  int kw = -1;        // the last subgroup before K with a wrap
-  float sw = 0.f;     // its entry step
-  const float s0 = s;
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    const float tgtm = tgt * mult;
-    const float G1 = tgtm - tgt;
-    const float D2 = tgt - tgtm;
-    const bool at0 = s == 0.f;
-    const float jw = at0 ? 0.f : 65.f - s;
-    const bool w_last = jw <= (float)(SUB - 1);
-    if (w_last) {
-      kw = k;
-      sw = s;
-    }
-    const float nzr = zr * msr - zi * msi;
-    const float nzi = zr * msi + zi * msr;
-    zr = nzr;
-    zi = nzi;
-    tgt = w_last ? tgtm : tgt;
-    D = w_last ? (VER == 2 ? D2 : -G1) : D;
-    const float t = s + (float)SUB;
-    s = t >= 65.f ? t - 65.f : t;
-  }
-  int k = kw >= 0 ? kw : 0;
-  float sk = kw >= 0 ? sw : s0;
   p = 1.f;
+  if constexpr (VER == 4) {
+    int kr = -1;        // the last subgroup before K that resets p
+    float sr = 0.f;     // its entry step
+    const float s0 = s;
 #pragma unroll 1
-  for (; k < K; ++k) {
-    if constexpr (VER == 4) {
+    for (int k = 0; k < K; ++k) {
+      const float tgtm = tgt * mult;
+      const float G1 = tgtm - tgt;
+      const bool at0 = s == 0.f;
+      const float jw = at0 ? 0.f : 65.f - s;
+      const bool w_last = jw <= (float)(SUB - 1);
+      if (w_last && jw >= 0.f && jw == floorf(jw)) {   // jw in 0..SUB-1
+        kr = k;
+        sr = s;
+      }
+      const float nzr = zr * msr - zi * msi;
+      const float nzi = zr * msi + zi * msr;
+      zr = nzr;
+      zi = nzi;
+      tgt = w_last ? tgtm : tgt;
+      D = w_last ? -G1 : D;
+      const float t = s + (float)SUB;
+      s = t >= 65.f ? t - 65.f : t;
+    }
+    float sk = kr >= 0 ? sr : s0;
+#pragma unroll 1
+    for (int k = kr >= 0 ? kr : 0; k < K; ++k) {
       const bool at0 = sk == 0.f;
       const float jw = at0 ? 0.f : 65.f - sk;
       const float basef = sk * (-1.f / 64.f);
@@ -264,13 +274,27 @@ __device__ __forceinline__ void replay(int K, float msr, float msi,
       }
       const float t = sk + (float)SUB;
       sk = t >= 65.f ? t - 65.f : t;
-    } else {
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const float tgtm = tgt * mult;
+      const float G1 = tgtm - tgt;
+      const float D2 = tgt - tgtm;
+      bool wrapped = false;
 #pragma unroll 8
       for (int j = 0; j < SUB; ++j) {
-        const bool wrap = sk == 0.f;
-        p = wrap ? C : p * (1.f - (sk + 1.f) / 64.f);
-        sk = sk < 64.f ? sk + 1.f : 0.f;
+        const bool wrap = s == 0.f;
+        wrapped = wrapped || wrap;
+        p = wrap ? C : p * (1.f - (s + 1.f) / 64.f);
+        s = s < 64.f ? s + 1.f : 0.f;
       }
+      const float nzr = zr * msr - zi * msi;
+      const float nzi = zr * msi + zi * msr;
+      zr = nzr;
+      zi = nzi;
+      tgt = wrapped ? tgtm : tgt;
+      D = wrapped ? (VER == 2 ? D2 : -G1) : D;
     }
   }
 }
@@ -483,7 +507,8 @@ template <int VER, bool EPI = false>
 int launch_closed(const Planes& P, int V, int B, int sub, int with_mix,
                   int warps_per_block, int segs, void* stream) {
   if (segs < 1 || segs > kMaxSegments || (segs & (segs - 1)) ||
-      (B / sub) % segs)
+      (B / sub) % segs ||
+      (with_mix && !tickets_fit(segs, V, warps_per_block)))
     return (int)cudaErrorInvalidValue;
   const dim3 block(32 * warps_per_block);
   const dim3 grid(((V + warps_per_block - 1) / warps_per_block) * segs);
@@ -517,8 +542,8 @@ extern "C" {
 // factors) and cnt [1 + groups] zeroed counters (groups = ceil(voice blocks
 // / 16)), which the launch leaves zeroed.  sub is the subgroup length (8,
 // 16, 32 or 64; divides B).  The closed-form versions split each voice
-// into oscen_additive_segments(V, B, sub) time segments.  The epilogue runs
-// in the v4 body only.
+// into oscen_additive_segments(V, B, sub, warps_per_block) time segments.
+// The epilogue runs in the v4 body only.
 #define OSCEN_ADDITIVE_ARGS_NO_STREAM                                        \
   const float *osc_re, const float *osc_im, const float *mul_re,             \
       const float *mul_im, const float *cur, const float *tgt,               \
@@ -533,40 +558,42 @@ extern "C" {
               step_out)
 
 // The time segments per voice the closed-form versions run.
-int oscen_additive_segments(int V, int B, int sub) {
-  return segments(V, B, sub);
+int oscen_additive_segments(int V, int B, int sub, int warps_per_block) {
+  return segments(V, B, sub, warps_per_block);
 }
 
 int oscen_additive_v4(OSCEN_ADDITIVE_ARGS) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 ||
       (epi && !with_mix))
     return (int)cudaErrorInvalidValue;
+  const int segs = segments(V, B, sub, warps_per_block);
   if (epi)
     return launch_closed<4, true>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                                  warps_per_block, segments(V, B, sub),
-                                  stream);
+                                  warps_per_block, segs, stream);
   return launch_closed<4>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                          warps_per_block, segments(V, B, sub), stream);
+                          warps_per_block, segs, stream);
 }
 
 int oscen_additive_v3(OSCEN_ADDITIVE_ARGS) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
     return (int)cudaErrorInvalidValue;
   return launch_closed<3>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                          warps_per_block, segments(V, B, sub), stream);
+                          warps_per_block,
+                          segments(V, B, sub, warps_per_block), stream);
 }
 
 int oscen_additive_v2(OSCEN_ADDITIVE_ARGS) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
     return (int)cudaErrorInvalidValue;
   return launch_closed<2>(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
-                          warps_per_block, segments(V, B, sub), stream);
+                          warps_per_block,
+                          segments(V, B, sub, warps_per_block), stream);
 }
 
 // The closed-form body `ver` (4, 3 or 2) with `segs` segments per voice
-// (1, 2 or 4, dividing B / sub) instead of segments()' choice, arguments
-// as above: for tools/scanprobe.py, which prices the segment count, and
-// the card tests.
+// (1, 2 or 4, dividing B / sub; with the mix, only where the tickets fit)
+// instead of segments()' choice, arguments as above: for
+// tools/scanprobe.py, which prices the segment count, and the card tests.
 int oscen_additive_closed_segs(OSCEN_ADDITIVE_ARGS_NO_STREAM, int ver,
                                int segs, void* stream) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)

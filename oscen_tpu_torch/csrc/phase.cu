@@ -16,15 +16,17 @@
 // (the old body, dt loaded inside the loop, took ~70 cycles a step; with
 // dt from a register ~27, its FADD -> FRND.FLOOR -> FADD chain 25.5:
 // tools/scanprobe.py, PERF.md).  The design takes both off:
-//  - the staged ring (scan_stage.cuh, at K7's and K8's depth of 3 chunks;
-//    deeper rings measured no faster): a producer warp brings dt into
-//    shared memory with cp.async (16-byte pieces for aligned 32-lane rows,
-//    V = 256; 4-byte elements for any other V), and the chain warp reads
-//    each group of 8 steps from registers loaded a group ahead, so no load
-//    waits on the chain.  For 32 lanes the chain warp stores `before`
-//    itself; for fewer (one lane on the main paths) it stores into a
-//    second shared slot and the producer writes each chunk back, which
-//    measured faster there and slower for full rows (launch_shipped);
+//  - the staged ring (scan_stage.cuh, at K7's and K8's depth of 3
+//    chunks): a producer warp brings dt into shared memory with cp.async
+//    (16-byte pieces for aligned 32-lane rows, V = 256; 4-byte elements
+//    for any other V), and the chain warp reads each group of 8 steps from
+//    registers loaded a group ahead, so no load waits on the chain.  For
+//    32 lanes the chain warp stores `before` itself; for fewer (one lane
+//    on the main paths) it stores into a second shared slot and the
+//    producer writes each chunk back: one lane's 4-byte global stores cost
+//    the chain warp more than shared-memory stores, while for full rows
+//    the write-back would delay the producer's next copies (measured both
+//    ways, PERF.md);
 //  - the short exact wrap: with q = p + dt, q - floorf(q) is q for q in
 //    [+0, 1) and q - 1 for q in [1, 2) (exact by Sterbenz's lemma), so the
 //    step is q - c with c = (q >= 1) as 1.0f or 0.0f from one FSET: the
@@ -35,10 +37,11 @@
 //    every q's bits into a per-chunk word (one LOP3 a step, no branch), and
 //    a chunk whose word has either bit set is run again from its start
 //    state with floorf, the reference's op (as K8's undecided chunks
-//    re-run, iir.cu).  On the main paths dt lies in (0, 0.5) and the phase
-//    in [0, 1): no chunk re-runs.
+//    re-run, iir.cu), and counted in a device counter that
+//    oscen_phase_take_reruns reads.  On the main paths dt lies in (0, 0.5)
+//    and the phase in [0, 1): no chunk re-runs.
 // What the probe does not explain yet: the ring's chain warp runs ~12
-// cycles a step above its chain, for every wrap and depth (PERF.md).
+// cycles a step above its chain (PERF.md).
 // The true block length B bounds the loop; any B >= 1 and any V work.
 //
 // Numerics: built with --fmad=false and without fast-math; floorf and the
@@ -58,33 +61,24 @@ namespace {
 
 using oscen_stage::kChunk;
 using oscen_stage::kLanes;
+using oscen_stage::kStages;
 
-// the wrap of q = p + dt
-constexpr int kFloor = 0;   // q - floorf(q): the reference's op
-constexpr int kSet = 1;     // q - (q >= 1 as 1.0f or 0.0f): exact on [+0, 2)
 // the bits of a q outside [+0, 2): the sign (negatives, -0) or bit 30
 // (exponent >= 128: q >= 2, inf, NaN)
 constexpr unsigned kOutside = 0xC0000000u;
 
-// the shipped body's wrap and ring depth (launch_shipped)
-constexpr int kShipWrap = kSet;
-constexpr int kShipStages = oscen_stage::kStages;
-constexpr int kDeep = oscen_stage::kMaxStages;
+// (lane, chunk)s re-run with floorf since the last take (this device)
+__device__ unsigned g_reruns;
 
-template <int kWrap>
-__device__ __forceinline__ float wrap(float q) {
-  if constexpr (kWrap == kFloor) {
-    return q - floorf(q);
-  } else {
-    float c;   // 1.0f where q >= 1, else 0.0f: one FSET, no predicate
-    asm("set.ge.f32.f32 %0, %1, 0f3F800000;" : "=f"(c) : "f"(q));
-    return q - c;
-  }
+// q - (q >= 1 as 1.0f or 0.0f): q - floorf(q) on [+0, 2)
+__device__ __forceinline__ float short_wrap(float q) {
+  float c;   // one FSET, no predicate
+  asm("set.ge.f32.f32 %0, %1, 0f3F800000;" : "=f"(c) : "f"(q));
+  return q - c;
 }
 
-// One lane's steps on the staged dt: before[t] to o[t * stride], the wrap,
-// and (short wraps) the OR of every q's bits.
-template <int kWrap>
+// One lane's steps on the staged dt: before[t] to o[t * stride], the
+// short wrap, and the OR of every q's bits.
 struct PhaseBody {
   float p;
   float* o;
@@ -93,19 +87,18 @@ struct PhaseBody {
   __device__ __forceinline__ void step(const float (&in)[1], int t) {
     o[t * stride] = p;
     const float q = p + in[0];
-    if constexpr (kWrap != kFloor) bits |= __float_as_uint(q);
-    p = wrap<kWrap>(q);
+    bits |= __float_as_uint(q);
+    p = short_wrap(q);
   }
 };
 
-// The producer's write-back of chunk k's staged `before` values (the
-// staged-output variant): the same element pattern as its copies in.
-template <int S>
-__device__ __forceinline__ void write_back(
-    const oscen_stage::Producer<1, S>& pr, const float* out_slot,
-    float* before, int k) {
+// The producer's write-back of chunk k's staged `before` values: the
+// same element pattern as its copies in.
+__device__ __forceinline__ void write_back(const oscen_stage::Producer<1>& pr,
+                                           const float* out_slot,
+                                           float* before, int k) {
   const int t0 = k * kChunk;
-  const float* src = out_slot + (k % S) * kChunk * kLanes;
+  const float* src = out_slot + (k % kStages) * kChunk * kLanes;
   if (pr.vec16) {
     const int row = pr.lane / 8, col = (pr.lane % 8) * 4;
 #pragma unroll
@@ -131,48 +124,43 @@ __device__ __forceinline__ void write_back(
   }
 }
 
-// S: the ring's depth.  kStaged: the chain warp stores `before` into a
-// second shared slot and the producer writes it back once the chunk is
-// done (every chunk hands its EMPTY barrier over, the last S after the
-// copies in).  `reruns`, if given, counts the (lane, chunk)s the short
-// wrap re-ran.
-template <int kWrap, bool kStaged, int S>
+// kStaged: the chain warp stores `before` into a second shared slot and
+// the producer writes it back once the chunk is done (every chunk hands
+// its EMPTY barrier over, the last kStages after the copies in).
+template <bool kStaged>
 __global__ void __launch_bounds__(oscen_stage::kBlock)
 phase_ring_kernel(const float* __restrict__ phase0,
                   const float* __restrict__ dt, float* __restrict__ before,
-                  float* __restrict__ carry, int V, int B,
-                  unsigned* __restrict__ reruns) {
+                  float* __restrict__ carry, int V, int B) {
   extern __shared__ __align__(16) float smem[];
-  float* out_slot = smem + oscen_stage::slot_floats<S>();
+  float* out_slot = smem + oscen_stage::kSlotFloats;
   const int l0 = blockIdx.x * kLanes;
   const int chunks = (B + kChunk - 1) / kChunk;
   if (threadIdx.x >= kLanes) {   // the producer warp
     const float* planes[1] = {dt};
-    oscen_stage::Producer<1, S> prod;
+    oscen_stage::Producer<1> prod;
     prod.init(smem, planes, 1, V, B, l0);
     if constexpr (!kStaged) {
       prod.run(chunks, [](int) {});
     } else {
-      constexpr int kAhead = S - 2;
       for (int k = 0; k < chunks; ++k) {
-        if (k >= S) {
-          oscen_stage::bar_sync(oscen_stage::empty_id<S>(k));
-          write_back<S>(prod, out_slot, before, k - S);
+        if (k >= kStages) {
+          oscen_stage::bar_sync(oscen_stage::empty_id(k));
+          write_back(prod, out_slot, before, k - kStages);
         }
         prod.issue(k);
-        if (k >= kAhead) {
-          oscen_stage::wait_groups<kAhead>();
+        if (k >= 1) {
+          oscen_stage::wait_groups<1>();
           __syncwarp();
-          oscen_stage::bar_arrive(oscen_stage::full_id<S>(k - kAhead));
+          oscen_stage::bar_arrive(oscen_stage::full_id(k - 1));
         }
       }
       oscen_stage::wait_groups<0>();
       __syncwarp();
-      for (int k = max(0, chunks - kAhead); k < chunks; ++k)
-        oscen_stage::bar_arrive(oscen_stage::full_id<S>(k));
-      for (int k = max(0, chunks - S); k < chunks; ++k) {
-        oscen_stage::bar_sync(oscen_stage::empty_id<S>(k));
-        write_back<S>(prod, out_slot, before, k);
+      oscen_stage::bar_arrive(oscen_stage::full_id(chunks - 1));
+      for (int k = max(0, chunks - kStages); k < chunks; ++k) {
+        oscen_stage::bar_sync(oscen_stage::empty_id(k));
+        write_back(prod, out_slot, before, k);
       }
     }
     return;
@@ -181,18 +169,18 @@ phase_ring_kernel(const float* __restrict__ phase0,
   const bool live = v < V;   // every thread syncs; live ones scan
   float p = live ? phase0[v] : 0.0f;
   for (int c = 0; c < chunks; ++c) {
-    oscen_stage::chunk_ready<S>(c);
+    oscen_stage::chunk_ready(c);
     if (live) {
       const float* src[1];
-      oscen_stage::stage_ptrs<1, S>(smem, c, src);
+      oscen_stage::stage_ptrs<1>(smem, c, src);
       const int n = min(kChunk, B - c * kChunk);
-      PhaseBody<kWrap> body{
+      PhaseBody body{
           p,
-          kStaged ? out_slot + (c % S) * kChunk * kLanes + threadIdx.x
+          kStaged ? out_slot + (c % kStages) * kChunk * kLanes + threadIdx.x
                   : before + (size_t)c * kChunk * V + v,
           kStaged ? kLanes : V, 0u};
       oscen_stage::run_chunk<1>(src, n, body);
-      if (kWrap != kFloor && (body.bits & kOutside)) {
+      if (body.bits & kOutside) {
         // rare: the chunk again from its start state, with floorf
         float q = p;
         for (int t = 0; t < n; ++t) {
@@ -201,51 +189,21 @@ phase_ring_kernel(const float* __restrict__ phase0,
           q = q - floorf(q);
         }
         body.p = q;
-        if (reruns != nullptr) atomicAdd(reruns, 1u);
+        atomicAdd(&g_reruns, 1u);
       }
       p = body.p;
     }
     if constexpr (kStaged)
-      oscen_stage::bar_arrive(oscen_stage::empty_id<S>(c));
+      oscen_stage::bar_arrive(oscen_stage::empty_id(c));
     else
-      oscen_stage::chunk_done<S>(c, chunks);
+      oscen_stage::chunk_done(c, chunks);
   }
   if (live) carry[v] = p;
 }
 
-// Dynamic shared memory above 48 KB (the staged variant at depth 7)
-// needs the kernel's opt-in; the attribute holds for the current device
-// only, so it is set at every launch that needs it (a host call).
-template <int kWrap, bool kStaged, int S = kShipStages>
-int launch(const float* phase0, const float* dt, float* before, float* carry,
-           unsigned* reruns, int V, int B, cudaStream_t st) {
-  const dim3 grid((V + kLanes - 1) / kLanes);
-  const size_t bytes = oscen_stage::ring_bytes<S>(kStaged ? 2 : 1);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        phase_ring_kernel<kWrap, kStaged, S>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  phase_ring_kernel<kWrap, kStaged, S>
-      <<<grid, oscen_stage::kBlock, bytes, st>>>(phase0, dt, before, carry,
-                                                 V, B, reruns);
-  return (int)cudaGetLastError();
-}
-
-// The shipped body: the FSET wrap; `before` staged and written back by the
-// producer for fewer than 32 lanes (one lane's 4-byte global stores cost
-// the chain warp more than shared-memory stores), stored by the chain warp
-// for full rows of 32 lanes (there the producer's write-back would delay
-// its next chunk's copies).
-int launch_shipped(const float* phase0, const float* dt, float* before,
-                   float* carry, unsigned* reruns, int V, int B,
-                   cudaStream_t st) {
-  if (V < kLanes)
-    return launch<kShipWrap, true>(phase0, dt, before, carry, reruns, V, B,
-                                   st);
-  return launch<kShipWrap, false>(phase0, dt, before, carry, reruns, V, B,
-                                  st);
+__global__ void take_reruns(unsigned* out) {
+  *out = g_reruns;
+  g_reruns = 0u;
 }
 
 // The short wrap over every float32 bit pattern q: counts[0] += patterns
@@ -255,7 +213,6 @@ int launch_shipped(const float* phase0, const float* dt, float* before,
 // takes.
 constexpr int kSweepBlocks = 132 * 16, kSweepThreads = 256;
 
-template <int kWrap>
 __global__ void __launch_bounds__(kSweepThreads)
 wrap_sweep(unsigned long long* counts) {
   unsigned long long wrong = 0, taken = 0;
@@ -266,7 +223,7 @@ wrap_sweep(unsigned long long* counts) {
     const float q = __uint_as_float((unsigned)k);
     const bool short_path = ((unsigned)k & kOutside) == 0u;
     const float ref = q - floorf(q);
-    const float got = short_path ? wrap<kWrap>(q) : ref;
+    const float got = short_path ? short_wrap(q) : ref;
     wrong += __float_as_uint(got) != __float_as_uint(ref);
     taken += short_path;
   }
@@ -284,49 +241,38 @@ wrap_sweep(unsigned long long* counts) {
 
 extern "C" {
 
-// phase0 [V], dt [B, V] -> before [B, V], carry [V].
+// phase0 [V], dt [B, V] -> before [B, V], carry [V].  `before` is staged
+// and written back by the producer for fewer than 32 lanes, stored by the
+// chain warp for full rows.
 int oscen_phase_scan(const float* phase0, const float* dt, float* before,
                      float* carry, int V, int B, void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  return launch_shipped(phase0, dt, before, carry, nullptr, V, B,
-                        (cudaStream_t)stream);
-}
-
-// The same function by body `variant` (tools/scanprobe.py, chip_smoke.py
-// and the card tests; ops/cuda/phase.py's VARIANTS): 0 the shipped body;
-// on the ring at the shipped depth, 1 floorf and 2 the FSET wrap with
-// `before` stored by the chain warp, 3 the FSET wrap with `before` staged
-// and written back by the producer; 4 as 2 on a ring 7 chunks deep.
-// reruns (a zeroed counter, or null) += the (lane, chunk)s the short wrap
-// re-ran.
-int oscen_phase_scan_variant(const float* phase0, const float* dt,
-                             float* before, float* carry, unsigned* reruns,
-                             int V, int B, int variant, void* stream) {
-  if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((V + kLanes - 1) / kLanes);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case 0:
-      return launch_shipped(phase0, dt, before, carry, reruns, V, B, st);
-    case 1:
-      return launch<kFloor, false>(phase0, dt, before, carry, reruns, V, B,
-                                   st);
-    case 2:
-      return launch<kSet, false>(phase0, dt, before, carry, reruns, V, B, st);
-    case 3:
-      return launch<kSet, true>(phase0, dt, before, carry, reruns, V, B, st);
-    case 4:
-      return launch<kSet, false, kDeep>(phase0, dt, before, carry, reruns, V,
-                                        B, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (V < kLanes)
+    phase_ring_kernel<true><<<grid, oscen_stage::kBlock,
+                              oscen_stage::ring_bytes(2), st>>>(
+        phase0, dt, before, carry, V, B);
+  else
+    phase_ring_kernel<false><<<grid, oscen_stage::kBlock,
+                               oscen_stage::ring_bytes(1), st>>>(
+        phase0, dt, before, carry, V, B);
+  return (int)cudaGetLastError();
 }
 
-// The shipped short wrap over all 2^32 float32 patterns: counts [2] (u64)
+// *out (a device word) = the (lane, chunk)s re-run with floorf by every
+// oscen_phase_scan on this device since the last take; the count restarts
+// at 0.  In stream order.
+int oscen_phase_take_reruns(unsigned* out, void* stream) {
+  take_reruns<<<1, 1, 0, (cudaStream_t)stream>>>(out);
+  return (int)cudaGetLastError();
+}
+
+// The short wrap over all 2^32 float32 patterns: counts [2] (u64)
 // += (mismatches against q - floorf(q), patterns it takes).
 int oscen_phase_wrap_sweep(unsigned long long* counts, void* stream) {
-  wrap_sweep<kShipWrap>
-      <<<kSweepBlocks, kSweepThreads, 0, (cudaStream_t)stream>>>(counts);
+  wrap_sweep<<<kSweepBlocks, kSweepThreads, 0, (cudaStream_t)stream>>>(
+      counts);
   return (int)cudaGetLastError();
 }
 

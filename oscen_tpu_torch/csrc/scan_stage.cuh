@@ -2,20 +2,17 @@
 //
 // A scan kernel (K6, K7, K8) runs one chain warp per CUDA block, one
 // thread per lane of a time-major [B, V] problem, with the lane's state in
-// registers; its per-step work is a serial chain.  Reading x[t] (and each per-sample
-// coefficient) from global memory inside that loop puts an L2 / HBM
-// latency on the chain every few steps: nothing else on the SM hides it
+// registers; its per-step work is a serial chain.  Reading x[t] (and each
+// per-sample coefficient) from global memory inside that loop puts an L2 /
+// HBM latency on the chain every few steps: nothing else on the SM hides it
 // (V=256 is 8 blocks on 132 SMs; the twin peaks is 2 lanes of one warp).
 //
 // The ring takes those loads off the chain, and off the chain warp.  A
 // second warp of the block, the producer, brings the block's lanes of
 // every per-sample plane into shared memory in chunks of kChunk steps,
-// with cp.async, up to S - 1 chunks ahead of the chunk the chain warp
-// reads (S, the ring's depth, a template parameter: kStages = 3 for every
-// shipped kernel; K6 measured no faster on a ring 7 chunks deep,
-// tools/scanprobe.py); named barriers hand each stage over (FULL: the
-// producer's copies of a chunk have landed; EMPTY: the chain warp is done
-// with it).
+// with cp.async, up to kStages - 1 chunks ahead of the chunk the chain
+// warp reads; named barriers hand each stage over (FULL: the producer's
+// copies of a chunk have landed; EMPTY: the chain warp is done with it).
 // So the chain warp's instruction stream holds only its arithmetic, its
 // stores and shared-memory loads that depend on no state (scheduled ahead
 // of the steps that use them).  A kernel may have the producer derive
@@ -44,16 +41,8 @@ namespace oscen_stage {
 constexpr int kLanes = 32;    // one chain warp, one thread per lane
 constexpr int kBlock = 2 * kLanes;   // the chain warp, then the producer
 constexpr int kChunk = 32;    // time steps per ring stage (== kLanes)
-constexpr int kStages = 3;    // the default ring depth
-constexpr int kMaxStages = 7; // 2 x 7 named barriers after barrier 0
+constexpr int kStages = 3;    // ring depth: 2 chunks in flight ahead
 constexpr int kSlotFloats = kStages * kChunk * kLanes;   // one plane
-
-// One staged plane of a ring of depth S, in floats.
-template <int S = kStages>
-__host__ __device__ constexpr int slot_floats() {
-  static_assert(S >= 3 && S <= kMaxStages, "ring depth 3 to 7");
-  return S * kChunk * kLanes;
-}
 
 static_assert(kChunk == kLanes, "each thread copies W elements per chunk");
 
@@ -82,11 +71,9 @@ __device__ __forceinline__ void wait_groups() {
 
 // Named barriers of the two warps (0 is __syncthreads'): FULL and EMPTY
 // per stage.
-template <int S = kStages>
-__device__ __forceinline__ int full_id(int k) { return 1 + k % S; }
-template <int S = kStages>
+__device__ __forceinline__ int full_id(int k) { return 1 + k % kStages; }
 __device__ __forceinline__ int empty_id(int k) {
-  return 1 + S + k % S;
+  return 1 + kStages + k % kStages;
 }
 
 __device__ __forceinline__ void bar_sync(int id) {
@@ -98,31 +85,25 @@ __device__ __forceinline__ void bar_arrive(int id) {
 }
 
 // Bytes of dynamic shared memory for `slots` staged planes.
-template <int S = kStages>
 inline size_t ring_bytes(int slots) {
-  return (size_t)slots * slot_floats<S>() * sizeof(float);
+  return (size_t)slots * kSlotFloats * sizeof(float);
 }
 
 // The chain warp's side: wait for chunk k's stage; hand it back when done
 // (the producer waits only for the stages it will refill).
-template <int S = kStages>
-__device__ __forceinline__ void chunk_ready(int k) {
-  bar_sync(full_id<S>(k));
-}
+__device__ __forceinline__ void chunk_ready(int k) { bar_sync(full_id(k)); }
 
-template <int S = kStages>
 __device__ __forceinline__ void chunk_done(int k, int chunks) {
-  if (k + S < chunks) bar_arrive(empty_id<S>(k));
+  if (k + kStages < chunks) bar_arrive(empty_id(k));
 }
 
 // The producer warp's side: up to kMaxPlanes [B, V] planes, each staged
-// into its own slot of slot_floats<S>() floats ([S][kChunk][kLanes]) of
+// into its own slot of kSlotFloats floats ([kStages][kChunk][kLanes]) of
 // `smem`; lane = threadIdx.x - kLanes.
-template <int kMaxPlanes, int S = kStages>
+template <int kMaxPlanes>
 struct Producer {
-  static constexpr int kSlot = slot_floats<S>();
   const float* src[kMaxPlanes];
-  float* base;         // slot p at base + p * kSlot
+  float* base;         // slot p at base + p * kSlotFloats
   int planes;          // staged planes
   int V, B, l0, W;     // the block's lanes l0 .. l0 + W - 1
   int lane;
@@ -161,13 +142,13 @@ struct Producer {
   // This thread's copies of chunk k (all planes), committed as one group.
   __device__ void issue(int k) {
     const int t0 = k * kChunk;
-    const int stage = (k % S) * kChunk * kLanes;
+    const int stage = (k % kStages) * kChunk * kLanes;
     if (vec16) {
       const int row = lane / 8, col = (lane % 8) * 4;
 #pragma unroll
       for (int p = 0; p < kMaxPlanes; ++p) {
         if (p >= planes) break;
-        float* dst = base + p * kSlot + stage + row * kLanes + col;
+        float* dst = base + p * kSlotFloats + stage + row * kLanes + col;
         const float* from = src[p] + (size_t)(t0 + row) * V + l0 + col;
 #pragma unroll
         for (int m = 0; m < kChunk / 4; ++m)
@@ -181,7 +162,7 @@ struct Producer {
         int t = t_first, j = j_first;
         for (int m = 0; m < W; ++m) {
           if (t0 + t < B)
-            cp_async4(base + p * kSlot + stage + t * kLanes + j,
+            cp_async4(base + p * kSlotFloats + stage + t * kLanes + j,
                       src[p] + (size_t)(t0 + t) * V + l0 + j);
           t += dt;
           j += dj;
@@ -195,30 +176,27 @@ struct Producer {
     commit();
   }
 
-  // The producer's whole run: chunk k goes into the stage chunk k - S
-  // used once the chain warp has handed that back; when chunk k's copies
-  // have landed (at most S - 2 newer chunks still in flight), `landed(k)`
-  // derives what it derives and FULL is signalled.  Copies the caller
-  // issued before run() (e.g. a table) land with chunk 0.
+  // The producer's whole run: chunk k goes into the stage chunk
+  // k - kStages used once the chain warp has handed that back; when chunk
+  // k's copies have landed (at most one newer chunk still in flight),
+  // `landed(k)` derives what it derives and FULL is signalled.  Copies the
+  // caller issued before run() (e.g. a table) land with chunk 0.
   template <class Landed>
   __device__ void run(int chunks, Landed&& landed) {
-    constexpr int kAhead = S - 2;
     for (int k = 0; k < chunks; ++k) {
-      if (k >= S) bar_sync(empty_id<S>(k));
+      if (k >= kStages) bar_sync(empty_id(k));
       issue(k);
-      if (k >= kAhead) {
-        wait_groups<kAhead>();
+      if (k >= 1) {
+        wait_groups<1>();
         __syncwarp();   // every producer thread's copies, to all of them
-        landed(k - kAhead);
-        bar_arrive(full_id<S>(k - kAhead));
+        landed(k - 1);
+        bar_arrive(full_id(k - 1));
       }
     }
     wait_groups<0>();
     __syncwarp();
-    for (int k = max(0, chunks - kAhead); k < chunks; ++k) {
-      landed(k);
-      bar_arrive(full_id<S>(k));
-    }
+    landed(chunks - 1);
+    bar_arrive(full_id(chunks - 1));
   }
 };
 
@@ -273,12 +251,12 @@ __device__ __forceinline__ void run_chunk(const float* const (&src)[kP],
 }
 
 // This lane's pointers into chunk c's stage of the kP staged slots.
-template <int kP, int S = kStages>
+template <int kP>
 __device__ __forceinline__ void stage_ptrs(const float* smem, int c,
                                            const float* (&src)[kP]) {
-  const int off = (c % S) * kChunk * kLanes + threadIdx.x;
+  const int off = (c % kStages) * kChunk * kLanes + threadIdx.x;
 #pragma unroll
-  for (int p = 0; p < kP; ++p) src[p] = smem + p * slot_floats<S>() + off;
+  for (int p = 0; p < kP; ++p) src[p] = smem + p * kSlotFloats + off;
 }
 
 }  // namespace oscen_stage

@@ -6,6 +6,8 @@
 // phase_probe<XC>: K6's old body (one thread per lane, dt loaded and
 // before stored inside the loop, #pragma unroll 8); XC reads dt once into
 // a register instead of per step.
+// phase_ring_floor: K6's new ring (csrc/phase.cu, `before` stored by the
+// chain warp) with the reference's floorf wrap instead of the short one.
 // tpt_probe<XC, U>: K7's old body (loads inside the loop, #pragma unroll
 // U); XC reads x once into a register instead of per step.
 // lp18_probe<XC, TANH, DIV, U>: K8's old body; TANH 0 replaces the float64
@@ -16,6 +18,8 @@
 // Built like the other sources (--fmad=false); variants by number, as
 // tools/scanprobe.py names them.
 #include <cuda_runtime.h>
+
+#include "scan_stage.cuh"
 
 namespace {
 
@@ -37,6 +41,49 @@ phase_probe(const float* __restrict__ phase0, const float* __restrict__ dt,
     p = p - floorf(p);
   }
   carry[v] = p;
+}
+
+struct FloorBody {
+  float p;
+  float* o;
+  int stride;
+  __device__ __forceinline__ void step(const float (&in)[1], int t) {
+    o[t * stride] = p;
+    p = p + in[0];
+    p = p - floorf(p);
+  }
+};
+
+__global__ void __launch_bounds__(oscen_stage::kBlock)
+phase_ring_floor(const float* __restrict__ phase0,
+                 const float* __restrict__ dt, float* __restrict__ before,
+                 float* __restrict__ carry, int V, int B) {
+  extern __shared__ __align__(16) float smem[];
+  const int l0 = blockIdx.x * oscen_stage::kLanes;
+  const int chunks = (B + oscen_stage::kChunk - 1) / oscen_stage::kChunk;
+  if (threadIdx.x >= oscen_stage::kLanes) {
+    const float* planes[1] = {dt};
+    oscen_stage::Producer<1> prod;
+    prod.init(smem, planes, 1, V, B, l0);
+    prod.run(chunks, [](int) {});
+    return;
+  }
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;
+  float p = live ? phase0[v] : 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[1];
+      oscen_stage::stage_ptrs<1>(smem, c, src);
+      FloorBody body{p, before + (size_t)c * oscen_stage::kChunk * V + v, V};
+      oscen_stage::run_chunk<1>(
+          src, min(oscen_stage::kChunk, B - c * oscen_stage::kChunk), body);
+      p = body.p;
+    }
+    oscen_stage::chunk_done(c, chunks);
+  }
+  if (live) carry[v] = p;
 }
 
 template <int XC, int U>
@@ -116,6 +163,11 @@ int probe_phase(int variant, const float* phase0, const float* dt,
       break;
     case 1:   // (b) dt from a register
       phase_probe<1><<<grid, 32, 0, st>>>(phase0, dt, before, carry, V, B);
+      break;
+    case 2:   // (c) the new ring with floorf
+      phase_ring_floor<<<grid, oscen_stage::kBlock,
+                         oscen_stage::ring_bytes(1), st>>>(phase0, dt, before,
+                                                           carry, V, B);
       break;
     default: return 1;
   }

@@ -85,26 +85,19 @@ def subgroup_len(block_len: int, version: str) -> int:
 
 
 def segments(num_voices: int, block_len: int, sub: int) -> int:
-    """Time segments per voice of the closed-form kernels (v4, v3, v2) on
-    the card, as ``csrc/additive.cu`` picks them: 4 up to 512 voices, 2 up
-    to 1024, else 1, halved until it divides the ``block_len / sub``
-    subgroups.  Each segment is one warp that replays the state at its
-    first subgroup; the outputs are those of one warp per voice."""
-    s = 4 if num_voices <= 512 else 2 if num_voices <= 1024 else 1
-    while s > 1 and (block_len // sub) % s:
-        s //= 2
-    return s
-
-
-def card_segments(num_voices: int, block_len: int, sub: int) -> int:
-    """:func:`segments` as the built library answers it (the card)."""
+    """Time segments per voice the closed-form kernels (v4, v3, v2) run on
+    the card, as the built library picks them (``csrc/additive.cu``'s
+    ``segments()``: 4, halved until it divides the ``block_len / sub``
+    subgroups and the mix's ticket fields hold the voice groups).  Each
+    segment is one warp that replays the state at its first subgroup; the
+    outputs are those of one warp per voice."""
     import ctypes
 
     from . import build
     fn = build.load_library("additive").oscen_additive_segments
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3
-    return fn(num_voices, block_len, sub)
+    fn.argtypes = [ctypes.c_int] * 4
+    return fn(num_voices, block_len, sub, WARPS_PER_BLOCK)
 
 
 def closed_block_segments(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,

@@ -11,10 +11,11 @@ the kernel of ``csrc/phase.cu`` (built at first use) or raises.
 ``launches`` counts the kernel's launches; the plain version is not counted.
 
 The kernel wraps ``q = p + dt`` by a short exact path on ``[+0, 2)``
-(``q - (q >= 1)``, the comparison as 1.0 or 0.0) and re-runs any 32-step chunk in which some ``q``
-lies outside it with ``floor`` (:func:`short_wrap` models both);
-:func:`phase_scan_variant` and :func:`wrap_sweep` reach the kernel's other
-bodies and its check over all 2^32 float32 ``q`` on the card.
+(``q - (q >= 1)``, the comparison as 1.0 or 0.0) and re-runs any 32-step
+chunk in which some ``q`` lies outside it with ``floor``
+(:func:`chunked_phase_scan` models both); :func:`take_reruns` reads how
+many chunks re-ran on the card, :func:`wrap_sweep` checks the short path
+over all 2^32 float32 ``q`` there.
 """
 
 from __future__ import annotations
@@ -25,9 +26,6 @@ import torch
 
 KERNEL = "phase_scan"
 launches: Dict[str, int] = {KERNEL: 0}
-# the kernel's bodies by number (csrc/phase.cu oscen_phase_scan_variant)
-VARIANTS = {"shipped": 0, "ring_floor": 1, "ring_set": 2,
-            "ring_set_staged": 3, "ring_set_deep": 4}
 CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
 # a q outside [+0, 2) has its sign bit or bit 30 set
 OUTSIDE = 0xC0000000
@@ -120,27 +118,19 @@ def _card_only(name, dev):
                          f"tensor (got {dev})")
 
 
-def phase_scan_variant(phase0, dt, variant: str = "shipped"):
-    """:func:`phase_scan` on the card by the body ``variant``
-    (:data:`VARIANTS`, ``csrc/phase.cu``'s ``oscen_phase_scan_variant``:
-    the shipped body; on its ring the ``floor`` wrap, the short wrap with
-    ``before`` stored by the chain warp, or staged and written back by the
-    producer; the short wrap on a ring 7 chunks deep).  Returns (before,
-    carry, the (lane, chunk)s the short wrap re-ran as a ``[1]`` int32
-    tensor on the card).  Not counted in ``launches``: the probes and checks
-    call it, never a model."""
+def take_reruns(device="cuda") -> int:
+    """The (lane, chunk)s the kernel re-ran with ``floor`` on ``device``
+    since the last take (a device counter, ``csrc/phase.cu``); the count
+    restarts at 0.  Waits for the card."""
     from . import build
-    _card_only("phase_scan_variant", dt.device)
-    build.check_operands(dt.device, phase0=phase0, dt=dt)
-    B, V = dt.shape
-    before, carry = torch.empty_like(dt), torch.empty_like(phase0)
-    reruns = torch.zeros(1, dtype=torch.int32, device=dt.device)
-    fn = build.entry("phase", "oscen_phase_scan_variant", 5, 3)
-    rc = fn(phase0.data_ptr(), dt.data_ptr(), before.data_ptr(),
-            carry.data_ptr(), reruns.data_ptr(), V, B, VARIANTS[variant],
-            torch.cuda.current_stream(dt.device).cuda_stream)
-    build.check_launch("phase", rc, f"phase_scan {variant}")
-    return before, carry, reruns
+    dev = torch.device(device)
+    _card_only("take_reruns", dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.entry("phase", "oscen_phase_take_reruns", 1, 0)
+    build.check_launch("phase", fn(
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "take_reruns")
+    return int(out.item())
 
 
 def wrap_sweep(device="cuda"):

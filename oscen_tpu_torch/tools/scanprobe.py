@@ -15,10 +15,9 @@ Three parts, one line per row:
   and ``lp18_scan`` (K8) with one cost taken out at a time (dt or x from a
   register, the tanh as the identity, the division as a product with a
   hoisted reciprocal, other unrolls), row coefficients, at the main paths'
-  shapes; K6's bodies (``phase.VARIANTS``: the shipped one; on its ring
-  the ``floor`` wrap, and the short wrap with ``before`` stored by the
-  chain warp or staged and written back by the producer; a ring 7 chunks
-  deep), each first checked equal to the plain version;
+  shapes; K6's new ring with the reference's ``floor`` wrap instead of the
+  short one (``probe_phase`` (c)) beside the shipped kernel, each first
+  checked equal to the plain version;
   K1 (v4 with the mix) at 1, 2 and 4 time segments per voice (1: the
   register reduce-scatter alone), each first checked equal to the shipped
   body;
@@ -62,7 +61,8 @@ from ..ops.cuda import phase as kphase
 WINDOWS = 5
 LAUNCHES = 20
 P, I = ctypes.c_void_p, ctypes.c_int
-PHASE_PROBES = {0: "(a) as is", 1: "(b) dt from a register"}
+PHASE_PROBES = {0: "(a) as is", 1: "(b) dt from a register",
+                2: "(c) the ring with floor"}
 TPT_PROBES = {0: "as is", 1: "x from a register", 2: "unroll 16",
               3: "unroll 1"}
 LP18_PROBES = {0: "(a) as is", 1: "(b) x from a register",
@@ -276,32 +276,27 @@ def _print_rows(rows, mhz, tag="probe"):
 
 def probe(dev, mhz):
     lib = _probe_lib()
-    variant = _typed(build.load_library("phase").oscen_phase_scan_variant,
-                     [P] * 5 + [I] * 3 + [P])
+    shipped_k6 = _entries(build.CSRC_DIR)[2]
     rng = np.random.default_rng(0)
     rows = []
     for V, B in PHASE_SHAPES[:3]:
         p0, dt = _phase_inputs(dev, V, B, V + B)
         ref = kphase.plain_phase_scan(p0, dt)
-        for var, name in PHASE_PROBES.items():
-            if var == 0:
-                run = _phase_launcher(lambda *a, v=var: lib.probe_phase(v, *a),
-                                      p0, dt)
+        bodies = [(name, _phase_launcher(
+            lambda *a, v=var: lib.probe_phase(v, *a), p0, dt))
+            for var, name in PHASE_PROBES.items()]
+        bodies.append(("shipped", _phase_launcher(shipped_k6, p0, dt)))
+        kphase.take_reruns(dev)
+        for name, run in bodies:
+            if name != "(b) dt from a register":   # (b) computes another sum
+                got = run()
                 torch.cuda.synchronize()
-                if not _same(run(), ref):
-                    raise SystemExit("K6's old body differs from the plain "
-                                     "version")
-            rows.append(("phase_scan", f"V={V} B={B}", B, name,
-                         _phase_launcher(lambda *a, v=var:
-                                         lib.probe_phase(v, *a), p0, dt)))
-        for name, var in kphase.VARIANTS.items():
-            got = kphase.phase_scan_variant(p0, dt, name)
-            torch.cuda.synchronize()
-            if not _same(got[:2], ref) or int(got[2]) != 0:
-                raise SystemExit(f"K6 {name} differs from the plain version "
-                                 f"or re-ran a chunk")
-            rows.append(("phase_scan", f"V={V} B={B}", B, name,
-                         _phase_launcher(variant, p0, dt, (None,), (var,))))
+                if not _same(got, ref):
+                    raise SystemExit(f"K6 {name} differs from the plain "
+                                     f"version")
+            rows.append(("phase_scan", f"V={V} B={B}", B, name, run))
+        if kphase.take_reruns(dev):
+            raise SystemExit("K6 re-ran a chunk of in-range dt")
     for kernel, label, B, ops, strides in _cases(dev, rng):
         if "rows" not in label:
             continue

@@ -1,9 +1,10 @@
 """K1's time segments, modelled in PyTorch on the CPU: each voice's block
 split at subgroup boundaries into S segments, each segment starting from
 the state ``csrc/additive.cu``'s ``replay()`` rebuilds (the oscillator
-rotated by ``m^SUB``, the cycle's ``(tgt, D)`` and the step counter over
-the subgroups before it, and the envelope product ``p`` replayed tick by
-tick from the last subgroup that wrapped).
+rotated by ``m^SUB`` and the cycle's ``(tgt, D)`` over the subgroups before
+it; v3 and v2 walk their step counter and envelope product ``p`` tick by
+tick, v4 steps its counter per subgroup and replays ``p`` tick by tick
+from the last subgroup whose wrap tick resets it).
 
 Held ``torch.equal`` to the plain versions ``plain_v4``, ``plain_v3`` and
 ``plain_v2`` run in one piece: the per-voice rows of every tick, the state
@@ -12,9 +13,10 @@ planes after the block, and the voice mix summed in the kernel's order
 then the groups in order) from either's rows.  B in {64, 256, 1024, 4096}
 (one to 64 subgroups of 64 ticks), S in {1, 2, 4, 8, 16} where S divides
 the subgroups, and the entry steps 0, 1, 63 and 64 among the voices; a
-segment's replay window holds a wrap for every B >= 256.  Also
-``segments``' choice, which the card's library answers alike
-(``tests/test_torch_cuda.py``).
+segment's replay window holds a wrap for every B >= 256.  Entry steps
+outside 0..64 (0.5, 64.5, 70, -3) too: the replay is the kernel's own ops,
+so the segments equal one piece for any input.  The segment count the
+card picks is tested there (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -49,47 +51,57 @@ def _replay(version, planes, step, K, sub):
     s = step.clone()
     tgt = torch.where(s == 0.0, cur, tgt_in)
     D = cur - tgt
-    kw = torch.full_like(s, -1.0)
-    sw = torch.zeros_like(s)
+    p = torch.ones_like(s)
+    if version != "v4":   # v3, v2: their own loop without the sums
+        any_wrap = False
+        for _ in range(K):
+            tgtm = tgt * mult
+            G1 = tgtm - tgt
+            D2 = tgt - tgtm
+            wrapped = torch.zeros_like(s, dtype=torch.bool)
+            for _ in range(sub):
+                wrap = s == 0.0
+                wrapped = wrapped | wrap
+                p = torch.where(wrap, C, p * (1.0 - (s + 1.0) / 64.0))
+                s = torch.where(s < 64.0, s + 1.0, 0.0)
+            zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
+            tgt = torch.where(wrapped, tgtm, tgt)
+            D = torch.where(wrapped, D2 if version == "v2" else -G1, D)
+            any_wrap |= bool(wrapped.any())
+        return (zr, zi, tgt, D, s, p), any_wrap
+    kr = torch.full_like(s, -1.0)
+    sr = torch.zeros_like(s)
     s_entry = []
     for k in range(K):
         s_entry.append(s)
         tgtm = tgt * mult
         G1 = tgtm - tgt
-        D2 = tgt - tgtm
         jw = torch.where(s == 0.0, 0.0, 65.0 - s)
         w = jw <= float(sub - 1)
-        kw = torch.where(w, float(k), kw)
-        sw = torch.where(w, s, sw)
+        reset = w & (jw >= 0.0) & (jw == torch.floor(jw))
+        kr = torch.where(reset, float(k), kr)
+        sr = torch.where(reset, s, sr)
         zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
         tgt = torch.where(w, tgtm, tgt)
-        D = torch.where(w, D2 if version == "v2" else -G1, D)
+        D = torch.where(w, -G1, D)
         t = s + float(sub)
         s = torch.where(t >= 65.0, t - 65.0, t)
-    # p: from the start of the last subgroup that wrapped (or tick 0), the
-    # version's per-tick factors; earlier subgroups leave p at 1
-    k_start = torch.where(kw >= 0, kw, 0.0)
-    p = torch.ones_like(s)
+    # p: from the start of the last subgroup that resets it (or tick 0),
+    # v4's per-tick factors; earlier subgroups leave p at 1
+    k_start = torch.where(kr >= 0, kr, 0.0)
     for k in range(int(k_start.min()) if K else 0, K):
         act = k >= k_start
         sk = s_entry[k]
-        if version == "v4":
-            at0 = sk == 0.0
-            jw = torch.where(at0, 0.0, 65.0 - sk)
-            basef = sk * (-1.0 / 64.0)
-            addf = torch.where(at0, 0.0, 65.0 / 64.0)
-            for j in range(sub):
-                wfb = jw <= float(j)
-                f = (basef + (63.0 - float(j)) * (1.0 / 64.0)) + torch.where(
-                    wfb, addf, 0.0)
-                p = torch.where(act, torch.where(jw == float(j), C, p * f), p)
-        else:
-            for _ in range(sub):
-                wrap = sk == 0.0
-                p = torch.where(act, torch.where(
-                    wrap, C, p * (1.0 - (sk + 1.0) / 64.0)), p)
-                sk = torch.where(sk < 64.0, sk + 1.0, 0.0)
-    return (zr, zi, tgt, D, s, p), bool((kw >= 0).any())
+        at0 = sk == 0.0
+        jw = torch.where(at0, 0.0, 65.0 - sk)
+        basef = sk * (-1.0 / 64.0)
+        addf = torch.where(at0, 0.0, 65.0 / 64.0)
+        for j in range(sub):
+            wfb = jw <= float(j)
+            f = (basef + (63.0 - float(j)) * (1.0 / 64.0)) + torch.where(
+                wfb, addf, 0.0)
+            p = torch.where(act, torch.where(jw == float(j), C, p * f), p)
+    return (zr, zi, tgt, D, s, p), bool((kr >= 0).any())
 
 
 _ROWS = {"v4": tadd._rows_v4, "v3": tadd._rows_v3, "v2": tadd._rows_v2}
@@ -184,21 +196,17 @@ def test_segments_equal_the_plain_version(version, B, S):
         assert any_wrap   # some replay window starts at a wrap
 
 
-def test_segment_choice():
-    assert tadd.segments(256, 1024, 64) == 4
-    assert tadd.segments(256, 4096, 64) == 4
-    assert tadd.segments(256, 64, 64) == 1     # B <= SUB
-    assert tadd.segments(256, 128, 64) == 2
-    assert tadd.segments(3, 40, 8) == 1         # 5 subgroups
-    assert tadd.segments(1024, 1024, 64) == 2
-    assert tadd.segments(2048, 1024, 64) == 1
-
-
-def test_segment_choice_is_the_kernels():
-    """csrc/additive.cu's segments() is the rule ``tadd.segments`` mirrors
-    (the card tests ask the built library too)."""
-    from pathlib import Path
-    src = (Path(tadd.__file__).resolve().parents[2] / "csrc"
-           / "additive.cu").read_text()
-    assert "int s = V <= 512 ? 4 : V <= 1024 ? 2 : 1;" in src
-    assert "while (s > 1 && (B / sub) % s) s /= 2;" in src
+@pytest.mark.parametrize("version", ["v4", "v3", "v2"])
+@pytest.mark.parametrize("B,S", [(1024, 4), (4096, 16)])
+def test_segments_equal_one_piece_for_entry_steps_outside_0_64(version, B,
+                                                                S):
+    """An entry step the envelope never produces (0.5, 64.5, 70, -3): the
+    segments still equal the version in one piece, bit for bit."""
+    planes, _ = _planes(4, seed=3)
+    step = torch.tensor([0.5, 64.5, 70.0, -3.0])
+    y, state, _ = _segmented(version, planes, step, B, S)
+    y_1, *state_1 = tadd._CLOSED[version](
+        *planes, step, B, tadd.subgroup_len(B, version))
+    assert torch.equal(y, y_1)
+    for a, b in zip(state, state_1):
+        assert torch.equal(a, b)

@@ -1032,7 +1032,7 @@ def test_phase_ring_equals_plain(cuda, V, edges):
     f32 = np.float32
     e = np.array([-0.0, 1e-40, -1e-40, np.nextafter(f32(1), f32(0)), 1.0,
                   1.5, 2.0, -0.25, -3.5, 7.0, np.inf, -np.inf, np.nan], f32)
-    reruns = 0
+    kphase.take_reruns(cuda)
     for B in PHASE_RING_B:
         rng = np.random.default_rng(V * 53 + B + edges)
         p0 = rng.uniform(0, 1, V).astype(np.float32)
@@ -1046,28 +1046,28 @@ def test_phase_ring_equals_plain(cuda, V, edges):
                 dt.reshape(-1)[idx] = rng.choice(e, len(idx))
             dt = _on(cuda, dt)
             out = kphase.phase_scan(p, dt)
-            var = kphase.phase_scan_variant(p, dt)
             torch.cuda.synchronize()
             plain = kphase.plain_phase_scan(p, dt)
             assert _same_bits(out, plain), B
-            assert _same_bits(var[:2], plain), B
-            reruns += int(var[2])
             p = out[1]
-    assert (reruns > 0) == edges
+    assert (kphase.take_reruns(cuda) > 0) == edges
 
 
 @pytest.mark.parametrize("V,B", [(256, 1024), (256, 4096), (1, 4096),
                                  (3, 100)])
 def test_phase_bodies_equal_plain(cuda, V, B):
+    """Both ways of storing `before` (the chain warp's stores for 32
+    lanes, the producer's write-back for fewer) at the main paths' shapes,
+    with no chunk re-run."""
     rng = np.random.default_rng(V + B)
     p = _on(cuda, rng.uniform(0, 1, V))
     dt = _on(cuda, rng.uniform(0.001, 0.5, (B, V)))
     plain = kphase.plain_phase_scan(p, dt)
-    for name in kphase.VARIANTS:
-        got = kphase.phase_scan_variant(p, dt, name)
-        torch.cuda.synchronize()
-        assert _same_bits(got[:2], plain), name
-        assert int(got[2]) == 0, name
+    kphase.take_reruns(cuda)
+    got = kphase.phase_scan(p, dt)
+    torch.cuda.synchronize()
+    assert _same_bits(got, plain)
+    assert kphase.take_reruns(cuda) == 0
 
 
 def test_phase_wrap_equals_floor_everywhere(cuda):
@@ -1083,13 +1083,12 @@ def test_phase_wrap_equals_floor_everywhere(cuda):
 def test_additive_segments_match_plain(cuda, version, V):
     """The closed-form kernels with every segment count at B from one
     subgroup up: y within the bounds, state planes torch.equal, every
-    count's outputs equal; the library's choice is the wrapper's."""
+    count's outputs equal."""
     planes_np, step_np = _inputs(V, seed=V)
     planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
     s = torch.as_tensor(step_np, device=cuda)
     for B in (64, 128, 1024, 4096):
         sub = add.subgroup_len(B, version)
-        assert add.card_segments(V, B, sub) == add.segments(V, B, sub)
         for with_mix in (False, True):
             k_out = add.additive_voice_block(*planes, s, B,
                                              with_mix=with_mix,
@@ -1105,6 +1104,51 @@ def test_additive_segments_match_plain(cuda, version, V):
                                                     with_mix, version)
                     torch.cuda.synchronize()
                     assert _equal(got, k_out), (B, S, with_mix)
+
+
+def test_segment_choice(cuda):
+    """4 segments as far as they divide the subgroups and their tickets
+    fit 8-bit fields (~8k voices at 2 warps a block); then 2, then 1."""
+    assert add.segments(256, 1024, 64) == 4
+    assert add.segments(256, 4096, 64) == 4
+    assert add.segments(256, 64, 64) == 1      # B <= SUB
+    assert add.segments(256, 128, 64) == 2
+    assert add.segments(3, 40, 8) == 1          # 5 subgroups
+    assert add.segments(2048, 1024, 64) == 4
+    assert add.segments(8160, 1024, 64) == 4    # 255 groups of 16 blocks
+    assert add.segments(8161, 1024, 64) == 2
+
+
+def test_segments_refuse_tickets_that_overflow(cuda):
+    """With the mix, 4 segments of 8161 voices (256 groups) would overflow
+    an 8-bit ticket field: the explicit-count entry refuses them; 2 run."""
+    V, B = 8161, 256
+    planes_np, step_np = _inputs(V, seed=1)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
+    s = torch.as_tensor(step_np, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        add.closed_block_segments(*planes, s, B, 4, True)
+    got = add.closed_block_segments(*planes, s, B, 2, True)
+    want = add.additive_voice_block(*planes, s, B, with_mix=True)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("version", ["v4", "v3", "v2"])
+def test_additive_segments_entry_steps_outside_0_64(cuda, version):
+    """Entry steps the envelope never produces: every segment count still
+    equals one warp per voice, bit for bit."""
+    planes_np, _ = _inputs(4, seed=3)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
+    s = torch.tensor([0.5, 64.5, 70.0, -3.0], device=cuda)
+    for with_mix in (False, True):
+        one = add.closed_block_segments(*planes, s, 1024, 1, with_mix,
+                                        version)
+        for S in (2, 4):
+            got = add.closed_block_segments(*planes, s, 1024, S, with_mix,
+                                            version)
+            torch.cuda.synchronize()
+            assert _equal(got, one), (S, with_mix)
 
 
 @pytest.mark.parametrize("version", add.KERNELS)

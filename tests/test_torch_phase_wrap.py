@@ -148,28 +148,18 @@ def test_rerun_is_per_lane_and_chunk(value, want):
     assert torch.equal(_bits(carry), _bits(cp))
 
 
-def test_kernel_source_matches_the_model():
-    """csrc/phase.cu's out-of-domain bits are the model's, its shipped wrap
-    the FSET form, its re-run the reference op, and its bodies' numbers
-    those of ``VARIANTS``."""
-    import re
-    from pathlib import Path
-    src = (Path(tphase.__file__).resolve().parents[2] / "csrc"
-           / "phase.cu").read_text()
-    code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
-    assert int(re.search(r"kOutside = (0x[0-9A-Fa-f]+)u", code).group(1),
-               16) == tphase.OUTSIDE
-    assert 'asm("set.ge.f32.f32 %0, %1, 0f3F800000;"' in code
-    assert "return q - c;" in code
-    assert "constexpr int kShipWrap = kSet;" in code
-    assert "q = q - floorf(q);" in code       # the re-runs
-    assert "truncf" not in code
-    cases = re.findall(r"case (\d+):\s*return (launch\w*)(?:<([^>]*)>)?\(",
-                       code)
-    want = {"shipped": ("launch_shipped", ""),
-            "ring_floor": ("launch", "kFloor, false"),
-            "ring_set": ("launch", "kSet, false"),
-            "ring_set_staged": ("launch", "kSet, true"),
-            "ring_set_deep": ("launch", "kSet, false, kDeep")}
-    assert [(int(n), f, a) for n, f, a in cases] == [
-        (tphase.VARIANTS[k], *v) for k, v in want.items()]
+def test_cpu_tensors_run_the_plain_version():
+    """A CPU tensor runs the plain version and launches no kernel."""
+    p0, dt = _scan_inputs(3, 70, 5, True)
+    n = tphase.launches[tphase.KERNEL]
+    got = tphase.phase_scan(p0, dt)
+    want = tphase.plain_phase_scan(p0, dt)
+    assert tphase.launches[tphase.KERNEL] == n
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("name", ["take_reruns", "wrap_sweep"])
+def test_card_only_entries_refuse_the_cpu(name):
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(tphase, name)("cpu")
