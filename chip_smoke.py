@@ -29,15 +29,18 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             kernels fract_phase3, fm_chain3_scan and pivot_chain3_scan
             (nonzero feedback, per-sample and block-constant dt) and
             fm_operator_scan (per-sample feedback and level) at V=256,
-            B=1024 and 4096 and a ragged V=3, B=37; 3 chained blocks; the
+            B=1024 and 4096 and a ragged V=3, B=37 (the chains also at
+            blocks shorter than their skew and around a chunk: V=3, B=1
+            and 2, V=33, B=3 and 33, V=256, B=65); 3 chained blocks; the
             chains' zero-feedback branch against their kernels; the
             filter kernels lp18_scan (inputs that saturate its tanh) and
             biquad_scan (an input that decays below 1e-15, so its snaps
             fire) at V=2 and 256, B=1024 and 4096 and V=3, B=37, row and
             per-sample coefficients, 3 chained blocks; the allpass cascade
             allpass_cascade_scan (both halfband branches' betas as lanes)
-            at V=1, 2 and 256, B=1024, 2048 and 4096 and V=3, B=37, 3
-            chained blocks; tpt_svf_scan and lp18_scan on their staged
+            at V=1, 2 and 256, B=1024, 2048 and 4096, V=3, B=37 and
+            around its skew and a chunk (V=2, B=1, 2 and 33; V=33, B=1 and
+            65), 3 chained blocks; tpt_svf_scan and lp18_scan on their staged
             input ring at V=1, 2, 3, 33 and 256 and B=1, 2, 31, 32, 33,
             1024 and 4096, rows and per-sample planes, and lp18_scan on
             silence, denormal and 1e20-sized x and signed zeros; lp18_scan's
@@ -97,7 +100,10 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             same chain fed from numpy; how many phase_scan chunks the short
             wrap re-ran in the poly synth's, the saturators' and the README
             synth's runs (the kernel's device count, read after each);
-5. timing   each kernel's device time (profiler) and its plain version's
+5. timing   each kernel's device time (profiler; the FM chains with
+            block-constant and per-sample dt, the allpass cascade at the
+            IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps) and
+            its plain version's
             time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
             one-thread-per-lane scan, its chain floor (B x
@@ -167,6 +173,10 @@ TWIN_TOL = 1e-6   # card against CPU: the kernels equal their plain versions
 # a halfband stage) over 2B and B samples per block at 4x
 ALLPASS_SHAPES = tuple((V, B) for V in (1, 2, VOICES)
                        for B in (1024, 2048, 4096)) + ((3, 37),)
+# K10's stages run a sample apart, the FM chains' operators a 32-step chunk
+# apart: blocks shorter than the skew and around a chunk
+ALLPASS_EDGES = ((2, 1), (2, 2), (2, 33), (33, 1), (33, 65))
+CHAIN_EDGES = ((3, 1), (3, 2), (33, 3), (33, 33), (VOICES, 65))
 # K7 and K8 read x and their per-sample planes through a ring of 32-step
 # chunks (oscen_tpu_torch/csrc/scan_stage.cuh): every B around the chunk
 RING_CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
@@ -1063,7 +1073,10 @@ def main() -> int:
 
     for name in kfm.KERNELS:
         report[name] = {"max_abs_err": 0.0}
-        for V, B in SCAN_SHAPES:
+        # the chains' operators run a chunk apart: blocks shorter than the
+        # skew and around a chunk too
+        shapes = SCAN_SHAPES + (CHAIN_EDGES if "chain" in name else ())
+        for V, B in shapes:
             for per_sample in ((False, True) if "chain" in name
                                else (False,)):
                 fm_case(name, V, B, per_sample)
@@ -1188,7 +1201,7 @@ def main() -> int:
                   for _ in range(2)))
 
     report["allpass_cascade_scan"] = {"max_abs_err": 0.0}
-    for V, B in ALLPASS_SHAPES:
+    for V, B in ALLPASS_SHAPES + ALLPASS_EDGES:
         rng_a = np.random.default_rng(V + B)
         _, a, *carry = allpass_operands(V, B, rng_a)
         before = kiir.launches["allpass_cascade_scan"]
@@ -2055,20 +2068,25 @@ def main() -> int:
     for name in kfm.KERNELS:
         fn, plain = getattr(kfm, name), getattr(kfm, "plain_" + name)
         for B in BLOCKS:
-            rng_f = np.random.default_rng(B)
-            args = fm_carry(name, VOICES, rng_f) + fm_args(name, VOICES, B,
-                                                           rng_f)
-            ms = device_ms(lambda: fn(*args), 50, kernel=fm_cuda_name[name])
-            plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
-            what = (" (block-constant dt, feedback)" if "chain" in name
-                    else "")
-            phase("timing", f"{name} V={VOICES} B={B}{what}: kernel "
-                  f"{ms * 1e3:.1f} us (device), plain PyTorch "
-                  f"{plain_ms * 1e3:.1f} us/call ({card})")
-            if B == 1024:
-                report[name].update(ms=ms, plain_ms=plain_ms,
-                                    **bound_of(name, args, fn(*args), B,
-                                               VOICES))
+            # the chains also with per-sample dt (a note-on block)
+            for per_sample in ((False, True) if "chain" in name
+                               else (False,)):
+                rng_f = np.random.default_rng(B)
+                args = fm_carry(name, VOICES, rng_f) + fm_args(
+                    name, VOICES, B, rng_f, per_sample)
+                ms = device_ms(lambda: fn(*args), 50,
+                               kernel=fm_cuda_name[name])
+                plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
+                what = ((" (per-sample dt, feedback)" if per_sample else
+                         " (block-constant dt, feedback)")
+                        if "chain" in name else "")
+                phase("timing", f"{name} V={VOICES} B={B}{what}: kernel "
+                      f"{ms * 1e3:.1f} us (device), plain PyTorch "
+                      f"{plain_ms * 1e3:.1f} us/call ({card})")
+                if B == 1024 and not per_sample:
+                    report[name].update(ms=ms, plain_ms=plain_ms,
+                                        **bound_of(name, args, fn(*args), B,
+                                                   VOICES))
 
     # the steady fm-synth and pivot blocks, and where their device time
     # goes (the pivot also with op3_feedback 0.3: pivot_chain3_scan)

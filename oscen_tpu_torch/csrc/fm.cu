@@ -3,11 +3,11 @@
 // Replaces the four TPU kernels of oscen_tpu/ops/pallas/fm.py:
 //   fract_phase3_kernel  <- fract_phase3 (_fract3_kernel): the three chain
 //                           operators' phases, p += dt; p -= trunc(p);
-//   chain3_kernel<false> <- fm_chain3_scan (_chain3_pipe_kernel): the
+//   chain3_kernel<false, .> <- fm_chain3_scan (_chain3_pipe_kernel): the
 //                           fm-synth voice's operator chain op3 -> op2 -> op1
 //                           with per-operator self-feedback and the route
 //                           crossfade (FmOperatorChain.tick);
-//   chain3_kernel<true>  <- pivot_chain3_scan (_pivot3_pipe_kernel): the
+//   chain3_kernel<true, .>  <- pivot_chain3_scan (_pivot3_pipe_kernel): the
 //                           pivot voice's chain, where the RAW sine is each
 //                           operator's feedback and the enveloped signal
 //                           drives the routing (PivotOperatorChain.tick);
@@ -23,21 +23,45 @@
 // The chains fold each operator's level into its envelope stream before the
 // launch (oscen_tpu_torch/ops/cuda/fm.py), as the JAX package does.
 //
-// The TPU kernels software-pipeline the chain (op3 at sample i, op2 at i-1,
-// op1 at i-2 as one stacked vector op, with activity masks while the
-// pipeline fills and drains).  That is a vector-unit device; here each
-// thread runs the three operators in tick order within a sample, and the
-// unrolled time loop lets the compiler overlap one sample's op3 with the
-// previous sample's op1.
+// What bounds them on the card: each operator is a dependent chain of ~15
+// float ops per sample (its own feedback product, the phase sum, the sine
+// polynomial with its FRND, the envelope product), serial in time; 256
+// voices are 8 warps for 132 SMs.  The chains move 16 bytes per sample and
+// lane (28 with per-sample dt), far below the memory bound: latency, not
+// bytes.  One warp per CUDA block spreads the warps over SMs.  The true
+// block length B bounds every loop and the carries hold the last real
+// sample; any B >= 1 and any V work.
 //
-// What bounds it on the card: each operator is a dependent chain of ~14
-// float ops (the sine polynomial, the feedback product, the wrap) per
-// sample, serial in time; 256 voices are 8 warps for 132 SMs.  The chains
-// move 16 bytes per sample and lane (20 with per-sample dt), far below the
-// memory bound, so the kernels are bound by the latency of that chain.  One
-// warp per CUDA block spreads the warps over SMs.  The true block length B
-// bounds every loop and the carries hold the last real sample; any B >= 1
-// and any V work.
+// chain3_kernel (K13, K15).  Its steps are three operators' chains (op3 ->
+// op2 -> op1 at each sample), and each operator's own cycle (its feedback
+// product, the phase sum, the sine polynomial with its FRND, the envelope
+// product) is ~15 dependent ops: ~100 cycles a step on the H100 for one
+// operator alone on one warp (tools/scanprobe.py).  One warp running all
+// three in tick order took ~255 cycles a step with its inputs loaded inside
+// the loop, ~135 on the staged ring; skewed by a sample within the warp
+// (the TPU kernel's schedule: op3 on sample i, op2 on i - 1, op1 on i - 2)
+// ~160, as in-order issue from one warp does not overlap three such
+// chains.  The design:
+//  - each operator on its own warp (its own scheduler), the operators
+//    skewed by a chunk of 32 samples: at step s op3's warp runs chunk s,
+//    op2's chunk s - 1 and op1's chunk s - 2, and all four warps of the
+//    block (the producer's too) meet at one named barrier per step, so a
+//    step takes one operator's chain over a chunk.  What crosses operators
+//    goes through shared memory, a chunk at a time, double-buffered by
+//    chunk: op3's route a, b to op2, op2's modulation of op1, pm1 = y2 + b.
+//    The first two steps fill the pipeline and the last two drain it.
+//    Each operator keeps its own wrap, carry and the JAX association; only
+//    the schedule moves.
+//  - each operator's per-sample planes (its envelope and, with per-sample
+//    dt, its dt) through its own staged ring (scan_stage.cuh's Producer,
+//    one per operator, in the producer warp): at step s the producer copies
+//    op3's chunk s + 2, op2's s + 1 and op1's s, each two steps ahead of its
+//    use, so each ring is shaped for its operator's skew and no stage has to
+//    stay live for a later operator.  The operator warps read a group of 8
+//    steps ahead (run_chunk).  dt rows, fb and mix stay in registers.  The
+//    rings and the route take 60 KB of shared memory, 96 KB with per-sample
+//    dt (the launch opts in).
+//  - op1's warp stores y (V = 256: full rows).
 //
 // Numerics: built with --fmad=false and without fast-math, so every product
 // and sum rounds as PyTorch's separate elementwise ops do, and every output
@@ -52,8 +76,12 @@
 
 #include <cuda_runtime.h>
 
+#include "scan_stage.cuh"
+
 namespace {
 
+using oscen_stage::kChunk;
+using oscen_stage::kLanes;
 constexpr int kThreads = 32;
 
 // float32 roundings of oscen_tpu/ops/fastmath.py SIN_TURNS_COEFFS
@@ -99,70 +127,179 @@ fract_phase3_kernel(const float* __restrict__ phases,
   carry[i] = p;
 }
 
-template <bool kPivot>
-__global__ void __launch_bounds__(kThreads)
+// chain3_kernel's block: warps 0, 1, 2 run op3, op2, op1 (each operator
+// on its own scheduler), warp 3 is the producer; they step in lockstep, one
+// 32-sample chunk a step, through named barrier 1.
+constexpr int kOpWarps = 3;
+constexpr int kChainBlock = (kOpWarps + 1) * kLanes;
+// the route between operators: op3's a and b, op2's pm1, each
+// [2][kChunk][kLanes] (chunk k in buffer k % 2)
+constexpr int kRouteFloats = 2 * kChunk * kLanes;
+
+__device__ __forceinline__ void step_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kChainBlock) : "memory");
+}
+
+// Operator kOp (0: op3, 1: op2, 2: op1) of one voice lane over one chunk;
+// staged inputs: its envelope, (kDtP) its dt, then what it takes from the
+// operator before it (op2: a, b; op1: pm1).
+template <int kOp, bool kPivot, bool kDtP>
+struct OpBody {
+  static constexpr int kP = 1 + kDtP + (kOp == 1 ? 2 : kOp == 2 ? 1 : 0);
+  float ph, p, fb;   // phase, feedback carry, feedback
+  float d;           // dt row (block-constant dt)
+  float m, om;       // op3: the route and 1 - route
+  float* out;        // op3: a (b kRouteFloats further); op2: pm1; op1: y
+  int stride;        // kLanes, or V for y
+
+  __device__ __forceinline__ void step(const float (&in)[kP], int t) {
+    const float dt = kDtP ? in[1] : d;
+    constexpr int r = 1 + kDtP;   // the first routed input
+    if constexpr (kOp == 0) {      // op3: no phase modulation
+      const float s3 = sin_turns(ph + p * fb);
+      const float a3 = s3 * in[0];
+      out[t * kLanes] = a3 * om;
+      out[kRouteFloats + t * kLanes] = a3 * m;
+      p = kPivot ? s3 : a3;
+    } else if constexpr (kOp == 1) {   // op2, modulated by the route's a
+      const float s2 = sin_turns((ph + in[r]) + p * fb);
+      const float a2 = s2 * in[0];
+      out[t * kLanes] = a2 + in[r + 1];   // op1's modulation: + the route's b
+      p = kPivot ? s2 : a2;
+    } else {   // op1, the carrier
+      const float s1 = sin_turns((ph + in[r]) + p * fb);
+      const float y1 = s1 * in[0];
+      out[t * stride] = y1;
+      p = kPivot ? s1 : y1;
+    }
+    ph = fract_step(ph, dt);
+  }
+};
+
+// One operator warp's run: at step s it runs chunk s - kOp (if there is
+// one), then waits for the step's barrier.
+template <int kOp, bool kPivot, bool kDtP>
+__device__ __forceinline__ void run_operator(
+    const float* smem, float* route, const float* __restrict__ phases,
+    const float* __restrict__ prevs, const float* __restrict__ dt,
+    const float* __restrict__ fb, const float* __restrict__ mix,
+    float* __restrict__ y, float* __restrict__ ph_out,
+    float* __restrict__ pv_out, int V, int B, int chunks) {
+  using Body = OpBody<kOp, kPivot, kDtP>;
+  constexpr int kP = Body::kP;
+  constexpr int kOpPlanes = 1 + kDtP;
+  const int lane = threadIdx.x % kLanes;
+  const int v = blockIdx.x * kLanes + lane;
+  const bool live = v < V;   // every thread syncs; live ones scan
+  Body body{};
+  if (live) {
+    body.ph = phases[kOp * V + v];
+    body.p = prevs[kOp * V + v];
+    body.fb = fb[kOp * V + v];
+    if constexpr (!kDtP) body.d = dt[kOp * V + v];
+    if constexpr (kOp == 0) {
+      body.m = mix[v];
+      body.om = 1.0f - body.m;
+    }
+  }
+  const float* planes = smem + kOp * kOpPlanes * oscen_stage::kSlotFloats;
+  float* const a_buf = route;
+  float* const pm_buf = route + 2 * kRouteFloats;
+  step_sync();   // chunk 0's inputs have landed
+  for (int s = 0; s < chunks + kOpWarps - 1; ++s) {
+    const int k = s - kOp;
+    if (live && k >= 0 && k < chunks) {
+      const int stage = (k % oscen_stage::kStages) * kChunk * kLanes + lane;
+      const int buf = (k % 2) * kChunk * kLanes + lane;
+      const float* src[kP];
+#pragma unroll
+      for (int q = 0; q < kOpPlanes; ++q)
+        src[q] = planes + q * oscen_stage::kSlotFloats + stage;
+      if constexpr (kOp == 0) {
+        body.out = a_buf + buf;
+      } else if constexpr (kOp == 1) {
+        src[kOpPlanes] = a_buf + buf;
+        src[kOpPlanes + 1] = a_buf + kRouteFloats + buf;
+        body.out = pm_buf + buf;
+      } else {
+        src[kOpPlanes] = pm_buf + buf;
+        body.out = y + (size_t)k * kChunk * V + v;
+        body.stride = V;
+      }
+      oscen_stage::run_chunk<kP>(src, min(kChunk, B - k * kChunk), body);
+    }
+    step_sync();
+  }
+  if (live) {
+    ph_out[kOp * V + v] = body.ph;
+    pv_out[kOp * V + v] = body.p;
+  }
+}
+
+// The producer's copies for step s: op3's inputs of chunk s + 2, op2's of
+// s + 1, op1's of s (each operator's ring holds its own chunks, two steps
+// ahead of their use), one commit group per operator, empty where there is
+// no such chunk.
+template <int kN>
+__device__ __forceinline__ void issue_step(oscen_stage::Producer<kN> (&prod)[3],
+                                           int s, int chunks) {
+#pragma unroll
+  for (int r = 0; r < kOpWarps; ++r) {
+    const int k = s + kOpWarps - 1 - r;
+    if (k >= 0 && k < chunks)
+      prod[r].issue(k);
+    else
+      oscen_stage::commit();
+  }
+}
+
+template <bool kPivot, bool kDtP>
+__global__ void __launch_bounds__(kChainBlock)
 chain3_kernel(const float* __restrict__ phases,
               const float* __restrict__ prevs, const float* __restrict__ dt,
               const float* __restrict__ fb, const float* __restrict__ mix,
               const float* __restrict__ e3, const float* __restrict__ e2,
               const float* __restrict__ e1, float* __restrict__ y,
               float* __restrict__ ph_out, float* __restrict__ pv_out, int V,
-              int B, int dt_stride) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  float ph3 = phases[v], ph2 = phases[V + v], ph1 = phases[2 * V + v];
-  float p3 = prevs[v], p2 = prevs[V + v], p1 = prevs[2 * V + v];
-  const float fb3 = fb[v], fb2 = fb[V + v], fb1 = fb[2 * V + v];
-  const float m = mix[v];
-  const float om = 1.0f - m;
-  const size_t dplane = (size_t)(dt_stride ? B : 1) * V;
-  const float* d3 = dt + v;
-  const float* d2 = d3 + dplane;
-  const float* d1 = d2 + dplane;
-#pragma unroll 4
-  for (int t = 0; t < B; ++t) {
-    const size_t i = (size_t)t * V + v;
-    const size_t di = (size_t)t * dt_stride;
-    // op3: no phase modulation
-    const float s3 = sin_turns(ph3 + p3 * fb3);
-    float a, b;
-    if (kPivot) {
-      const float a3 = s3 * e3[i];
-      a = a3 * om;
-      b = a3 * m;
-      p3 = s3;
-    } else {
-      const float y3 = s3 * e3[i];
-      a = y3 * om;
-      b = y3 * m;
-      p3 = y3;
+              int B) {
+  constexpr int kOpPlanes = 1 + kDtP;
+  // dynamic shared memory: each operator's planes' slots, then the route
+  extern __shared__ __align__(16) float smem[];
+  float* route = smem + kOpWarps * kOpPlanes * oscen_stage::kSlotFloats;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x / kLanes;
+  if (warp == kOpWarps) {   // the producer warp
+    const size_t plane = (size_t)B * V;
+    const float* src[3][2] = {
+        {e3, dt}, {e2, dt + plane}, {e1, dt + 2 * plane}};
+    oscen_stage::Producer<kOpPlanes> prod[3];
+#pragma unroll
+    for (int r = 0; r < kOpWarps; ++r)
+      prod[r].init(smem + r * kOpPlanes * oscen_stage::kSlotFloats, src[r],
+                   kOpPlanes, V, B, blockIdx.x * kLanes);
+    issue_step(prod, -2, chunks);
+    issue_step(prod, -1, chunks);
+    oscen_stage::wait_groups<kOpWarps>();   // step 0's inputs
+    __syncwarp();
+    step_sync();
+    for (int s = 0; s < chunks + kOpWarps - 1; ++s) {
+      issue_step(prod, s, chunks);
+      oscen_stage::wait_groups<kOpWarps>();   // step s + 1's inputs
+      __syncwarp();
+      step_sync();
     }
-    ph3 = fract_step(ph3, d3[di]);
-    // op2, modulated by the route's a side
-    const float s2 = sin_turns((ph2 + a) + p2 * fb2);
-    float pm1;
-    if (kPivot) {
-      pm1 = s2 * e2[i] + b;
-      p2 = s2;
-    } else {
-      const float y2 = s2 * e2[i];
-      pm1 = y2 + b;
-      p2 = y2;
-    }
-    ph2 = fract_step(ph2, d2[di]);
-    // op1, the carrier, modulated by op2 plus the route's b side
-    const float s1 = sin_turns((ph1 + pm1) + p1 * fb1);
-    const float y1 = s1 * e1[i];
-    p1 = kPivot ? s1 : y1;
-    y[i] = y1;
-    ph1 = fract_step(ph1, d1[di]);
+    return;
   }
-  ph_out[v] = ph3;
-  ph_out[V + v] = ph2;
-  ph_out[2 * V + v] = ph1;
-  pv_out[v] = p3;
-  pv_out[V + v] = p2;
-  pv_out[2 * V + v] = p1;
+#define OSCEN_OPERATOR(n)                                                   \
+  run_operator<n, kPivot, kDtP>(smem, route, phases, prevs, dt, fb, mix, y, \
+                                ph_out, pv_out, V, B, chunks)
+  if (warp == 0)
+    OSCEN_OPERATOR(0);
+  else if (warp == 1)
+    OSCEN_OPERATOR(1);
+  else
+    OSCEN_OPERATOR(2);
+#undef OSCEN_OPERATOR
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -191,6 +328,25 @@ fm_operator_kernel(const float* __restrict__ phase0,
   prev_out[v] = prev;
 }
 
+template <bool kPivot, bool kDtP>
+cudaError_t launch_chain3(const float* phases, const float* prevs,
+                          const float* dt, const float* fb, const float* mix,
+                          const float* e3, const float* e2, const float* e1,
+                          float* y, float* ph_out, float* pv_out, int V, int B,
+                          cudaStream_t stream) {
+  // each operator's planes' slots and the route (3 x 2 chunks: 2 slots):
+  // 60 KB, 96 KB with per-sample dt, above the 48 KB default
+  const int slots = kOpWarps * (1 + kDtP) + 2;
+  const cudaError_t err =
+      oscen_stage::allow_ring<chain3_kernel<kPivot, kDtP>>(slots);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((V + kLanes - 1) / kLanes);
+  chain3_kernel<kPivot, kDtP>
+      <<<grid, kChainBlock, oscen_stage::ring_bytes(slots), stream>>>(
+          phases, prevs, dt, fb, mix, e3, e2, e1, y, ph_out, pv_out, V, B);
+  return cudaGetLastError();
+}
+
 template <bool kPivot>
 int launch_chain3(const float* phases, const float* prevs, const float* dt,
                   const float* fb, const float* mix, const float* e3,
@@ -198,11 +354,14 @@ int launch_chain3(const float* phases, const float* prevs, const float* dt,
                   float* pv_out, int V, int B, int dt_stride, void* stream) {
   if (V < 1 || B < 1 || (dt_stride != 0 && dt_stride != V))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((V + kThreads - 1) / kThreads);
-  chain3_kernel<kPivot><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      phases, prevs, dt, fb, mix, e3, e2, e1, y, ph_out, pv_out, V, B,
-      dt_stride);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(dt_stride
+                   ? launch_chain3<kPivot, true>(phases, prevs, dt, fb, mix,
+                                                 e3, e2, e1, y, ph_out,
+                                                 pv_out, V, B, st)
+                   : launch_chain3<kPivot, false>(phases, prevs, dt, fb, mix,
+                                                  e3, e2, e1, y, ph_out,
+                                                  pv_out, V, B, st));
 }
 
 }  // namespace

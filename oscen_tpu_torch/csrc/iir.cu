@@ -27,13 +27,14 @@
 // flushes denormals; the JAX package's CPU scan keeps them, and so do the
 // kernel and its plain version here).
 //
-// allpass_kernel replaces allpass_cascade_scan (_allpass_kernel; the branch of
-// the IIR-halfband resampler, resample/halfband_iir.rs:24-63): S first-order
-// allpasses chained within the sample, per stage
+// allpass_kernel (allpass.cuh) replaces allpass_cascade_scan (_allpass_kernel;
+// the branch of the IIR-halfband resampler, resample/halfband_iir.rs:24-63):
+// S first-order allpasses chained within the sample, per stage
 //   y = a[s] * (x - yp[s]) + xp[s];  xp[s] = x;  yp[s] = y;  x = y.
 // The coefficients and both histories of every stage stay in registers (S is
-// a template parameter, 1 to 8). The wrapper may put both branches of one
-// halfband stage side by side as lanes, each with its own betas in a [S, V].
+// a template parameter, 1 to 8), its stages skewed in time; allpass.cuh has
+// the design.  The wrapper may put both branches of one halfband stage side
+// by side as lanes, each with its own betas in a [S, V].
 //
 // Layout: one thread per voice lane; the filter state stays in registers
 // for the whole block.  x and y are time-major [B, V] (a warp's loads and
@@ -50,10 +51,11 @@
 // bound by the latency of that chain (its chain floor: steps x dependent
 // ops x their latency), far above the bytes it moves (8 bytes per sample
 // and lane, up to 28 with per-sample coefficients).  One chain warp per
-// CUDA block spreads the warps over SMs (K7 and K8 add a producer warp).
+// CUDA block spreads the warps over SMs (K7, K8 and K10 add a producer
+// warp).
 // The true block length B bounds the loop; any B >= 1 and any V work.
 //
-// K7 and K8 keep their loads off the chain: x and every per-sample
+// K7, K8 and K10 keep their loads off the chain: x and every per-sample
 // coefficient plane come through the staged ring of scan_stage.cuh (a
 // producer warp's cp.async, up to two 32-step chunks ahead, handed over by
 // named barriers), so the chain warp reads shared memory a group of 8
@@ -74,7 +76,9 @@
 //   NaN, and a d outside [1, 4)) is run again from its saved state with
 //   the reference body, (float)tanh((double)b) and the true `/`, so the
 //   test never sits on the chain.
-// The other kernels (biquad, allpass cascade) still load inside the loop.
+// K10 also skews its stages in time, so its step's chain is one stage's 3
+// ops instead of S stages' (allpass.cuh).  The biquad (K9) still loads
+// inside the loop.
 //
 // Numerics: built with --fmad=false and without fast-math, so every product
 // and sum rounds as PyTorch's separate elementwise ops do, and every output
@@ -85,6 +89,7 @@
 
 #include <cuda_runtime.h>
 
+#include "allpass.cuh"
 #include "scan_stage.cuh"
 #include "tanh_table.cuh"
 
@@ -537,61 +542,10 @@ biquad_kernel(const float* __restrict__ x, const float* __restrict__ b0,
   v2_out[v] = v2;
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-allpass_kernel(const float* __restrict__ x, const float* __restrict__ a,
-               const float* __restrict__ xp_in,
-               const float* __restrict__ yp_in, float* __restrict__ y,
-               float* __restrict__ xp_out, float* __restrict__ yp_out, int V,
-               int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  float c[S], xp[S], yp[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    c[s] = a[s * V + v];
-    xp[s] = xp_in[s * V + v];
-    yp[s] = yp_in[s * V + v];
-  }
-#pragma unroll 4
-  for (int t = 0; t < B; ++t) {
-    const size_t i = (size_t)t * V + v;
-    float cur = x[i];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float out = c[s] * (cur - yp[s]) + xp[s];
-      xp[s] = cur;
-      yp[s] = out;
-      cur = out;
-    }
-    y[i] = cur;
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    xp_out[s * V + v] = xp[s];
-    yp_out[s * V + v] = yp[s];
-  }
-}
-
-template <int S>
-void launch_allpass(const float* x, const float* a, const float* xp,
-                    const float* yp, float* y, float* xp_out, float* yp_out,
-                    int V, int B, cudaStream_t stream) {
-  const dim3 grid((V + kThreads - 1) / kThreads);
-  allpass_kernel<S><<<grid, kThreads, 0, stream>>>(x, a, xp, yp, y, xp_out,
-                                                    yp_out, V, B);
-}
-
 // Static and dynamic shared memory above 48 KB together need the kernel's
-// opt-in (K8's table is 36 KB, the ring's slots 12 KB each), for the most
-// any launch asks, 5 slots.  The attribute holds for the current device
-// only, so it is set at every launch (a host call, as in kabl.cu).
-template <auto kKernel>
-cudaError_t allow_ring() {
-  return cudaFuncSetAttribute(kKernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)oscen_stage::ring_bytes(5));
-}
+// opt-in (K8's table is 36 KB, the ring's slots 12 KB each): the most any
+// launch here asks, 5 slots.
+constexpr int kMaxSlots = 5;
 
 }  // namespace
 
@@ -615,7 +569,7 @@ int oscen_tpt_svf_scan(const float* x, const float* h, const float* g,
   switch (form) {
 #define OSCEN_TPT_CASE(n, a, b, c)                                           \
   case n:                                                                    \
-    err = allow_ring<tpt_svf_kernel<a, b, c>>();                           \
+    err = oscen_stage::allow_ring<tpt_svf_kernel<a, b, c>>(kMaxSlots);     \
     if (err != cudaSuccess) return (int)err;                                 \
     tpt_svf_kernel<a, b, c><<<grid, oscen_stage::kBlock, bytes, st>>>(                  \
         x, h, g, k, z0, z1, y, z0_out, z1_out, V, B);                        \
@@ -651,7 +605,7 @@ int oscen_lp18_scan(const float* x, const float* g, const float* h,
   switch (form) {
 #define OSCEN_LP18_CASE(n, a, b)                                             \
   case n:                                                                    \
-    err = allow_ring<lp18_kernel<a, b>>();                                 \
+    err = oscen_stage::allow_ring<lp18_kernel<a, b>>(kMaxSlots);           \
     if (err != cudaSuccess) return (int)err;                                 \
     lp18_kernel<a, b><<<grid, oscen_stage::kBlock, bytes, st>>>(              \
         x, g, h, z, y, z_out, V, B);                                         \
@@ -711,30 +665,14 @@ int oscen_biquad_scan(const float* x, const float* b0, const float* b1,
 }
 
 // x [B, V]; a, xp, yp [S, V] (stage-major) -> y [B, V], xp', yp' [S, V];
-// 1 <= S <= 8.
+// 1 <= S <= 8.  y is staged and written back by the producer.
 int oscen_allpass_cascade_scan(const float* x, const float* a,
                                const float* xp, const float* yp, float* y,
                                float* xp_out, float* yp_out, int V, int B,
                                int S, void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (S) {
-#define OSCEN_ALLPASS_CASE(n)                                             \
-  case n:                                                                 \
-    launch_allpass<n>(x, a, xp, yp, y, xp_out, yp_out, V, B, st);         \
-    break;
-    OSCEN_ALLPASS_CASE(1)
-    OSCEN_ALLPASS_CASE(2)
-    OSCEN_ALLPASS_CASE(3)
-    OSCEN_ALLPASS_CASE(4)
-    OSCEN_ALLPASS_CASE(5)
-    OSCEN_ALLPASS_CASE(6)
-    OSCEN_ALLPASS_CASE(7)
-    OSCEN_ALLPASS_CASE(8)
-#undef OSCEN_ALLPASS_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)oscen_allpass::launch_any<true>(
+      S, x, a, xp, yp, y, xp_out, yp_out, V, B, (cudaStream_t)stream);
 }
 
 const char* oscen_cuda_error_string(int code) {

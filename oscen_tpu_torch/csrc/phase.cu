@@ -92,41 +92,9 @@ struct PhaseBody {
   }
 };
 
-// The producer's write-back of chunk k's staged `before` values: the
-// same element pattern as its copies in.
-__device__ __forceinline__ void write_back(const oscen_stage::Producer<1>& pr,
-                                           const float* out_slot,
-                                           float* before, int k) {
-  const int t0 = k * kChunk;
-  const float* src = out_slot + (k % kStages) * kChunk * kLanes;
-  if (pr.vec16) {
-    const int row = pr.lane / 8, col = (pr.lane % 8) * 4;
-#pragma unroll
-    for (int m = 0; m < kChunk / 4; ++m) {
-      const int t = row + 4 * m;
-      if (t0 + t < pr.B)
-        *reinterpret_cast<float4*>(before + (size_t)(t0 + t) * pr.V + pr.l0 +
-                                   col) =
-            *reinterpret_cast<const float4*>(src + t * kLanes + col);
-    }
-  } else {
-    int t = pr.t_first, j = pr.j_first;
-    for (int m = 0; m < pr.W; ++m) {
-      if (t0 + t < pr.B)
-        before[(size_t)(t0 + t) * pr.V + pr.l0 + j] = src[t * kLanes + j];
-      t += pr.dt;
-      j += pr.dj;
-      if (j >= pr.W) {
-        j -= pr.W;
-        ++t;
-      }
-    }
-  }
-}
-
 // kStaged: the chain warp stores `before` into a second shared slot and
-// the producer writes it back once the chunk is done (every chunk hands
-// its EMPTY barrier over, the last kStages after the copies in).
+// the producer writes it back once the chunk is done
+// (Producer::run_staged).
 template <bool kStaged>
 __global__ void __launch_bounds__(oscen_stage::kBlock)
 phase_ring_kernel(const float* __restrict__ phase0,
@@ -140,29 +108,10 @@ phase_ring_kernel(const float* __restrict__ phase0,
     const float* planes[1] = {dt};
     oscen_stage::Producer<1> prod;
     prod.init(smem, planes, 1, V, B, l0);
-    if constexpr (!kStaged) {
+    if constexpr (kStaged)
+      prod.run_staged(chunks, out_slot, before, 0);
+    else
       prod.run(chunks, [](int) {});
-    } else {
-      for (int k = 0; k < chunks; ++k) {
-        if (k >= kStages) {
-          oscen_stage::bar_sync(oscen_stage::empty_id(k));
-          write_back(prod, out_slot, before, k - kStages);
-        }
-        prod.issue(k);
-        if (k >= 1) {
-          oscen_stage::wait_groups<1>();
-          __syncwarp();
-          oscen_stage::bar_arrive(oscen_stage::full_id(k - 1));
-        }
-      }
-      oscen_stage::wait_groups<0>();
-      __syncwarp();
-      oscen_stage::bar_arrive(oscen_stage::full_id(chunks - 1));
-      for (int k = max(0, chunks - kStages); k < chunks; ++k) {
-        oscen_stage::bar_sync(oscen_stage::empty_id(k));
-        write_back(prod, out_slot, before, k);
-      }
-    }
     return;
   }
   const int v = l0 + threadIdx.x;

@@ -31,6 +31,20 @@
 //
 // Every thread of the chain warp, live lane or not, reaches every barrier,
 // so a kernel that uses the ring must not return early for lanes >= V.
+//
+// Outputs: the chain warp stores them itself (full 32-lane rows), or, for
+// fewer lanes, into a second shared slot that the producer writes back
+// once the chunk is handed over (Producer::run_staged), so that the chain
+// warp's stream holds no global stores.
+//
+// Skewed bodies (K10's stages, the FM chains' operators) run D pipeline
+// stages D - 1 samples apart: iteration k runs stage r on sample k - r, so
+// the D updates of one iteration are independent.  Iteration k still reads
+// the staged inputs of sample k; its first D - 1 iterations fill the
+// pipeline (run_chunk's kFill: body.fill, masks known at compile time in a
+// full chunk), the last D - 1 drain it after the last chunk (the body's
+// own drain, no inputs), and its outputs lag D - 1 samples (the producer's
+// write-back takes that shift).
 
 #pragma once
 
@@ -89,6 +103,16 @@ inline size_t ring_bytes(int slots) {
   return (size_t)slots * kSlotFloats * sizeof(float);
 }
 
+// Dynamic shared memory above 48 KB (static included) needs the kernel's
+// opt-in, here for `slots` slots (12 KB each).  The attribute holds for the
+// current device only, so a launch sets it every time (a host call).
+template <auto kKernel>
+cudaError_t allow_ring(int slots) {
+  return cudaFuncSetAttribute(kKernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)ring_bytes(slots));
+}
+
 // The chain warp's side: wait for chunk k's stage; hand it back when done
 // (the producer waits only for the stages it will refill).
 __device__ __forceinline__ void chunk_ready(int k) { bar_sync(full_id(k)); }
@@ -99,7 +123,7 @@ __device__ __forceinline__ void chunk_done(int k, int chunks) {
 
 // The producer warp's side: up to kMaxPlanes [B, V] planes, each staged
 // into its own slot of kSlotFloats floats ([kStages][kChunk][kLanes]) of
-// `smem`; lane = threadIdx.x - kLanes.
+// `smem`; lane = threadIdx.x % kLanes.
 template <int kMaxPlanes>
 struct Producer {
   const float* src[kMaxPlanes];
@@ -117,7 +141,7 @@ struct Producer {
     B = B_;
     l0 = l0_;
     W = min(kLanes, V - l0);
-    lane = threadIdx.x - kLanes;
+    lane = threadIdx.x % kLanes;
 #pragma unroll
     for (int p = 0; p < kMaxPlanes; ++p)
       src[p] = p < n_planes ? planes_src[p] : nullptr;
@@ -198,6 +222,67 @@ struct Producer {
     landed(chunks - 1);
     bar_arrive(full_id(chunks - 1));
   }
+
+  // Write chunk k's staged outputs back from `out` (a slot, [kStages]
+  // [kChunk][kLanes]) to dst [., V]: the output of step t of the chunk goes
+  // to row k * kChunk + t - shift, for the steps t0 + t < B whose row is
+  // >= 0 (a skewed body's outputs lag `shift` steps).  The element pattern
+  // of the copies in.
+  __device__ void write_back(const float* out, float* dst, int k,
+                             int shift) const {
+    const int t0 = k * kChunk;
+    const float* from = out + (k % kStages) * kChunk * kLanes;
+    if (vec16) {
+      const int row = lane / 8, col = (lane % 8) * 4;
+#pragma unroll
+      for (int m = 0; m < kChunk / 4; ++m) {
+        const int t = row + 4 * m;
+        if (t0 + t < B && t0 + t >= shift)
+          *reinterpret_cast<float4*>(dst + (size_t)(t0 + t - shift) * V +
+                                     l0 + col) =
+              *reinterpret_cast<const float4*>(from + t * kLanes + col);
+      }
+    } else {
+      int t = t_first, j = j_first;
+      for (int m = 0; m < W; ++m) {
+        if (t0 + t < B && t0 + t >= shift)
+          dst[(size_t)(t0 + t - shift) * V + l0 + j] = from[t * kLanes + j];
+        t += dt;
+        j += dj;
+        if (j >= W) {
+          j -= W;
+          ++t;
+        }
+      }
+    }
+  }
+
+  // run() for a chain warp that stages its outputs in `out`: it hands
+  // every chunk's stage back (bar_arrive(empty_id(c)) for every c), and the
+  // producer writes each chunk back before refilling its stage, the last
+  // kStages after the copies in.
+  __device__ void run_staged(int chunks, const float* out, float* dst,
+                             int shift) {
+    for (int k = 0; k < chunks; ++k) {
+      if (k >= kStages) {
+        bar_sync(empty_id(k));
+        write_back(out, dst, k - kStages, shift);
+      }
+      issue(k);
+      if (k >= 1) {
+        wait_groups<1>();
+        __syncwarp();
+        bar_arrive(full_id(k - 1));
+      }
+    }
+    wait_groups<0>();
+    __syncwarp();
+    bar_arrive(full_id(chunks - 1));
+    for (int k = max(0, chunks - kStages); k < chunks; ++k) {
+      bar_sync(empty_id(k));
+      write_back(out, dst, k, shift);
+    }
+  }
 };
 
 // The chain warp's loop over one staged chunk.  kP planes are staged
@@ -206,6 +291,10 @@ struct Producer {
 // that were loaded from shared memory a group of kGroup steps ahead
 // (double-buffered), so no load waits inside the chain; `body.step(in,
 // t)` runs step t of the chunk on the staged inputs in[0 .. kP - 1].
+// With kFill > 0 and `first` (the block's first chunk), steps t < kFill
+// run `body.fill(in, t)` instead: a skewed body's pipeline filling.  In a
+// full chunk they lie in the first group, which is peeled, so t is a
+// constant there and the fill's masks fold away.
 constexpr int kGroup = 8;
 
 template <int kP>
@@ -218,14 +307,37 @@ __device__ __forceinline__ void load_group(float (&dst)[kP][kGroup],
     for (int j = 0; j < kGroup; ++j) dst[p][j] = src[p][(t0 + j) * kLanes];
 }
 
-template <int kP, class Body>
+template <int kP, int kFill = 0, class Body>
 __device__ __forceinline__ void run_chunk(const float* const (&src)[kP],
-                                          int n, Body& body) {
+                                          int n, Body& body,
+                                          bool first = false) {
+  static_assert(kFill < kGroup, "the fill lies in the first group");
   if (n == kChunk) {
     float cur[kP][kGroup], nxt[kP][kGroup];
     load_group<kP>(cur, src, 0);
+    int t0 = 0;
+    if constexpr (kFill > 0) {
+      if (first) {   // the first group, peeled: fill steps, then steps
+        load_group<kP>(nxt, src, kGroup);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          float in[kP];
+#pragma unroll
+          for (int p = 0; p < kP; ++p) in[p] = cur[p][j];
+          if (j < kFill)
+            body.fill(in, j);
+          else
+            body.step(in, j);
+        }
+#pragma unroll
+        for (int p = 0; p < kP; ++p)
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) cur[p][j] = nxt[p][j];
+        t0 = kGroup;
+      }
+    }
 #pragma unroll 1
-    for (int t0 = 0; t0 < kChunk; t0 += kGroup) {
+    for (; t0 < kChunk; t0 += kGroup) {
       // the next group (the first again after the last: a harmless read)
       load_group<kP>(nxt, src, (t0 + kGroup) % kChunk);
 #pragma unroll
@@ -240,11 +352,17 @@ __device__ __forceinline__ void run_chunk(const float* const (&src)[kP],
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) cur[p][j] = nxt[p][j];
     }
-  } else {   // the ragged last chunk
+  } else {   // the ragged last chunk (or the only one)
     for (int t = 0; t < n; ++t) {
       float in[kP];
 #pragma unroll
       for (int p = 0; p < kP; ++p) in[p] = src[p][t * kLanes];
+      if constexpr (kFill > 0) {
+        if (first && t < kFill) {
+          body.fill(in, t);
+          continue;
+        }
+      }
       body.step(in, t);
     }
   }

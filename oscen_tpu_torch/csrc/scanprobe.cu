@@ -14,11 +14,22 @@
 // tanh by the identity, DIV 0 the IEEE division by a product with the
 // hoisted reciprocal of the first row (rows only).
 // lat_kernel: clock64() around 4096 dependent steps of each op kind.
+// probe_allpass: K10's shipped kernel (allpass.cuh) with y staged through
+// the producer or stored by the chain warp, at any lane count.
+// probe_chain: K13 / K15 as one warp per 32 lanes running all three
+// operators (fm.cu gives each operator its own warp): (1) skewed by a
+// sample (op3 on sample i, op2 on i - 1, op1 on i - 2) with the inputs
+// loaded from global memory inside the loop, (2) in tick order on the
+// staged ring, (6) skewed by a sample on the ring, and what one
+// operator's chain costs: (3) op3 alone on the ring, (4) (6) with the sine
+// unrounded, (5) (6) without the phase wraps; with copies of fm.cu's sine
+// and wrap (fm.cu keeps the only shipped copy).
 //
 // Built like the other sources (--fmad=false); variants by number, as
 // tools/scanprobe.py names them.
 #include <cuda_runtime.h>
 
+#include "allpass.cuh"
 #include "scan_stage.cuh"
 
 namespace {
@@ -151,6 +162,297 @@ lp18_probe(const float* __restrict__ x, const float* __restrict__ g,
 
 }  // namespace
 
+// ---- K13 / K15 probes ------------------------------------------------
+namespace probe_fm {
+
+using oscen_stage::kChunk;
+using oscen_stage::kLanes;
+
+constexpr float kC0 = 0x1.921dfep+2f;
+constexpr float kC1 = -0x1.4aa97ap+5f;
+constexpr float kC2 = 0x1.45912ep+6f;
+constexpr float kC3 = -0x1.2a8046p+6f;
+constexpr float kC4 = 0x1.08897cp+5f;
+
+// kRound false: the sine without its rounding (w = x; probe only)
+template <bool kRound = true>
+__device__ __forceinline__ float sin_turns(float x) {
+  const float w = kRound ? x - rintf(x) : x;
+  const float u = w * w;
+  float acc = u * kC4;
+  acc = acc + kC3;
+  acc = acc * u + kC2;
+  acc = acc * u + kC1;
+  acc = acc * u + kC0;
+  return acc * w;
+}
+
+// kWrap false: no wrap (probe only)
+template <bool kWrap = true>
+__device__ __forceinline__ float fract_step(float p, float dt) {
+  p = p + dt;
+  return kWrap ? p - truncf(p) : p;
+}
+
+// the state both bodies carry
+template <bool kPivot, bool kDtP>
+struct ChainState {
+  static constexpr int kP = kDtP ? 6 : 3;
+  float ph3, ph2, ph1, p3, p2, p1, fb3, fb2, fb1, m, om, d3, d2, d1;
+  float e2_1, e1_1, e1_2, d2_1, d1_1, d1_2, a, b, pm1;
+  float* y;
+  int row0;
+  int V;
+};
+
+// the old tick order: op3 -> op2 -> op1 within the sample
+template <bool kPivot, bool kDtP>
+struct TickBody : ChainState<kPivot, kDtP> {
+  using ChainState<kPivot, kDtP>::kP;
+  __device__ __forceinline__ void step(const float (&in)[kP], int t) {
+    auto& q = *this;
+    const float s3 = sin_turns(q.ph3 + q.p3 * q.fb3);
+    const float a3 = s3 * in[0];
+    const float a = a3 * q.om, b = a3 * q.m;
+    q.p3 = kPivot ? s3 : a3;
+    q.ph3 = fract_step(q.ph3, kDtP ? in[kP - 3] : q.d3);
+    const float s2 = sin_turns((q.ph2 + a) + q.p2 * q.fb2);
+    const float a2 = s2 * in[1];
+    const float pm1 = a2 + b;
+    q.p2 = kPivot ? s2 : a2;
+    q.ph2 = fract_step(q.ph2, kDtP ? in[kP - 2] : q.d2);
+    const float s1 = sin_turns((q.ph1 + pm1) + q.p1 * q.fb1);
+    const float y1 = s1 * in[2];
+    q.p1 = kPivot ? s1 : y1;
+    q.ph1 = fract_step(q.ph1, kDtP ? in[kP - 1] : q.d1);
+    q.y[(ptrdiff_t)(q.row0 + t) * q.V] = y1;
+  }
+};
+
+// the operators skewed by a sample in one warp (op3 on sample i, op2 on
+// i - 1, op1 on i - 2, the route carried in registers); kMode 0 exact, 1
+// op3 alone (one operator's chain), 2 the sine without its rounding, 3 no
+// phase wraps
+template <bool kPivot, bool kDtP, int kMode = 0>
+struct SkewBody : ChainState<kPivot, kDtP> {
+  using ChainState<kPivot, kDtP>::kP;
+  static constexpr bool kR = kMode != 2, kW = kMode != 3;
+  __device__ __forceinline__ float op1(float e1, float dt1) {
+    if constexpr (kMode == 1) return this->a;
+    const float s1 =
+        sin_turns<kR>((this->ph1 + this->pm1) + this->p1 * this->fb1);
+    const float y1 = s1 * e1;
+    this->p1 = kPivot ? s1 : y1;
+    this->ph1 = fract_step<kW>(this->ph1, dt1);
+    return y1;
+  }
+  __device__ __forceinline__ void op2(float e2, float dt2) {
+    if constexpr (kMode == 1) return;
+    const float s2 =
+        sin_turns<kR>((this->ph2 + this->a) + this->p2 * this->fb2);
+    const float a2 = s2 * e2;
+    this->pm1 = a2 + this->b;
+    this->p2 = kPivot ? s2 : a2;
+    this->ph2 = fract_step<kW>(this->ph2, dt2);
+  }
+  __device__ __forceinline__ void op3(float e3, float dt3) {
+    const float s3 = sin_turns<kR>(this->ph3 + this->p3 * this->fb3);
+    const float a3 = s3 * e3;
+    this->a = a3 * this->om;
+    this->b = a3 * this->m;
+    this->p3 = kPivot ? s3 : a3;
+    this->ph3 = fract_step<kW>(this->ph3, dt3);
+  }
+  __device__ __forceinline__ void shift(const float (&in)[kP]) {
+    this->e1_2 = this->e1_1;
+    this->e1_1 = in[2];
+    this->e2_1 = in[1];
+    if constexpr (kDtP) {
+      this->d1_2 = this->d1_1;
+      this->d1_1 = in[5];
+      this->d2_1 = in[4];
+    }
+  }
+  __device__ __forceinline__ float dt1() const {
+    return kDtP ? this->d1_2 : this->d1;
+  }
+  __device__ __forceinline__ float dt2() const {
+    return kDtP ? this->d2_1 : this->d2;
+  }
+  __device__ __forceinline__ void step(const float (&in)[kP], int t) {
+    this->y[(ptrdiff_t)(this->row0 + t) * this->V] = op1(this->e1_2, dt1());
+    op2(this->e2_1, dt2());
+    op3(in[0], kDtP ? in[kP - 3] : this->d3);
+    shift(in);
+  }
+  __device__ __forceinline__ void fill(const float (&in)[kP], int k) {
+    if (k >= 1) op2(this->e2_1, dt2());
+    op3(in[0], kDtP ? in[kP - 3] : this->d3);
+    shift(in);
+  }
+  __device__ __forceinline__ void drain(int j, int B) {
+    if (B + j >= 2)
+      this->y[(ptrdiff_t)(B + j - 2) * this->V] = op1(this->e1_2, dt1());
+    if (j == 0) op2(this->e2_1, dt2());
+    this->e1_2 = this->e1_1;
+    if constexpr (kDtP) this->d1_2 = this->d1_1;
+  }
+};
+
+template <bool kDtP, class Body>
+__device__ __forceinline__ void init(Body& q, const float* phases,
+                                     const float* prevs, const float* dt,
+                                     const float* fb, const float* mix,
+                                     float* y, int V, int v) {
+  q.y = y + v;
+  q.V = V;
+  q.ph3 = phases[v];
+  q.ph2 = phases[V + v];
+  q.ph1 = phases[2 * V + v];
+  q.p3 = prevs[v];
+  q.p2 = prevs[V + v];
+  q.p1 = prevs[2 * V + v];
+  q.fb3 = fb[v];
+  q.fb2 = fb[V + v];
+  q.fb1 = fb[2 * V + v];
+  q.m = mix[v];
+  q.om = 1.0f - q.m;
+  if constexpr (!kDtP) {
+    q.d3 = dt[v];
+    q.d2 = dt[V + v];
+    q.d1 = dt[2 * V + v];
+  }
+}
+
+template <class Body>
+__device__ __forceinline__ void finish(const Body& q, float* ph_out,
+                                       float* pv_out, int V, int v) {
+  ph_out[v] = q.ph3;
+  ph_out[V + v] = q.ph2;
+  ph_out[2 * V + v] = q.ph1;
+  pv_out[v] = q.p3;
+  pv_out[V + v] = q.p2;
+  pv_out[2 * V + v] = q.p1;
+}
+
+#define OSCEN_CHAIN_ARGS                                                     \
+  const float *__restrict__ phases, const float *__restrict__ prevs,        \
+      const float *__restrict__ dt, const float *__restrict__ fb,           \
+      const float *__restrict__ mix, const float *__restrict__ e3,          \
+      const float *__restrict__ e2, const float *__restrict__ e1,           \
+      float *__restrict__ y, float *__restrict__ ph_out,                    \
+      float *__restrict__ pv_out, int V, int B
+
+// (1) the skewed body, its inputs loaded from global memory in the loop
+template <bool kPivot, bool kDtP>
+__global__ void __launch_bounds__(32) chain_global(OSCEN_CHAIN_ARGS) {
+  using Body = SkewBody<kPivot, kDtP>;
+  constexpr int kP = Body::kP;
+  const int v = blockIdx.x * 32 + threadIdx.x;
+  if (v >= V) return;
+  Body q{};
+  init<kDtP>(q, phases, prevs, dt, fb, mix, y, V, v);
+  q.row0 = -2;
+  const size_t plane = (size_t)B * V;
+  const float* src[6] = {e3 + v, e2 + v, e1 + v, dt + v, dt + plane + v,
+                         dt + 2 * plane + v};
+#pragma unroll 4
+  for (int t = 0; t < B; ++t) {
+    float in[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) in[p] = src[p][(size_t)t * V];
+    if (t < 2)
+      q.fill(in, t);
+    else
+      q.step(in, t);
+  }
+  q.drain(0, B);
+  q.drain(1, B);
+  finish(q, ph_out, pv_out, V, v);
+}
+
+// (2) the ring with the tick-order body (kFill 0), (3-6) with a skewed
+// body (kFill 2)
+template <class Body, int kFill>
+__global__ void __launch_bounds__(oscen_stage::kBlock)
+chain_ring(OSCEN_CHAIN_ARGS) {
+  constexpr int kP = Body::kP;
+  constexpr bool kDtP = kP == 6;
+  extern __shared__ __align__(16) float smem[];
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {
+    const size_t plane = (size_t)B * V;
+    const float* planes[6] = {e3, e2, e1, dt, dt + plane, dt + 2 * plane};
+    oscen_stage::Producer<kP> prod;
+    prod.init(smem, planes, kP, V, B, l0);
+    prod.run(chunks, [](int) {});
+    return;
+  }
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;
+  Body q{};
+  if (live) init<kDtP>(q, phases, prevs, dt, fb, mix, y, V, v);
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[kP];
+      oscen_stage::stage_ptrs<kP>(smem, c, src);
+      q.row0 = c * kChunk - kFill;
+      oscen_stage::run_chunk<kP, kFill>(src, min(kChunk, B - c * kChunk), q,
+                                        c == 0);
+    }
+    oscen_stage::chunk_done(c, chunks);
+  }
+  if (live) {
+    if constexpr (kFill > 0) {
+      q.drain(0, B);
+      q.drain(1, B);
+    }
+    finish(q, ph_out, pv_out, V, v);
+  }
+}
+
+template <class Body, int kFill>
+cudaError_t launch_ring(OSCEN_CHAIN_ARGS, cudaStream_t st) {
+  constexpr int kP = Body::kP;
+  const cudaError_t err = oscen_stage::allow_ring<chain_ring<Body, kFill>>(kP);
+  if (err != cudaSuccess) return err;
+  chain_ring<Body, kFill><<<(V + kLanes - 1) / kLanes, oscen_stage::kBlock,
+                            oscen_stage::ring_bytes(kP), st>>>(
+      phases, prevs, dt, fb, mix, e3, e2, e1, y, ph_out, pv_out, V, B);
+  return cudaGetLastError();
+}
+
+template <bool kPivot, bool kDtP>
+cudaError_t launch_probe(int variant, OSCEN_CHAIN_ARGS, cudaStream_t st) {
+#define R(Body, kFill)                                                      \
+  launch_ring<Body, kFill>(phases, prevs, dt, fb, mix, e3, e2, e1, y,      \
+                           ph_out, pv_out, V, B, st)
+  using Tick = TickBody<kPivot, kDtP>;
+  using Op3 = SkewBody<kPivot, kDtP, 1>;
+  using NoRound = SkewBody<kPivot, kDtP, 2>;
+  using NoWrap = SkewBody<kPivot, kDtP, 3>;
+  using Skew = SkewBody<kPivot, kDtP, 0>;
+  switch (variant) {
+    case 1:
+      chain_global<kPivot, kDtP><<<(V + 31) / 32, 32, 0, st>>>(
+          phases, prevs, dt, fb, mix, e3, e2, e1, y, ph_out, pv_out, V, B);
+      return cudaGetLastError();
+    case 2: return R(Tick, 0);
+    case 3: return R(Op3, 2);
+    case 4: return R(NoRound, 2);
+    case 5: return R(NoWrap, 2);
+    case 6: return R(Skew, 2);
+    default: return cudaErrorInvalidValue;
+  }
+#undef R
+}
+
+#undef OSCEN_CHAIN_ARGS
+
+}  // namespace probe_fm
+
 extern "C" {
 
 int probe_phase(int variant, const float* phase0, const float* dt,
@@ -212,6 +514,39 @@ int probe_lp18(int variant, const float* x, const float* g, const float* h,
   }
 #undef L
   return (int)cudaGetLastError();
+}
+
+// K10's shipped kernel with y staged (staged = 1) or stored by the chain
+// warp (0), whatever V.
+int probe_allpass(int staged, const float* x, const float* a,
+                  const float* xp, const float* yp, float* y, float* xp_out,
+                  float* yp_out, int V, int B, int S, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(staged ? oscen_allpass::launch_any<true>(
+                            S, x, a, xp, yp, y, xp_out, yp_out, V, B, st)
+                      : oscen_allpass::launch_any<false>(
+                            S, x, a, xp, yp, y, xp_out, yp_out, V, B, st));
+}
+
+// K13 (pivot 0) / K15 (pivot 1) as one warp per 32 lanes: variant 1
+// skewed by a sample, inputs from global memory; 2 tick order on the
+// ring; 6 skewed by a sample on the ring; 3 op3 alone, 4 (6) with the
+// sine unrounded, 5 (6) without the wraps (3-5 compute other numbers);
+// the arguments of oscen_pivot_chain3_scan.
+int probe_chain(int variant, int pivot, const float* phases,
+                const float* prevs, const float* dt, const float* fb,
+                const float* mix, const float* e3, const float* e2,
+                const float* e1, float* y, float* ph_out, float* pv_out,
+                int V, int B, int dt_stride, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool dtp = dt_stride != 0;
+#define L(P, D)                                                             \
+  probe_fm::launch_probe<P, D>(variant, phases, prevs, dt, fb, mix, e3, e2, \
+                               e1, y, ph_out, pv_out, V, B, st)
+  const cudaError_t err = pivot ? (dtp ? L(true, true) : L(true, false))
+                                : (dtp ? L(false, true) : L(false, false));
+#undef L
+  return (int)err;
 }
 
 }  // extern "C"

@@ -21,19 +21,34 @@ Three parts, one line per row:
   K1 (v4 with the mix) at 1, 2 and 4 time segments per voice (1: the
   register reduce-scatter alone), each first checked equal to the shipped
   body;
+  K10 (``allpass_cascade_scan``, S = 2) with y staged through the producer
+  and stored by the chain warp, at V=2 (B=1024, 2048) and V=256 (B=1024);
+  K15 and K13 at V=256, B=1024 and 4096, dt as rows and per sample, as
+  one warp per 32 lanes: the operators skewed by a sample with their
+  inputs loaded inside the loop (the skew alone), in tick order on the
+  staged ring (the ring alone), skewed by a sample on the ring (both),
+  and op3 alone, the sine unrounded or the wraps left out (what one
+  operator's chain and its FRNDs cost); beside the shipped kernel (a warp
+  per operator, skewed by a chunk, on the ring), the exact ones first
+  checked equal to the plain version; the LDL / STL count of every
+  shipped ``chain3_kernel`` and ``allpass_kernel`` instance (built
+  ``--fmad=false``) and their registers;
 - ``ab`` (with ``--old DIR``, a tree of the parent commit, e.g. unpacked
-  by ``git archive``): that tree's ``csrc/iir.cu``, ``csrc/phase.cu`` and
-  ``csrc/additive.cu`` and the package's own, built alike, timed in turns
-  (old, new, new, old) per window at the main paths' shapes: K7 V=256 at
-  B=1024 and 4096 (row and per-sample coefficients) and V=1; K8 V=2 and 1,
-  rows and a sweep; K6 V=256 at 1024 and 4096 steps and V=1 at 4096 and
-  16384 (the 4x saturator's lane at B=1024 and 4096); K1 v4 V=256 with
-  the mix at B=1024 and 4096 and without it at 1024.  Each row first
-  checks that the new outputs equal the old build's on the same inputs
-  (``torch.equal``, every output) and the plain version (the scans
-  ``torch.equal``; K1's state planes ``torch.equal``, y within the
-  kernel's bound), and only then times.  The old ``additive.cu``'s local
-  memory (LDL / STL in its SASS) is counted beside the new one's.
+  by ``git archive``): that tree's ``csrc/iir.cu``, ``csrc/phase.cu``,
+  ``csrc/additive.cu`` and ``csrc/fm.cu`` and the package's own, built
+  alike, timed in turns (old, new, new, old) per window at the main paths'
+  shapes: K7 V=256 at B=1024 and 4096 (row and per-sample coefficients)
+  and V=1; K8 V=2 and 1, rows and a sweep; K6 V=256 at 1024 and 4096 steps
+  and V=1 at 4096 and 16384 (the 4x saturator's lane at B=1024 and 4096);
+  K1 v4 V=256 with the mix at B=1024 and 4096 and without it at 1024; K10
+  V=2 over 2048, 1024, 8192 and 4096 steps (the 4x IIR saturator's two
+  halfband stages at B=1024 and 4096); K15 and K13 V=256 at B=1024 and
+  4096, dt as rows and per sample.  Each row first checks that the new
+  outputs equal the old build's on the same inputs (``torch.equal``, every
+  output) and the plain version (the scans ``torch.equal``; K1's state
+  planes ``torch.equal``, y within the kernel's bound), and only then
+  times.  The old ``additive.cu``'s local memory (LDL / STL in its SASS)
+  is counted beside the new one's.
 
 Times are device µs per launch from CUDA events around 20 back-to-back
 launches queued behind a ~1 ms sleep kernel (so the host's enqueueing
@@ -56,6 +71,7 @@ import torch
 from . import card, chain_floor_us, sass_counts, sm_clock_mhz
 from ..ops.cuda import additive as add
 from ..ops.cuda import build, iir
+from ..ops.cuda import fm as kfm
 from ..ops.cuda import phase as kphase
 
 WINDOWS = 5
@@ -76,6 +92,19 @@ LAT = ("FMUL+FADD", "DFMA", "F2F+DADD+F2F", "LDS", "DMUL", "FADD+div",
 PHASE_SHAPES = ((256, 1024), (256, 4096), (1, 4096), (1, 16384))
 # K1's: the piano's 256 voices (with the mix, and without at 1024)
 ADD_SHAPES = ((1024, True), (4096, True), (1024, False))
+# K10's: the 4x IIR saturator's two lanes over 2B and B steps per block
+ALLPASS_AB = ((2, 2048), (2, 1024), (2, 8192), (2, 4096))
+ALLPASS_PROBE = ((2, 1024), (2, 2048), (256, 1024))
+# K13 / K15: 256 voices, dt as rows or per sample (a note-on block)
+CHAIN_SHAPES = tuple((B, ps) for B in (1024, 4096) for ps in (False, True))
+# probe_chain's variants: (name, computes the kernel's numbers)
+CHAIN_PROBES = {1: ("one warp, skewed by a sample, inputs from global",
+                    True),
+                2: ("one warp in tick order on the ring", True),
+                6: ("one warp, skewed by a sample, on the ring", True),
+                3: ("op3 alone, one warp on the ring", False),
+                4: ("(6) with the sine unrounded", False),
+                5: ("(6) without the phase wraps", False)}
 
 
 def event_us(fn) -> float:
@@ -106,19 +135,30 @@ def _probe_lib():
     _typed(lib.probe_tpt, [I] + [P] * 9 + [I] * 5 + [P])
     _typed(lib.probe_lp18, [I] + [P] * 6 + [I] * 4 + [P])
     _typed(lib.probe_lat, [P, P, I])
+    _typed(lib.probe_allpass, [I] + [P] * 7 + [I] * 3 + [P])
+    _typed(lib.probe_chain, [I, I] + [P] * 11 + [I] * 3 + [P])
     return lib
 
 
 def _entries(csrc: Path):
-    """The C entry points of one tree's sources, typed: (K7, K8, K6, K1)."""
+    """The C entry points of one tree's sources, typed: K7, K8, K6, K1, K10,
+    K13 and K15 by name."""
     lib = build.load_library("iir", csrc)
-    tpt = _typed(lib.oscen_tpt_svf_scan, [P] * 9 + [I] * 5 + [P])
-    lp18 = _typed(lib.oscen_lp18_scan, [P] * 6 + [I] * 4 + [P])
-    ph = _typed(build.load_library("phase", csrc).oscen_phase_scan,
-                [P] * 4 + [I] * 2 + [P])
-    k1 = _typed(build.load_library("additive", csrc).oscen_additive_v4,
-                [P] * 17 + [I] * 5 + [P])
-    return tpt, lp18, ph, k1
+    fm = build.load_library("fm", csrc)
+    return {
+        "tpt_svf_scan": _typed(lib.oscen_tpt_svf_scan, [P] * 9 + [I] * 5 + [P]),
+        "lp18_scan": _typed(lib.oscen_lp18_scan, [P] * 6 + [I] * 4 + [P]),
+        "phase_scan": _typed(build.load_library("phase", csrc)
+                             .oscen_phase_scan, [P] * 4 + [I] * 2 + [P]),
+        "additive_v4": _typed(build.load_library("additive", csrc)
+                              .oscen_additive_v4, [P] * 17 + [I] * 5 + [P]),
+        "allpass_cascade_scan": _typed(lib.oscen_allpass_cascade_scan,
+                                       [P] * 7 + [I] * 3 + [P]),
+        "fm_chain3_scan": _typed(fm.oscen_fm_chain3_scan,
+                                 [P] * 11 + [I] * 3 + [P]),
+        "pivot_chain3_scan": _typed(fm.oscen_pivot_chain3_scan,
+                                    [P] * 11 + [I] * 3 + [P]),
+    }
 
 
 def _check(rc, what):
@@ -251,6 +291,116 @@ def _additive_ok(got, planes, step, B, with_mix):
             and _same(got[1:], ref[1:]))
 
 
+def _allpass_inputs(dev, V, B, seed):
+    """The IIR saturator's operands: both halfband branches' betas as
+    lanes (S = 2), noise in, histories in [-1, 1)."""
+    from ..ops.resample import BRANCH_A_BETAS, BRANCH_B_BETAS
+    rng = np.random.default_rng(seed)
+    betas = np.array([BRANCH_A_BETAS, BRANCH_B_BETAS], np.float32).T
+    return [torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+            for a in (rng.standard_normal((B, V)), np.tile(betas, (1, V))[:, :V],
+                      rng.uniform(-1, 1, (2, V)), rng.uniform(-1, 1, (2, V)))]
+
+
+def _allpass_launcher(fn, ops, head=()):
+    """fn(*head, x, a, xp, yp, y, xp', yp', V, B, S, stream) on
+    preallocated outputs."""
+    x, a = ops[0], ops[1]
+    B, V = x.shape
+    outs = (torch.empty_like(x), torch.empty_like(ops[2]),
+            torch.empty_like(ops[3]))
+
+    def run():
+        _check(fn(*head, *[t.data_ptr() for t in ops],
+                  *[t.data_ptr() for t in outs], V, B, a.shape[0],
+                  torch.cuda.current_stream().cuda_stream),
+               "allpass_cascade_scan")
+        return outs
+    return run
+
+
+def _chain_inputs(dev, V, B, per_sample, seed):
+    """The chains' operands after the carries (phases, prevs): dt per
+    sample (the pitch steps a third of the way in) or as rows, feedback on
+    every operator, level-folded envelopes; and lvl (ones) for the plain
+    versions."""
+    rng = np.random.default_rng(seed)
+    freq = np.broadcast_to(rng.uniform(100, 1000, V), (B, V)).copy()
+    if per_sample:
+        freq[B // 3:, ::2] *= 1.5
+    dt = np.stack([freq * r / 48000.0 for r in (3.0, 2.0, 1.0)])
+    if not per_sample:
+        dt = dt[:, :1]
+    ops = [torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+           for a in (rng.uniform(0, 1, (3, V)), rng.normal(size=(3, V)), dt,
+                     rng.uniform(0.2, 0.6, (3, V)), rng.uniform(0, 1, V),
+                     *[rng.uniform(0.1, 1.0, (B, V)) for _ in range(3)])]
+    return ops, torch.ones(3, V, device=dev)
+
+
+def _chain_launcher(fn, ops, head=()):
+    """fn(*head, phases, prevs, dt, fb, mix, e3, e2, e1, y, phases',
+    prevs', V, B, dt_stride, stream) on preallocated outputs."""
+    B, V = ops[5].shape
+    outs = (torch.empty_like(ops[5]), torch.empty_like(ops[0]),
+            torch.empty_like(ops[1]))
+    stride = V if ops[2].shape[1] == B and B > 1 else 0
+
+    def run():
+        _check(fn(*head, *[t.data_ptr() for t in ops],
+                  *[t.data_ptr() for t in outs], V, B, stride,
+                  torch.cuda.current_stream().cuda_stream), "chain3")
+        return outs
+    return run
+
+
+def _chain_plain(kernel, ops, lvl):
+    """The plain version of ``kernel`` on ``_chain_inputs``' operands."""
+    plain = getattr(kfm, f"plain_{kernel}")
+    phases, prevs, dt, fb, mix, *env = ops
+    return plain(phases, prevs, dt, lvl, fb, mix, *env)
+
+
+def _dt_label(per_sample):
+    return "dt per sample" if per_sample else "dt rows"
+
+
+def registers(names):
+    """ptxas's register count of every kernel whose name contains one of
+    ``names``, from the builds of this process (``build.build_info``)."""
+    import re
+    out = {}
+    for lib, (_, log) in build.build_info.items():
+        fn = None
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn and any(n in fn for n in names):
+                out[f"{lib}:{fn}"] = int(m.group(1))
+    return out
+
+
+def local_memory():
+    """LDL / STL in every shipped chain3_kernel and allpass_kernel
+    instance (their libraries' SASS), and the registers ptxas gave them."""
+    for fn, n in registers(("chain3_kernel", "allpass_kernel",
+                            "chain_ring")).items():
+        print(f"[probe] registers {fn}: {n}", flush=True)
+    for name, kern in (("fm", "chain3_kernel"), ("iir", "allpass_kernel")):
+        lib = build.BUILD_DIR / f"lib{name}-{build.source_digest(name)}.so"
+        counts = sass_counts(lib, ("LDL", "STL"))
+        rows = {f: c for f, c in counts.items() if kern in f}
+        if not rows:
+            raise SystemExit(f"no {kern} in {lib.name}'s SASS")
+        print(f"[probe] {name}.cu {kern}: {len(rows)} instances, LDL "
+              f"{sum(c['LDL'] for c in rows.values())}, STL "
+              f"{sum(c['STL'] for c in rows.values())}; instructions "
+              + ", ".join(str(c["instr"]) for c in rows.values()),
+              flush=True)
+
+
 def latency(dev):
     lib = _probe_lib()
     out = torch.zeros(4, device=dev)
@@ -276,7 +426,7 @@ def _print_rows(rows, mhz, tag="probe"):
 
 def probe(dev, mhz):
     lib = _probe_lib()
-    shipped_k6 = _entries(build.CSRC_DIR)[2]
+    shipped_k6 = _entries(build.CSRC_DIR)["phase_scan"]
     rng = np.random.default_rng(0)
     rows = []
     for V, B in PHASE_SHAPES[:3]:
@@ -323,7 +473,39 @@ def probe(dev, mhz):
                                  f"shipped body")
             rows.append(("additive_v4", f"V=256 B={B} with_mix", B,
                          f"S={S}", run))
+    shipped = _entries(build.CSRC_DIR)
+    for V, B in ALLPASS_PROBE:
+        ops = _allpass_inputs(dev, V, B, V + B)
+        ref = iir.plain_allpass_cascade_scan(*ops)
+        for staged in (1, 0):
+            run = _allpass_launcher(lib.probe_allpass, ops, (staged,))
+            got = run()
+            torch.cuda.synchronize()
+            if not _same(got, ref):
+                raise SystemExit(f"K10 V={V} B={B} staged={staged} differs "
+                                 f"from the plain version")
+            rows.append(("allpass_cascade_scan", f"V={V} B={B}", B,
+                         "y staged by the producer" if staged else
+                         "y stored by the chain warp", run))
+    for kernel in ("pivot_chain3_scan", "fm_chain3_scan"):
+        for B, ps in CHAIN_SHAPES:
+            ops, lvl = _chain_inputs(dev, 256, B, ps, B + ps)
+            ref = _chain_plain(kernel, ops, lvl)
+            bodies = [(name, exact, _chain_launcher(
+                lib.probe_chain, ops, (var, int(kernel.startswith("pivot")))))
+                for var, (name, exact) in CHAIN_PROBES.items()]
+            bodies.append(("shipped: a warp per operator, on the ring",
+                           True, _chain_launcher(shipped[kernel], ops)))
+            for name, exact, run in bodies:
+                got = run()
+                torch.cuda.synchronize()
+                if exact and not _same(got, ref):
+                    raise SystemExit(f"{kernel} {name} differs from the "
+                                     f"plain version")
+                rows.append((kernel, f"V=256 B={B} {_dt_label(ps)}", B,
+                             name, run))
     _print_rows(rows, mhz)
+    local_memory()
 
 
 def ab(dev, old: Path, mhz):
@@ -346,27 +528,42 @@ def ab(dev, old: Path, mhz):
              "lp18_scan": iir.plain_lp18_scan}
     rows = []
     for kernel, label, B, ops, strides in _cases(dev, rng):
-        k = 0 if kernel == "tpt_svf_scan" else 1
-        runs = {w: _launcher(fns[k], kernel, ops, strides)
+        runs = {w: _launcher(fns[kernel], kernel, ops, strides)
                 for w, fns in (("old", old_fns), ("new", new_fns))}
         ref = plain[kernel](*ops)
         rows.append((kernel, label, B, runs, lambda got, ref=ref:
                      _same(got, ref)))
     for V, B in PHASE_SHAPES:
         p0, dt = _phase_inputs(dev, V, B, 7 * V + B)
-        runs = {w: _phase_launcher(fns[2], p0, dt)
+        runs = {w: _phase_launcher(fns["phase_scan"], p0, dt)
                 for w, fns in (("old", old_fns), ("new", new_fns))}
         ref = kphase.plain_phase_scan(p0, dt)
         rows.append(("phase_scan", f"V={V} B={B}", B, runs,
                      lambda got, ref=ref: _same(got, ref)))
     planes, step = _additive_inputs(dev)
     for B, with_mix in ADD_SHAPES:
-        runs = {w: _additive_launcher(fns[3], planes, step, B, with_mix)
+        runs = {w: _additive_launcher(fns["additive_v4"], planes, step, B,
+                                      with_mix)
                 for w, fns in (("old", old_fns), ("new", new_fns))}
         rows.append(("additive_v4", f"V=256 B={B}"
                      + (" with_mix" if with_mix else ""), B, runs,
                      lambda got, B=B, m=with_mix:
                      _additive_ok(got, planes, step, B, m)))
+    for V, B in ALLPASS_AB:
+        ops = _allpass_inputs(dev, V, B, 3 * V + B)
+        runs = {w: _allpass_launcher(fns["allpass_cascade_scan"], ops)
+                for w, fns in (("old", old_fns), ("new", new_fns))}
+        ref = iir.plain_allpass_cascade_scan(*ops)
+        rows.append(("allpass_cascade_scan", f"V={V} B={B}", B, runs,
+                     lambda got, ref=ref: _same(got, ref)))
+    for kernel in ("pivot_chain3_scan", "fm_chain3_scan"):
+        for B, ps in CHAIN_SHAPES:
+            ops, lvl = _chain_inputs(dev, 256, B, ps, 5 * B + ps)
+            runs = {w: _chain_launcher(fns[kernel], ops)
+                    for w, fns in (("old", old_fns), ("new", new_fns))}
+            ref = _chain_plain(kernel, ops, lvl)
+            rows.append((kernel, f"V=256 B={B} {_dt_label(ps)}", B, runs,
+                         lambda got, ref=ref: _same(got, ref)))
     for kernel, label, B, runs, plain_ok in rows:
         outs = {}
         for w, run in runs.items():
@@ -396,7 +593,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a tree of the parent commit: time its iir.cu, "
-                         "phase.cu and additive.cu against the package's")
+                         "phase.cu, additive.cu and fm.cu against the "
+                         "package's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         ap.error("no CUDA card: the probes time the card")

@@ -412,13 +412,21 @@ def _chain_args(cuda, rng, V, B, per_sample, fb):
                                 for _ in range(3)])]
 
 
+# the chains' operators run 2 samples apart (csrc/fm.cu): blocks shorter
+# than the skew, around the ring's 32-step chunk, the main path's; V=256
+# with per-sample dt stages 6 planes (72 KB of ring)
+CHAIN_SHAPES = sorted(set(SCAN_SHAPES) | {
+    (V, B) for V in (1, 3, 33, 256) for B in (1, 2, 3, 33, 1024)})
+
+
 @pytest.mark.parametrize("fb", [0.0, 0.4], ids=["fb0", "fb"])
 @pytest.mark.parametrize("per_sample", [False, True],
                          ids=["const_dt", "per_sample_dt"])
-@pytest.mark.parametrize("V,B", SCAN_SHAPES)
+@pytest.mark.parametrize("V,B", CHAIN_SHAPES)
 @pytest.mark.parametrize("chain", ["fm", "pivot"])
 def test_chain_kernel_equals_plain(cuda, chain, V, B, per_sample, fb):
-    """3 chained blocks, every output and carry bit for bit."""
+    """3 chained blocks, every output and carry bit for bit; with fb 0.4
+    every operator has feedback."""
     scan = getattr(kfm, f"{chain}_chain3_scan")
     plain = getattr(kfm, f"plain_{chain}_chain3_scan")
     name = f"{chain}_chain3_scan"
@@ -771,18 +779,27 @@ def test_iir_lowpass_on_card_matches_cpu(cuda, B):
 # the echo and saturator slice: allpass_cascade_scan, the resamplers,
 # the delay
 # ------------------------------------------------------------------ #
-ALLPASS_SHAPES = [(1, 1024), (2, 2048), (2, 4096), (256, 1024), (3, 37)]
+# the saturator's shapes, and (K10's stages run 1 sample apart, csrc/
+# allpass.cuh) blocks shorter than the skew and around the ring's 32-step
+# chunk at every lane count the kernel treats apart (y staged below 32)
+ALLPASS_SHAPES = sorted(
+    {(1, 1024), (2, 2048), (2, 4096), (256, 1024), (3, 37)}
+    | {(V, B) for V in (1, 2, 3, 33, 256) for B in (1, 2, 31, 32, 33, 65)})
 
 
+@pytest.mark.parametrize("S", range(1, 9))
 @pytest.mark.parametrize("V,B", ALLPASS_SHAPES)
-def test_allpass_cascade_scan_kernel_equals_plain(cuda, V, B):
-    """3 chained blocks, per-lane betas (the two halfband branches side by
-    side): every output bit for bit."""
+def test_allpass_cascade_scan_kernel_equals_plain(cuda, V, B, S):
+    """3 chained blocks, per-lane betas (at S = 2 the two halfband
+    branches side by side, else random): every output bit for bit."""
     from oscen_tpu_torch.ops.resample import BRANCH_A_BETAS, BRANCH_B_BETAS
-    rng = np.random.default_rng(V + B)
-    betas = np.array([BRANCH_A_BETAS, BRANCH_B_BETAS], np.float32).T
-    a = _on(cuda, np.tile(betas, (1, V))[:, :V])
-    carry = [_on(cuda, rng.uniform(-1, 1, (2, V))) for _ in range(2)]
+    rng = np.random.default_rng(V + B + 1000 * S)
+    if S == 2:
+        betas = np.array([BRANCH_A_BETAS, BRANCH_B_BETAS], np.float32).T
+        a = _on(cuda, np.tile(betas, (1, V))[:, :V])
+    else:
+        a = _on(cuda, rng.uniform(-0.95, 0.95, (S, V)))
+    carry = [_on(cuda, rng.uniform(-1, 1, (S, V))) for _ in range(2)]
     before = kiir.launches["allpass_cascade_scan"]
     for _ in range(3):
         x = _on(cuda, rng.standard_normal((B, V)))

@@ -209,12 +209,13 @@ def test_allpass_wrapper_rejects_what_it_does_not_take():
 
 
 def test_cuda_source_keeps_the_op_order():
-    """csrc/iir.cu's allpass stage is ``a * (x - y_prev) + x_prev`` in the
-    JAX package's order, built with --fmad=false, so the kernel rounds as
-    the plain version's separate ops do."""
-    src = (ROOT / "oscen_tpu_torch" / "csrc" / "iir.cu").read_text()
+    """csrc/allpass.cuh's allpass stage (the kernel iir.cu launches) is
+    ``a * (x - y_prev) + x_prev`` in the JAX package's order, built with
+    --fmad=false, so the kernel rounds as the plain version's separate ops
+    do."""
+    src = (ROOT / "oscen_tpu_torch" / "csrc" / "allpass.cuh").read_text()
     code = re.sub(r"//.*", "", src)
-    body = code[code.index("allpass_kernel("):]
+    body = code[code.index("struct AllpassBody"):]
     assert "c[s] * (cur - yp[s]) + xp[s]" in body
     assert "xp[s] = cur;" in body and "yp[s] = out;" in body
     assert "--fmad=false" in build.NVCC_FLAGS
