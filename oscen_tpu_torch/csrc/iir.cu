@@ -27,14 +27,14 @@
 // flushes denormals; the JAX package's CPU scan keeps them, and so do the
 // kernel and its plain version here).
 //
-// allpass_kernel (allpass.cuh) replaces allpass_cascade_scan (_allpass_kernel;
-// the branch of the IIR-halfband resampler, resample/halfband_iir.rs:24-63):
-// S first-order allpasses chained within the sample, per stage
+// allpass_kernel replaces allpass_cascade_scan (_allpass_kernel; the branch of
+// the IIR-halfband resampler, resample/halfband_iir.rs:24-63): S first-order
+// allpasses chained within the sample, per stage
 //   y = a[s] * (x - yp[s]) + xp[s];  xp[s] = x;  yp[s] = y;  x = y.
 // The coefficients and both histories of every stage stay in registers (S is
-// a template parameter, 1 to 8), its stages skewed in time; allpass.cuh has
-// the design.  The wrapper may put both branches of one halfband stage side
-// by side as lanes, each with its own betas in a [S, V].
+// a template parameter, 1 to 8), its stages skewed in time (the design is
+// above the kernel).  The wrapper may put both branches of one halfband
+// stage side by side as lanes, each with its own betas in a [S, V].
 //
 // Layout: one thread per voice lane; the filter state stays in registers
 // for the whole block.  x and y are time-major [B, V] (a warp's loads and
@@ -77,8 +77,8 @@
 //   the reference body, (float)tanh((double)b) and the true `/`, so the
 //   test never sits on the chain.
 // K10 also skews its stages in time, so its step's chain is one stage's 3
-// ops instead of S stages' (allpass.cuh).  The biquad (K9) still loads
-// inside the loop.
+// ops instead of S stages' (below).  The biquad (K9) still loads inside the
+// loop.
 //
 // Numerics: built with --fmad=false and without fast-math, so every product
 // and sum rounds as PyTorch's separate elementwise ops do, and every output
@@ -89,7 +89,6 @@
 
 #include <cuda_runtime.h>
 
-#include "allpass.cuh"
 #include "scan_stage.cuh"
 #include "tanh_table.cuh"
 
@@ -97,6 +96,7 @@ namespace {
 
 using oscen_stage::kChunk;
 using oscen_stage::kLanes;
+using oscen_stage::kStages;
 using oscen_stage::run_chunk;
 using oscen_stage::stage_ptrs;
 constexpr int kThreads = kLanes;
@@ -542,6 +542,152 @@ biquad_kernel(const float* __restrict__ x, const float* __restrict__ b0,
   v2_out[v] = v2;
 }
 
+// K10.  What bounds it: the recurrence is serial in time, and the 4x saturator
+// runs it on 2 lanes (one per branch) over 2048 and 1024 samples per block,
+// so one warp on one SM does all the work: latency, not bytes (8 bytes per
+// sample and lane).  Run in tick order, stage s waits for stage s - 1 at
+// the same sample, so a step is S dependent stage updates of 3 float ops
+// (6 at S = 2), while the cycle that really carries from step to step is
+// one stage's own yp: 3 ops.  The design:
+//  - stages skewed in time: iteration k runs stage s on sample k - s, from
+//    the last stage down, so stage s reads the output stage s - 1 left in
+//    its yp register one iteration earlier; the S updates of an iteration
+//    are independent and the step's chain is one stage's 3 ops.  The
+//    first S - 1 iterations fill the pipeline (scan_stage.cuh's run_chunk
+//    with kFill = S - 1: stages s > k idle), the last S - 1 drain it after
+//    the last chunk (stages whose samples are done idle); the steady loop
+//    has no masks.  Each stage's carries hold its last real sample, and a
+//    block shorter than the skew (B < S) fills straight into the drain.
+//  - x through the staged ring (scan_stage.cuh: a producer warp's
+//    cp.async, 4-byte copies at V = 2), read a group of 8 steps ahead.
+//  - y lags S - 1 steps.  The chain warp stores it into a shared slot and
+//    the producer writes each chunk back S - 1 rows earlier, as K6 writes
+//    `before`: at V = 2 and at V = 256 both, the chain warp's own global
+//    stores cost it more (28.1 against 38.9 cycles a step at V = 2, 36.6
+//    against 41.1 at V = 256: PERF.md, PR 10).  The drain's S - 1 outputs
+//    are stored directly.
+template <int S>
+struct AllpassBody {
+  float c[S], xp[S], yp[S];
+  float* y;      // this lane's outputs in the chunk's stage of the y slot
+
+  // stage s on its input `cur`: the reference's three roundings
+  __device__ __forceinline__ void stage(int s, float cur) {
+    const float out = c[s] * (cur - yp[s]) + xp[s];
+    xp[s] = cur;
+    yp[s] = out;
+  }
+
+  // steady iteration k (chunk step t): stage s on sample k - s, the last
+  // stage first, so each reads its predecessor's previous output
+  __device__ __forceinline__ void step(const float (&in)[1], int t) {
+#pragma unroll
+    for (int s = S - 1; s > 0; --s) stage(s, yp[s - 1]);
+    stage(0, in[0]);
+    y[t * kLanes] = yp[S - 1];
+  }
+
+  // iteration k < S - 1 (k < B): stages s > k have no sample yet
+  __device__ __forceinline__ void fill(const float (&in)[1], int k) {
+#pragma unroll
+    for (int s = S - 1; s > 0; --s)
+      if (s <= k) stage(s, yp[s - 1]);
+    stage(0, in[0]);
+  }
+
+  // iteration B + j (j < S - 1): stage s runs iff its sample B + j - s is
+  // one of 0 .. B - 1; returns whether the last stage ran
+  __device__ __forceinline__ bool drain(int j, int B) {
+#pragma unroll
+    for (int s = S - 1; s > 0; --s)
+      if (s > j && s <= B + j) stage(s, yp[s - 1]);
+    return S - 1 <= B + j;
+  }
+};
+
+// x [B, V]; a, xp, yp [S, V] -> y [B, V], xp', yp' [S, V].  Dynamic shared
+// memory: the x slot, then the y slot (ring_bytes(2)).
+template <int S>
+__global__ void __launch_bounds__(oscen_stage::kBlock)
+allpass_kernel(const float* __restrict__ x, const float* __restrict__ a,
+               const float* __restrict__ xp_in,
+               const float* __restrict__ yp_in, float* __restrict__ y,
+               float* __restrict__ xp_out, float* __restrict__ yp_out, int V,
+               int B) {
+  extern __shared__ __align__(16) float smem[];
+  float* out_slot = smem + oscen_stage::kSlotFloats;
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {   // the producer warp
+    const float* planes[1] = {x};
+    oscen_stage::Producer<1> prod;
+    prod.init(smem, planes, 1, V, B, l0);
+    prod.run_staged(chunks, out_slot, y, S - 1);
+    return;
+  }
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;   // every thread syncs; live ones scan
+  AllpassBody<S> body;
+  if (live) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      body.c[s] = a[s * V + v];
+      body.xp[s] = xp_in[s * V + v];
+      body.yp[s] = yp_in[s * V + v];
+    }
+  }
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[1];
+      oscen_stage::stage_ptrs<1>(smem, c, src);
+      body.y = out_slot + (c % kStages) * kChunk * kLanes + threadIdx.x;
+      oscen_stage::run_chunk<1, S - 1>(src, min(kChunk, B - c * kChunk),
+                                       body, c == 0);
+    }
+    // every chunk's stage is handed back: the producer writes y back
+    oscen_stage::bar_arrive(oscen_stage::empty_id(c));
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j)
+      if (body.drain(j, B))
+        y[(size_t)(B + j - (S - 1)) * V + v] = body.yp[S - 1];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      xp_out[s * V + v] = body.xp[s];
+      yp_out[s * V + v] = body.yp[s];
+    }
+  }
+}
+
+// One launch of allpass_kernel<S> on `stream`, S from 1 to 8.
+cudaError_t launch_allpass(int S, const float* x, const float* a,
+                          const float* xp, const float* yp, float* y,
+                          float* xp_out, float* yp_out, int V, int B,
+                          cudaStream_t stream) {
+  const dim3 grid((V + kLanes - 1) / kLanes);
+  const size_t bytes = oscen_stage::ring_bytes(2);
+  switch (S) {
+#define OSCEN_ALLPASS_CASE(n)                                             \
+  case n:                                                                 \
+    allpass_kernel<n><<<grid, oscen_stage::kBlock, bytes, stream>>>(      \
+        x, a, xp, yp, y, xp_out, yp_out, V, B);                           \
+    break;
+    OSCEN_ALLPASS_CASE(1)
+    OSCEN_ALLPASS_CASE(2)
+    OSCEN_ALLPASS_CASE(3)
+    OSCEN_ALLPASS_CASE(4)
+    OSCEN_ALLPASS_CASE(5)
+    OSCEN_ALLPASS_CASE(6)
+    OSCEN_ALLPASS_CASE(7)
+    OSCEN_ALLPASS_CASE(8)
+#undef OSCEN_ALLPASS_CASE
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // Static and dynamic shared memory above 48 KB together need the kernel's
 // opt-in (K8's table is 36 KB, the ring's slots 12 KB each): the most any
 // launch here asks, 5 slots.
@@ -671,8 +817,8 @@ int oscen_allpass_cascade_scan(const float* x, const float* a,
                                float* xp_out, float* yp_out, int V, int B,
                                int S, void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  return (int)oscen_allpass::launch_any<true>(
-      S, x, a, xp, yp, y, xp_out, yp_out, V, B, (cudaStream_t)stream);
+  return (int)launch_allpass(S, x, a, xp, yp, y, xp_out, yp_out, V, B,
+                             (cudaStream_t)stream);
 }
 
 const char* oscen_cuda_error_string(int code) {

@@ -14,8 +14,6 @@
 // tanh by the identity, DIV 0 the IEEE division by a product with the
 // hoisted reciprocal of the first row (rows only).
 // lat_kernel: clock64() around 4096 dependent steps of each op kind.
-// probe_allpass: K10's shipped kernel (allpass.cuh) with y staged through
-// the producer or stored by the chain warp, at any lane count.
 // probe_chain: K13 / K15 as one warp per 32 lanes running all three
 // operators (fm.cu gives each operator its own warp): (1) skewed by a
 // sample (op3 on sample i, op2 on i - 1, op1 on i - 2) with the inputs
@@ -29,7 +27,6 @@
 // tools/scanprobe.py names them.
 #include <cuda_runtime.h>
 
-#include "allpass.cuh"
 #include "scan_stage.cuh"
 
 namespace {
@@ -514,18 +511,6 @@ int probe_lp18(int variant, const float* x, const float* g, const float* h,
   }
 #undef L
   return (int)cudaGetLastError();
-}
-
-// K10's shipped kernel with y staged (staged = 1) or stored by the chain
-// warp (0), whatever V.
-int probe_allpass(int staged, const float* x, const float* a,
-                  const float* xp, const float* yp, float* y, float* xp_out,
-                  float* yp_out, int V, int B, int S, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(staged ? oscen_allpass::launch_any<true>(
-                            S, x, a, xp, yp, y, xp_out, yp_out, V, B, st)
-                      : oscen_allpass::launch_any<false>(
-                            S, x, a, xp, yp, y, xp_out, yp_out, V, B, st));
 }
 
 // K13 (pivot 0) / K15 (pivot 1) as one warp per 32 lanes: variant 1

@@ -43,7 +43,7 @@ WINDOWS = 7
 # operator 17 (* fb, + pm, + phase, sin 12, * env, * lvl); LP18 8 (* h,
 # - x, - z1, - z2, the division, * g, + z0, the tanh); biquad 6 (+ v1,
 # * a1, -, + v2, the snap 2); the allpass cascade 3 (each stage's own
-# cycle: its stages run a sample apart, csrc/allpass.cuh).  The additive
+# cycle: its stages run a sample apart, csrc/iir.cu).  The additive
 # kernels' warps (a voice's time segment, one lane per harmonic) carry
 # per tick: v4, v3, v2 and the epilogue 2 (the running power m^(j+1):
 # * m, then the complex sum; the envelope product p: * f, then the wrap

@@ -21,8 +21,6 @@ Three parts, one line per row:
   K1 (v4 with the mix) at 1, 2 and 4 time segments per voice (1: the
   register reduce-scatter alone), each first checked equal to the shipped
   body;
-  K10 (``allpass_cascade_scan``, S = 2) with y staged through the producer
-  and stored by the chain warp, at V=2 (B=1024, 2048) and V=256 (B=1024);
   K15 and K13 at V=256, B=1024 and 4096, dt as rows and per sample, as
   one warp per 32 lanes: the operators skewed by a sample with their
   inputs loaded inside the loop (the skew alone), in tick order on the
@@ -94,7 +92,6 @@ PHASE_SHAPES = ((256, 1024), (256, 4096), (1, 4096), (1, 16384))
 ADD_SHAPES = ((1024, True), (4096, True), (1024, False))
 # K10's: the 4x IIR saturator's two lanes over 2B and B steps per block
 ALLPASS_AB = ((2, 2048), (2, 1024), (2, 8192), (2, 4096))
-ALLPASS_PROBE = ((2, 1024), (2, 2048), (256, 1024))
 # K13 / K15: 256 voices, dt as rows or per sample (a note-on block)
 CHAIN_SHAPES = tuple((B, ps) for B in (1024, 4096) for ps in (False, True))
 # probe_chain's variants: (name, computes the kernel's numbers)
@@ -135,7 +132,6 @@ def _probe_lib():
     _typed(lib.probe_tpt, [I] + [P] * 9 + [I] * 5 + [P])
     _typed(lib.probe_lp18, [I] + [P] * 6 + [I] * 4 + [P])
     _typed(lib.probe_lat, [P, P, I])
-    _typed(lib.probe_allpass, [I] + [P] * 7 + [I] * 3 + [P])
     _typed(lib.probe_chain, [I, I] + [P] * 11 + [I] * 3 + [P])
     return lib
 
@@ -302,16 +298,16 @@ def _allpass_inputs(dev, V, B, seed):
                       rng.uniform(-1, 1, (2, V)), rng.uniform(-1, 1, (2, V)))]
 
 
-def _allpass_launcher(fn, ops, head=()):
-    """fn(*head, x, a, xp, yp, y, xp', yp', V, B, S, stream) on
-    preallocated outputs."""
+def _allpass_launcher(fn, ops):
+    """fn(x, a, xp, yp, y, xp', yp', V, B, S, stream) on preallocated
+    outputs."""
     x, a = ops[0], ops[1]
     B, V = x.shape
     outs = (torch.empty_like(x), torch.empty_like(ops[2]),
             torch.empty_like(ops[3]))
 
     def run():
-        _check(fn(*head, *[t.data_ptr() for t in ops],
+        _check(fn(*[t.data_ptr() for t in ops],
                   *[t.data_ptr() for t in outs], V, B, a.shape[0],
                   torch.cuda.current_stream().cuda_stream),
                "allpass_cascade_scan")
@@ -474,19 +470,6 @@ def probe(dev, mhz):
             rows.append(("additive_v4", f"V=256 B={B} with_mix", B,
                          f"S={S}", run))
     shipped = _entries(build.CSRC_DIR)
-    for V, B in ALLPASS_PROBE:
-        ops = _allpass_inputs(dev, V, B, V + B)
-        ref = iir.plain_allpass_cascade_scan(*ops)
-        for staged in (1, 0):
-            run = _allpass_launcher(lib.probe_allpass, ops, (staged,))
-            got = run()
-            torch.cuda.synchronize()
-            if not _same(got, ref):
-                raise SystemExit(f"K10 V={V} B={B} staged={staged} differs "
-                                 f"from the plain version")
-            rows.append(("allpass_cascade_scan", f"V={V} B={B}", B,
-                         "y staged by the producer" if staged else
-                         "y stored by the chain warp", run))
     for kernel in ("pivot_chain3_scan", "fm_chain3_scan"):
         for B, ps in CHAIN_SHAPES:
             ops, lvl = _chain_inputs(dev, 256, B, ps, B + ps)

@@ -780,8 +780,8 @@ def test_iir_lowpass_on_card_matches_cpu(cuda, B):
 # the delay
 # ------------------------------------------------------------------ #
 # the saturator's shapes, and (K10's stages run 1 sample apart, csrc/
-# allpass.cuh) blocks shorter than the skew and around the ring's 32-step
-# chunk at every lane count the kernel treats apart (y staged below 32)
+# iir.cu) blocks shorter than the skew and around the ring's 32-step
+# chunk, at lane counts from one to full and ragged 32-lane blocks
 ALLPASS_SHAPES = sorted(
     {(1, 1024), (2, 2048), (2, 4096), (256, 1024), (3, 37)}
     | {(V, B) for V in (1, 2, 3, 33, 256) for B in (1, 2, 31, 32, 33, 65)})

@@ -209,11 +209,10 @@ def test_allpass_wrapper_rejects_what_it_does_not_take():
 
 
 def test_cuda_source_keeps_the_op_order():
-    """csrc/allpass.cuh's allpass stage (the kernel iir.cu launches) is
-    ``a * (x - y_prev) + x_prev`` in the JAX package's order, built with
-    --fmad=false, so the kernel rounds as the plain version's separate ops
-    do."""
-    src = (ROOT / "oscen_tpu_torch" / "csrc" / "allpass.cuh").read_text()
+    """csrc/iir.cu's allpass stage is ``a * (x - y_prev) + x_prev`` in the
+    JAX package's order, built with --fmad=false, so the kernel rounds as
+    the plain version's separate ops do."""
+    src = (ROOT / "oscen_tpu_torch" / "csrc" / "iir.cu").read_text()
     code = re.sub(r"//.*", "", src)
     body = code[code.index("struct AllpassBody"):]
     assert "c[s] * (cur - yp[s]) + xp[s]" in body

@@ -1,5 +1,6 @@
-"""The skewed schedules of K10 (``csrc/allpass.cuh``) and of K13 / K15
-(``csrc/fm.cu``'s ``chain3_kernel``), modelled in plain PyTorch on the CPU.
+"""The skewed schedules of K10 (``csrc/iir.cu``'s ``allpass_kernel``) and
+of K13 / K15 (``csrc/fm.cu``'s ``chain3_kernel``), modelled in plain
+PyTorch on the CPU.
 
 Each model runs its kernel's schedule in its order.  K10 runs its stages a
 sample apart: the pipeline's fill (stages without a sample yet idle), the
