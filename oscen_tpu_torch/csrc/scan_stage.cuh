@@ -1,8 +1,10 @@
 // A staged input ring for one-thread-per-lane scans (sm_90a).
 //
-// A scan kernel (K6, K7, K8) runs one chain warp per CUDA block, one
+// A scan kernel (K6, K7, K8, K10) runs one chain warp per CUDA block, one
 // thread per lane of a time-major [B, V] problem, with the lane's state in
-// registers; its per-step work is a serial chain.  Reading x[t] (and each
+// registers; its per-step work is a serial chain (the FM chains, K13 and
+// K15, run one chain warp per operator and one Producer per operator's
+// planes in their producer warp, fm.cu).  Reading x[t] (and each
 // per-sample coefficient) from global memory inside that loop puts an L2 /
 // HBM latency on the chain every few steps: nothing else on the SM hides it
 // (V=256 is 8 blocks on 132 SMs; the twin peaks is 2 lanes of one warp).
@@ -32,19 +34,19 @@
 // Every thread of the chain warp, live lane or not, reaches every barrier,
 // so a kernel that uses the ring must not return early for lanes >= V.
 //
-// Outputs: the chain warp stores them itself (full 32-lane rows), or, for
-// fewer lanes, into a second shared slot that the producer writes back
-// once the chunk is handed over (Producer::run_staged), so that the chain
+// Outputs: the chain warp stores them itself, or into a second shared slot
+// that the producer writes back once the chunk is handed over
+// (Producer::run_staged: K6 below 32 lanes, K10 always), so that the chain
 // warp's stream holds no global stores.
 //
-// Skewed bodies (K10's stages, the FM chains' operators) run D pipeline
-// stages D - 1 samples apart: iteration k runs stage r on sample k - r, so
-// the D updates of one iteration are independent.  Iteration k still reads
-// the staged inputs of sample k; its first D - 1 iterations fill the
-// pipeline (run_chunk's kFill: body.fill, masks known at compile time in a
-// full chunk), the last D - 1 drain it after the last chunk (the body's
-// own drain, no inputs), and its outputs lag D - 1 samples (the producer's
-// write-back takes that shift).
+// A skewed body (K10's stages) runs D pipeline stages D - 1 samples apart:
+// iteration k runs stage r on sample k - r, so the D updates of one
+// iteration are independent.  Iteration k still reads the staged inputs of
+// sample k; its first D - 1 iterations fill the pipeline (run_chunk's
+// kFill: body.fill, masks known at compile time in a full chunk), the last
+// D - 1 drain it after the last chunk (the body's own drain, no inputs),
+// and its outputs lag D - 1 samples (the producer's write-back takes that
+// shift).
 
 #pragma once
 

@@ -66,7 +66,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import card, chain_floor_us, sass_counts, sm_clock_mhz
+from . import card, chain_floor_us, event_us, sass_counts, sm_clock_mhz
 from ..ops.cuda import additive as add
 from ..ops.cuda import build, iir
 from ..ops.cuda import fm as kfm
@@ -102,22 +102,6 @@ CHAIN_PROBES = {1: ("one warp, skewed by a sample, inputs from global",
                 3: ("op3 alone, one warp on the ring", False),
                 4: ("(6) with the sine unrounded", False),
                 5: ("(6) without the phase wraps", False)}
-
-
-def event_us(fn) -> float:
-    """Device µs per launch: CUDA events around LAUNCHES launches of
-    ``fn``, queued behind a ~1 ms sleep on the card."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(2_000_000)
-    a.record()
-    for _ in range(LAUNCHES):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) * 1e3 / LAUNCHES
 
 
 def _typed(fn, argtypes):
@@ -412,7 +396,7 @@ def _print_rows(rows, mhz, tag="probe"):
     res = {i: [] for i in range(len(rows))}
     for _ in range(WINDOWS):
         for i, row in enumerate(rows):
-            res[i].append(event_us(row[-1]))
+            res[i].append(event_us(row[-1], LAUNCHES))
     for i, (kernel, label, B, name, _) in enumerate(rows):
         us = statistics.median(res[i])
         print(f"[{tag}] {kernel} {label} {name}: {us:.2f} us, "
@@ -561,7 +545,7 @@ def ab(dev, old: Path, mhz):
         t = {"old": [], "new": []}
         for _ in range(WINDOWS):
             for w in ("old", "new", "new", "old"):
-                t[w].append(event_us(runs[w]))
+                t[w].append(event_us(runs[w], LAUNCHES))
         o, n = statistics.median(t["old"]), statistics.median(t["new"])
         floor = chain_floor_us(kernel, B, mhz)
         print(f"[ab] {kernel} {label}: old {o:.2f} us, new {n:.2f} us "
