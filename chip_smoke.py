@@ -11,7 +11,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
 2. build    the CUDA kernels from ``oscen_tpu_torch/csrc`` (one nvcc per
             source, all started together; sm_90a), with register use; from
             the SASS, no local memory (LDL / STL) in any additive kernel
-            instance and the kept work of every ``kabl.cu`` instance;
+            instance, either ``biquad_kernel`` instance or
+            ``fm_operator_kernel``, and the kept work of every ``kabl.cu``
+            instance;
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main paths' shapes: the additive voice in its four
             versions v4, parity, v3 and v2 (V=256, H=32, B=1024 and 4096
@@ -42,7 +44,13 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             around its skew and a chunk (V=2, B=1, 2 and 33; V=33, B=1 and
             65), 3 chained blocks; tpt_svf_scan and lp18_scan on their staged
             input ring at V=1, 2, 3, 33 and 256 and B=1, 2, 31, 32, 33,
-            1024 and 4096, rows and per-sample planes, and lp18_scan on
+            1024 and 4096, rows and per-sample planes; biquad_scan on its
+            ring at V=1, 2, 3, 33 and 256 and B=1, 2, 7, 8, 31, 32, 33, 65
+            and 1024 with rows, planes and two mixes (the last block
+            decaying below 1e-15), and each of its 32 mixes of row and
+            plane coefficients once (one launch each); fm_operator_scan on its ring at V=1,
+            3, 33 and 256 and B=1, 2, 31, 32, 33, 65, 1024 and 4096 (one
+            launch a block, every output equal); and lp18_scan on
             silence, denormal and 1e20-sized x and signed zeros; lp18_scan's
             tanh over all 2^32 float32 inputs against (float)tanh((double)b)
             and its division over every finite float32 and 70 divisors
@@ -73,7 +81,8 @@ Phases, one line each, any miss fails the run with a non-zero exit:
               sync debug mode "error"; the pivot then sets op3_feedback to
               0.3 and runs 4 more; half the notes released,
               ``render_steady``, ``steady_checksum``), and the unfused fm
-              synth (``fused=False``) for a few blocks;
+              synth (``fused=False``) for a few blocks, then its steady
+              block's wall and device busy time at B=1024 and 4096;
             the first blocks of each against the same run on the CPU; the
             README synth (``build_simple_synth()``) at 440 Hz; the twin
             peaks (``build_twin_peaks()``, fused and ``fused=False``) at
@@ -83,7 +92,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             block, fused equal to two-node, the card equal to the CPU, and
             how often lp18_scan's tanh took its fallback on that input; and
             a saw -> IirLowpass graph at B=1024 and 33 with a cutoff change
-            mid-run, one biquad_scan per block, against the CPU; the 4x
+            mid-run, one biquad_scan per block, against the CPU, then its
+            steady block's wall and device busy time at B=1024 and 4096;
+            the 4x
             saturator (``build_saturator(4)``, the sinc boundary) and the
             same graph with the IIR-halfband boundary (``policy=
             "sinc_iir"``) at B=1024 and 4096, exactly one phase_scan over
@@ -102,9 +113,10 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             synth's runs (the kernel's device count, read after each);
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
-            IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps) and
-            its plain version's
-            time per call (CUDA events) beside its bound (bytes over
+            IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps;
+            biquad_scan also at V=256 with rows and with planes, and it and
+            fm_operator_scan also by CUDA events behind a sleep) and its
+            plain version's time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
             one-thread-per-lane scan, its chain floor (B x
             ``tools.CHAIN_OPS`` x 4 cycles at the SM clock nvidia-smi
@@ -182,6 +194,17 @@ CHAIN_EDGES = ((3, 1), (3, 2), (33, 3), (33, 33), (VOICES, 65))
 RING_CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
 RING_B = (1, 2, RING_CHUNK - 1, RING_CHUNK, RING_CHUNK + 1, 1024, 4096)
 RING_V = (1, 2, 3, 33, VOICES)
+# K9 and K14 on the same ring (K9 also around its 8-step groups); K9 with
+# its coefficients as rows, planes and two mixes (bit i: b0, b1, b2, a1,
+# a2 a plane; the wrapper expands a mix's rows into planes)
+BIQUAD_RING_V = (1, 2, 3, 33, VOICES)
+BIQUAD_RING_B = (1, 2, 7, 8, RING_CHUNK - 1, RING_CHUNK, RING_CHUNK + 1, 65,
+                 1024)
+BIQUAD_FORMS = {"rows": 0b00000, "planes": 0b11111, "mixed": 0b10110,
+                "mixed2": 0b01001}
+OPERATOR_RING_V = (1, 3, 33, VOICES)
+OPERATOR_RING_B = (1, 2, RING_CHUNK - 1, RING_CHUNK, RING_CHUNK + 1, 65,
+                   1024, 4096)
 # K6 on the same ring: the saturator's 4x lane reaches 16384 steps
 PHASE_RING_V = (1, 2, 3, 33, VOICES)
 PHASE_RING_B = (1, 31, 33, 1024, 4096, 16384)
@@ -305,7 +328,9 @@ def sass_checks(build, tools):
     in [0, 2 pi) never takes, and are counted apart), and
     every kernel instance of csrc/kabl.cu keeps its work: the variants
     whose results nothing reads, noout its 32 shuffles (as full), dot32 one
-    mma per k-tile (5) and dot4 four whole-block dots (20)."""
+    mma per k-tile (5) and dot4 four whole-block dots (20); and no LDL or
+    STL in either ``biquad_kernel`` instance (rows, planes) or in
+    ``fm_operator_kernel``."""
     import re
 
     def built(name):
@@ -316,8 +341,22 @@ def sass_checks(build, tools):
     try:
         add_c = tools.sass_counts(built("additive"), ("LDL", "STL"))
         kabl_c = tools.sass_counts(built("kabl"), ("SHFL", "HMMA"))
+        scan_c = {**tools.sass_counts(built("iir"), ("LDL", "STL")),
+                  **tools.sass_counts(built("fm"), ("LDL", "STL"))}
     except (RuntimeError, subprocess.SubprocessError) as e:
         check(False, f"SASS: {e}")
+    # K9's two instances (rows, planes) and K14 keep their staged inputs in
+    # registers
+    for kern, want in (("biquad_kernel", 2), ("fm_operator_kernel", 1)):
+        rows = [c for fn, c in scan_c.items() if kern in fn]
+        local = sum(c["LDL"] + c["STL"] for c in rows)
+        instr = sorted(c["instr"] for c in rows)
+        phase("build", f"{kern} SASS: {len(rows)} instances, LDL + STL "
+              f"{local}, {instr[0] if instr else 0}-"
+              f"{instr[-1] if instr else 0} instructions")
+        check(len(rows) == want and local == 0,
+              f"{kern} SASS: {len(rows)} instances (want {want}), {local} "
+              f"local-memory instructions (want 0)")
     parts, local, epi = [], 0, 0
     for fn, c in add_c.items():
         m = re.search(r"(additive_(?:closed|parity)_kernel)I((?:L[ib]\d+E)+)E",
@@ -578,6 +617,99 @@ def ring_checks(torch, dev, kiir):
           f"them): {wrong} pairs differ from a / d "
           f"({time.perf_counter() - t0:.2f} s)")
     check(wrong == 0, "lp18_scan's division differs from the true quotient")
+
+
+def k9_k14_ring_checks(torch, dev, kiir, kfm):
+    """K9 and K14 on their staged input ring: biquad_scan against its plain
+    version (torch.equal, every output of 3 chained blocks, the input
+    decaying below 1e-15 in the last one, so the snaps fire) at every B
+    around the ring's 32-step chunk and 8-step groups and ragged V, with
+    row, plane and mixed coefficients, one launch per block; every one of
+    its 32 mixes of rows and planes once at V=3, B=40 (one launch each);
+    fm_operator_scan likewise (3 chained blocks) at every B up to
+    4096 and ragged V.  Any mismatch fails the run."""
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def biquad_operands(rng, V, B, mask):
+        # each lane's JUCE lowpass (q = 1/sqrt(2)) as rows; a plane moves
+        # each sample's coefficient by up to 1e-3 of itself
+        n = 1.0 / np.tan(np.pi * rng.uniform(1500.0, 8000.0, V) / SR)
+        c1 = 1.0 / (1.0 + math.sqrt(2.0) * n + n * n)
+        rows = (c1, 2 * c1, c1, 2 * c1 * (1 - n * n),
+                c1 * (1 - math.sqrt(2.0) * n + n * n))
+        return [on_card(r * (1 + 1e-3 * rng.uniform(-1, 1, (B, V)))
+                        if mask >> i & 1 else r) for i, r in enumerate(rows)]
+
+    t0 = time.perf_counter()
+    cases = 0
+    for V in BIQUAD_RING_V:
+        for B in BIQUAD_RING_B:
+            for form, mask in BIQUAD_FORMS.items():
+                rng = np.random.default_rng(V * 41 + B + mask)
+                v = [on_card(rng.standard_normal(V)) for _ in range(2)]
+                before = kiir.launches["biquad_scan"]
+                for i in range(3):
+                    coefs = biquad_operands(rng, V, B, mask)
+                    x = rng.standard_normal((B, V))
+                    if i == 2:
+                        x *= np.exp(-np.arange(B) / 4.0)[:, None]
+                    x = on_card(x)
+                    out = kiir.biquad_scan(x, *coefs, *v)
+                    torch.cuda.synchronize()
+                    check(same(out, kiir.plain_biquad_scan(x, *coefs, *v)),
+                          f"biquad_scan V={V} B={B} {form}: kernel and "
+                          f"plain version differ")
+                    v = list(out[1:])
+                check(kiir.launches["biquad_scan"] == before + 3,
+                      f"biquad_scan V={V} B={B} {form}: not one launch a "
+                      f"block")
+                cases += 1
+    for mask in range(32):
+        rng = np.random.default_rng(mask)
+        coefs = biquad_operands(rng, 3, 40, mask)
+        x = on_card(rng.standard_normal((40, 3)))
+        v = [on_card(rng.standard_normal(3)) for _ in range(2)]
+        before = kiir.launches["biquad_scan"]
+        out = kiir.biquad_scan(x, *coefs, *v)
+        torch.cuda.synchronize()
+        check(kiir.launches["biquad_scan"] == before + 1
+              and same(out, kiir.plain_biquad_scan(x, *coefs, *v)),
+              f"biquad_scan mix {mask:05b}: no launch, or kernel and plain "
+              f"version differ")
+    phase("kernels", f"biquad_scan on the ring: V in {BIQUAD_RING_V}, B in "
+          f"{BIQUAD_RING_B}, coefficients {list(BIQUAD_FORMS)}, 3 chained "
+          f"blocks (the last decaying) each: {cases} cases, and all 32 mixes"
+          f" of rows and planes, equal to the plain version (torch.equal), "
+          f"one launch a block, ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = 0
+    for V in OPERATOR_RING_V:
+        for B in OPERATOR_RING_B:
+            rng = np.random.default_rng(V * 43 + B)
+            carry = (on_card(rng.uniform(0, 1, V)),
+                     on_card(rng.normal(size=V)))
+            before = kfm.launches["fm_operator_scan"]
+            for _ in range(3):
+                planes = [on_card(rng.uniform(lo, hi, (B, V))) for lo, hi in (
+                    (0.002, 0.03), (-0.2, 0.2), (0.0, 0.6), (0.1, 1.0),
+                    (0.3, 1.0))]
+                out = kfm.fm_operator_scan(*carry, *planes)
+                torch.cuda.synchronize()
+                check(same(out, kfm.plain_fm_operator_scan(*carry, *planes)),
+                      f"fm_operator_scan V={V} B={B}: kernel and plain "
+                      f"version differ")
+                carry = out[1:]
+            check(kfm.launches["fm_operator_scan"] == before + 3,
+                  f"fm_operator_scan V={V} B={B}: not one launch a block")
+            cases += 1
+    phase("kernels", f"fm_operator_scan on the ring: V in {OPERATOR_RING_V}"
+          f", B in {OPERATOR_RING_B}, 3 chained blocks each: {cases} cases "
+          f"equal to the plain version (torch.equal), one launch a block, ok "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_checks(torch, dev, kphase):
@@ -1184,6 +1316,7 @@ def main() -> int:
                           f"block {100 * info:.1f}%"))
 
     ring_checks(torch, dev, kiir)
+    k9_k14_ring_checks(torch, dev, kiir, kfm)
     phase_checks(torch, dev, kphase)
 
     # the allpass cascade: torch.equal on every output of 3 chained blocks,
@@ -1500,6 +1633,24 @@ def main() -> int:
               f"{len(errs)} blocks: {max(errs):.3e}")
         check(max(errs[:4]) <= POLY_TOL, f"{model}: card and CPU disagree")
 
+    def steady_busy(label, step, B):
+        """A steady block's wall (CUDA events around 20 blocks) and device
+        busy time (the profiler's sum over all device activity; no device
+        time fails the run), read in the phase that drives the graph: late
+        in a long process the profiler drops its device records."""
+        step()
+        wall = tools.chain_us(lambda _: step(), None, 20)
+        try:
+            busy, top, n_kern = tools.device_ms(
+                step, 20, top=4, note=lambda m: phase("main", m))
+        except RuntimeError as e:
+            check(False, f"{label} B={B}: {e}")
+        phase("main", f"{label} B={B}: steady block {wall:.1f} us "
+              f"(events), device busy {busy * 1e3:.1f} us "
+              f"({100 * busy * 1e3 / wall:.1f}%), {n_kern:.0f} device "
+              f"activities per block ({card}); top: " + "; ".join(
+                  f"{k[:50]} {t * 1e3:.1f} us x{c:.0f}" for k, t, c in top))
+
     # the unfused fm synth: FmOperator node arrays, one fm_operator_scan
     # per operator per block at full width
     reset_all()
@@ -1517,6 +1668,12 @@ def main() -> int:
     check(kfm.launches["fm_operator_scan"] == 9
           and np.isfinite(un_audio).all(),
           "unfused fm synth: fm_operator_scan did not run 9 times")
+    for B in BLOCKS:
+        p = build_fm_synth(VOICES, fused=False).compile(SR, block_size=B,
+                                                        device="cuda")
+        poly_chord(p)
+        p.process_block()
+        steady_busy("unfused fm synth", p.process_block, B)
 
     # the README synth (one voice: the kernels at V=1)
     readme = {}
@@ -1690,6 +1847,9 @@ def main() -> int:
               f"launches {got} (want {n}), card against CPU {err:.3e} (<= "
               f"{TWIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
         check(ok, "IIR lowpass checks failed")
+    for B in BLOCKS:
+        c, _ = iir_drive("cuda", B, 1)
+        steady_busy("IIR lowpass (saw -> IirLowpass)", c.process_block, B)
 
     # the oversampled saturator: a 2 kHz saw and a hard clip at 4x, the
     # sinc (build_saturator) or the IIR-halfband boundary
@@ -2137,6 +2297,32 @@ def main() -> int:
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024 and V == (2 if name == "lp18_scan" else 1):
                 report[name].update(ms=ms, plain_ms=plain_ms, **b)
+
+    # K9 at the IIR lowpass's lane and at 256 lanes with rows and with
+    # planes, and K14 at the unfused fm voice's 256 voices, by CUDA events
+    # behind a sleep (tools.event_us: no profiler session)
+    for label, V, planes in (("V=1 per-sample planes", 1, True),
+                             (f"V={VOICES} rows", VOICES, False),
+                             (f"V={VOICES} per-sample planes", VOICES, True)):
+        for B in BLOCKS:
+            rng_f = np.random.default_rng(3 * B + V)
+            args = (on_card((0.3 * rng_f.standard_normal((B, V))).astype(
+                np.float32)), *biquad_rows(rng_f, (B, V) if planes else (V,)),
+                rand(-1, 1, (V,)), rand(-1, 1, (V,)))
+            us = tools.event_us(lambda: kiir.biquad_scan(*args), 20)
+            phase("timing", f"biquad_scan {label} B={B}: kernel {us:.1f} us "
+                  f"(events), {us * sm_mhz / B:.1f} cycles a step, chain "
+                  f"floor {chain_floor_ms('biquad_scan', B) * 1e3:.1f} us "
+                  f"({card})")
+    for B in BLOCKS:
+        rng_f = np.random.default_rng(5 * B)
+        args = fm_carry("fm_operator_scan", VOICES, rng_f) + fm_args(
+            "fm_operator_scan", VOICES, B, rng_f)
+        us = tools.event_us(lambda: kfm.fm_operator_scan(*args), 20)
+        phase("timing", f"fm_operator_scan V={VOICES} B={B}: kernel "
+              f"{us:.1f} us (events), {us * sm_mhz / B:.1f} cycles a step, "
+              f"chain floor {chain_floor_ms('fm_operator_scan', B) * 1e3:.1f}"
+              f" us ({card})")
 
     # the twin peaks' streaming block: the host stages audio_in, then one
     # (fused) or two lp18_scan launches

@@ -140,16 +140,19 @@ __device__ __forceinline__ void step_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kChainBlock) : "memory");
 }
 
-// Operator kOp (0: op3, 1: op2, 2: op1) of one voice lane over one chunk;
-// staged inputs: its envelope, (kDtP) its dt, then what it takes from the
-// operator before it (op2: a, b; op1: pm1).
+// Operator kOp (0: op3, 1: op2, 2: op1, 3: the lone operator of
+// fm_operator_kernel) of one voice lane over one chunk; staged inputs: its
+// envelope, (kDtP) its dt, then what it takes from the operator before it
+// (op2: a, b; op1: pm1) or, for the lone operator, its pm, fb and lvl.
 template <int kOp, bool kPivot, bool kDtP>
 struct OpBody {
-  static constexpr int kP = 1 + kDtP + (kOp == 1 ? 2 : kOp == 2 ? 1 : 0);
+  static constexpr int kP =
+      1 + kDtP + (kOp == 1 ? 2 : kOp == 2 ? 1 : kOp == 3 ? 3 : 0);
   float ph, p, fb;   // phase, feedback carry, feedback
   float d;           // dt row (block-constant dt)
   float m, om;       // op3: the route and 1 - route
-  float* out;        // op3: a (b kRouteFloats further); op2: pm1; op1: y
+  float* out;        // op3: a (b kRouteFloats further); op2: pm1; op1
+                     // and the lone operator: y
   int stride;        // kLanes, or V for y
 
   __device__ __forceinline__ void step(const float (&in)[kP], int t) {
@@ -166,11 +169,16 @@ struct OpBody {
       const float a2 = s2 * in[0];
       out[t * kLanes] = a2 + in[r + 1];   // op1's modulation: + the route's b
       p = kPivot ? s2 : a2;
-    } else {   // op1, the carrier
+    } else if constexpr (kOp == 2) {   // op1, the carrier
       const float s1 = sin_turns((ph + in[r]) + p * fb);
       const float y1 = s1 * in[0];
       out[t * stride] = y1;
       p = kPivot ? s1 : y1;
+    } else {   // the lone operator: FmOperator.tick's association
+      const float y1 = sin_turns(ph + (in[r] + p * in[r + 1])) * in[0] *
+                       in[r + 2];
+      out[t * stride] = y1;
+      p = y1;
     }
     ph = fract_step(ph, dt);
   }
@@ -302,7 +310,19 @@ chain3_kernel(const float* __restrict__ phases,
 #undef OSCEN_OPERATOR
 }
 
-__global__ void __launch_bounds__(kThreads)
+// fm_operator_kernel (K14): one operator with self-feedback over five
+// per-sample planes (dt, pm, fb, env, lvl), serial in time per lane.  Its
+// loop-carried cycle is the operator's own chain, 17 ops (* fb, + pm,
+// + phase, the sine's 12 with its FRND, * env, * lvl: the reference's
+// (sin * env) * lvl, so lvl is not folded into env as the chains fold it);
+// the phase's wrap runs beside it.  The design is one chain3_kernel
+// operator's (OpBody<3, ...>): the five planes through one staged ring (a
+// producer warp's cp.async, scan_stage.cuh), read a group of 8 steps ahead,
+// and y staged in a shared slot that the producer writes back
+// (Producer::run_staged), so the chain warp's stream holds only the chain,
+// shared loads and stores.  Dynamic shared memory: 5 slots, then the y
+// slot (72 KB; the launch opts in).
+__global__ void __launch_bounds__(oscen_stage::kBlock)
 fm_operator_kernel(const float* __restrict__ phase0,
                    const float* __restrict__ prev0,
                    const float* __restrict__ dt, const float* __restrict__ pm,
@@ -311,21 +331,43 @@ fm_operator_kernel(const float* __restrict__ phase0,
                    const float* __restrict__ lvl, float* __restrict__ y,
                    float* __restrict__ phase_out,
                    float* __restrict__ prev_out, int V, int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  float ph = phase0[v];
-  float prev = prev0[v];
-#pragma unroll 4
-  for (int t = 0; t < B; ++t) {
-    const size_t i = (size_t)t * V + v;
-    const float total_pm = pm[i] + prev * fb[i];
-    const float out = sin_turns(ph + total_pm) * env[i] * lvl[i];
-    ph = fract_step(ph, dt[i]);
-    prev = out;
-    y[i] = out;
+  using Body = OpBody<3, false, true>;
+  constexpr int kP = Body::kP;
+  extern __shared__ __align__(16) float smem[];
+  float* const y_slot = smem + kP * oscen_stage::kSlotFloats;
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {   // the producer warp
+    const float* planes[kP] = {env, dt, pm, fb, lvl};
+    oscen_stage::Producer<kP> prod;
+    prod.init(smem, planes, kP, V, B, l0);
+    prod.run_staged(chunks, y_slot, y, 0);
+    return;
   }
-  phase_out[v] = ph;
-  prev_out[v] = prev;
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;   // every thread syncs; live ones scan
+  Body body{};
+  body.stride = kLanes;
+  if (live) {
+    body.ph = phase0[v];
+    body.p = prev0[v];
+  }
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[kP];
+      oscen_stage::stage_ptrs<kP>(smem, c, src);
+      body.out = y_slot + (c % oscen_stage::kStages) * kChunk * kLanes +
+                 threadIdx.x;
+      oscen_stage::run_chunk<kP>(src, min(kChunk, B - c * kChunk), body);
+    }
+    // every chunk's stage is handed back: the producer writes y back
+    oscen_stage::bar_arrive(oscen_stage::empty_id(c));
+  }
+  if (live) {
+    phase_out[v] = body.ph;
+    prev_out[v] = body.p;
+  }
 }
 
 template <bool kPivot, bool kDtP>
@@ -409,8 +451,13 @@ int oscen_fm_operator_scan(const float* phase0, const float* prev0,
                            float* phase_out, float* prev_out, int V, int B,
                            void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((V + kThreads - 1) / kThreads);
-  fm_operator_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const int slots = OpBody<3, false, true>::kP + 1;
+  const cudaError_t err =
+      oscen_stage::allow_ring<fm_operator_kernel>(slots);
+  if (err != cudaSuccess) return (int)err;
+  fm_operator_kernel<<<(V + kLanes - 1) / kLanes, oscen_stage::kBlock,
+                       oscen_stage::ring_bytes(slots),
+                       (cudaStream_t)stream>>>(
       phase0, prev0, dt, pm, fb, env, lvl, y, phase_out, prev_out, V, B);
   return (int)cudaGetLastError();
 }

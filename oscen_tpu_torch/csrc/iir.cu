@@ -51,11 +51,10 @@
 // bound by the latency of that chain (its chain floor: steps x dependent
 // ops x their latency), far above the bytes it moves (8 bytes per sample
 // and lane, up to 28 with per-sample coefficients).  One chain warp per
-// CUDA block spreads the warps over SMs (K7, K8 and K10 add a producer
-// warp).
+// CUDA block spreads the warps over SMs, and each adds a producer warp.
 // The true block length B bounds the loop; any B >= 1 and any V work.
 //
-// K7, K8 and K10 keep their loads off the chain: x and every per-sample
+// K7 to K10 keep their loads off the chain: x and every per-sample
 // coefficient plane come through the staged ring of scan_stage.cuh (a
 // producer warp's cp.async, up to two 32-step chunks ahead, handed over by
 // named barriers), so the chain warp reads shared memory a group of 8
@@ -77,8 +76,7 @@
 //   the reference body, (float)tanh((double)b) and the true `/`, so the
 //   test never sits on the chain.
 // K10 also skews its stages in time, so its step's chain is one stage's 3
-// ops instead of S stages' (below).  The biquad (K9) still loads inside the
-// loop.
+// ops instead of S stages' (below).
 //
 // Numerics: built with --fmad=false and without fast-math, so every product
 // and sum rounds as PyTorch's separate elementwise ops do, and every output
@@ -99,7 +97,6 @@ using oscen_stage::kLanes;
 using oscen_stage::kStages;
 using oscen_stage::run_chunk;
 using oscen_stage::stage_ptrs;
-constexpr int kThreads = kLanes;
 
 // A coefficient at this step: staged input i, or the row.
 template <bool kStaged, int kP>
@@ -507,39 +504,128 @@ div_sweep(const float* __restrict__ ds, int nd, unsigned long long* counts) {
   if ((threadIdx.x & 31) == 0 && wrong) atomicAdd(&counts[0], wrong);
 }
 
+// K9.  What bounds it: the recurrence is serial in time, and the IIR lowpass
+// runs it on one lane (V = number of instances, 1 in a graph) with five
+// per-sample coefficient planes, so one warp on one SM does all the work:
+// latency, not bytes (28 bytes per sample and lane).  The loop-carried
+// cycle is v1's: + v1, * a1, -, + v2 and the snap (v2's own cycle, * a2,
+// -, the snap, is shorter and runs beside it); everything that reads only
+// x and the coefficients (the snap of x, b0 x, b1 x, b2 x) is off it.  The
+// design:
+//  - x and every per-sample plane through the staged ring (scan_stage.cuh:
+//    a producer warp's cp.async, 4-byte copies at V = 1, 16-byte pieces
+//    for aligned 32-lane rows), read a group of 8 steps ahead; rows stay
+//    in registers.  Two instances: every coefficient a row, or every one
+//    a plane (the IIR lowpass's form); the wrapper (ops/cuda/iir.py)
+//    expands the rows of a mixed call into planes on the card.
+//  - y staged in a shared slot and written back by the producer
+//    (Producer::run_staged), so the chain warp's stream holds no global
+//    stores: ~14 cycles a step faster than the chain warp's own stores at
+//    V = 1, ~16 slower at V = 256 with planes (tools/scanprobe.py; PERF.md,
+//    PR 11); one path, the IIR lowpass's.
+//  - the snaps stay the reference's compare and select (FSETP, SEL): the
+//    ring, not the chain, bounds the step (tools/scanprobe.py: the ring
+//    without snaps takes as long; PERF.md, PR 11), and ptxas compiles a
+//    mask form (set.lt.u32.f32, and-not) to the same FSETP and SEL.
 __device__ __forceinline__ float snap(float v) {
   return fabsf(v) < 1e-15f ? 0.0f : v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K9's step on staged inputs: x, then (kPlanes) b0, b1, b2, a1, a2, or
+// the five rows from registers; y into the chunk's stage of the y slot.
+template <bool kPlanes>
+struct BiquadBody {
+  static constexpr int kP = kPlanes ? 6 : 1;
+  float row[5];   // the rows (b0, b1, b2, a1, a2)
+  float v1, v2;
+  float* y;       // this lane's y in the chunk's stage of the y slot
+
+  __device__ __forceinline__ void step(const float (&in)[kP], int t) {
+    const float xt = snap(in[0]);
+    const float c0 = pick<kPlanes>(in, 1, row[0]);
+    const float c1 = pick<kPlanes>(in, 2, row[1]);
+    const float c2 = pick<kPlanes>(in, 3, row[2]);
+    const float d1 = pick<kPlanes>(in, 4, row[3]);
+    const float d2 = pick<kPlanes>(in, 5, row[4]);
+    const float out = c0 * xt + v1;
+    const float nv1 = c1 * xt - d1 * out + v2;
+    v2 = snap(c2 * xt - d2 * out);
+    v1 = snap(nv1);
+    y[t * kLanes] = out;
+  }
+};
+
+// x [B, V]; b0, b1, b2, a1, a2 [V] (kPlanes false) or [B, V]; v1, v2 [V]
+// -> y [B, V], v1', v2' [V].  Dynamic shared memory: the staged slots,
+// then the y slot (ring_bytes(kP + 1)).
+template <bool kPlanes>
+__global__ void __launch_bounds__(oscen_stage::kBlock)
 biquad_kernel(const float* __restrict__ x, const float* __restrict__ b0,
               const float* __restrict__ b1, const float* __restrict__ b2,
               const float* __restrict__ a1, const float* __restrict__ a2,
               const float* __restrict__ v1_in,
               const float* __restrict__ v2_in, float* __restrict__ y,
               float* __restrict__ v1_out, float* __restrict__ v2_out, int V,
-              int B, int b0s, int b1s, int b2s, int a1s, int a2s) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  float v1 = v1_in[v];
-  float v2 = v2_in[v];
-#pragma unroll 4
-  for (int t = 0; t < B; ++t) {
-    const size_t i = (size_t)t * V + v;
-    const float xt = snap(x[i]);
-    const float c0 = b0[(size_t)t * b0s + v];
-    const float c1 = b1[(size_t)t * b1s + v];
-    const float c2 = b2[(size_t)t * b2s + v];
-    const float d1 = a1[(size_t)t * a1s + v];
-    const float d2 = a2[(size_t)t * a2s + v];
-    const float out = c0 * xt + v1;
-    const float nv1 = c1 * xt - d1 * out + v2;
-    v2 = snap(c2 * xt - d2 * out);
-    v1 = snap(nv1);
-    y[i] = out;
+              int B) {
+  using Body = BiquadBody<kPlanes>;
+  constexpr int kP = Body::kP;
+  extern __shared__ __align__(16) float smem[];
+  float* const y_slot = smem + kP * oscen_stage::kSlotFloats;
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {   // the producer warp
+    const float* planes[6] = {x, b0, b1, b2, a1, a2};
+    oscen_stage::Producer<kP> prod;
+    prod.init(smem, planes, kP, V, B, l0);
+    prod.run_staged(chunks, y_slot, y, 0);
+    return;
   }
-  v1_out[v] = v1;
-  v2_out[v] = v2;
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;   // every thread syncs; live ones scan
+  Body body{};
+  if (live) {
+    if constexpr (!kPlanes) {
+      body.row[0] = b0[v];
+      body.row[1] = b1[v];
+      body.row[2] = b2[v];
+      body.row[3] = a1[v];
+      body.row[4] = a2[v];
+    }
+    body.v1 = v1_in[v];
+    body.v2 = v2_in[v];
+  }
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[kP];
+      stage_ptrs<kP>(smem, c, src);
+      body.y = y_slot + (c % kStages) * kChunk * kLanes + threadIdx.x;
+      run_chunk<kP>(src, min(kChunk, B - c * kChunk), body);
+    }
+    // every chunk's stage is handed back: the producer writes y back
+    oscen_stage::bar_arrive(oscen_stage::empty_id(c));
+  }
+  if (live) {
+    v1_out[v] = body.v1;
+    v2_out[v] = body.v2;
+  }
+}
+
+template <bool kPlanes>
+cudaError_t launch_biquad(const float* x, const float* b0, const float* b1,
+                          const float* b2, const float* a1, const float* a2,
+                          const float* v1, const float* v2, float* y,
+                          float* v1_out, float* v2_out, int V, int B,
+                          cudaStream_t stream) {
+  // the staged planes and the y slot: 2 or 7 slots (84 KB)
+  const int slots = BiquadBody<kPlanes>::kP + 1;
+  const cudaError_t err = oscen_stage::allow_ring<biquad_kernel<kPlanes>>(
+      slots);
+  if (err != cudaSuccess) return err;
+  biquad_kernel<kPlanes><<<(V + kLanes - 1) / kLanes, oscen_stage::kBlock,
+                           oscen_stage::ring_bytes(slots), stream>>>(
+      x, b0, b1, b2, a1, a2, v1, v2, y, v1_out, v2_out, V, B);
+  return cudaGetLastError();
 }
 
 // K10.  What bounds it: the recurrence is serial in time, and the 4x saturator
@@ -794,8 +880,10 @@ int oscen_div_sweep(const float* ds, unsigned long long* counts, int nd,
   return (int)cudaGetLastError();
 }
 
-// x [B, V]; b0, b1, b2, a1, a2 [V] (time stride 0) or [B, V] (time stride
-// V); v1, v2 [V] -> y [B, V], v1', v2' [V].
+// x [B, V]; b0, b1, b2, a1, a2 all [V] (time stride 0) or all [B, V]
+// (time stride V); v1, v2 [V] -> y [B, V], v1', v2' [V].  Mixed strides
+// are refused (cudaErrorInvalidValue): the wrapper expands a mixed call's
+// rows into planes.
 int oscen_biquad_scan(const float* x, const float* b0, const float* b1,
                       const float* b2, const float* a1, const float* a2,
                       const float* v1, const float* v2, float* y,
@@ -803,11 +891,16 @@ int oscen_biquad_scan(const float* x, const float* b0, const float* b1,
                       int b0_stride, int b1_stride, int b2_stride,
                       int a1_stride, int a2_stride, void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((V + kThreads - 1) / kThreads);
-  biquad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, b0, b1, b2, a1, a2, v1, v2, y, v1_out, v2_out, V, B, b0_stride,
-      b1_stride, b2_stride, a1_stride, a2_stride);
-  return (int)cudaGetLastError();
+  const int planes = (b0_stride != 0) + (b1_stride != 0) +
+                     (b2_stride != 0) + (a1_stride != 0) + (a2_stride != 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (planes == 0)
+    return (int)launch_biquad<false>(x, b0, b1, b2, a1, a2, v1, v2, y,
+                                     v1_out, v2_out, V, B, st);
+  if (planes == 5)
+    return (int)launch_biquad<true>(x, b0, b1, b2, a1, a2, v1, v2, y,
+                                    v1_out, v2_out, V, B, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x [B, V]; a, xp, yp [S, V] (stage-major) -> y [B, V], xp', yp' [S, V];

@@ -1,6 +1,6 @@
 // A staged input ring for one-thread-per-lane scans (sm_90a).
 //
-// A scan kernel (K6, K7, K8, K10) runs one chain warp per CUDA block, one
+// A scan kernel (K6 to K10, K14) runs one chain warp per CUDA block, one
 // thread per lane of a time-major [B, V] problem, with the lane's state in
 // registers; its per-step work is a serial chain (the FM chains, K13 and
 // K15, run one chain warp per operator and one Producer per operator's
@@ -36,8 +36,8 @@
 //
 // Outputs: the chain warp stores them itself, or into a second shared slot
 // that the producer writes back once the chunk is handed over
-// (Producer::run_staged: K6 below 32 lanes, K10 always), so that the chain
-// warp's stream holds no global stores.
+// (Producer::run_staged: K6 below 32 lanes, K9, K10 and K14 always), so
+// that the chain warp's stream holds no global stores.
 //
 // A skewed body (K10's stages) runs D pipeline stages D - 1 samples apart:
 // iteration k runs stage r on sample k - r, so the D updates of one

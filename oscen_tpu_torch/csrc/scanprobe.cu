@@ -22,6 +22,18 @@
 // operator's chain costs: (3) op3 alone on the ring, (4) (6) with the sine
 // unrounded, (5) (6) without the phase wraps; with copies of fm.cu's sine
 // and wrap (fm.cu keeps the only shipped copy).
+// probe_biquad: K9 (csrc/iir.cu) before its redesign, (0) as is (one
+// thread per lane, x and the coefficients loaded inside the loop, #pragma
+// unroll 4), (1) with x and the coefficients read once into registers,
+// (2) without the snaps, (3) both: the bare chain; and on the staged ring
+// with every coefficient a plane, (4) without snaps, (5) y stored by the
+// chain warp, (6) iir.cu's body (y staged), (7) the chain warp reading no
+// shared memory, (8) the producer copying nothing.
+// probe_operator: K14 (csrc/fm.cu) before its redesign, (0) as is, (1)
+// with the five planes read once into registers, (2) without the * lvl,
+// (3) both; and on the staged ring, (4) y stored by the chain warp, (5)
+// fm.cu's body (y staged), (6) the chain warp reading no shared memory,
+// (7) the producer copying nothing.
 //
 // Built like the other sources (--fmad=false); variants by number, as
 // tools/scanprobe.py names them.
@@ -450,6 +462,293 @@ cudaError_t launch_probe(int variant, OSCEN_CHAIN_ARGS, cudaStream_t st) {
 
 }  // namespace probe_fm
 
+// ---- K9 / K14 probes --------------------------------------------------
+namespace probe_k9 {
+
+using oscen_stage::kChunk;
+using oscen_stage::kLanes;
+using oscen_stage::kStages;
+
+// kSnap 0: no snap (probe only); 1: the reference's compare and select
+// (iir.cu's)
+template <int kSnap>
+__device__ __forceinline__ float snap(float v) {
+  if constexpr (kSnap == 0) {
+    return v;
+  } else {
+    return fabsf(v) < 1e-15f ? 0.0f : v;
+  }
+}
+
+#define OSCEN_BIQUAD_ARGS                                                   \
+  const float *__restrict__ x, const float *__restrict__ b0,               \
+      const float *__restrict__ b1, const float *__restrict__ b2,          \
+      const float *__restrict__ a1, const float *__restrict__ a2,          \
+      const float *__restrict__ v1_in, const float *__restrict__ v2_in,    \
+      float *__restrict__ y, float *__restrict__ v1_out,                   \
+      float *__restrict__ v2_out, int V, int B
+
+// K9's old body; XC: x and the coefficients of step 0 from registers
+template <int XC, int kSnap>
+__global__ void __launch_bounds__(32)
+biquad_old(OSCEN_BIQUAD_ARGS, int b0s, int b1s, int b2s, int a1s, int a2s) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float v1 = v1_in[v];
+  float v2 = v2_in[v];
+  const float x0 = x[v], c00 = b0[v], c10 = b1[v], c20 = b2[v],
+              d10 = a1[v], d20 = a2[v];
+#pragma unroll 4
+  for (int t = 0; t < B; ++t) {
+    const size_t i = (size_t)t * V + v;
+    const float xt = snap<kSnap>(XC ? x0 : x[i]);
+    const float c0 = XC ? c00 : b0[(size_t)t * b0s + v];
+    const float c1 = XC ? c10 : b1[(size_t)t * b1s + v];
+    const float c2 = XC ? c20 : b2[(size_t)t * b2s + v];
+    const float d1 = XC ? d10 : a1[(size_t)t * a1s + v];
+    const float d2 = XC ? d20 : a2[(size_t)t * a2s + v];
+    const float out = c0 * xt + v1;
+    const float nv1 = c1 * xt - d1 * out + v2;
+    v2 = snap<kSnap>(c2 * xt - d2 * out);
+    v1 = snap<kSnap>(nv1);
+    y[i] = out;
+  }
+  v1_out[v] = v1;
+  v2_out[v] = v2;
+}
+
+// The ring's modes: 0 as iir.cu; 1 the chain warp reads no shared memory
+// (its inputs are step 0's, from registers); 2 the producer copies nothing
+// (the barriers alone; y stored).
+template <int kMode>
+__host__ __device__ constexpr bool reads_ring() { return kMode != 1; }
+
+// The producer's run without copies (mode 2): Producer::run's barriers.
+__device__ __forceinline__ void handover_only(int chunks) {
+  for (int k = 0; k < chunks; ++k) {
+    if (k >= kStages) oscen_stage::bar_sync(oscen_stage::empty_id(k));
+    if (k >= 1) oscen_stage::bar_arrive(oscen_stage::full_id(k - 1));
+  }
+  oscen_stage::bar_arrive(oscen_stage::full_id(chunks - 1));
+}
+
+// the ring's step, every coefficient a plane: x, b0, b1, b2, a1, a2
+template <int kSnap, int kMode>
+struct RingBody {
+  float v1, v2;
+  float fixed[6];   // mode 1: the inputs
+  float* y;
+  int stride;
+  __device__ __forceinline__ void step(const float (&staged)[6], int t) {
+    float in[6];
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+      in[p] = reads_ring<kMode>() ? staged[p] : fixed[p];
+    const float xt = snap<kSnap>(in[0]);
+    const float out = in[1] * xt + v1;
+    const float nv1 = in[2] * xt - in[4] * out + v2;
+    v2 = snap<kSnap>(in[3] * xt - in[5] * out);
+    v1 = snap<kSnap>(nv1);
+    y[t * stride] = out;
+  }
+};
+
+template <int kSnap, bool kStageY, int kMode>
+__global__ void __launch_bounds__(oscen_stage::kBlock)
+biquad_ring(OSCEN_BIQUAD_ARGS) {
+  static_assert(kMode != 2 || !kStageY, "mode 2 stores y");
+  extern __shared__ __align__(16) float smem[];
+  float* const y_slot = smem + 6 * oscen_stage::kSlotFloats;
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {
+    const float* planes[6] = {x, b0, b1, b2, a1, a2};
+    oscen_stage::Producer<6> prod;
+    prod.init(smem, planes, 6, V, B, l0);
+    if constexpr (kMode == 2)
+      handover_only(chunks);
+    else if constexpr (kStageY)
+      prod.run_staged(chunks, y_slot, y, 0);
+    else
+      prod.run(chunks, [](int) {});
+    return;
+  }
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;
+  RingBody<kSnap, kMode> body{};
+  if (live) {
+    body.v1 = v1_in[v];
+    body.v2 = v2_in[v];
+    const float* const first[6] = {x, b0, b1, b2, a1, a2};
+#pragma unroll
+    for (int p = 0; p < 6; ++p) body.fixed[p] = first[p][v];
+  }
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[6];
+      oscen_stage::stage_ptrs<6>(smem, c, src);
+      if constexpr (kStageY) {
+        body.y = y_slot + (c % kStages) * kChunk * kLanes + threadIdx.x;
+        body.stride = kLanes;
+      } else {
+        body.y = y + (size_t)c * kChunk * V + v;
+        body.stride = V;
+      }
+      oscen_stage::run_chunk<6>(src, min(kChunk, B - c * kChunk), body);
+    }
+    if constexpr (kStageY)
+      oscen_stage::bar_arrive(oscen_stage::empty_id(c));
+    else
+      oscen_stage::chunk_done(c, chunks);
+  }
+  if (live) {
+    v1_out[v] = body.v1;
+    v2_out[v] = body.v2;
+  }
+}
+
+template <int kSnap, bool kStageY, int kMode>
+cudaError_t launch_ring(OSCEN_BIQUAD_ARGS, cudaStream_t st) {
+  const cudaError_t err =
+      oscen_stage::allow_ring<biquad_ring<kSnap, kStageY, kMode>>(7);
+  if (err != cudaSuccess) return err;
+  biquad_ring<kSnap, kStageY, kMode><<<(V + kLanes - 1) / kLanes,
+                                       oscen_stage::kBlock,
+                                       oscen_stage::ring_bytes(7), st>>>(
+      x, b0, b1, b2, a1, a2, v1_in, v2_in, y, v1_out, v2_out, V, B);
+  return cudaGetLastError();
+}
+
+#undef OSCEN_BIQUAD_ARGS
+
+}  // namespace probe_k9
+
+namespace probe_fm {
+
+#define OSCEN_OPERATOR_ARGS                                                 \
+  const float *__restrict__ phase0, const float *__restrict__ prev0,       \
+      const float *__restrict__ dt, const float *__restrict__ pm,          \
+      const float *__restrict__ fb, const float *__restrict__ env,         \
+      const float *__restrict__ lvl, float *__restrict__ y,                \
+      float *__restrict__ ph_out, float *__restrict__ pv_out, int V, int B
+
+// K14's old body; XC: the five planes of step 0 from registers; LVL 0:
+// without the * lvl
+template <int XC, int LVL>
+__global__ void __launch_bounds__(32) operator_old(OSCEN_OPERATOR_ARGS) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float ph = phase0[v];
+  float prev = prev0[v];
+  const float dt0 = dt[v], pm0 = pm[v], fb0 = fb[v], env0 = env[v],
+              lvl0 = lvl[v];
+#pragma unroll 4
+  for (int t = 0; t < B; ++t) {
+    const size_t i = (size_t)t * V + v;
+    const float total_pm = (XC ? pm0 : pm[i]) + prev * (XC ? fb0 : fb[i]);
+    float out = sin_turns(ph + total_pm) * (XC ? env0 : env[i]);
+    if (LVL) out = out * (XC ? lvl0 : lvl[i]);
+    ph = fract_step(ph, XC ? dt0 : dt[i]);
+    prev = out;
+    y[i] = out;
+  }
+  ph_out[v] = ph;
+  pv_out[v] = prev;
+}
+
+// fm.cu's lone-operator step on the ring: env, dt, pm, fb, lvl staged;
+// kMode as biquad_ring's
+template <int kMode>
+struct OperatorBody {
+  float ph, p;
+  float fixed[5];   // mode 1: the inputs
+  float* y;
+  int stride;
+  __device__ __forceinline__ void step(const float (&staged)[5], int t) {
+    float in[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q)
+      in[q] = probe_k9::reads_ring<kMode>() ? staged[q] : fixed[q];
+    const float out = sin_turns(ph + (in[2] + p * in[3])) * in[0] * in[4];
+    y[t * stride] = out;
+    p = out;
+    ph = fract_step(ph, in[1]);
+  }
+};
+
+template <bool kStageY, int kMode>
+__global__ void __launch_bounds__(oscen_stage::kBlock)
+operator_ring(OSCEN_OPERATOR_ARGS) {
+  static_assert(kMode != 2 || !kStageY, "mode 2 stores y");
+  extern __shared__ __align__(16) float smem[];
+  float* const y_slot = smem + 5 * oscen_stage::kSlotFloats;
+  const int l0 = blockIdx.x * kLanes;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  if (threadIdx.x >= kLanes) {
+    const float* planes[5] = {env, dt, pm, fb, lvl};
+    oscen_stage::Producer<5> prod;
+    prod.init(smem, planes, 5, V, B, l0);
+    if constexpr (kMode == 2)
+      probe_k9::handover_only(chunks);
+    else if constexpr (kStageY)
+      prod.run_staged(chunks, y_slot, y, 0);
+    else
+      prod.run(chunks, [](int) {});
+    return;
+  }
+  const int v = l0 + threadIdx.x;
+  const bool live = v < V;
+  OperatorBody<kMode> body{};
+  if (live) {
+    body.ph = phase0[v];
+    body.p = prev0[v];
+    const float* const first[5] = {env, dt, pm, fb, lvl};
+#pragma unroll
+    for (int q = 0; q < 5; ++q) body.fixed[q] = first[q][v];
+  }
+  for (int c = 0; c < chunks; ++c) {
+    oscen_stage::chunk_ready(c);
+    if (live) {
+      const float* src[5];
+      oscen_stage::stage_ptrs<5>(smem, c, src);
+      if constexpr (kStageY) {
+        body.y = y_slot + (c % oscen_stage::kStages) * kChunk * kLanes +
+                 threadIdx.x;
+        body.stride = kLanes;
+      } else {
+        body.y = y + (size_t)c * kChunk * V + v;
+        body.stride = V;
+      }
+      oscen_stage::run_chunk<5>(src, min(kChunk, B - c * kChunk), body);
+    }
+    if constexpr (kStageY)
+      oscen_stage::bar_arrive(oscen_stage::empty_id(c));
+    else
+      oscen_stage::chunk_done(c, chunks);
+  }
+  if (live) {
+    ph_out[v] = body.ph;
+    pv_out[v] = body.p;
+  }
+}
+
+template <bool kStageY, int kMode>
+cudaError_t launch_operator_ring(OSCEN_OPERATOR_ARGS, cudaStream_t st) {
+  const cudaError_t err =
+      oscen_stage::allow_ring<operator_ring<kStageY, kMode>>(6);
+  if (err != cudaSuccess) return err;
+  operator_ring<kStageY, kMode><<<(V + kLanes - 1) / kLanes,
+                                  oscen_stage::kBlock,
+                                  oscen_stage::ring_bytes(6), st>>>(
+      phase0, prev0, dt, pm, fb, env, lvl, y, ph_out, pv_out, V, B);
+  return cudaGetLastError();
+}
+
+#undef OSCEN_OPERATOR_ARGS
+
+}  // namespace probe_fm
+
 extern "C" {
 
 int probe_phase(int variant, const float* phase0, const float* dt,
@@ -532,6 +831,75 @@ int probe_chain(int variant, int pivot, const float* phases,
                                 : (dtp ? L(false, true) : L(false, false));
 #undef L
   return (int)err;
+}
+
+// K9: variants 0-3 the old body (0 as is, 1 x and the coefficients from
+// registers, 2 without snaps, 3 both), 4-8 the ring with every coefficient
+// a plane (4 no snaps, 5 y stored, 6 iir.cu's body, 7 the chain warp reads
+// no shared memory, 8 the producer copies nothing); the arguments of
+// oscen_biquad_scan.
+int probe_biquad(int variant, const float* x, const float* b0,
+                 const float* b1, const float* b2, const float* a1,
+                 const float* a2, const float* v1, const float* v2, float* y,
+                 float* v1o, float* v2o, int V, int B, int b0s, int b1s,
+                 int b2s, int a1s, int a2s, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool planes = b0s && b1s && b2s && a1s && a2s;
+  if (variant >= 4 && !planes) return (int)cudaErrorInvalidValue;
+#define L(XC, S)                                                            \
+  probe_k9::biquad_old<XC, S><<<(V + 31) / 32, 32, 0, st>>>(               \
+      x, b0, b1, b2, a1, a2, v1, v2, y, v1o, v2o, V, B, b0s, b1s, b2s, a1s, \
+      a2s)
+#define R(S, Y, M)                                                          \
+  return (int)probe_k9::launch_ring<S, Y, M>(x, b0, b1, b2, a1, a2, v1, v2, \
+                                             y, v1o, v2o, V, B, st)
+  switch (variant) {
+    case 0: L(0, 1); break;
+    case 1: L(1, 1); break;
+    case 2: L(0, 0); break;
+    case 3: L(1, 0); break;
+    case 4: R(0, true, 0);
+    case 5: R(1, false, 0);
+    case 6: R(1, true, 0);
+    case 7: R(1, true, 1);
+    case 8: R(1, false, 2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef L
+#undef R
+  return (int)cudaGetLastError();
+}
+
+// K14: variants 0-3 the old body (0 as is, 1 the planes from registers, 2
+// without * lvl, 3 both), 4-7 the ring (4 y stored, 5 fm.cu's body, 6 the
+// chain warp reads no shared memory, 7 the producer copies nothing); the
+// arguments of oscen_fm_operator_scan.
+int probe_operator(int variant, const float* phase0, const float* prev0,
+                   const float* dt, const float* pm, const float* fb,
+                   const float* env, const float* lvl, float* y,
+                   float* ph_out, float* pv_out, int V, int B,
+                   void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define L(XC, LV)                                                           \
+  probe_fm::operator_old<XC, LV><<<(V + 31) / 32, 32, 0, st>>>(            \
+      phase0, prev0, dt, pm, fb, env, lvl, y, ph_out, pv_out, V, B)
+#define R(Y, M)                                                             \
+  return (int)probe_fm::launch_operator_ring<Y, M>(                        \
+      phase0, prev0, dt, pm, fb, env, lvl, y, ph_out, pv_out, V, B, st)
+  switch (variant) {
+    case 0: L(0, 1); break;
+    case 1: L(1, 1); break;
+    case 2: L(0, 0); break;
+    case 3: L(1, 0); break;
+    case 4: R(false, 0);
+    case 5: R(true, 0);
+    case 6: R(true, 1);
+    case 7: R(false, 2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef L
+#undef R
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

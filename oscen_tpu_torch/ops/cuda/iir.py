@@ -20,7 +20,9 @@ block sizes:
 
 Every coefficient of the first three is a ``[V]`` row (block-constant) or
 a ``[B, V]`` per-sample plane; the kernels take a time stride of 0 or V for
-each.  The allpass cascade takes ``[S, V]`` rows.
+each (the biquad's kernel all five alike: ``biquad_scan`` expands the rows
+of a mixed call into planes on the card).  The allpass cascade takes
+``[S, V]`` rows.
 
 Selection: a CPU tensor runs the plain version, a CUDA tensor runs the
 kernel of ``csrc/iir.cu`` (built at first use) or raises.  ``launches``
@@ -254,6 +256,11 @@ def biquad_scan(x, b0, b1, b2, a1, a2, v1, v2):
                          {"v1": (v1, None), "v2": (v2, None)})
     if _route("biquad_scan", x):
         return plain_biquad_scan(x, b0, b1, b2, a1, a2, v1, v2)
+    if len({c.dim() for c in coefs.values()}) > 1:
+        # the kernel takes every coefficient as a row or every one as a
+        # plane: a mixed call's rows become planes, on the card
+        coefs = {k: c.expand(B, V).contiguous() if c.dim() == 1 else c
+                 for k, c in coefs.items()}
     y = torch.empty_like(x)
     v1o = torch.empty_like(v1)
     v2o = torch.empty_like(v2)

@@ -155,13 +155,14 @@ def uniform_inputs(H=32, V=256, seed=0):
 
 def event_us(fn: Callable[[], object], n: int = 20) -> float:
     """Device µs per call: CUDA events around ``n`` back-to-back calls of
-    ``fn`` queued behind a ~1 ms sleep on the card (so the host's
-    enqueueing stays off the card's clock)."""
+    ``fn`` queued behind a sleep on the card of ~100 µs per call, at least
+    ~1 ms (so the host's enqueueing, a wrapper's ~50 µs a call included,
+    stays off the card's clock)."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(2_000_000)
+    torch.cuda._sleep(max(2_000_000, 200_000 * n))
     a.record()
     for _ in range(n):
         fn()

@@ -28,9 +28,21 @@ Three parts, one line per row:
   and op3 alone, the sine unrounded or the wraps left out (what one
   operator's chain and its FRNDs cost); beside the shipped kernel (a warp
   per operator, skewed by a chunk, on the ring), the exact ones first
-  checked equal to the plain version; the LDL / STL count of every
-  shipped ``chain3_kernel`` and ``allpass_kernel`` instance (built
-  ``--fmad=false``) and their registers;
+  checked equal to the plain version;
+  K9 (``biquad_scan``) at V=1 with per-sample planes (the IIR lowpass's
+  lane) and V=256 with planes and rows, B=1024: its old body as is, with
+  x and the coefficients from registers, without the snaps and both; on
+  the staged ring (planes only) without snaps, with y stored by the chain
+  warp, the shipped body's copy (y staged), the chain warp reading no
+  shared memory and the producer copying nothing; K14
+  (``fm_operator_scan``) at V=256, B=1024 and 4096: its old body as is,
+  with the planes from registers, without the ``* lvl`` and both; on the
+  ring with y stored, the shipped body's copy (y staged), the chain warp
+  reading no shared memory and the producer copying nothing; beside the
+  shipped kernels, the exact ones first checked equal to the plain
+  version; the LDL / STL count of every shipped ``chain3_kernel``,
+  ``allpass_kernel``, ``biquad_kernel`` and ``fm_operator_kernel``
+  instance (built ``--fmad=false``) and their registers;
 - ``ab`` (with ``--old DIR``, a tree of the parent commit, e.g. unpacked
   by ``git archive``): that tree's ``csrc/iir.cu``, ``csrc/phase.cu``,
   ``csrc/additive.cu`` and ``csrc/fm.cu`` and the package's own, built
@@ -41,7 +53,9 @@ Three parts, one line per row:
   K1 v4 V=256 with the mix at B=1024 and 4096 and without it at 1024; K10
   V=2 over 2048, 1024, 8192 and 4096 steps (the 4x IIR saturator's two
   halfband stages at B=1024 and 4096); K15 and K13 V=256 at B=1024 and
-  4096, dt as rows and per sample.  Each row first checks that the new
+  4096, dt as rows and per sample; K9 V=1 with per-sample planes at
+  B=1024 and 4096 and V=256 with rows and with planes at B=1024 and 4096;
+  K14 V=256 at B=1024 and 4096.  Each row first checks that the new
   outputs equal the old build's on the same inputs (``torch.equal``, every
   output) and the plain version (the scans ``torch.equal``; K1's state
   planes ``torch.equal``, y within the kernel's bound), and only then
@@ -49,9 +63,9 @@ Three parts, one line per row:
   is counted beside the new one's.
 
 Times are device µs per launch from CUDA events around 20 back-to-back
-launches queued behind a ~1 ms sleep kernel (so the host's enqueueing
-stays off the card's clock), the median over 5 windows, beside each
-call's chain floor (``tools.chain_floor_us`` at the SM clock
+launches queued behind a ~2 ms sleep kernel (``tools.event_us``: the
+host's enqueueing stays off the card's clock), the median over 5 windows,
+beside each call's chain floor (``tools.chain_floor_us`` at the SM clock
 ``tools.sm_clock_mhz`` reads).  On the card only.
 """
 
@@ -102,6 +116,36 @@ CHAIN_PROBES = {1: ("one warp, skewed by a sample, inputs from global",
                 3: ("op3 alone, one warp on the ring", False),
                 4: ("(6) with the sine unrounded", False),
                 5: ("(6) without the phase wraps", False)}
+# K9: the IIR lowpass's lane (one instance, per-sample planes) and 256
+# lanes with planes and with rows; the ring probes take planes only
+BIQUAD_PROBE_SHAPES = ((1, 1024, True), (256, 1024, True), (256, 1024, False))
+BIQUAD_AB = tuple((V, B, ps) for V, ps in ((1, True), (256, False),
+                                           (256, True))
+                  for B in (1024, 4096))
+# probe_biquad's variants: (name, computes the kernel's numbers, planes
+# only)
+BIQUAD_PROBES = {0: ("(a) old body as is", True, False),
+                 1: ("(b) old, x and coefficients from registers", False,
+                     False),
+                 2: ("(c) old, no snaps", False, False),
+                 3: ("(b+c) old, the bare chain", False, False),
+                 4: ("ring, no snaps", False, True),
+                 5: ("ring, y stored by the chain warp", True, True),
+                 6: ("ring, y staged (the shipped body's copy)", True, True),
+                 7: ("ring, the chain warp reads no shared memory", False,
+                     True),
+                 8: ("ring, y stored, the producer copies nothing", False,
+                     True)}
+# K14: the unfused fm voice's 256 voices
+OPERATOR_SHAPES = (1024, 4096)
+OPERATOR_PROBES = {0: ("(a) old body as is", True),
+                   1: ("(b) old, the planes from registers", False),
+                   2: ("(c) old, no * lvl", False),
+                   3: ("(b+c) old", False),
+                   4: ("ring, y stored by the chain warp", True),
+                   5: ("ring, y staged (the shipped body's copy)", True),
+                   6: ("ring, the chain warp reads no shared memory", False),
+                   7: ("ring, y stored, the producer copies nothing", False)}
 
 
 def _typed(fn, argtypes):
@@ -117,12 +161,14 @@ def _probe_lib():
     _typed(lib.probe_lp18, [I] + [P] * 6 + [I] * 4 + [P])
     _typed(lib.probe_lat, [P, P, I])
     _typed(lib.probe_chain, [I, I] + [P] * 11 + [I] * 3 + [P])
+    _typed(lib.probe_biquad, [I] + [P] * 11 + [I] * 7 + [P])
+    _typed(lib.probe_operator, [I] + [P] * 10 + [I] * 2 + [P])
     return lib
 
 
 def _entries(csrc: Path):
-    """The C entry points of one tree's sources, typed: K7, K8, K6, K1, K10,
-    K13 and K15 by name."""
+    """The C entry points of one tree's sources, typed: K7, K8, K6, K1, K9,
+    K10, K13, K14 and K15 by name."""
     lib = build.load_library("iir", csrc)
     fm = build.load_library("fm", csrc)
     return {
@@ -138,6 +184,10 @@ def _entries(csrc: Path):
                                  [P] * 11 + [I] * 3 + [P]),
         "pivot_chain3_scan": _typed(fm.oscen_pivot_chain3_scan,
                                     [P] * 11 + [I] * 3 + [P]),
+        "biquad_scan": _typed(lib.oscen_biquad_scan, [P] * 11 + [I] * 7
+                              + [P]),
+        "fm_operator_scan": _typed(fm.oscen_fm_operator_scan,
+                                   [P] * 10 + [I] * 2 + [P]),
     }
 
 
@@ -341,6 +391,65 @@ def _chain_plain(kernel, ops, lvl):
     return plain(phases, prevs, dt, lvl, fb, mix, *env)
 
 
+def _biquad_inputs(dev, V, B, planes, seed):
+    """The IIR lowpass's operands: noise in, JUCE lowpass coefficients
+    (iir_lowpass/mod.rs:84-100) for cutoffs in [1500, 8000] Hz at q =
+    1/sqrt(2), as per-sample planes or rows, states in [-1, 1)."""
+    rng = np.random.default_rng(seed)
+    cut = rng.uniform(1500.0, 8000.0, (B, V) if planes else (V,))
+    n = 1.0 / np.tan(np.pi * cut / 48000.0)
+    r2 = math.sqrt(2.0)
+    c1 = 1.0 / (1.0 + r2 * n + n * n)
+    return [torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in (
+        0.5 * rng.standard_normal((B, V)), c1, 2 * c1, c1,
+        2 * c1 * (1 - n * n), c1 * (1 - r2 * n + n * n),
+        rng.uniform(-1, 1, V), rng.uniform(-1, 1, V))]
+
+
+def _biquad_launcher(fn, ops, head=()):
+    """fn(*head, x, b0, b1, b2, a1, a2, v1, v2, y, v1', v2', V, B, five
+    time strides, stream) on preallocated outputs."""
+    x = ops[0]
+    B, V = x.shape
+    outs = (torch.empty_like(x), torch.empty_like(ops[6]),
+            torch.empty_like(ops[7]))
+    strides = [V if c.dim() == 2 else 0 for c in ops[1:6]]
+
+    def run():
+        _check(fn(*head, *[t.data_ptr() for t in ops],
+                  *[t.data_ptr() for t in outs], V, B, *strides,
+                  torch.cuda.current_stream().cuda_stream), "biquad_scan")
+        return outs
+    return run
+
+
+def _operator_inputs(dev, V, B, seed):
+    """The FmOperator's operands: phase and carry, then dt, pm, fb, env and
+    lvl planes over the ranges of chip_smoke.py's K14 check."""
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in (
+        rng.uniform(0, 1, V), rng.uniform(-1, 1, V),
+        *[rng.uniform(lo, hi, (B, V)) for lo, hi in (
+            (0.002, 0.03), (-0.2, 0.2), (0.0, 0.6), (0.1, 1.0),
+            (0.3, 1.0))])]
+
+
+def _operator_launcher(fn, ops, head=()):
+    """fn(*head, phase0, prev0, dt, pm, fb, env, lvl, y, phase', prev', V,
+    B, stream) on preallocated outputs."""
+    B, V = ops[2].shape
+    outs = (torch.empty_like(ops[2]), torch.empty_like(ops[0]),
+            torch.empty_like(ops[1]))
+
+    def run():
+        _check(fn(*head, *[t.data_ptr() for t in ops],
+                  *[t.data_ptr() for t in outs], V, B,
+                  torch.cuda.current_stream().cuda_stream),
+               "fm_operator_scan")
+        return outs
+    return run
+
+
 def _dt_label(per_sample):
     return "dt per sample" if per_sample else "dt rows"
 
@@ -363,22 +472,35 @@ def registers(names):
 
 
 def local_memory():
-    """LDL / STL in every shipped chain3_kernel and allpass_kernel
-    instance (their libraries' SASS), and the registers ptxas gave them."""
+    """LDL / STL in every shipped chain3_kernel, allpass_kernel,
+    biquad_kernel and fm_operator_kernel instance (their libraries' SASS),
+    and the registers ptxas gave them; K9's and K14's instances one by one.
+    Local memory in a K9 or K14 instance fails the run."""
     for fn, n in registers(("chain3_kernel", "allpass_kernel",
-                            "chain_ring")).items():
+                            "chain_ring", "biquad_kernel", "biquad_ring",
+                            "fm_operator_kernel", "operator_ring")).items():
         print(f"[probe] registers {fn}: {n}", flush=True)
-    for name, kern in (("fm", "chain3_kernel"), ("iir", "allpass_kernel")):
+    for name, kern in (("fm", "chain3_kernel"), ("iir", "allpass_kernel"),
+                       ("iir", "biquad_kernel"),
+                       ("fm", "fm_operator_kernel")):
         lib = build.BUILD_DIR / f"lib{name}-{build.source_digest(name)}.so"
         counts = sass_counts(lib, ("LDL", "STL"))
         rows = {f: c for f, c in counts.items() if kern in f}
         if not rows:
             raise SystemExit(f"no {kern} in {lib.name}'s SASS")
+        local = sum(c["LDL"] + c["STL"] for c in rows.values())
         print(f"[probe] {name}.cu {kern}: {len(rows)} instances, LDL "
               f"{sum(c['LDL'] for c in rows.values())}, STL "
               f"{sum(c['STL'] for c in rows.values())}; instructions "
               + ", ".join(str(c["instr"]) for c in rows.values()),
               flush=True)
+        if kern in ("biquad_kernel", "fm_operator_kernel"):
+            for f, c in rows.items():
+                print(f"[probe]   {f}: LDL {c['LDL']}, STL {c['STL']}, "
+                      f"{c['instr']} instructions", flush=True)
+            if local:
+                raise SystemExit(f"{kern}: {local} local-memory "
+                                 f"instructions")
 
 
 def latency(dev):
@@ -471,6 +593,38 @@ def probe(dev, mhz):
                                      f"plain version")
                 rows.append((kernel, f"V=256 B={B} {_dt_label(ps)}", B,
                              name, run))
+    for V, B, ps in BIQUAD_PROBE_SHAPES:
+        ops = _biquad_inputs(dev, V, B, ps, 11 * V + B)
+        ref = iir.plain_biquad_scan(*ops)
+        bodies = [(name, exact, _biquad_launcher(lib.probe_biquad, ops,
+                                                 (var,)))
+                  for var, (name, exact, planes_only) in BIQUAD_PROBES.items()
+                  if ps or not planes_only]
+        bodies.append(("shipped", True, _biquad_launcher(
+            shipped["biquad_scan"], ops)))
+        label = f"V={V} B={B} {'planes' if ps else 'rows'}"
+        for name, exact, run in bodies:
+            got = run()
+            torch.cuda.synchronize()
+            if exact and not _same(got, ref):
+                raise SystemExit(f"biquad_scan {label} {name} differs from "
+                                 f"the plain version")
+            rows.append(("biquad_scan", label, B, name, run))
+    for B in OPERATOR_SHAPES:
+        ops = _operator_inputs(dev, 256, B, 13 * B)
+        ref = kfm.plain_fm_operator_scan(*ops)
+        bodies = [(name, exact, _operator_launcher(lib.probe_operator, ops,
+                                                   (var,)))
+                  for var, (name, exact) in OPERATOR_PROBES.items()]
+        bodies.append(("shipped", True, _operator_launcher(
+            shipped["fm_operator_scan"], ops)))
+        for name, exact, run in bodies:
+            got = run()
+            torch.cuda.synchronize()
+            if exact and not _same(got, ref):
+                raise SystemExit(f"fm_operator_scan B={B} {name} differs "
+                                 f"from the plain version")
+            rows.append(("fm_operator_scan", f"V=256 B={B}", B, name, run))
     _print_rows(rows, mhz)
     local_memory()
 
@@ -531,6 +685,21 @@ def ab(dev, old: Path, mhz):
             ref = _chain_plain(kernel, ops, lvl)
             rows.append((kernel, f"V=256 B={B} {_dt_label(ps)}", B, runs,
                          lambda got, ref=ref: _same(got, ref)))
+    for V, B, ps in BIQUAD_AB:
+        ops = _biquad_inputs(dev, V, B, ps, 17 * V + B)
+        runs = {w: _biquad_launcher(fns["biquad_scan"], ops)
+                for w, fns in (("old", old_fns), ("new", new_fns))}
+        ref = iir.plain_biquad_scan(*ops)
+        rows.append(("biquad_scan", f"V={V} B={B} "
+                     f"{'planes' if ps else 'rows'}", B, runs,
+                     lambda got, ref=ref: _same(got, ref)))
+    for B in OPERATOR_SHAPES:
+        ops = _operator_inputs(dev, 256, B, 19 * B)
+        runs = {w: _operator_launcher(fns["fm_operator_scan"], ops)
+                for w, fns in (("old", old_fns), ("new", new_fns))}
+        ref = kfm.plain_fm_operator_scan(*ops)
+        rows.append(("fm_operator_scan", f"V=256 B={B}", B, runs,
+                     lambda got, ref=ref: _same(got, ref)))
     for kernel, label, B, runs, plain_ok in rows:
         outs = {}
         for w, run in runs.items():

@@ -481,6 +481,32 @@ def test_fm_operator_kernel_equals_plain(cuda, V, B):
     assert kfm.launches["fm_operator_scan"] == before + 3
 
 
+# K14 reads its five planes through the staged ring (csrc/scan_stage.cuh)
+# and stages y: every B around the 32-step chunk, ragged V
+OPERATOR_RING_V = (1, 3, 33, 256)
+OPERATOR_RING_B = (1, 2, 31, 32, 33, 65, 1024, 4096)
+
+
+@pytest.mark.parametrize("V", OPERATOR_RING_V)
+def test_fm_operator_ring_equals_plain(cuda, V):
+    """3 chained blocks at every B: every output and carry bit for bit, one
+    launch a block."""
+    for B in OPERATOR_RING_B:
+        rng = np.random.default_rng(V * 43 + B)
+        carry = (_on(cuda, rng.uniform(0, 1, V)),
+                 _on(cuda, rng.normal(size=V)))
+        before = kfm.launches["fm_operator_scan"]
+        for _ in range(3):
+            planes = [_on(cuda, rng.uniform(lo, hi, (B, V))) for lo, hi in (
+                (0.002, 0.03), (-0.2, 0.2), (0.0, 0.6), (0.1, 1.0),
+                (0.3, 1.0))]
+            k = kfm.fm_operator_scan(*carry, *planes)
+            torch.cuda.synchronize()
+            assert _equal(k, kfm.plain_fm_operator_scan(*carry, *planes)), B
+            carry = k[1:]
+        assert kfm.launches["fm_operator_scan"] == before + 3, B
+
+
 def test_fm_wrappers_reject_what_they_do_not_take(cuda):
     z3 = torch.zeros(3, 8, device=cuda)
     env = torch.zeros(16, 8, device=cuda)
@@ -695,6 +721,69 @@ def test_biquad_scan_kernel_equals_plain(cuda, V, B, per_sample):
         tail = out[0][-100:]
         assert float(tail.abs().max()) < 1e-14
         assert bool((tail == 0).any())
+
+
+# K9 reads x and its per-sample planes through the staged ring
+# (csrc/scan_stage.cuh): every B around the 32-step chunk and its 8-step
+# groups, ragged V; which coefficients are planes (bit i: b0, b1, b2, a1,
+# a2; the wrapper expands a mix's rows into planes for the kernel)
+BIQUAD_RING_V = (1, 2, 3, 33, 256)
+BIQUAD_RING_B = (1, 2, 7, 8, 31, 32, 33, 65, 1024)
+BIQUAD_FORMS = {"rows": 0b00000, "planes": 0b11111, "mixed": 0b10110,
+                "mixed2": 0b01001}
+
+
+def _biquad_operands(cuda, rng, V, B, mask):
+    """JUCE lowpass coefficients (cutoffs in [1500, 8000] Hz, q =
+    1/sqrt(2)) per lane, as rows; where ``mask`` has a plane, each sample's
+    coefficients moved by up to 1e-3 of themselves (a stable filter)."""
+    cut = rng.uniform(1500.0, 8000.0, V)
+    n = 1.0 / np.tan(np.pi * cut / 48000.0)
+    c1 = 1.0 / (1.0 + np.sqrt(2.0) * n + n * n)
+    rows = (c1, 2 * c1, c1, 2 * c1 * (1 - n * n),
+            c1 * (1 - np.sqrt(2.0) * n + n * n))
+    return [_on(cuda, r * (1 + 1e-3 * rng.uniform(-1, 1, (B, V)))
+                if mask >> i & 1 else r) for i, r in enumerate(rows)]
+
+
+@pytest.mark.parametrize("form", BIQUAD_FORMS)
+@pytest.mark.parametrize("V", BIQUAD_RING_V)
+def test_biquad_ring_equals_plain(cuda, V, form):
+    """3 chained blocks at every B, the input decaying below 1e-15 in the
+    last one (the snaps fire): every output bit for bit, one launch a block
+    (mixed row and plane coefficients too)."""
+    mask = BIQUAD_FORMS[form]
+    for B in BIQUAD_RING_B:
+        rng = np.random.default_rng(V * 41 + B + mask)
+        v = [_on(cuda, rng.standard_normal(V)) for _ in range(2)]
+        before = kiir.launches["biquad_scan"]
+        for i in range(3):
+            coefs = _biquad_operands(cuda, rng, V, B, mask)
+            x = rng.standard_normal((B, V))
+            if i == 2:
+                x *= np.exp(-np.arange(B) / 4.0)[:, None]
+            x = _on(cuda, x)
+            out = kiir.biquad_scan(x, *coefs, *v)
+            torch.cuda.synchronize()
+            assert _equal(out, kiir.plain_biquad_scan(x, *coefs, *v)), B
+            v = list(out[1:])
+        assert kiir.launches["biquad_scan"] == before + 3, B
+
+
+def test_biquad_every_stride_mix_runs_the_kernel(cuda):
+    """Each of the 32 mixes of row and plane coefficients on CUDA tensors:
+    one launch, every output equal to the plain version."""
+    V, B = 3, 40
+    for mask in range(32):
+        rng = np.random.default_rng(mask)
+        coefs = _biquad_operands(cuda, rng, V, B, mask)
+        x = _on(cuda, rng.standard_normal((B, V)))
+        v = [_on(cuda, rng.standard_normal(V)) for _ in range(2)]
+        before = kiir.launches["biquad_scan"]
+        out = kiir.biquad_scan(x, *coefs, *v)
+        torch.cuda.synchronize()
+        assert kiir.launches["biquad_scan"] == before + 1, mask
+        assert _equal(out, kiir.plain_biquad_scan(x, *coefs, *v)), mask
 
 
 def test_compile_defaults_to_the_card(cuda):

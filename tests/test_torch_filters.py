@@ -223,6 +223,54 @@ def test_biquad_plain_matches_pallas(V, B, per_sample):
     assert float(np.abs(np.asarray(yj)).max()) > 0.1
 
 
+# which coefficients are per-sample planes (bit i: b0, b1, b2, a1, a2), the
+# rest rows.  The Pallas kernel takes the coefficient form from b0
+# (``_biquad_kernel``'s ``const_coef``) and reads a row's first line at
+# every step, so b0 is a plane in each mix.
+MIXED_FORMS = {"b0_only": 0b00001, "b0_b2_a2": 0b10101, "b0_b1_a1": 0b01011,
+               "all_but_a2": 0b01111}
+
+
+@pytest.mark.parametrize("form", MIXED_FORMS, ids=list(MIXED_FORMS))
+@pytest.mark.parametrize("V,B", [(1, 48), (3, 37), (33, 64)])
+def test_biquad_plain_matches_pallas_mixed_strides(V, B, form):
+    """Some coefficients as ``[V]`` rows and the rest as ``[B, V]`` planes
+    in one call (a time stride of 0 or V each, as the card's kernel takes
+    them), three chained blocks: against the port's own call with every
+    row expanded into a plane bit for bit, and against the Pallas kernel in
+    interpret mode at 1e-6 times the block's peak, at least 1 (XLA's
+    contracted roundings scale with the signal; these reach peaks of ~2).
+    The planes are each lane's filter with every sample's coefficients
+    moved by up to 1e-3 of themselves, so the filter stays stable and a
+    plane read as a row moves y far above that bound."""
+    mask = MIXED_FORMS[form]
+    rng = np.random.default_rng(V * 7 + B + mask)
+    v_j = [jnp.zeros(V, jnp.float32)] * 2
+    v_t = [torch.zeros(V)] * 2
+    for _ in range(3):
+        x = (0.5 * rng.standard_normal((B, V))).astype(np.float32)
+        rows = _biquad_coefs(rng, (V,))
+        coefs = [(r * (1 + 1e-3 * rng.uniform(-1, 1, (B, V)))).astype(
+            np.float32) if mask >> i & 1 else r for i, r in enumerate(rows)]
+        yj, *v_j = j_biquad_scan(jnp.asarray(x),
+                                 *[jnp.asarray(c) for c in coefs], *v_j,
+                                 interpret=True)
+        out = tiir.biquad_scan(_t(x), *[_t(c) for c in coefs], *v_t)
+        full = tiir.plain_biquad_scan(
+            _t(x), *[_t(np.broadcast_to(c, (B, V)).copy()) for c in coefs],
+            *v_t)
+        assert all(torch.equal(a, b) for a, b in zip(out, full))
+        yt, *v_t = out
+        tol = BIQUAD_CHAIN_TOL * max(1.0, float(np.abs(np.asarray(yj)).max()))
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=tol,
+                                   rtol=0)
+        for a, b in zip(v_t, v_j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=tol,
+                                       rtol=0)
+    assert float(np.abs(np.asarray(yj)).max()) > 0.1
+    assert tiir.launches["biquad_scan"] == 0
+
+
 def test_biquad_plain_is_the_float32_recurrence():
     """The plain scan equals a float32 numpy replay of the reference's
     per-sample ops bit for bit (no FMA contraction), over 2048 samples."""
@@ -328,7 +376,7 @@ def test_iir_source_pins_the_tanh_and_the_snaps():
                    for f in build.NVCC_FLAGS)
     # the biquad's snaps
     assert "fabsf(v) < 1e-15f ? 0.0f : v" in code
-    for operand in ("snap(x[i])", "snap(c2 * xt - d2 * out)", "snap(nv1)"):
+    for operand in ("snap(in[0])", "snap(c2 * xt - d2 * out)", "snap(nv1)"):
         assert operand in code, operand
     assert tiir.DENORMAL_THRESHOLD == jfilters.DENORMAL_THRESHOLD == 1e-15
 
