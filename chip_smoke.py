@@ -25,7 +25,13 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             v4 with and without the mix and with the epilogue at V=1, 3,
             33, 256 and 257 and B=64, 128, 1024 and 4096 against the plain
             version, every time-segment count equal to the one the kernel
-            picks; phase_scan,
+            picks; v3, v2 and v4 at V=256, B=1024 and 4096 with entry steps
+            off the step's cycle (-0.0, 1e-10, -2.5, 65, 2^24, stuck
+            counters, +-inf, NaN, ...) in 18 voices: 2 and 4 segments
+            equal to one warp per voice with and without the mix, the
+            state equal to the plain version's (NaN equal to NaN), y of the
+            voices whose plain rows are finite within 5e-5 of the voice's
+            largest |y|; phase_scan,
             tpt_svf_scan (row and per-sample coefficients), adsr_scan
             (A -> D -> S, then a gate-off through R -> idle), and the FM
             kernels fract_phase3, fm_chain3_scan and pivot_chain3_scan
@@ -177,6 +183,15 @@ ADD_SHAPES = ((VOICES, 1024), (VOICES, 4096), (3, 40))
 # the 64-tick subgroup (B <= 64: one segment)
 SEG_V = (1, 3, 33, VOICES, VOICES + 1)
 SEG_B = (64, 128, 1024, 4096)
+# entry steps the envelope never produces and the step cycle's edges: a
+# fraction off, below 0, above 64, a +1 that rounds to an integer, the
+# float below 64, stuck counters (s + 1 == s), inf and NaN; K3 / K4 replay
+# a segment's start by the cycle's closed form only where the step is an
+# integer in 0..64
+ODD_STEPS = (0.5, 64.5, 70.0, -3.0, -0.0, 1e-10, -1e-10, -2.5,
+             float(np.nextafter(np.float32(64), np.float32(0))), 64.0, 65.0,
+             1e-40, 2.0 ** 24, -2.0 ** 25, -1e9, float("nan"), float("inf"),
+             float("-inf"))
 # the twin peaks runs 2 lanes (fused) or 1; the IIR lowpass graph 1
 FILTER_SHAPES = ((2, 1024), (2, 4096), (VOICES, 1024), (VOICES, 4096),
                  (3, 37))
@@ -1055,6 +1070,57 @@ def main() -> int:
           f"sqrt(V) with the mix; state torch.equal), every segment count "
           f"equal to the shipped one, the epilogue equal to v4's mix panned "
           f"(V <= 256) ok; segments used (V, B): {seg_used} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # K3 and K4 (and K1) with ODD_STEPS in voices 3-20 of the piano's
+    # shapes: every segment count equal to one warp per voice, the state
+    # equal to the plain version's, NaN equal to NaN; y of every voice
+    # whose plain rows are finite within Y_TOL of its largest |y| (at least
+    # 1: the 2^24 step's first tick reaches ~1e6)
+    def same_nan(a, b):
+        def eq(x, y):
+            nx, ny = torch.isnan(x), torch.isnan(y)
+            return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+        return all(eq(x, y) for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    pn, sn = additive_inputs(VOICES)
+    sn[3:3 + len(ODD_STEPS)] = ODD_STEPS
+    pl = [on_card(pn[k]) for k in ("osc_re", "osc_im", "mul_re", "mul_im",
+                                   "cur", "tgt", "mult")]
+    s = on_card(sn)
+    finite = {}
+    for version in ("v3", "v2", "v4"):
+        for B in BLOCKS:
+            for with_mix in (False, True):
+                one = add.closed_block_segments(*pl, s, B, 1, with_mix,
+                                                version)
+                for S2 in (2, 4):
+                    got = add.closed_block_segments(*pl, s, B, S2, with_mix,
+                                                    version)
+                    torch.cuda.synchronize()
+                    check(same_nan(got, one),
+                          f"{version} B={B} with_mix={with_mix}, entry steps "
+                          f"off the cycle: {S2} segments differ from one "
+                          f"warp per voice")
+            k_out = add.additive_voice_block(*pl, s, B, version=version)
+            p_out = add.plain_block(*pl, s, B, False, version)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(p_out[0]).all(dim=0)
+            yp = p_out[0][:, fin]
+            scale = yp.abs().amax(dim=0).clamp(min=1.0)
+            y_ok = bool(((k_out[0][:, fin] - yp).abs() <= Y_TOL * scale)
+                        .all())
+            finite[(version, B)] = int(fin.sum())
+            check(same_nan(k_out[1:], p_out[1:]) and y_ok,
+                  f"{version} B={B}, entry steps off the cycle: the state "
+                  f"or a finite voice's y differs from the plain version")
+    phase("kernels", f"v3, v2 and v4 at V={VOICES}, B in {BLOCKS} with entry "
+          f"steps {ODD_STEPS} in voices 3-20: 2 and 4 segments equal to one "
+          f"warp per voice (NaN equal to NaN) with and without the mix; "
+          f"state equal to the plain version's (NaN equal to NaN), y within "
+          f"{Y_TOL:.0e} of each voice's largest |y| (at least 1) for the "
+          f"voices whose plain rows are finite {finite} ok "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # the scan kernels: torch.equal on every output of 3 chained blocks

@@ -36,12 +36,17 @@
 //    dividing B, so S > 1 needs SUB = 64.  (4 segments measured 19.0 µs
 //    at V=256 B=1024 against 21.0 for 2 and 32.9 for 1: PERF.md.)  A
 //    segment starting at subgroup K replays the state the sequential
-//    kernel holds there (replay(), below) with the kernel's own ops in its
-//    own order, so every segment computes the float values the sequential
-//    kernel computes, for any input (an entry step outside 0..64 too), and
-//    its outputs are those of one warp per voice bit for bit.  The parity
-//    kernel keeps S = 1: its per-sample envelope has no closed form to
-//    replay from;
+//    kernel holds there (replay(), below) once per subgroup where the
+//    step counter is on its integer cycle 0..64, and with the kernel's
+//    own tick loop where it is not, so every segment computes the float
+//    values the sequential kernel computes, for any input (an entry step
+//    outside 0..64, inf or NaN too), and its outputs are those of one warp
+//    per voice bit for bit.  A replay walks p tick by tick over at most
+//    65 ticks (v3, v2: from the last wrap) or 64 + SUB (v4: from the last
+//    subgroup that resets it), never the K x SUB ticks before the segment
+//    unless the entry step never reaches the cycle.  The parity kernel
+//    keeps S = 1: its per-sample envelope has no closed form to replay
+//    from;
 //  - the harmonic sums as a warp reduce-scatter over N = min(32, SUB)
 //    samples at once (additive_common.cuh): N - 1 + log2(32 / N) shuffles
 //    per N samples instead of 5 per sample, lane L ends up holding the sum
@@ -219,8 +224,19 @@ __device__ __forceinline__ void finish_mix(const Planes& P, int B, int nb,
 // the block-start state (zr, zi, tgt, D, s, p = 1), with the kernel's ops
 // in its order: K subgroup steps of the oscillator (x m^SUB) and of the
 // cycle's (tgt, D).
-//  - v3 and v2 carry s and p tick by tick: their replay is their own loop
-//    without the harmonic sums.
+//  - v3 and v2 carry s and p tick by tick.  Their replay walks whole
+//    subgroups with their own tick loop (without the harmonic sums) only
+//    while a subgroup starts off the step's cycle, i.e. with s not an
+//    integer in 0..64 (an entry step the envelope never produces: -2.5,
+//    1e-10, 70, inf, NaN; s >= 64, inf and NaN reach 0 after one tick, a
+//    stuck counter such as -1e9, where s + 1 == s, walks all K).  On the
+//    cycle s stays an integer, the subgroup from s wraps iff its wrap
+//    tick jw = (65 - s) mod 65 is below SUB, and the next subgroup starts
+//    at (s + SUB) mod 65, so (tgt, D) and s step once per subgroup, with
+//    the tick loop's values.  p depends only on the ticks since the last
+//    wrap (a wrap sets it to C): it is walked with the tick loop's own
+//    ops from that wrap, at most 65 ticks, or from the switch to the cycle
+//    (tick 0 with p = 1 for an entry step on it) if no wrap came since.
 //  - v4 steps s by its closed form, once per subgroup, and resets p at the
 //    tick j where jw == j: p is replayed tick by tick, with v4's factors,
 //    from the start of the last subgroup before K that holds such a tick
@@ -276,8 +292,10 @@ __device__ __forceinline__ void replay(int K, float msr, float msi,
       sk = t >= 65.f ? t - 65.f : t;
     }
   } else {
+    // (a) off the cycle: whole subgroups of the kernel's own tick loop
+    int k = 0;
 #pragma unroll 1
-    for (int k = 0; k < K; ++k) {
+    for (; k < K && !(s == floorf(s) && s >= 0.f && s <= 64.f); ++k) {
       const float tgtm = tgt * mult;
       const float G1 = tgtm - tgt;
       const float D2 = tgt - tgtm;
@@ -296,6 +314,39 @@ __device__ __forceinline__ void replay(int K, float msr, float msi,
       tgt = wrapped ? tgtm : tgt;
       D = wrapped ? (VER == 2 ? D2 : -G1) : D;
     }
+    // (b) on the cycle (s an integer in 0..64, and so it stays): the step
+    // and the wrap once per subgroup, as v4 steps them.  tw and sw are the
+    // tick and the step p is walked from: the last wrap, else the switch.
+    int tw = k * SUB;
+    float sw = s;
+#pragma unroll 1
+    for (; k < K; ++k) {
+      const float tgtm = tgt * mult;
+      const float G1 = tgtm - tgt;
+      const float D2 = tgt - tgtm;
+      const float jw = s == 0.f ? 0.f : 65.f - s;   // the tick s is 0
+      const bool wrapped = jw <= (float)(SUB - 1);
+      if (wrapped) {
+        tw = k * SUB + (int)jw;
+        sw = 0.f;
+      }
+      const float nzr = zr * msr - zi * msi;
+      const float nzi = zr * msi + zi * msr;
+      zr = nzr;
+      zi = nzi;
+      tgt = wrapped ? tgtm : tgt;
+      D = wrapped ? (VER == 2 ? D2 : -G1) : D;
+      const float t = s + (float)SUB;
+      s = t >= 65.f ? t - 65.f : t;
+    }
+    // (c) p by the tick loop's own ops from tick tw, at most 65 ticks.  No
+    // wrap follows tw before the segment, so the step never passes 64
+    // there and its reset to 0 is never taken.
+#pragma unroll 1
+    for (int i = tw; i < K * SUB; ++i) {
+      p = sw == 0.f ? C : p * (1.f - (sw + 1.f) / 64.f);
+      sw = sw + 1.f;
+    }
   }
 }
 
@@ -304,7 +355,9 @@ __device__ __forceinline__ void replay(int K, float msr, float msi,
 // math: 4 = _kernel_v4 (the wrap tick jw in closed form), 3 = _kernel_v3
 // (P recurrence and the wrapped flag carried tick by tick, the same amp
 // expression as v4), 2 = _kernel (per-tick selects of (tgt, D) against the
-// next cycle's (tgt2, D2), amp = tgtE + DE * P).  EPI: v4 with the
+// next cycle's (tgt2, D2), amp = tgtE + DE * P; the selects switch (tgt,
+// D) in place at the wrap tick, which frees the registers its unrolled
+// chunks need: 255, no spills on sm_90a).  EPI: v4 with the
 // tremolo epilogue after the mix.  Block b runs voices (b % nb) * nw ..
 // + nw - 1 over segment b / nb of `segs`.
 template <int SUB, int VER, bool EPI>
@@ -361,13 +414,11 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix,
     const float jw = at0 ? 0.f : 65.f - s;  // v4: wrap tick (may be >= SUB)
     const float basef = s * (-1.f / 64.f);
     const float addf = at0 ? 0.f : 65.f / 64.f;
-    bool wrapped = false;  // v3 / v2: a wrap seen in this subgroup so far
+    bool wrapped = false;  // v3: a wrap seen in this subgroup so far
     float wr = mr, wi = mi;  // m^(j+1)
-    // v4 and v3 unroll the subgroup's chunks, so one chunk's harmonic sum
-    // overlaps the next chunk's ticks; v2's per-tick selects of (tgt, D)
-    // need more than 255 registers that way, so its chunks run in turn
-    constexpr int kChunkUnroll = VER == 2 ? 1 : SUB / N;
-#pragma unroll kChunkUnroll
+    // the subgroup's chunks unrolled: one chunk's harmonic sum overlaps
+    // the next chunk's ticks
+#pragma unroll
     for (int c = 0; c < SUB / N; ++c) {
       float vals[N];
 #pragma unroll
@@ -392,9 +443,12 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix,
             const float r2 = wrapped ? 1.f - p : 0.f;
             amp = r2 * G1 + (r1 * D + tgt);
           } else {
-            const float tgtE = wrapped ? tgtm : tgt;
-            const float DE = wrapped ? D2 : D;
-            amp = tgtE + DE * p;
+            // two wraps are 65 ticks apart, so a subgroup holds at most
+            // one: (tgt, D) switch to the next cycle's in place, with the
+            // values of v2's per-tick selects and no wrapped flag
+            tgt = wrap ? tgtm : tgt;
+            D = wrap ? D2 : D;
+            amp = tgt + D * p;
           }
         }
         const float im = zr * (wi * 3.f) + zi * (wr * 3.f);
@@ -422,9 +476,6 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix,
     } else if constexpr (VER == 3) {
       tgt = wrapped ? tgtm : tgt;
       D = wrapped ? -G1 : D;
-    } else {
-      tgt = wrapped ? tgtm : tgt;
-      D = wrapped ? D2 : D;
     }
   }
 

@@ -50,17 +50,27 @@ Three parts, one line per row:
   shapes: K7 V=256 at B=1024 and 4096 (row and per-sample coefficients)
   and V=1; K8 V=2 and 1, rows and a sweep; K6 V=256 at 1024 and 4096 steps
   and V=1 at 4096 and 16384 (the 4x saturator's lane at B=1024 and 4096);
-  K1 v4 V=256 with the mix at B=1024 and 4096 and without it at 1024; K10
+  K1 v4 V=256 with the mix at B=1024 and 4096 and without it at 1024; K3
+  (v3) and K4 (v2) at the same shapes, and without the mix at B=1024 and
+  4096 with every voice off the step's cycle: stuck (-2^25, where s + 1
+  == s: the replay walks every subgroup by ticks, as the parent's does)
+  and off by 0.5 (-2.5 .. 63.5: it reaches the cycle within two
+  subgroups); K10
   V=2 over 2048, 1024, 8192 and 4096 steps (the 4x IIR saturator's two
   halfband stages at B=1024 and 4096); K15 and K13 V=256 at B=1024 and
   4096, dt as rows and per sample; K9 V=1 with per-sample planes at
   B=1024 and 4096 and V=256 with rows and with planes at B=1024 and 4096;
   K14 V=256 at B=1024 and 4096.  Each row first checks that the new
   outputs equal the old build's on the same inputs (``torch.equal``, every
-  output) and the plain version (the scans ``torch.equal``; K1's state
-  planes ``torch.equal``, y within the kernel's bound), and only then
+  output, NaN equal to NaN) and the plain version (the scans
+  ``torch.equal``; K1's, K3's and K4's state planes ``torch.equal``, y
+  within the kernel's bound; the stuck rows' state planes equal with NaN
+  equal to NaN, and y NaN where the plain version's is), and only then
   times.  The old ``additive.cu``'s local memory (LDL / STL in its SASS)
-  is counted beside the new one's.
+  is counted beside the new one's, for ``<64, 4>`` and for every
+  ``<SUB, 3>`` and ``<SUB, 2>`` instance with the registers ptxas gave
+  ``<64, 3>`` and ``<64, 2>``; the run fails on LDL / STL in a new
+  ``<SUB, 3>`` or ``<SUB, 2>`` instance.
 
 Times are device µs per launch from CUDA events around 20 back-to-back
 launches queued behind a ~2 ms sleep kernel (``tools.event_us``: the
@@ -74,6 +84,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import re
 import statistics
 from pathlib import Path
 
@@ -102,8 +113,13 @@ LAT = ("FMUL+FADD", "DFMA", "F2F+DADD+F2F", "LDS", "DMUL", "FADD+div",
        "FADD+(FSETP,FADD)+FSEL", "FADD+FSET+FADD")
 # K6's shapes: the poly synth's 256 voices, the 4x saturator's one lane
 PHASE_SHAPES = ((256, 1024), (256, 4096), (1, 4096), (1, 16384))
-# K1's: the piano's 256 voices (with the mix, and without at 1024)
+# K1's, K3's and K4's: the piano's 256 voices (with the mix, and without
+# at 1024)
 ADD_SHAPES = ((1024, True), (4096, True), (1024, False))
+# K3 / K4 with every voice's entry step off the cycle (no mix: a stuck
+# voice's rows reach ~1e37 before they overflow, and a sum over 256 such
+# voices may overflow in one order and not in another)
+ODD_AB = (1024, 4096)
 # K10's: the 4x IIR saturator's two lanes over 2B and B steps per block
 ALLPASS_AB = ((2, 2048), (2, 1024), (2, 8192), (2, 4096))
 # K13 / K15: 256 voices, dt as rows or per sample (a note-on block)
@@ -176,8 +192,9 @@ def _entries(csrc: Path):
         "lp18_scan": _typed(lib.oscen_lp18_scan, [P] * 6 + [I] * 4 + [P]),
         "phase_scan": _typed(build.load_library("phase", csrc)
                              .oscen_phase_scan, [P] * 4 + [I] * 2 + [P]),
-        "additive_v4": _typed(build.load_library("additive", csrc)
-                              .oscen_additive_v4, [P] * 17 + [I] * 5 + [P]),
+        **{f"additive_{v}": _typed(getattr(build.load_library(
+            "additive", csrc), f"oscen_additive_{v}"), [P] * 17 + [I] * 5
+            + [P]) for v in ("v4", "v3", "v2")},
         "allpass_cascade_scan": _typed(lib.oscen_allpass_cascade_scan,
                                        [P] * 7 + [I] * 3 + [P]),
         "fm_chain3_scan": _typed(fm.oscen_fm_chain3_scan,
@@ -263,12 +280,18 @@ def _phase_launcher(fn, p0, dt, extra=(), tail=()):
     return run
 
 
-def _additive_inputs(dev, V=256, seed=0):
-    """The piano's shapes: seeded planes, steps 0..64 with the edges."""
+def _additive_inputs(dev, V=256, seed=0, steps="cycle"):
+    """The piano's shapes: seeded planes, steps 0..64 with the edges
+    (``cycle``), or every voice off the cycle: ``stuck`` at -2^25, or
+    ``half`` in -2.5 .. 63.5."""
     rng = np.random.default_rng(seed)
     th = rng.uniform(0, 0.2, (32, V))
     step = rng.integers(0, 65, (V,)).astype(np.float32)
     step[:3] = (0.0, 64.0, 33.0)
+    if steps == "stuck":
+        step[:] = -2.0 ** 25
+    elif steps == "half":
+        step = rng.integers(-3, 64, (V,)).astype(np.float32) + 0.5
     planes = [rng.normal(size=(32, V)), rng.normal(size=(32, V)),
               np.cos(th), np.sin(th), rng.uniform(0, 1, (32, V)),
               rng.uniform(0, 1, (32, V)), rng.uniform(0.9, 1.0, (32, V))]
@@ -277,7 +300,7 @@ def _additive_inputs(dev, V=256, seed=0):
 
 
 def _additive_launcher(fn, planes, step, B, with_mix, tail=()):
-    """One K1 launch of ``fn`` (the C entry, ``csrc/additive.cu``'s
+    """One launch of ``fn`` (a closed-form C entry, ``csrc/additive.cu``'s
     arguments) on preallocated outputs; ``tail`` goes before the stream
     (the segment entry's version and count)."""
     V = planes[0].shape[1]
@@ -312,13 +335,45 @@ def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _additive_ok(got, planes, step, B, with_mix):
-    """K1's bounds against its plain version: state planes torch.equal, y
-    within 5e-5 (x sqrt(V) with the mix)."""
-    ref = add.plain_block(*planes, step, B, with_mix, "v4")
+def _same_nan(a, b):
+    """``_same`` with NaN equal to NaN."""
+    def eq(x, y):
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+    return all(eq(x, y) for x, y in zip(a, b))
+
+
+def _additive_ok(got, planes, step, B, with_mix, version="v4"):
+    """A closed-form kernel's bounds against its plain version: state
+    planes torch.equal, y within 5e-5 (x sqrt(V) with the mix)."""
+    ref = add.plain_block(*planes, step, B, with_mix, version)
     tol = 5e-5 * (math.sqrt(planes[0].shape[1]) if with_mix else 1.0)
     return (float((got[0] - ref[0]).abs().max()) <= tol
             and _same(got[1:], ref[1:]))
+
+
+def _additive_stuck_ok(got, planes, step, B, version):
+    """A stuck voice's p overflows after 7 ticks: the state planes equal
+    the plain version's with NaN equal to NaN, and y is NaN where its y
+    is (no mix)."""
+    ref = add.plain_block(*planes, step, B, False, version)
+    return (_same_nan(got[1:], ref[1:])
+            and torch.equal(torch.isnan(got[0]), torch.isnan(ref[0])))
+
+
+def _ptxas_regs(log: str, pattern: str):
+    """The ``Used N registers`` and spill lines ptxas -v gave the entry
+    function matching ``pattern``, from a build log."""
+    fn, out = None, []
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(pattern, fn) and (
+                "registers" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return "; ".join(dict.fromkeys(out)) or "not in this process's builds"
 
 
 def _allpass_inputs(dev, V, B, seed):
@@ -644,6 +699,23 @@ def ab(dev, old: Path, mhz):
               + (f"LDL {counts[k]['LDL']}, STL {counts[k]['STL']}, "
                  f"{counts[k]['instr']} instructions" if k else "not found"),
               flush=True)
+        # K3 and K4: every SUB's instance
+        log = build.build_info.get("additive" if tree == "new" else
+                                   f"additive@{csrc}", (0.0, ""))[1]
+        for ver in (3, 2):
+            inst = {f: c for f, c in counts.items()
+                    if re.search(rf"additive_closed_kernelILi\d+ELi{ver}E",
+                                 f)}
+            local = sum(c["LDL"] + c["STL"] for c in inst.values())
+            print(f"[ab] {tree} additive.cu additive_closed_kernel<SUB, "
+                  f"{ver}> SASS: {len(inst)} instances, LDL + STL {local}, "
+                  f"{sorted(c['instr'] for c in inst.values())} "
+                  f"instructions; <64, {ver}> ptxas: "
+                  f"{_ptxas_regs(log, rf'ILi64ELi{ver}E')}", flush=True)
+            if tree == "new" and (local or not inst):
+                raise SystemExit(f"additive_closed_kernel<SUB, {ver}>: "
+                                 f"{local} local-memory instructions in "
+                                 f"{len(inst)} instances")
     rng = np.random.default_rng(1)
     plain = {"tpt_svf_scan": iir.plain_tpt_svf_scan,
              "lp18_scan": iir.plain_lp18_scan}
@@ -662,14 +734,29 @@ def ab(dev, old: Path, mhz):
         rows.append(("phase_scan", f"V={V} B={B}", B, runs,
                      lambda got, ref=ref: _same(got, ref)))
     planes, step = _additive_inputs(dev)
-    for B, with_mix in ADD_SHAPES:
-        runs = {w: _additive_launcher(fns["additive_v4"], planes, step, B,
-                                      with_mix)
-                for w, fns in (("old", old_fns), ("new", new_fns))}
-        rows.append(("additive_v4", f"V=256 B={B}"
-                     + (" with_mix" if with_mix else ""), B, runs,
-                     lambda got, B=B, m=with_mix:
-                     _additive_ok(got, planes, step, B, m)))
+    for version in ("v4", "v3", "v2"):
+        for B, with_mix in ADD_SHAPES:
+            runs = {w: _additive_launcher(fns[f"additive_{version}"], planes,
+                                          step, B, with_mix)
+                    for w, fns in (("old", old_fns), ("new", new_fns))}
+            rows.append((f"additive_{version}", f"V=256 B={B}"
+                         + (" with_mix" if with_mix else ""), B, runs,
+                         lambda got, B=B, m=with_mix, v=version:
+                         _additive_ok(got, planes, step, B, m, v)))
+    for steps in ("stuck", "half"):
+        pl, st = _additive_inputs(dev, steps=steps)
+        for version in ("v3", "v2"):
+            for B in ODD_AB:
+                runs = {w: _additive_launcher(fns[f"additive_{version}"], pl,
+                                              st, B, False)
+                        for w, fns in (("old", old_fns), ("new", new_fns))}
+                ok = (lambda got, B=B, v=version, pl=pl, st=st:
+                      _additive_stuck_ok(got, pl, st, B, v)) \
+                    if steps == "stuck" else \
+                    (lambda got, B=B, v=version, pl=pl, st=st:
+                     _additive_ok(got, pl, st, B, False, v))
+                rows.append((f"additive_{version}", f"V=256 B={B} every "
+                             f"voice off the cycle ({steps})", B, runs, ok))
     for V, B in ALLPASS_AB:
         ops = _allpass_inputs(dev, V, B, 3 * V + B)
         runs = {w: _allpass_launcher(fns["allpass_cascade_scan"], ops)
@@ -708,7 +795,7 @@ def ab(dev, old: Path, mhz):
             if not plain_ok(outs[w]):
                 raise SystemExit(f"{w} {kernel} {label}: not equal to (or "
                                  f"within the bounds of) the plain version")
-        if not _same(outs["new"], outs["old"]):
+        if not _same_nan(outs["new"], outs["old"]):
             raise SystemExit(f"{kernel} {label}: the new body's outputs "
                              f"differ from the old body's")
         t = {"old": [], "new": []}
@@ -718,7 +805,8 @@ def ab(dev, old: Path, mhz):
         o, n = statistics.median(t["old"]), statistics.median(t["new"])
         floor = chain_floor_us(kernel, B, mhz)
         print(f"[ab] {kernel} {label}: old {o:.2f} us, new {n:.2f} us "
-              f"(x{o / n:.2f}), new equal to old (torch.equal) True"
+              f"(x{o / n:.2f}), new equal to old (torch.equal, NaN equal "
+              f"to NaN) True"
               + (f", chain floor {floor:.2f} us" if floor else "")
               + f"; old {min(t['old']):.2f}-{max(t['old']):.2f}, new "
               f"{min(t['new']):.2f}-{max(t['new']):.2f} over {WINDOWS} "

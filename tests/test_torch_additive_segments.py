@@ -1,10 +1,13 @@
-"""K1's time segments, modelled in PyTorch on the CPU: each voice's block
-split at subgroup boundaries into S segments, each segment starting from
-the state ``csrc/additive.cu``'s ``replay()`` rebuilds (the oscillator
-rotated by ``m^SUB`` and the cycle's ``(tgt, D)`` over the subgroups before
-it; v3 and v2 walk their step counter and envelope product ``p`` tick by
-tick, v4 steps its counter per subgroup and replays ``p`` tick by tick
-from the last subgroup whose wrap tick resets it).
+"""The additive kernels' time segments, modelled in PyTorch on the CPU:
+each voice's block split at subgroup boundaries into S segments, each
+segment starting from the state ``csrc/additive.cu``'s ``replay()``
+rebuilds (the oscillator rotated by ``m^SUB`` and the cycle's ``(tgt, D)``
+over the subgroups before it).  v4 steps its counter per subgroup and
+replays ``p`` tick by tick from the last subgroup whose wrap tick resets
+it.  v3 and v2 walk whole subgroups with their own tick loop only while a
+subgroup starts with the step off its integer cycle 0..64; on the cycle
+they step ``(tgt, D)`` and the step once per subgroup and walk ``p`` from
+the last wrap, at most 65 ticks.
 
 Held ``torch.equal`` to the plain versions ``plain_v4``, ``plain_v3`` and
 ``plain_v2`` run in one piece: the per-voice rows of every tick, the state
@@ -13,10 +16,14 @@ planes after the block, and the voice mix summed in the kernel's order
 then the groups in order) from either's rows.  B in {64, 256, 1024, 4096}
 (one to 64 subgroups of 64 ticks), S in {1, 2, 4, 8, 16} where S divides
 the subgroups, and the entry steps 0, 1, 63 and 64 among the voices; a
-segment's replay window holds a wrap for every B >= 256.  Entry steps
-outside 0..64 (0.5, 64.5, 70, -3) too: the replay is the kernel's own ops,
-so the segments equal one piece for any input.  The segment count the
-card picks is tested there (``tests/test_torch_cuda.py``).
+segment's replay window holds a wrap for every B >= 256.  Entry steps the
+envelope never produces (``ODD_STEPS``: fractions, negatives, steps above
+64, -0.0, a denormal, 2^24, stuck counters, +-inf, NaN) at B=1024 and
+4096 with every S the subgroups allow, NaN equal to NaN: the replay is
+exact for any input.  The model takes the closed form for every voice on
+the cycle, and the kernel's v2 body (its selects switch ``(tgt, D)`` in
+place) equals ``plain_v2``.  The segment count the card picks is tested
+there (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -41,34 +48,35 @@ def _planes(V=10, seed=0):
             torch.tensor(step))
 
 
-def _replay(version, planes, step, K, sub):
-    """replay() of csrc/additive.cu on whole planes: the state at the start
-    of subgroup K; also whether some voice's window starts at a wrap."""
-    zr, zi, mr, mi, cur, tgt_in, mult = planes
+def _on_cycle(s):
+    """The step counter on its integer cycle 0..64 (-0.0 counts as 0)."""
+    return (s == torch.floor(s)) & (s >= 0.0) & (s <= 64.0)
+
+
+def _power(mr, mi, sub):
+    """m^SUB by the kernel's running-product recurrence."""
     msr, msi = mr, mi
     for _ in range(sub - 1):
         msr, msi = msr * mr - msi * mi, msr * mi + msi * mr
+    return msr, msi
+
+
+def _entry(planes, step):
+    """The block-start (tgt, D, s, p): a wrap at the first tick takes its
+    cycle base from cur."""
+    cur, tgt_in = planes[4], planes[5]
     s = step.clone()
     tgt = torch.where(s == 0.0, cur, tgt_in)
-    D = cur - tgt
-    p = torch.ones_like(s)
-    if version != "v4":   # v3, v2: their own loop without the sums
-        any_wrap = False
-        for _ in range(K):
-            tgtm = tgt * mult
-            G1 = tgtm - tgt
-            D2 = tgt - tgtm
-            wrapped = torch.zeros_like(s, dtype=torch.bool)
-            for _ in range(sub):
-                wrap = s == 0.0
-                wrapped = wrapped | wrap
-                p = torch.where(wrap, C, p * (1.0 - (s + 1.0) / 64.0))
-                s = torch.where(s < 64.0, s + 1.0, 0.0)
-            zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
-            tgt = torch.where(wrapped, tgtm, tgt)
-            D = torch.where(wrapped, D2 if version == "v2" else -G1, D)
-            any_wrap |= bool(wrapped.any())
-        return (zr, zi, tgt, D, s, p), any_wrap
+    return tgt, cur - tgt, s, torch.ones_like(s)
+
+
+def _replay_v4(planes, step, K, sub):
+    """v4's replay() of csrc/additive.cu on whole planes: the state at the
+    start of subgroup K; also whether some voice's window starts at a
+    subgroup that resets p."""
+    zr, zi, mult = planes[0], planes[1], planes[6]
+    msr, msi = _power(planes[2], planes[3], sub)
+    tgt, D, s, p = _entry(planes, step)
     kr = torch.full_like(s, -1.0)
     sr = torch.zeros_like(s)
     s_entry = []
@@ -104,6 +112,86 @@ def _replay(version, planes, step, K, sub):
     return (zr, zi, tgt, D, s, p), bool((kr >= 0).any())
 
 
+def _replays_v32(version, planes, step, Ks, sub):
+    """v3's or v2's replay() of csrc/additive.cu on whole planes, for every
+    segment start K in ``Ks``: {K: (state, info)}.  Per voice, (a) whole
+    subgroups of the tick loop while a subgroup starts off the cycle, (b)
+    the cycle's closed form per subgroup after, remembering the tick tw
+    and step sw p is walked from (the last wrap, else the switch), (c) p
+    by the tick loop's ops from tw to K x SUB.  One pass over the
+    subgroups serves every K: the kernel replays each segment from the
+    block start, and (a) and (b) reach the same state at subgroup k
+    whichever K they run to.  ``info``: the subgroups each voice walked by
+    ticks (``walked``), the ticks of its p walk (``p_ticks``), and whether
+    that walk starts at a wrap (``from_wrap``)."""
+    zr, zi, mult = planes[0], planes[1], planes[6]
+    msr, msi = _power(planes[2], planes[3], sub)
+    tgt, D, s, p = _entry(planes, step)
+    walking = torch.ones_like(s, dtype=torch.bool)     # still in (a)
+    walked = torch.zeros_like(s, dtype=torch.int64)
+    tw = torch.zeros_like(walked)
+    sw = s.clone()
+    from_wrap = torch.zeros_like(walking)
+    out = {}
+    for k in range(max(Ks) + 1):
+        switch = walking & _on_cycle(s)
+        tw = torch.where(switch, k * sub, tw)
+        sw = torch.where(switch, s, sw)
+        walking = walking & ~switch
+        if k in Ks:
+            # (c): a voice still off the cycle walks no p (tw = K x SUB)
+            t_w = torch.where(walking, k * sub, tw)
+            pk, swk = p, sw
+            for i in range(int(t_w.min()), k * sub):
+                act = i >= t_w
+                pk = torch.where(act, torch.where(
+                    swk == 0.0, C, pk * (1.0 - (swk + 1.0) / 64.0)), pk)
+                swk = torch.where(act, swk + 1.0, swk)
+            out[k] = ((zr, zi, tgt, D, s, pk),
+                      {"walked": walked, "p_ticks": k * sub - t_w,
+                       "from_wrap": from_wrap & ~walking})
+        if k == max(Ks):
+            break
+        tgtm = tgt * mult
+        G1 = tgtm - tgt
+        D2 = tgt - tgtm
+        # (b): the subgroup from an integer s wraps at tick (65 - s) mod 65
+        jw = torch.where(s == 0.0, 0.0, 65.0 - s)
+        wrapped = jw <= float(sub - 1)
+        hit = ~walking & wrapped
+        tw = torch.where(hit, k * sub + torch.where(hit, jw, 0.0).long(), tw)
+        sw = torch.where(hit, 0.0, sw)
+        from_wrap = from_wrap | hit
+        t = s + float(sub)
+        s_next = torch.where(t >= 65.0, t - 65.0, t)
+        if bool(walking.any()):   # (a): the kernel's own tick loop
+            sa, pa = s, p
+            wa = torch.zeros_like(walking)
+            for _ in range(sub):
+                wrap = sa == 0.0
+                wa = wa | wrap
+                pa = torch.where(wrap, C, pa * (1.0 - (sa + 1.0) / 64.0))
+                sa = torch.where(sa < 64.0, sa + 1.0, 0.0)
+            wrapped = torch.where(walking, wa, wrapped)
+            p = torch.where(walking, pa, p)
+            s_next = torch.where(walking, sa, s_next)
+            walked = walked + walking.long()
+        s = s_next
+        zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
+        tgt = torch.where(wrapped, tgtm, tgt)
+        D = torch.where(wrapped, D2 if version == "v2" else -G1, D)
+    return out
+
+
+def _replays(version, planes, step, Ks, sub):
+    """{K: (state, whether some voice's p walk starts at a wrap or a
+    resetting subgroup)} for every segment start K in ``Ks``."""
+    if version == "v4":
+        return {K: _replay_v4(planes, step, K, sub) for K in Ks}
+    return {K: (st, bool(info["from_wrap"].any())) for K, (st, info)
+            in _replays_v32(version, planes, step, Ks, sub).items()}
+
+
 _ROWS = {"v4": tadd._rows_v4, "v3": tadd._rows_v3, "v2": tadd._rows_v2}
 
 
@@ -134,8 +222,10 @@ def _segmented(version, planes, step, B, S):
     sub = tadd.subgroup_len(B, version)
     n = B // sub // S
     ys, any_wrap = [], False
+    replays = _replays(version, planes, step, [seg * n for seg in range(S)],
+                       sub)
     for seg in range(S):
-        state, wrapped = _replay(version, planes, step, seg * n, sub)
+        state, wrapped = replays[seg * n]
         any_wrap |= wrapped
         y, cur_last, (zr, zi, tgt, s) = _segment(version, planes, state,
                                                  sub, n)
@@ -196,17 +286,115 @@ def test_segments_equal_the_plain_version(version, B, S):
         assert any_wrap   # some replay window starts at a wrap
 
 
+def _same(a, b):
+    """torch.equal, with NaN equal to NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+F32 = np.float32
+# entry steps the envelope never produces, and the cycle's own edges: off
+# the cycle by a fraction, below 0, above 64, a +1 that rounds to an
+# integer (1e-10, -1e-10, a denormal), one that rounds to 65 (the float
+# below 64), counters that stick (s + 1 == s: -2^25, -1e9, -inf), inf, NaN
+ODD_STEPS = (0.5, 64.5, 70.0, -3.0, -0.0, 1e-10, -1e-10, -2.5,
+             float(np.nextafter(F32(64), F32(0))), 64.0, 65.0, 1e-40,
+             2.0 ** 24, -2.0 ** 25, -1e9, float("nan"), float("inf"),
+             float("-inf"))
+ODD_CASES = ([(1024, S) for S in (1, 2, 4, 8, 16)]
+             + [(4096, S) for S in (1, 2, 4, 8, 16, 32, 64)])
+
+
 @pytest.mark.parametrize("version", ["v4", "v3", "v2"])
-@pytest.mark.parametrize("B,S", [(1024, 4), (4096, 16)])
+@pytest.mark.parametrize("B,S", ODD_CASES)
 def test_segments_equal_one_piece_for_entry_steps_outside_0_64(version, B,
                                                                 S):
-    """An entry step the envelope never produces (0.5, 64.5, 70, -3): the
-    segments still equal the version in one piece, bit for bit."""
-    planes, _ = _planes(4, seed=3)
-    step = torch.tensor([0.5, 64.5, 70.0, -3.0])
+    """Entry steps the envelope never produces (``ODD_STEPS``): the
+    segments still equal the version in one piece, bit for bit (NaN equal
+    to NaN), the rows, the state and the voice mix in the kernel's order,
+    for every segment count the subgroups allow."""
+    planes, _ = _planes(len(ODD_STEPS), seed=3)
+    step = torch.tensor(ODD_STEPS, dtype=torch.float32)
     y, state, _ = _segmented(version, planes, step, B, S)
     y_1, *state_1 = tadd._CLOSED[version](
         *planes, step, B, tadd.subgroup_len(B, version))
-    assert torch.equal(y, y_1)
+    assert _same(y, y_1)
     for a, b in zip(state, state_1):
-        assert torch.equal(a, b)
+        assert _same(a, b)
+    assert _same(_kernel_mix(y), _kernel_mix(y_1))
+
+
+def _first_on_cycle(step, sub, n):
+    """Per voice, the first of n subgroup starts whose step is an integer
+    in 0..64, by the tick loop's step ops in float32 (n if none is)."""
+    s = step.numpy().astype(F32)
+    first = np.full(s.shape, n)
+    with np.errstate(invalid="ignore"):
+        for k in range(n):
+            on = (s == np.floor(s)) & (s >= 0) & (s <= 64)
+            first = np.where(on & (first == n), k, first)
+            for _ in range(sub):
+                s = np.where(s < F32(64), s + F32(1), F32(0)).astype(F32)
+    return first
+
+
+@pytest.mark.parametrize("version", ["v3", "v2"])
+def test_replay_takes_the_closed_form_on_the_cycle(version):
+    """v3's and v2's replay walks no subgroup by ticks for an entry step on
+    the cycle (-0.0 and 0..64), and walks p over at most 65 ticks; an entry
+    step off it walks subgroups by ticks exactly until one starts on the
+    cycle (every one for a stuck counter), at B=4096, every segment start."""
+    sub, n = 64, 4096 // 64
+    on = [-0.0] + [float(i) for i in range(65)]
+    step = torch.tensor(on + list(ODD_STEPS), dtype=torch.float32)
+    planes, _ = _planes(len(step), seed=5)
+    first = _first_on_cycle(step, sub, n)
+    assert (first[:len(on)] == 0).all()
+    assert (first[np.isin(step.numpy(), [-2.0 ** 25, -1e9, -np.inf])]
+            == n).all()
+    reps = _replays_v32(version, planes, step, list(range(n)), sub)
+    for K, (_, info) in reps.items():
+        assert np.array_equal(info["walked"].numpy(), np.minimum(first, K))
+        p_ticks = info["p_ticks"].numpy()
+        assert (p_ticks[first <= K] <= 65).all()
+        assert (p_ticks[first > K] == 0).all()
+        if K >= 2:   # a wrap falls in every 65 ticks on the cycle
+            assert info["from_wrap"][:len(on)].all()
+
+
+def _rows_v2_in_place(tgt, D, p, s, mult, sub, j_idx):
+    """The kernel's v2 subgroup (``csrc/additive.cu``): its per-tick selects
+    switch (tgt, D) to the next cycle's in place at the wrap tick, with no
+    wrapped flag."""
+    tgtm = tgt * mult
+    D2 = tgt - tgtm
+    ps, tgts, Ds = [], [], []
+    for _ in range(sub):
+        wrap = s == 0.0
+        p = torch.where(wrap, C, p * (1.0 - (s + 1.0) / 64.0))
+        s = torch.where(s < 64.0, s + 1.0, 0.0)
+        tgt = torch.where(wrap, tgtm, tgt)
+        D = torch.where(wrap, D2, D)
+        ps.append(p)
+        tgts.append(tgt)
+        Ds.append(D)
+    amp = torch.stack(tgts) + torch.stack(Ds) * torch.stack(ps)[:, None, :]
+    return amp, tgt, D, p, s
+
+
+@pytest.mark.parametrize("steps", ["cycle", "odd"])
+@pytest.mark.parametrize("B", [64, 1024, 4096])
+def test_v2_switches_in_place(steps, B):
+    """Two wraps are 65 ticks apart for any entry step, so a subgroup of at
+    most 64 ticks holds one at most, and the kernel's v2 body, which
+    switches (tgt, D) in place at the wrap tick, equals ``plain_v2`` bit
+    for bit (NaN equal to NaN): rows, state and the last tick's amp."""
+    values = STEPS if steps == "cycle" else ODD_STEPS
+    planes, _ = _planes(len(values), seed=7)
+    step = torch.tensor(values, dtype=torch.float32)
+    sub = tadd.subgroup_len(B, "v2")
+    got = tadd._plain_closed(_rows_v2_in_place, *planes, step, B, sub,
+                             False)
+    want = tadd.plain_v2(*planes, step, B, sub)
+    for a, b in zip(got, want):
+        assert _same(a, b)

@@ -1240,21 +1240,53 @@ def test_segments_refuse_tickets_that_overflow(cuda):
     assert _equal(got, want)
 
 
+# entry steps the envelope never produces and the cycle's edges (as
+# tests/test_torch_additive_segments.py): a fraction off, below 0, above
+# 64, a +1 that rounds to an integer, the float below 64, stuck counters
+# (s + 1 == s), inf and NaN
+ODD_STEPS = (0.5, 64.5, 70.0, -3.0, -0.0, 1e-10, -1e-10, -2.5,
+             float(np.nextafter(np.float32(64), np.float32(0))), 64.0, 65.0,
+             1e-40, 2.0 ** 24, -2.0 ** 25, -1e9, float("nan"), float("inf"),
+             float("-inf"))
+
+
+def _same_nan(a, b):
+    """torch.equal on every output, with NaN equal to NaN."""
+    def eq(x, y):
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+    return all(eq(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("version", ["v4", "v3", "v2"])
-def test_additive_segments_entry_steps_outside_0_64(cuda, version):
-    """Entry steps the envelope never produces: every segment count still
-    equals one warp per voice, bit for bit."""
-    planes_np, _ = _inputs(4, seed=3)
+@pytest.mark.parametrize("B", [1024, 4096])
+def test_additive_segments_entry_steps_outside_0_64(cuda, version, B):
+    """Entry steps the envelope never produces (``ODD_STEPS``): every
+    segment count still equals one warp per voice, bit for bit (NaN equal
+    to NaN), with and without the mix; the state planes equal the plain
+    version's, and each voice whose plain rows are finite has its rows
+    within 5e-5 of its largest |y| (at least 1: the 2^24 step's first
+    tick reaches ~1e6)."""
+    planes_np, _ = _inputs(len(ODD_STEPS), seed=3)
     planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
-    s = torch.tensor([0.5, 64.5, 70.0, -3.0], device=cuda)
+    s = torch.tensor(ODD_STEPS, dtype=torch.float32, device=cuda)
     for with_mix in (False, True):
-        one = add.closed_block_segments(*planes, s, 1024, 1, with_mix,
+        one = add.closed_block_segments(*planes, s, B, 1, with_mix,
                                         version)
         for S in (2, 4):
-            got = add.closed_block_segments(*planes, s, 1024, S, with_mix,
+            got = add.closed_block_segments(*planes, s, B, S, with_mix,
                                             version)
             torch.cuda.synchronize()
-            assert _equal(got, one), (S, with_mix)
+            assert _same_nan(got, one), (S, with_mix)
+    got = add.additive_voice_block(*planes, s, B, version=version)
+    want = add.plain_block(*planes, s, B, False, version)
+    torch.cuda.synchronize()
+    assert _same_nan(got[1:], want[1:])
+    fin = torch.isfinite(want[0]).all(dim=0)
+    assert int(fin.sum()) >= 12
+    y, yp = got[0][:, fin], want[0][:, fin]
+    scale = yp.abs().amax(dim=0).clamp(min=1.0)
+    assert bool(((y - yp).abs() <= 5e-5 * scale).all())
 
 
 @pytest.mark.parametrize("version", add.KERNELS)
