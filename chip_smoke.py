@@ -25,9 +25,9 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             v4 with and without the mix and with the epilogue at V=1, 3,
             33, 256 and 257 and B=64, 128, 1024 and 4096 against the plain
             version, every time-segment count equal to the one the kernel
-            picks; v3, v2 and v4 at V=256, B=1024 and 4096 with entry steps
-            off the step's cycle (-0.0, 1e-10, -2.5, 65, 2^24, stuck
-            counters, +-inf, NaN, ...) in 18 voices: 2 and 4 segments
+            picks; v3, v2, v4 and parity at V=256, B=1024 and 4096 with
+            entry steps off the step's cycle (-0.0, 1e-10, -2.5, 65, 2^24,
+            stuck counters, +-inf, NaN, ...) in 18 voices: 2 and 4 segments
             equal to one warp per voice with and without the mix, the
             state equal to the plain version's (NaN equal to NaN), y of the
             voices whose plain rows are finite within 5e-5 of the voice's
@@ -66,7 +66,11 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             denormals, negatives, values >= 1, +-inf and NaN (bit patterns
             of every output of 3 chained blocks; the plain version over
             all cases' lanes side by side), and its short wrap over all
-            2^32 float32 q against q - floor(q);
+            2^32 float32 q against q - floor(q); fract_phase3 on lanes on
+            its short wrap (p0 and dt in [+0, 1)), off it (edges among
+            them) and both in every warp at V=256, B=1024 and 4096, 3
+            chained blocks against the plain version on the bit patterns,
+            and its short wrap over all 2^32 q against q - trunc(q);
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
@@ -121,12 +125,15 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps;
             biquad_scan also at V=256 with rows and with planes, and it and
-            fm_operator_scan also by CUDA events behind a sleep) and its
+            fm_operator_scan also by CUDA events behind a sleep;
+            fract_phase3 on the models' lanes, and on lanes off its short
+            wrap and on warps of both apart) and its
             plain version's time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
             one-thread-per-lane scan, its chain floor (B x
             ``tools.CHAIN_OPS`` x 4 cycles at the SM clock nvidia-smi
-            reads under load), a steady
+            reads under load; an additive voice's last time segment, with
+            parity's replay of the rotation before it), a steady
             ``process_block``'s time, device-busy share, top device
             activities and real-time factor per model (the piano with v4,
             v3, v2 and the epilogue fusion; for the twin peaks
@@ -185,13 +192,52 @@ SEG_V = (1, 3, 33, VOICES, VOICES + 1)
 SEG_B = (64, 128, 1024, 4096)
 # entry steps the envelope never produces and the step cycle's edges: a
 # fraction off, below 0, above 64, a +1 that rounds to an integer, the
-# float below 64, stuck counters (s + 1 == s), inf and NaN; K3 / K4 replay
+# float below 64, stuck counters (s + 1 == s), inf and NaN; K2-K4 replay
 # a segment's start by the cycle's closed form only where the step is an
 # integer in 0..64
 ODD_STEPS = (0.5, 64.5, 70.0, -3.0, -0.0, 1e-10, -1e-10, -2.5,
              float(np.nextafter(np.float32(64), np.float32(0))), 64.0, 65.0,
              1e-40, 2.0 ** 24, -2.0 ** 25, -1e9, float("nan"), float("inf"),
              float("-inf"))
+# K12's lanes: on its short wrap (the models' p0 in [0, 1), dt in (0,
+# 0.5)), off it (p0 below 0, or an edge: -0.0, a denormal below 0, 1.0,
+# 1 + ulp, 2.5, +-inf, NaN), or both in every warp (even lanes on, odd
+# lanes off)
+FRACT_LANES = ("on", "off", "mixed")
+FRACT_EDGES = (-0.0, -1e-45, 1.0, float(np.nextafter(np.float32(1),
+                                                     np.float32(2))),
+               2.5, float("inf"), float("-inf"), float("nan"))
+
+
+def fract_inputs(lanes, V, rng):
+    """K12's (p0, dt) [3, V] on the card: ``lanes`` "on", "off" or
+    "mixed" (``FRACT_LANES``); the edges sit in lanes 1, 3, .. 15 of op3
+    (p0) and op2 (dt)."""
+    import torch
+    p = rng.uniform(0, 1, (3, V)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.5, (3, V)).astype(np.float32)
+    off = np.zeros((3, V), bool)
+    if lanes == "off":
+        off[:] = True
+    elif lanes == "mixed":
+        off[:, 1::2] = True
+    p = np.where(off, -p, p).astype(np.float32)
+    if lanes != "on":
+        n = len(FRACT_EDGES)
+        p[0, 1:2 * n:2] = FRACT_EDGES
+        dt[1, 1:2 * n:2] = FRACT_EDGES
+    return (torch.as_tensor(p, device="cuda"),
+            torch.as_tensor(dt, device="cuda"))
+
+
+def same_bits(a, b):
+    """Every tensor of ``a`` equal to ``b``'s on the int32 bit patterns."""
+    import torch
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
 # the twin peaks runs 2 lanes (fused) or 1; the IIR lowpass graph 1
 FILTER_SHAPES = ((2, 1024), (2, 4096), (VOICES, 1024), (VOICES, 4096),
                  (3, 37))
@@ -1045,8 +1091,7 @@ def main() -> int:
                     torch.equal(a, b) for a, b in zip(k_out[1:], p_out[1:]))
                 for S2 in (1, 2, 4):
                     if (B // sub) % S2 == 0:
-                        o2 = add.closed_block_segments(*pl, s, B, S2,
-                                                       with_mix)
+                        o2 = add.block_segments(*pl, s, B, S2, with_mix)
                         ok = ok and all(torch.equal(a, b)
                                         for a, b in zip(o2, k_out))
                 check(ok, f"v4 V={V} B={B} with_mix={with_mix} ({S} "
@@ -1072,7 +1117,7 @@ def main() -> int:
           f"(V <= 256) ok; segments used (V, B): {seg_used} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # K3 and K4 (and K1) with ODD_STEPS in voices 3-20 of the piano's
+    # K3, K4 and K2 (and K1) with ODD_STEPS in voices 3-20 of the piano's
     # shapes: every segment count equal to one warp per voice, the state
     # equal to the plain version's, NaN equal to NaN; y of every voice
     # whose plain rows are finite within Y_TOL of its largest |y| (at least
@@ -1090,14 +1135,13 @@ def main() -> int:
                                    "cur", "tgt", "mult")]
     s = on_card(sn)
     finite = {}
-    for version in ("v3", "v2", "v4"):
+    for version in ("v3", "v2", "v4", "parity"):
         for B in BLOCKS:
             for with_mix in (False, True):
-                one = add.closed_block_segments(*pl, s, B, 1, with_mix,
-                                                version)
+                one = add.block_segments(*pl, s, B, 1, with_mix, version)
                 for S2 in (2, 4):
-                    got = add.closed_block_segments(*pl, s, B, S2, with_mix,
-                                                    version)
+                    got = add.block_segments(*pl, s, B, S2, with_mix,
+                                             version)
                     torch.cuda.synchronize()
                     check(same_nan(got, one),
                           f"{version} B={B} with_mix={with_mix}, entry steps "
@@ -1115,8 +1159,9 @@ def main() -> int:
             check(same_nan(k_out[1:], p_out[1:]) and y_ok,
                   f"{version} B={B}, entry steps off the cycle: the state "
                   f"or a finite voice's y differs from the plain version")
-    phase("kernels", f"v3, v2 and v4 at V={VOICES}, B in {BLOCKS} with entry "
-          f"steps {ODD_STEPS} in voices 3-20: 2 and 4 segments equal to one "
+    phase("kernels", f"v3, v2, v4 and parity at V={VOICES}, B in {BLOCKS} "
+          f"with entry steps {ODD_STEPS} in voices 3-20: 2 and 4 segments "
+          f"equal to one "
           f"warp per voice (NaN equal to NaN) with and without the mix; "
           f"state equal to the plain version's (NaN equal to NaN), y within "
           f"{Y_TOL:.0e} of each voice's largest |y| (at least 1) for the "
@@ -1285,6 +1330,33 @@ def main() -> int:
                 phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
                       f"plain version (torch.equal, every output of 3 "
                       f"chained blocks) ok")
+
+    # K12's two loops: lanes on its short wrap (p0 and dt in [+0, 1)), off
+    # it (the edges among them) and both in every warp, 3 chained blocks
+    # against the plain version on the bit patterns (NaN equal to its own
+    # pattern only); its short wrap over all 2^32 q against q - trunc(q)
+    t0 = time.perf_counter()
+    for lanes in FRACT_LANES:
+        for B in BLOCKS:
+            rng_f = np.random.default_rng(B + len(lanes))
+            p, dt = fract_inputs(lanes, VOICES, rng_f)
+            for _ in range(3):
+                k_out = kfm.fract_phase3(p, dt, B)
+                torch.cuda.synchronize()
+                check(same_bits(k_out, kfm.plain_fract_phase3(p, dt, B)),
+                      f"fract_phase3 {lanes} lanes B={B}: kernel and plain "
+                      f"version differ")
+                p = k_out[3]
+                dt = fract_inputs(lanes, VOICES, rng_f)[1]
+    wrong, taken = kfm.wrap_sweep()
+    check(wrong == 0 and taken == 2 ** 30,
+          f"fract_phase3's short wrap: {wrong} of 2^32 patterns differ from "
+          f"q - trunc(q), {taken} taken (want 0 and 2^30)")
+    phase("kernels", f"fract_phase3 with lanes {FRACT_LANES} at V={VOICES}, "
+          f"B in {BLOCKS}: equal to the plain version (bit patterns, 3 "
+          f"chained blocks) ok; its short wrap over all 2^32 float32 q: "
+          f"{wrong} differ from q - trunc(q), {taken} taken ok "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # the chains' zero-feedback branch (fract_phase3 + plain PyTorch) is
     # bit-equal to their sequential kernels, so the branch choice never
@@ -2116,9 +2188,9 @@ def main() -> int:
     sm_mhz = tools.sm_clock_mhz(dev)
     phase("timing", f"SM clock under load {sm_mhz:.0f} MHz (nvidia-smi)")
 
-    def chain_floor_ms(key, B):
+    def chain_floor_ms(key, B, segs=1):
         """``tools.chain_floor_us`` in ms (None: no serial chain)."""
-        us = tools.chain_floor_us(key, B, sm_mhz)
+        us = tools.chain_floor_us(key, B, sm_mhz, segs)
         return None if us is None else us / 1e3
     args = [planes[k] for k in ("osc_re", "osc_im", "mul_re", "mul_im",
                                 "cur", "tgt", "mult")]
@@ -2134,12 +2206,11 @@ def main() -> int:
             call_ms = time_ms(lambda: kf(*args, step, B, True), 50)
             plain_ms = time_ms(lambda: pf(*args, step, B, True),
                                3 if version == "parity" else 5)
-            segs = (1 if version == "parity" else add.segments(
-                VOICES, B, add.subgroup_len(B, version)))
+            segs = add.segments(VOICES, B, add.subgroup_len(B, version))
             phase("timing", f"{version} V={VOICES} B={B} with_mix: kernel "
                   f"{ms * 1e3:.1f} us (device; {segs} time segments per "
                   f"voice, chain floor "
-                  f"{chain_floor_ms(version, B // segs) * 1e3:.2f} us), "
+                  f"{chain_floor_ms(version, B, segs) * 1e3:.2f} us), "
                   f"wrapper call {call_ms * 1e3:.1f} us, plain PyTorch "
                   f"{plain_ms * 1e3:.1f} us/call ({card})")
             if B == 1024:
@@ -2300,12 +2371,15 @@ def main() -> int:
                 rng_f = np.random.default_rng(B)
                 args = fm_carry(name, VOICES, rng_f) + fm_args(
                     name, VOICES, B, rng_f, per_sample)
+                if name == "fract_phase3":   # the models' phases and dt
+                    args = fract_inputs("on", VOICES, rng_f) + (B,)
                 ms = device_ms(lambda: fn(*args), 50,
                                kernel=fm_cuda_name[name])
                 plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
                 what = ((" (per-sample dt, feedback)" if per_sample else
                          " (block-constant dt, feedback)")
-                        if "chain" in name else "")
+                        if "chain" in name else " (on lanes)"
+                        if name == "fract_phase3" else "")
                 phase("timing", f"{name} V={VOICES} B={B}{what}: kernel "
                       f"{ms * 1e3:.1f} us (device), plain PyTorch "
                       f"{plain_ms * 1e3:.1f} us/call ({card})")
@@ -2313,6 +2387,18 @@ def main() -> int:
                     report[name].update(ms=ms, plain_ms=plain_ms,
                                         **bound_of(name, args, fn(*args), B,
                                                    VOICES))
+
+    # K12 on lanes off its short wrap, and on warps whose lanes disagree
+    # (they run both loops)
+    for lanes in FRACT_LANES[1:]:
+        for B in BLOCKS:
+            p, dt = fract_inputs(lanes, VOICES, np.random.default_rng(B))
+            ms = device_ms(lambda: kfm.fract_phase3(p, dt, B), 50,
+                           kernel=fm_cuda_name["fract_phase3"])
+            phase("timing", f"fract_phase3 V={VOICES} B={B} ({lanes} "
+                  f"lanes): kernel {ms * 1e3:.1f} us (device), chain floor "
+                  f"{chain_floor_ms('fract_phase3', B) * 1e3:.1f} us "
+                  f"({card})")
 
     # the steady fm-synth and pivot blocks, and where their device time
     # goes (the pivot also with op3_feedback 0.3: pivot_chain3_scan)
@@ -2524,11 +2610,11 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             # the timed calls ran B=1024 (the allpass cascade's first 4x
-            # stage 2048); an additive warp runs B / segments ticks
+            # stage 2048); an additive voice runs in time segments
             "chain_floor_ms": chain_floor_ms(
-                key, 2048 if key == "allpass_cascade_scan" else
-                1024 // add.segments(VOICES, 1024, 64)
-                if key in ("v4", "v3", "v2", add.EPILOGUE) else 1024),
+                key, 2048 if key == "allpass_cascade_scan" else 1024,
+                add.segments(VOICES, 1024, add.subgroup_len(1024, key))
+                if key in add.KERNELS + (add.EPILOGUE,) else 1),
             # no single PyTorch call computes these per-sample recurrences
             # (no lfilter in torch; cumsum is not a wrapped phase)
             "library_ms": None})

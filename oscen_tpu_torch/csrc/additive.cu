@@ -45,8 +45,14 @@
 //    65 ticks (v3, v2: from the last wrap) or 64 + SUB (v4: from the last
 //    subgroup that resets it), never the K x SUB ticks before the segment
 //    unless the entry step never reaches the cycle.  The parity kernel
-//    keeps S = 1: its per-sample envelope has no closed form to replay
-//    from;
+//    (K2) takes the same segments with its own N per harmonic sum
+//    (segments() is asked with N for SUB: S = 4 at B = 1024 and 4096, N =
+//    32), and its own replay (replay_parity(), below): the rotation has no
+//    closed form in exact op order, so it is walked from tick 0 (2
+//    dependent ops a tick, no harmonic sums or stores), but the envelope
+//    is: the wrap tick (s = 64) sets cur = tgt and s = 0, and the next
+//    tick's refresh cur * mult is then tgt * mult, so one 65-tick cycle
+//    after the first wrap advances the envelope by one product;
 //  - the harmonic sums as a warp reduce-scatter over N = min(32, SUB)
 //    samples at once (additive_common.cuh): N - 1 + log2(32 / N) shuffles
 //    per N samples instead of 5 per sample, lane L ends up holding the sum
@@ -489,19 +495,115 @@ __global__ void additive_closed_kernel(Planes P, int V, int B, int with_mix,
   if (with_mix) finish_mix<EPI>(P, B, nb, vb, seg, segs, T0, T1);
 }
 
-// _kernel_parity: per sample, the envelope tick (target refresh at step 0,
-// linear blend, step advance) and then the rotation, in the reference's op
-// order.  N samples are summed per reduce-scatter.
+// _kernel_parity's envelope tick: the target refresh at step 0, the
+// linear blend, the step advance, in the reference's op order.
+__device__ __forceinline__ void parity_tick(float& cur, float& tgt, float& s,
+                                            float mult) {
+  tgt = (s == 0.f) ? cur * mult : tgt;
+  const bool interp = s < 64.f;
+  const float tau = (s + 1.f) / 64.f;
+  const float cur_i = cur * (1.f - tau) + tgt * tau;
+  cur = interp ? cur_i : tgt;
+  s = interp ? s + 1.f : 0.f;
+}
+
+// One tick of the complex rotation z <- z m.
+__device__ __forceinline__ void rotate(float& zr, float& zi, float mr,
+                                       float mi) {
+  const float nre = zr * mr - zi * mi;
+  const float nim = zr * mi + zi * mr;
+  zr = nre;
+  zi = nim;
+}
+
+// The step counter on its integer cycle 0..64 (-0.0 counts as 0).
+__device__ __forceinline__ bool on_cycle(float s) {
+  return s == floorf(s) && s >= 0.f && s <= 64.f;
+}
+
+// The state the parity kernel holds at tick T, from the block-start state
+// (zr, zi, cur, tgt, s), with the body's own ops:
+//  (a) while the step is off its integer cycle 0..64 (an entry step the
+//      envelope never produces: -2.5, 70, inf, NaN), the body's ticks,
+//      envelope and rotation, one at a time: a step on the cycle stays on
+//      it.  While s + 8 < 0, 8 ticks at a time, as the blend and s + 1
+//      alone: the 8 ticks' steps are all below 0, so none refreshes tgt or
+//      stops the blend, and these are the same float ops with the selects
+//      left out.  A stuck counter (s + 1 == s, e.g. -2^25, -inf) stays
+//      there and walks all T that way;
+//  (b) on the cycle from tick t with step s: the wrap tick (s = 64) is
+//      tick t + 64 - s.  If it comes before T, the stretch up to it leaves
+//      cur = tgt and s = 0, with tgt refreshed from the block's own cur
+//      (cur * mult) if the stretch starts at step 0.  Each 65 ticks after
+//      it then refresh tgt = cur * mult = tgt * mult and end at the next
+//      wrap tick with cur = tgt again: one product a cycle.  The ticks
+//      after the last wrap before T (at most 64, no wrap among them), or
+//      from t if no wrap comes before T, are walked with the body's tick;
+//  (c) the rotation alone (it never reads the envelope) up to the tick
+//      that walk starts from, then both together: two independent chains,
+//      so the envelope's ticks hide under the rotation's.
+__device__ __forceinline__ void replay_parity(int T, float mr, float mi,
+                                              float mult, float& zr,
+                                              float& zi, float& cur,
+                                              float& tgt, float& s) {
+  int t = 0;
+#pragma unroll 1
+  for (; t + 8 <= T && s + 8.f < 0.f; t += 8) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float tau = (s + 1.f) / 64.f;
+      cur = cur * (1.f - tau) + tgt * tau;
+      s = s + 1.f;
+      rotate(zr, zi, mr, mi);
+    }
+  }
+#pragma unroll 1
+  for (; t < T && !on_cycle(s); ++t) {
+    parity_tick(cur, tgt, s, mult);
+    rotate(zr, zi, mr, mi);
+  }
+  int tw = T;   // the tick the envelope is walked from
+  if (t < T) {
+    const int wrap = t + 64 - (int)s;   // the first wrap tick on the cycle
+    tw = t;
+    if (wrap < T) {
+      if (s == 0.f) tgt = cur * mult;
+      const int n = (T - wrap - 1) / 65;
+#pragma unroll 1
+      for (int k = 0; k < n; ++k) tgt = tgt * mult;
+      cur = tgt;
+      s = 0.f;
+      tw = wrap + 1 + 65 * n;
+    }
+  }
+#pragma unroll 8
+  for (int i = t; i < tw; ++i) rotate(zr, zi, mr, mi);
+#pragma unroll 4
+  for (int i = tw; i < T; ++i) {
+    parity_tick(cur, tgt, s, mult);
+    rotate(zr, zi, mr, mi);
+  }
+}
+
+// _kernel_parity: per sample, the envelope tick and then the rotation, in
+// the reference's op order.  N samples are summed per reduce-scatter.
+// Block b runs voices (b % nb) * nw .. + nw - 1 over segment b / nb of
+// `segs`; a segment starting at tick T0 > 0 replays the state there.
 template <int N>
-__global__ void additive_parity_kernel(Planes P, int V, int B,
-                                       int with_mix) {
+__global__ void additive_parity_kernel(Planes P, int V, int B, int with_mix,
+                                       int segs) {
   __shared__ float red[kMaxWarps][33];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int v = blockIdx.x * nw + warp;
+  const int nb = gridDim.x / segs;
+  const int vb = blockIdx.x % nb;    // voice block: row vb of the mix
+  const int seg = blockIdx.x / nb;
+  const int v = vb * nw + warp;
   const bool live = v < V;
   const int at = lane * V + v;
+  const int len = B / segs;           // a multiple of N
+  const int T0 = seg * len, T1 = T0 + len;
 
   float zr = live ? P.osc_re[at] : 0.f;
   float zi = live ? P.osc_im[at] : 0.f;
@@ -511,36 +613,29 @@ __global__ void additive_parity_kernel(Planes P, int V, int B,
   float tgt = live ? P.tgt[at] : 0.f;
   const float mult = live ? P.mult[at] : 0.f;
   float s = live ? P.step[v] : 0.f;
-  float* row = with_mix ? P.part + (size_t)blockIdx.x * B : nullptr;
+  if (T0 > 0) replay_parity(T0, mr, mi, mult, zr, zi, cur, tgt, s);
+  float* row = with_mix ? P.part + (size_t)vb * B : nullptr;
 
-  for (int t0 = 0; t0 < B; t0 += N) {
+  for (int t0 = T0; t0 < T1; t0 += N) {
     float vals[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      tgt = (s == 0.f) ? cur * mult : tgt;
-      const bool interp = s < 64.f;
-      const float tau = (s + 1.f) / 64.f;
-      const float cur_i = cur * (1.f - tau) + tgt * tau;
-      cur = interp ? cur_i : tgt;
-      s = interp ? s + 1.f : 0.f;
-      const float nre = zr * mr - zi * mi;
-      const float nim = zr * mi + zi * mr;
-      zr = nre;
-      zi = nim;
-      vals[k] = nim * cur;
+      parity_tick(cur, tgt, s, mult);
+      rotate(zr, zi, mr, mi);
+      vals[k] = zi * cur;
     }
     const float ysum = reduce_scatter<N>(vals, lane) * 3.f;
     store_chunk<N>(ysum, t0, lane, warp, v, V, live, with_mix, P, row, red);
   }
 
-  if (live) {
+  if (live && seg == segs - 1) {
     P.osc_re_out[at] = zr;
     P.osc_im_out[at] = zi;
     P.cur_out[at] = cur;
     P.tgt_out[at] = tgt;
     if (lane == 0) P.step_out[v] = s;
   }
-  if (with_mix) finish_mix<false>(P, B, gridDim.x, blockIdx.x, 0, 1, 0, B);
+  if (with_mix) finish_mix<false>(P, B, nb, vb, seg, segs, T0, T1);
 }
 
 Planes make_planes(const float* osc_re, const float* osc_im,
@@ -554,12 +649,20 @@ Planes make_planes(const float* osc_re, const float* osc_im,
                 osc_re_out, osc_im_out, cur_out, tgt_out, step_out};
 }
 
+// Whether segs segments per voice can run: a power of two up to
+// kMaxSegments dividing the B / sub subgroups (parity: harmonic-sum
+// chunks), and with the mix, tickets that fit their fields.
+bool segments_ok(int V, int B, int sub, int with_mix, int warps_per_block,
+                 int segs) {
+  return segs >= 1 && segs <= kMaxSegments && !(segs & (segs - 1)) &&
+         (B / sub) % segs == 0 &&
+         (!with_mix || tickets_fit(segs, V, warps_per_block));
+}
+
 template <int VER, bool EPI = false>
 int launch_closed(const Planes& P, int V, int B, int sub, int with_mix,
                   int warps_per_block, int segs, void* stream) {
-  if (segs < 1 || segs > kMaxSegments || (segs & (segs - 1)) ||
-      (B / sub) % segs ||
-      (with_mix && !tickets_fit(segs, V, warps_per_block)))
+  if (!segments_ok(V, B, sub, with_mix, warps_per_block, segs))
     return (int)cudaErrorInvalidValue;
   const dim3 block(32 * warps_per_block);
   const dim3 grid(((V + warps_per_block - 1) / warps_per_block) * segs);
@@ -575,6 +678,29 @@ int launch_closed(const Planes& P, int V, int B, int sub, int with_mix,
     OSCEN_CLOSED_CASE(32)
     OSCEN_CLOSED_CASE(64)
 #undef OSCEN_CLOSED_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_parity(const Planes& P, int V, int B, int sub, int with_mix,
+                  int warps_per_block, int segs, void* stream) {
+  if (!segments_ok(V, B, sub, with_mix, warps_per_block, segs))
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(32 * warps_per_block);
+  const dim3 grid(((V + warps_per_block - 1) / warps_per_block) * segs);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (sub) {
+#define OSCEN_PARITY_CASE(n)                                                \
+  case n:                                                                   \
+    additive_parity_kernel<n><<<grid, block, 0, st>>>(P, V, B, with_mix,    \
+                                                      segs);                \
+    break;
+    OSCEN_PARITY_CASE(8)
+    OSCEN_PARITY_CASE(16)
+    OSCEN_PARITY_CASE(32)
+#undef OSCEN_PARITY_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -641,10 +767,12 @@ int oscen_additive_v2(OSCEN_ADDITIVE_ARGS) {
                           segments(V, B, sub, warps_per_block), stream);
 }
 
-// The closed-form body `ver` (4, 3 or 2) with `segs` segments per voice
-// (1, 2 or 4, dividing B / sub; with the mix, only where the tickets fit)
-// instead of segments()' choice, arguments as above: for
-// tools/scanprobe.py, which prices the segment count, and the card tests.
+// The closed-form body `ver` (4, 3 or 2), or the exact-op-order body (ver
+// 0, sub as for oscen_additive_parity), with `segs` segments per voice (1,
+// 2 or 4, dividing B / sub; with the mix, only where the tickets fit)
+// instead of segments()' choice, arguments as above: S = 1 is one warp per
+// voice over the whole block.  For tools/scanprobe.py, which prices the
+// segment count, and the card tests.
 int oscen_additive_closed_segs(OSCEN_ADDITIVE_ARGS_NO_STREAM, int ver,
                                int segs, void* stream) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
@@ -660,34 +788,24 @@ int oscen_additive_closed_segs(OSCEN_ADDITIVE_ARGS_NO_STREAM, int ver,
     case 2:
       return launch_closed<2>(P, V, B, sub, with_mix, warps_per_block, segs,
                               stream);
+    case 0:
+      return launch_parity(P, V, B, sub, with_mix, warps_per_block, segs,
+                           stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The exact-op-order kernel; sub (8, 16 or 32, divides B) is the number of
-// samples per harmonic reduce-scatter.  Layout as above; no epilogue.
+// samples per harmonic reduce-scatter.  Layout as above, with
+// oscen_additive_segments(V, B, sub, warps_per_block) time segments per
+// voice; no epilogue.
 int oscen_additive_parity(OSCEN_ADDITIVE_ARGS) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || B % 4 || epi)
     return (int)cudaErrorInvalidValue;
-  const Planes P = OSCEN_ADDITIVE_PLANES;
-  const dim3 block(32 * warps_per_block);
-  const dim3 grid((V + warps_per_block - 1) / warps_per_block);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (sub) {
-    case 8:
-      additive_parity_kernel<8><<<grid, block, 0, st>>>(P, V, B, with_mix);
-      break;
-    case 16:
-      additive_parity_kernel<16><<<grid, block, 0, st>>>(P, V, B, with_mix);
-      break;
-    case 32:
-      additive_parity_kernel<32><<<grid, block, 0, st>>>(P, V, B, with_mix);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_parity(OSCEN_ADDITIVE_PLANES, V, B, sub, with_mix,
+                       warps_per_block, segments(V, B, sub, warps_per_block),
+                       stream);
 }
 
 const char* oscen_cuda_error_string(int code) {

@@ -14,6 +14,21 @@
 //   fm_operator_kernel   <- fm_operator_scan (_kernel): one FM operator
 //                           with feedback (FmOperator.tick).
 //
+// fract_phase3_kernel (K12).  Its loop stores the phase and steps it; the
+// step's chain, FADD -> FRND.TRUNC -> FADD, is its whole cost (~28 cycles
+// a step, of which FRND's form prices 25.5: tools/scanprobe.py).  dt is
+// block-constant per lane, so a lane whose p0 and dt both lie in [+0, 1)
+// keeps every q = p + dt in [+0, 2) for the whole block, by induction: p
+// in [+0, 1) and dt in [+0, 1) give q in [+0, 2) (the largest sum of two
+// floats below 1 is 2 - 2^-23, exact, below 2; +0 + +0 is +0), and the
+// wrap of such a q lies in [+0, 1) again.  On [+0, 2), q - truncf(q) is
+// short_wrap.cuh's q - (q >= 1): FADD -> FSET -> FADD.  So each lane
+// checks its two inputs once, on their bits, before the loop (the sign
+// bit clear and below 1.0f: NaN, -0.0, negatives and values >= 1 fail;
+// -0.0 must, as -0 - trunc(-0) is +0 and the short wrap's -0 - 0 is -0),
+// and runs the short loop, with no per-step check or re-run, or else the
+// reference's loop with truncf.  A warp whose lanes disagree runs both.
+//
 // Layout: one thread per voice lane (per operator and voice lane for
 // fract_phase3); phases and feedback carries stay in registers for the
 // whole block.  Streams are time-major [B, V], so a warp's loads and stores
@@ -77,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include "scan_stage.cuh"
+#include "short_wrap.cuh"
 
 namespace {
 
@@ -108,6 +124,11 @@ __device__ __forceinline__ float fract_step(float p, float dt) {
   return p - truncf(p);  // Rust .fract()
 }
 
+// Whether x lies in [+0, 1), on its bits: the sign clear and below 1.0f.
+__device__ __forceinline__ bool in_unit(float x) {
+  return __float_as_uint(x) < 0x3F800000u;
+}
+
 __global__ void __launch_bounds__(kThreads)
 fract_phase3_kernel(const float* __restrict__ phases,
                     const float* __restrict__ dt, float* __restrict__ out,
@@ -119,13 +140,26 @@ fract_phase3_kernel(const float* __restrict__ phases,
   float p = phases[i];
   const float d = dt[i];
   float* o = out + (size_t)r * B * V + v;
+  if (in_unit(p) && in_unit(d)) {   // every q in [+0, 2): the short wrap
 #pragma unroll 8
-  for (int t = 0; t < B; ++t) {
-    o[(size_t)t * V] = p;
-    p = fract_step(p, d);
+    for (int t = 0; t < B; ++t) {
+      o[(size_t)t * V] = p;
+      p = oscen_wrap::short_wrap(p + d);
+    }
+  } else {
+#pragma unroll 8
+    for (int t = 0; t < B; ++t) {
+      o[(size_t)t * V] = p;
+      p = fract_step(p, d);
+    }
   }
   carry[i] = p;
 }
+
+// The reference's wrap, for the 2^32 sweep (short_wrap.cuh)
+struct TruncWrap {
+  __device__ float operator()(float q) const { return q - truncf(q); }
+};
 
 // chain3_kernel's block: warps 0, 1, 2 run op3, op2, op1 (each operator
 // on its own scheduler), warp 3 is the producer; they step in lockstep, one
@@ -418,6 +452,12 @@ int oscen_fract_phase3(const float* phases, const float* dt, float* out,
   fract_phase3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       phases, dt, out, carry, V, B);
   return (int)cudaGetLastError();
+}
+
+// K12's short wrap over all 2^32 float32 patterns: counts [2] (u64)
+// += (mismatches against q - truncf(q), patterns it takes).
+int oscen_fract_wrap_sweep(unsigned long long* counts, void* stream) {
+  return oscen_wrap::launch_wrap_sweep(counts, TruncWrap{}, stream);
 }
 
 // phases, prevs, fb [3, V]; dt [3, B, V] (dt_stride V) or [3, 1, V]

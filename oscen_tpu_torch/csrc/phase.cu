@@ -27,13 +27,9 @@
 //    the chain warp more than shared-memory stores, while for full rows
 //    the write-back would delay the producer's next copies (measured both
 //    ways, PERF.md);
-//  - the short exact wrap: with q = p + dt, q - floorf(q) is q for q in
-//    [+0, 1) and q - 1 for q in [1, 2) (exact by Sterbenz's lemma), so the
-//    step is q - c with c = (q >= 1) as 1.0f or 0.0f from one FSET: the
-//    chain is FADD -> FSET -> FADD, 14.5 cycles a step against FRND's
-//    25.5 (a compare into a predicate and a select, FSETP -> FSEL, cost
-//    22.5: the probe's latency rows).  Every other q (negative, -0, >= 2,
-//    inf, NaN) sets bit 31 or bit 30 of its pattern: the chain warp ORs
+//  - the short exact wrap (short_wrap.cuh): q - c with c = (q >= 1) from
+//    one FSET, q - floorf(q) on [+0, 2).  Every other q sets bit 31 or bit
+//    30 of its pattern: the chain warp ORs
 //    every q's bits into a per-chunk word (one LOP3 a step, no branch), and
 //    a chunk whose word has either bit set is run again from its start
 //    state with floorf, the reference's op (as K8's undecided chunks
@@ -48,7 +44,7 @@
 // IEEE operations round as PyTorch's elementwise ops do, so the output and
 // the carry equal the plain PyTorch version bit for bit (the short wrap
 // returns the same bits as q - floorf(q) wherever it is taken; the 2^32
-// sweep below checks every q).  The wrap is p - floorf(p) (rem_euclid),
+// sweep of short_wrap.cuh checks every q).  The wrap is p - floorf(p) (rem_euclid),
 // never truncf.
 //
 // Each entry point returns cudaGetLastError() after its launch.
@@ -56,26 +52,18 @@
 #include <cuda_runtime.h>
 
 #include "scan_stage.cuh"
+#include "short_wrap.cuh"
 
 namespace {
 
 using oscen_stage::kChunk;
 using oscen_stage::kLanes;
 using oscen_stage::kStages;
-
-// the bits of a q outside [+0, 2): the sign (negatives, -0) or bit 30
-// (exponent >= 128: q >= 2, inf, NaN)
-constexpr unsigned kOutside = 0xC0000000u;
+using oscen_wrap::kOutside;
+using oscen_wrap::short_wrap;
 
 // (lane, chunk)s re-run with floorf since the last take (this device)
 __device__ unsigned g_reruns;
-
-// q - (q >= 1 as 1.0f or 0.0f): q - floorf(q) on [+0, 2)
-__device__ __forceinline__ float short_wrap(float q) {
-  float c;   // one FSET, no predicate
-  asm("set.ge.f32.f32 %0, %1, 0f3F800000;" : "=f"(c) : "f"(q));
-  return q - c;
-}
 
 // One lane's steps on the staged dt: before[t] to o[t * stride], the
 // short wrap, and the OR of every q's bits.
@@ -155,36 +143,10 @@ __global__ void take_reruns(unsigned* out) {
   g_reruns = 0u;
 }
 
-// The short wrap over every float32 bit pattern q: counts[0] += patterns
-// where the kernel's wrap (the short one on [+0, 2), the reference's
-// q - floorf(q) elsewhere) differs from q - floorf(q) bit for bit (a NaN
-// is equal only to its own pattern), counts[1] += patterns the short wrap
-// takes.
-constexpr int kSweepBlocks = 132 * 16, kSweepThreads = 256;
-
-__global__ void __launch_bounds__(kSweepThreads)
-wrap_sweep(unsigned long long* counts) {
-  unsigned long long wrong = 0, taken = 0;
-  const unsigned long long stride =
-      (unsigned long long)kSweepBlocks * kSweepThreads;
-  for (unsigned long long k = blockIdx.x * kSweepThreads + threadIdx.x;
-       k < (1ull << 32); k += stride) {
-    const float q = __uint_as_float((unsigned)k);
-    const bool short_path = ((unsigned)k & kOutside) == 0u;
-    const float ref = q - floorf(q);
-    const float got = short_path ? short_wrap(q) : ref;
-    wrong += __float_as_uint(got) != __float_as_uint(ref);
-    taken += short_path;
-  }
-  for (int o = 16; o > 0; o /= 2) {
-    wrong += __shfl_down_sync(0xffffffffu, wrong, o);
-    taken += __shfl_down_sync(0xffffffffu, taken, o);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    if (wrong) atomicAdd(&counts[0], wrong);
-    atomicAdd(&counts[1], taken);
-  }
-}
+// The reference's wrap, for the 2^32 sweep (short_wrap.cuh)
+struct FloorWrap {
+  __device__ float operator()(float q) const { return q - floorf(q); }
+};
 
 }  // namespace
 
@@ -220,9 +182,7 @@ int oscen_phase_take_reruns(unsigned* out, void* stream) {
 // The short wrap over all 2^32 float32 patterns: counts [2] (u64)
 // += (mismatches against q - floorf(q), patterns it takes).
 int oscen_phase_wrap_sweep(unsigned long long* counts, void* stream) {
-  wrap_sweep<<<kSweepBlocks, kSweepThreads, 0, (cudaStream_t)stream>>>(
-      counts);
-  return (int)cudaGetLastError();
+  return oscen_wrap::launch_wrap_sweep(counts, FloorWrap{}, stream);
 }
 
 const char* oscen_cuda_error_string(int code) {

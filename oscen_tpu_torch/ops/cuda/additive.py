@@ -19,6 +19,10 @@ function, as in the reference:
   then rotation), ``SUB`` = samples per harmonic sum ``min(U, 32)`` with
   ``U = pick_unroll(B, 64)``.
 
+On the card every version splits each voice's block into
+:func:`segments` time segments, one warp each, which replay the state at
+their first tick; the outputs are those of one warp per voice.
+
 ``OSCEN_ADDITIVE_KERNEL`` picks the version at call time.  The epilogue
 (``epi_fn``, the Tremolo pan :func:`tremolo_pan`) always runs the ``v4``
 body, as in the reference; the graph never asks for it with ``parity``
@@ -85,12 +89,13 @@ def subgroup_len(block_len: int, version: str) -> int:
 
 
 def segments(num_voices: int, block_len: int, sub: int) -> int:
-    """Time segments per voice the closed-form kernels (v4, v3, v2) run on
-    the card, as the built library picks them (``csrc/additive.cu``'s
-    ``segments()``: 4, halved until it divides the ``block_len / sub``
-    subgroups and the mix's ticket fields hold the voice groups).  Each
-    segment is one warp that replays the state at its first subgroup; the
-    outputs are those of one warp per voice."""
+    """Time segments per voice a kernel runs on the card with ``sub =
+    subgroup_len(block_len, version)``, as the built library picks them
+    (``csrc/additive.cu``'s ``segments()``: 4, halved until it divides the
+    ``block_len / sub`` subgroups, or parity's harmonic-sum chunks, and the
+    mix's ticket fields hold the voice groups).  Each segment is one warp
+    that replays the state at its first tick; the outputs are those of one
+    warp per voice."""
     import ctypes
 
     from . import build
@@ -100,18 +105,19 @@ def segments(num_voices: int, block_len: int, sub: int) -> int:
     return fn(num_voices, block_len, sub, WARPS_PER_BLOCK)
 
 
-def closed_block_segments(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
-                          step, block_len: int, segs: int,
-                          with_mix: bool = False, version: str = "v4"):
-    """One block of the closed-form kernel ``version`` on the card with
-    ``segs`` time segments per voice (1, 2 or 4, dividing the subgroups)
-    instead of :func:`segments`' choice: the probes price the segment
-    count, the card tests hold every count to the plain version.  Not
-    counted in ``launches``."""
+def block_segments(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult, step,
+                   block_len: int, segs: int, with_mix: bool = False,
+                   version: str = "v4"):
+    """One block of kernel ``version`` (v4, v3, v2 or parity, no epilogue)
+    on the card with ``segs`` time segments per voice (1, 2 or 4, dividing
+    the subgroups or parity's chunks) instead of :func:`segments`' choice:
+    the probes price the segment count, the card tests hold every count to
+    the plain version and to one warp per voice (``segs=1``).  Not counted
+    in ``launches``."""
     planes = (osc_re, osc_im, mul_re, mul_im, cur, tgt, mult)
-    if osc_re.device.type != "cuda" or version not in _CLOSED:
-        raise ValueError("closed_block_segments runs a closed-form kernel "
-                         "(v4, v3, v2) on the card")
+    if osc_re.device.type != "cuda" or version not in KERNELS:
+        raise ValueError("block_segments runs a kernel (v4, v3, v2, parity) "
+                         "on the card")
     return _launch(version, planes, step, block_len,
                    subgroup_len(block_len, version), with_mix, None,
                    segs=segs)
@@ -215,11 +221,12 @@ def _launch(version, planes, step, block_len, sub, with_mix, epi,
             raise ValueError(f"epi_params must be [5] on {dev}")
     if segs is None:
         fn = build.entry("additive", _ENTRY[version], 17, 5)
-    else:   # the closed-form body with an explicit segment count
+    else:   # an explicit segment count; parity's body is version 0
         entry = build.entry("additive", "oscen_additive_closed_segs", 17, 7)
+        ver = 0 if version == "parity" else int(version[1])
 
         def fn(*a):
-            return entry(*a[:-1], int(version[1]), segs, a[-1])
+            return entry(*a[:-1], ver, segs, a[-1])
     n_blk = -(-V // WARPS_PER_BLOCK)
     part = cnt = None
     if with_mix:

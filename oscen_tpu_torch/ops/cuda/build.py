@@ -113,6 +113,18 @@ def check_launch(name: str, rc: int, what: str) -> None:
             f"{what} kernel launch failed: {fn(rc).decode()} ({rc})")
 
 
+def run_sweep(name: str, symbol: str, dev) -> Tuple[int, int]:
+    """Run ``csrc/<name>.cu``'s sweep ``symbol`` over all 2^32 float32
+    patterns on the card ``dev``: (patterns where its short path differs
+    from the reference, patterns the short path takes)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    check_launch(name, entry(name, symbol, 1, 0)(
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        symbol)
+    wrong, taken = counts.tolist()
+    return wrong, taken
+
+
 def check_operands(dev, **tensors) -> None:
     """The operands a kernel takes: contiguous float32 tensors on ``dev``."""
     for nm, t in tensors.items():

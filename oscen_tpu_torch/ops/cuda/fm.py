@@ -74,7 +74,10 @@ def fract_phase3(phases, dt, B: int):
 
     Args: ``phases``/``dt`` ``[3, V]`` (op3, op2, op1); ``B`` block length.
     Returns (``ph3``, ``ph2``, ``ph1`` each ``[B, V]``, the phases before
-    each increment, and the carry ``[3, V]``).
+    each increment, and the carry ``[3, V]``).  On the card a lane whose
+    phase and dt both lie in ``[+0, 1)`` steps by the short exact wrap
+    ``q - (q >= 1)`` (``csrc/fm.cu``), every other lane by ``q - trunc(q)``;
+    both equal the plain version bit for bit.
     """
     if phases.dim() != 2 or phases.shape[0] != 3 \
             or tuple(dt.shape) != tuple(phases.shape):
@@ -93,6 +96,18 @@ def fract_phase3(phases, dt, B: int):
     launches[FRACT] += 1
     build.check_launch("fm", rc, FRACT)
     return out[0], out[1], out[2], carry
+
+
+def wrap_sweep(device="cuda"):
+    """The kernel's short wrap over all 2^32 float32 patterns ``q`` on the
+    card: (patterns where it differs from ``q - trunc(q)`` bit for bit,
+    patterns its short path takes: ``[+0, 2)``, 2^30)."""
+    from . import build
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"wrap_sweep runs the card's kernel: give it a "
+                         f"CUDA device (got {dev})")
+    return build.run_sweep("fm", "oscen_fract_wrap_sweep", dev)
 
 
 def plain_fract_phase3(phases, dt, B: int):

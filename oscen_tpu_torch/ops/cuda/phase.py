@@ -140,10 +140,4 @@ def wrap_sweep(device="cuda"):
     from . import build
     dev = torch.device(device)
     _card_only("wrap_sweep", dev)
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    fn = build.entry("phase", "oscen_phase_wrap_sweep", 1, 0)
-    build.check_launch("phase", fn(
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-        "wrap_sweep")
-    wrong, taken = counts.tolist()
-    return wrong, taken
+    return build.run_sweep("phase", "oscen_phase_wrap_sweep", dev)

@@ -49,23 +49,31 @@ WINDOWS = 7
 # * m, then the complex sum; the envelope product p: * f, then the wrap
 # select; v3's and v2's step counter: + 1, then its select), parity 3 (cur:
 # * (1 - tau), + tgt * tau, the interp select); their chain is the ticks
-# one warp runs in order, B / segments (``additive.segments``).  The
-# ablation bodies have none.
+# one warp runs in order, B / segments (``additive.segments``).  A parity
+# segment first walks the rotation from tick 0 (``REPLAY_OPS``: * m, then
+# the complex sum), so the last segment's warp carries 2 ops over the
+# B - B / segments ticks before it.  K17's ``fract_abl`` walks K12's
+# fract chain (3); K16's bodies are not counted.
 CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 6,
-             "fract_phase3": 3, "fm_chain3_scan": 15,
+             "fract_phase3": 3, "fract_abl": 3, "fm_chain3_scan": 15,
              "pivot_chain3_scan": 15, "fm_operator_scan": 17,
              "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3,
              "v4": 2, "v3": 2, "v2": 2, "v4_epilogue": 2, "parity": 3}
+REPLAY_OPS = {"parity": 2}
 CHAIN_CYCLES = 4   # dependent float32 issue latency on Hopper
 
 
-def chain_floor_us(kernel: str, B: int, mhz: float) -> Optional[float]:
-    """The chain floor of ``kernel`` over ``B`` steps in order (one lane's,
-    or one additive warp's ticks) at ``mhz``, in µs (None: no serial chain
-    per lane)."""
+def chain_floor_us(kernel: str, B: int, mhz: float,
+                   segs: int = 1) -> Optional[float]:
+    """The chain floor of ``kernel`` over a block of ``B`` steps (one
+    lane's, or the last of an additive voice's ``segs`` time segments: its
+    B / segs ticks, after parity's replay of the ticks before them) at
+    ``mhz``, in µs (None: no serial chain per lane)."""
     if kernel not in CHAIN_OPS:
         return None
-    return B * CHAIN_OPS[kernel] * CHAIN_CYCLES / mhz
+    own = B // segs
+    ops = own * CHAIN_OPS[kernel] + (B - own) * REPLAY_OPS.get(kernel, 0)
+    return ops * CHAIN_CYCLES / mhz
 
 
 def sm_clock_mhz(dev) -> float:

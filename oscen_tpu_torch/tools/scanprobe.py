@@ -60,23 +60,38 @@ Three parts, one line per row:
   halfband stages at B=1024 and 4096); K15 and K13 V=256 at B=1024 and
   4096, dt as rows and per sample; K9 V=1 with per-sample planes at
   B=1024 and 4096 and V=256 with rows and with planes at B=1024 and 4096;
-  K14 V=256 at B=1024 and 4096.  Each row first checks that the new
+  K14 V=256 at B=1024 and 4096; K2 (parity) V=256 at B=1024 and 4096,
+  with and without the mix, every voice on the step's cycle or stuck
+  (-2^25), the new body at 1, 2 and 4 time segments per voice (the
+  explicit-count entry ``oscen_additive_closed_segs``, version 0) against
+  the old one warp per voice; K12 (``fract_phase3``) V=256 at B=1024 and
+  4096 on
+  the models' lanes (p0 in [0, 1), dt in (0, 0.5): the short wrap), on
+  lanes off it (p0 below 0) and on warps whose lanes disagree (both
+  loops).  Each row first checks that the new
   outputs equal the old build's on the same inputs (``torch.equal``, every
   output, NaN equal to NaN) and the plain version (the scans
-  ``torch.equal``; K1's, K3's and K4's state planes ``torch.equal``, y
-  within the kernel's bound; the stuck rows' state planes equal with NaN
-  equal to NaN, and y NaN where the plain version's is), and only then
-  times.  The old ``additive.cu``'s local memory (LDL / STL in its SASS)
-  is counted beside the new one's, for ``<64, 4>`` and for every
-  ``<SUB, 3>`` and ``<SUB, 2>`` instance with the registers ptxas gave
-  ``<64, 3>`` and ``<64, 2>``; the run fails on LDL / STL in a new
-  ``<SUB, 3>`` or ``<SUB, 2>`` instance.
+  ``torch.equal``, K12 on the bit patterns; K1's, K2's, K3's and K4's
+  state planes ``torch.equal``, y within the kernel's bound; the stuck
+  rows' state planes equal with NaN equal to NaN, and without the mix y
+  NaN where the plain version's is), and only then times.  The old
+  ``additive.cu``'s local memory (LDL / STL in its SASS) is counted beside
+  the new one's, for ``<64, 4>`` and for every ``<SUB, 3>`` and ``<SUB,
+  2>`` instance with the registers ptxas gave ``<64, 3>`` and ``<64, 2>``;
+  the run fails on LDL / STL in a new ``<SUB, 3>`` or ``<SUB, 2>``
+  instance.  So are every ``additive_parity_kernel<N>`` instance's, with
+  its FFMA (none with ``--fmad=false``; an IEEE division would bring its
+  own, so none also says ``(s + 1) / 64`` is a product), and
+  ``fract_phase3_kernel``'s, with its FRND and FSET, and ptxas's
+  registers for both; the run fails on LDL / STL or FFMA in a new parity
+  instance or LDL / STL in the new ``fract_phase3_kernel``.
 
 Times are device µs per launch from CUDA events around 20 back-to-back
 launches queued behind a ~2 ms sleep kernel (``tools.event_us``: the
 host's enqueueing stays off the card's clock), the median over 5 windows,
 beside each call's chain floor (``tools.chain_floor_us`` at the SM clock
-``tools.sm_clock_mhz`` reads).  On the card only.
+``tools.sm_clock_mhz`` reads; K2's at its row's segment count).  On the
+card only.
 """
 
 from __future__ import annotations
@@ -120,6 +135,8 @@ ADD_SHAPES = ((1024, True), (4096, True), (1024, False))
 # voice's rows reach ~1e37 before they overflow, and a sum over 256 such
 # voices may overflow in one order and not in another)
 ODD_AB = (1024, 4096)
+# K2's: the piano's 256 voices
+PARITY_AB = (1024, 4096)
 # K10's: the 4x IIR saturator's two lanes over 2B and B steps per block
 ALLPASS_AB = ((2, 2048), (2, 1024), (2, 8192), (2, 4096))
 # K13 / K15: 256 voices, dt as rows or per sample (a note-on block)
@@ -183,8 +200,8 @@ def _probe_lib():
 
 
 def _entries(csrc: Path):
-    """The C entry points of one tree's sources, typed: K7, K8, K6, K1, K9,
-    K10, K13, K14 and K15 by name."""
+    """The C entry points of one tree's sources, typed: K7, K8, K6, K1-K4,
+    K9, K10, K12, K13, K14 and K15 by name."""
     lib = build.load_library("iir", csrc)
     fm = build.load_library("fm", csrc)
     return {
@@ -194,7 +211,9 @@ def _entries(csrc: Path):
                              .oscen_phase_scan, [P] * 4 + [I] * 2 + [P]),
         **{f"additive_{v}": _typed(getattr(build.load_library(
             "additive", csrc), f"oscen_additive_{v}"), [P] * 17 + [I] * 5
-            + [P]) for v in ("v4", "v3", "v2")},
+            + [P]) for v in ("v4", "v3", "v2", "parity")},
+        "fract_phase3": _typed(fm.oscen_fract_phase3, [P] * 4 + [I] * 2
+                               + [P]),
         "allpass_cascade_scan": _typed(lib.oscen_allpass_cascade_scan,
                                        [P] * 7 + [I] * 3 + [P]),
         "fm_chain3_scan": _typed(fm.oscen_fm_chain3_scan,
@@ -299,13 +318,14 @@ def _additive_inputs(dev, V=256, seed=0, steps="cycle"):
              for p in planes], torch.as_tensor(step, device=dev))
 
 
-def _additive_launcher(fn, planes, step, B, with_mix, tail=()):
-    """One launch of ``fn`` (a closed-form C entry, ``csrc/additive.cu``'s
-    arguments) on preallocated outputs; ``tail`` goes before the stream
-    (the segment entry's version and count)."""
+def _additive_launcher(fn, planes, step, B, with_mix, tail=(),
+                       version="v4"):
+    """One launch of ``fn`` (a C entry of ``csrc/additive.cu`` for
+    ``version``, with its arguments) on preallocated outputs; ``tail`` goes
+    before the stream (the segment entry's version and count)."""
     V = planes[0].shape[1]
     dev = planes[0].device
-    sub = add.subgroup_len(B, "v4")
+    sub = add.subgroup_len(B, version)
     n_blk = -(-V // add.WARPS_PER_BLOCK)
     n_grp = -(-n_blk // add.MIX_GROUP)
     part = cnt = None
@@ -326,7 +346,8 @@ def _additive_launcher(fn, planes, step, B, with_mix, tail=()):
                   y.data_ptr(), ptr(part), ptr(cnt), None,
                   *[t.data_ptr() for t in outs], step_o.data_ptr(), V, B,
                   sub, int(with_mix), add.WARPS_PER_BLOCK, *tail,
-                  torch.cuda.current_stream().cuda_stream), "additive v4")
+                  torch.cuda.current_stream().cuda_stream),
+               f"additive {version}")
         return (y, *outs, step_o)
     return run
 
@@ -343,22 +364,66 @@ def _same_nan(a, b):
     return all(eq(x, y) for x, y in zip(a, b))
 
 
-def _additive_ok(got, planes, step, B, with_mix, version="v4"):
-    """A closed-form kernel's bounds against its plain version: state
-    planes torch.equal, y within 5e-5 (x sqrt(V) with the mix)."""
-    ref = add.plain_block(*planes, step, B, with_mix, version)
+def _additive_ok(got, planes, step, B, with_mix, version="v4", ref=None):
+    """An additive kernel's bounds against its plain version (``ref``,
+    computed if not given): state planes torch.equal, y within 5e-5 (x
+    sqrt(V) with the mix)."""
+    if ref is None:
+        ref = add.plain_block(*planes, step, B, with_mix, version)
     tol = 5e-5 * (math.sqrt(planes[0].shape[1]) if with_mix else 1.0)
     return (float((got[0] - ref[0]).abs().max()) <= tol
             and _same(got[1:], ref[1:]))
 
 
-def _additive_stuck_ok(got, planes, step, B, version):
-    """A stuck voice's p overflows after 7 ticks: the state planes equal
-    the plain version's with NaN equal to NaN, and y is NaN where its y
-    is (no mix)."""
-    ref = add.plain_block(*planes, step, B, False, version)
+def _additive_stuck_ok(got, planes, step, B, version, ref=None,
+                       with_mix=False):
+    """A stuck voice's p (parity: cur) overflows after ~7 ticks: the state
+    planes equal the plain version's (``ref``, computed if not given)
+    with NaN equal to NaN, and without the mix y is NaN where its y is
+    (with it, a sum of overflowing voices may overflow in one order and
+    not in another: the mix is held to the old body's alone)."""
+    if ref is None:
+        ref = add.plain_block(*planes, step, B, False, version)
     return (_same_nan(got[1:], ref[1:])
-            and torch.equal(torch.isnan(got[0]), torch.isnan(ref[0])))
+            and (with_mix or torch.equal(torch.isnan(got[0]),
+                                         torch.isnan(ref[0]))))
+
+
+def _fract_launcher(fn, p0, dt, B):
+    """fn(phases, dt, out, carry, V, B, stream) (K12) on preallocated
+    outputs; returns (ph3, ph2, ph1, carry)."""
+    V = p0.shape[1]
+    out = torch.empty((3, B, V), device=p0.device)
+    carry = torch.empty_like(p0)
+
+    def run():
+        _check(fn(p0.data_ptr(), dt.data_ptr(), out.data_ptr(),
+                  carry.data_ptr(), V, B,
+                  torch.cuda.current_stream().cuda_stream), "fract_phase3")
+        return out[0], out[1], out[2], carry
+    return run
+
+
+def _fract_inputs(dev, lanes, B, seed):
+    """K12's phases and dt [3, 256]: the models' (``on``: p0 in [0, 1), dt
+    in (0, 0.5), the short wrap), every lane off it (``off``: p0 in (-1,
+    0]), or even lanes on and odd lanes off (``mixed``: every warp runs
+    both loops)."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, 1, (3, 256))
+    if lanes == "off":
+        p = -p
+    elif lanes == "mixed":
+        p[:, 1::2] *= -1
+    return [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            for a in (p, rng.uniform(0.001, 0.5, (3, 256)))]
+
+
+def _bits_equal(a, b):
+    """Every output equal on its int32 bit patterns."""
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
 
 
 def _ptxas_regs(log: str, pattern: str):
@@ -716,6 +781,38 @@ def ab(dev, old: Path, mhz):
                 raise SystemExit(f"additive_closed_kernel<SUB, {ver}>: "
                                  f"{local} local-memory instructions in "
                                  f"{len(inst)} instances")
+        # K2: every N's instance, its local memory and FFMA (none with
+        # --fmad=false; an IEEE division would bring its own)
+        par = sass_counts(lib, ("LDL", "STL", "FFMA"))
+        inst = {f: c for f, c in par.items()
+                if "additive_parity_kernel" in f}
+        print(f"[ab] {tree} additive.cu additive_parity_kernel<N> SASS: "
+              + "; ".join(f"{f}: LDL {c['LDL']}, STL {c['STL']}, FFMA "
+                          f"{c['FFMA']}, {c['instr']} instructions"
+                          for f, c in inst.items())
+              + f"; ptxas: {_ptxas_regs(log, 'additive_parity_kernel')}",
+              flush=True)
+        local = sum(c["LDL"] + c["STL"] + c["FFMA"] for c in inst.values())
+        if tree == "new" and (local or not inst):
+            raise SystemExit(f"additive_parity_kernel: {local} local-memory "
+                             f"or FFMA instructions in {len(inst)} instances")
+        # K12
+        fm_lib = build.BUILD_DIR / (f"libfm-"
+                                    f"{build.source_digest('fm', csrc)}.so")
+        fm_log = build.build_info.get("fm" if tree == "new" else
+                                      f"fm@{csrc}", (0.0, ""))[1]
+        inst = {f: c for f, c in sass_counts(
+            fm_lib, ("LDL", "STL", "FRND", "FSET")).items()
+            if "fract_phase3_kernel" in f}
+        print(f"[ab] {tree} fm.cu fract_phase3_kernel SASS: "
+              + "; ".join(f"LDL {c['LDL']}, STL {c['STL']}, FRND "
+                          f"{c['FRND']}, FSET {c['FSET']}, {c['instr']} "
+                          f"instructions" for c in inst.values())
+              + f"; ptxas: {_ptxas_regs(fm_log, 'fract_phase3_kernel')}",
+              flush=True)
+        if tree == "new" and (not inst or any(
+                c["LDL"] + c["STL"] for c in inst.values())):
+            raise SystemExit("fract_phase3_kernel: local memory")
     rng = np.random.default_rng(1)
     plain = {"tpt_svf_scan": iir.plain_tpt_svf_scan,
              "lp18_scan": iir.plain_lp18_scan}
@@ -757,6 +854,43 @@ def ab(dev, old: Path, mhz):
                      _additive_ok(got, pl, st, B, False, v))
                 rows.append((f"additive_{version}", f"V=256 B={B} every "
                              f"voice off the cycle ({steps})", B, runs, ok))
+    # K2 against the parent's one warp per voice: every voice on the
+    # step's cycle, or stuck (-2^25), at 1, 2 and 4 segments
+    par_segs = _typed(build.load_library("additive")
+                      .oscen_additive_closed_segs, [P] * 17 + [I] * 7 + [P])
+    for steps in ("cycle", "stuck"):
+        pl, st = _additive_inputs(dev, steps=steps)
+        for B in PARITY_AB:
+            ref = add.plain_block(*pl, st, B, False, "parity")
+            for with_mix in (False, True):
+                if steps == "cycle":
+                    mref = add.plain_block(*pl, st, B, True, "parity") \
+                        if with_mix else ref
+                    ok = (lambda got, B=B, m=with_mix, pl=pl, st=st,
+                          r=mref: _additive_ok(got, pl, st, B, m, "parity",
+                                               r))
+                else:
+                    ok = (lambda got, B=B, m=with_mix, pl=pl, st=st, r=ref:
+                          _additive_stuck_ok(got, pl, st, B, "parity", r, m))
+                for S in (1, 2, 4):
+                    runs = {"old": _additive_launcher(
+                        old_fns["additive_parity"], pl, st, B, with_mix,
+                        version="parity"),
+                        "new": _additive_launcher(
+                            par_segs, pl, st, B, with_mix, (0, S),
+                            version="parity")}
+                    rows.append(("additive_parity", f"V=256 B={B}"
+                                 + (" with_mix" if with_mix else "")
+                                 + f" {steps} S={S}", B, runs, ok, S))
+    # K12 on the models' lanes, lanes off the short wrap, and both
+    for lanes in ("on", "off", "mixed"):
+        for B in (1024, 4096):
+            p0, dt = _fract_inputs(dev, lanes, B, 23 * B)
+            runs = {w: _fract_launcher(fns["fract_phase3"], p0, dt, B)
+                    for w, fns in (("old", old_fns), ("new", new_fns))}
+            ref = kfm.plain_fract_phase3(p0, dt, B)
+            rows.append(("fract_phase3", f"V=256 B={B} {lanes} lanes", B,
+                         runs, lambda got, ref=ref: _bits_equal(got, ref)))
     for V, B in ALLPASS_AB:
         ops = _allpass_inputs(dev, V, B, 3 * V + B)
         runs = {w: _allpass_launcher(fns["allpass_cascade_scan"], ops)
@@ -787,7 +921,7 @@ def ab(dev, old: Path, mhz):
         ref = kfm.plain_fm_operator_scan(*ops)
         rows.append(("fm_operator_scan", f"V=256 B={B}", B, runs,
                      lambda got, ref=ref: _same(got, ref)))
-    for kernel, label, B, runs, plain_ok in rows:
+    for kernel, label, B, runs, plain_ok, *segs in rows:
         outs = {}
         for w, run in runs.items():
             outs[w] = [t.clone() for t in run()]
@@ -803,7 +937,8 @@ def ab(dev, old: Path, mhz):
             for w in ("old", "new", "new", "old"):
                 t[w].append(event_us(runs[w], LAUNCHES))
         o, n = statistics.median(t["old"]), statistics.median(t["new"])
-        floor = chain_floor_us(kernel, B, mhz)
+        floor = (chain_floor_us("parity", B, mhz, segs[0]) if segs
+                 else chain_floor_us(kernel, B, mhz))
         print(f"[ab] {kernel} {label}: old {o:.2f} us, new {n:.2f} us "
               f"(x{o / n:.2f}), new equal to old (torch.equal, NaN equal "
               f"to NaN) True"

@@ -398,3 +398,188 @@ def test_v2_switches_in_place(steps, B):
     want = tadd.plain_v2(*planes, step, B, sub)
     for a, b in zip(got, want):
         assert _same(a, b)
+
+
+# ------------------------------------------------------------------ #
+# K2, the exact-op-order kernel: its segments' replay_parity()
+# ------------------------------------------------------------------ #
+def _parity_tick(cur, tgt, s, mult):
+    """``plain_parity``'s envelope tick (its ops, in its order)."""
+    tgt = torch.where(s == 0.0, cur * mult, tgt)
+    interp = s < 64.0
+    tau = (s + 1.0) / 64.0
+    c_i = cur * (1.0 - tau) + tgt * tau
+    return (torch.where(interp, c_i, tgt), tgt,
+            torch.where(interp, s + 1.0, 0.0))
+
+
+def _replay_parity(planes, step, T):
+    """``replay_parity()`` of csrc/additive.cu on whole planes: the state
+    at tick T.  (a) while the step is off its integer cycle 0..64, the
+    body's ticks one at a time, or, where 8 fit before T and s + 8 < 0, 8
+    ticks as the blend and s + 1 alone, (b) on the cycle: the first wrap
+    tick (s = 64) at t + 64 - s, one ``tgt * mult`` per 65 ticks after it,
+    and the body's ticks after the last wrap, (c) the rotation over all T
+    ticks.  ``info``: per voice the ticks walked off the cycle
+    (``walked``, T for a voice that never reaches it), the cycles stepped
+    by a product (``cycles``) and the ticks walked after the last wrap
+    (``tail``), and whether a wrap came before T (``wrapped``)."""
+    zr, zi, mr, mi, cur, tgt, mult = planes
+    s = step.clone()
+    for _ in range(T):
+        zr, zi = zr * mr - zi * mi, zr * mi + zi * mr
+    walking = ~_on_cycle(s)
+    walked = torch.zeros(s.shape, dtype=torch.int64)
+    blend_left = torch.zeros(s.shape, dtype=torch.int64)   # of an 8-tick run
+    for t in range(T):
+        # where no 8-tick run is under way, the kernel checks its loops'
+        # conditions: a new run, or one tick while off the cycle
+        free = walking & (blend_left == 0)
+        blend_left = torch.where(free & (t + 8 <= T) & (s + 8.0 < 0.0), 8,
+                                 blend_left)
+        walking = walking & ((blend_left > 0) | ~_on_cycle(s))
+        if not bool(walking.any()):
+            break
+        blend = walking & (blend_left > 0)
+        c2, g2, s2 = _parity_tick(cur, tgt, s, mult)
+        tau = (s + 1.0) / 64.0
+        c2 = torch.where(blend, cur * (1.0 - tau) + tgt * tau, c2)
+        s2 = torch.where(blend, s + 1.0, s2)
+        cur = torch.where(walking, c2, cur)
+        tgt = torch.where(walking, g2, tgt)
+        s = torch.where(walking, s2, s)
+        blend_left = torch.where(blend, blend_left - 1, blend_left)
+        walked = torch.where(walking, t + 1, walked)
+    walking = walking & ~_on_cycle(s)
+    on = ~walking
+    wrap = walked + 64 - torch.where(on, s, 0.0).long()
+    first = on & (wrap < T)
+    tgt = torch.where(first & (s == 0.0), cur * mult, tgt)
+    cycles = torch.where(first, (T - wrap - 1) // 65, 0)
+    for k in range(int(cycles.max()) if T else 0):
+        tgt = torch.where(first & (k < cycles), tgt * mult, tgt)
+    cur = torch.where(first, tgt, cur)
+    s = torch.where(first, 0.0, s)
+    t_c = torch.where(first, wrap + 1 + 65 * cycles,
+                      torch.where(on, walked, T))
+    for t in range(int(t_c.min()) if T else 0, T):
+        act = t >= t_c
+        c2, g2, s2 = _parity_tick(cur, tgt, s, mult)
+        cur = torch.where(act, c2, cur)
+        tgt = torch.where(act, g2, tgt)
+        s = torch.where(act, s2, s)
+    return (zr, zi, cur, tgt, s), {"walked": walked, "cycles": cycles,
+                                   "tail": T - t_c, "wrapped": first}
+
+
+def _segmented_parity(planes, step, B, S):
+    """K2 in S time segments: each replays its start, then runs
+    ``plain_parity``'s body over its B / S ticks.  Returns (rows [B, V],
+    the last segment's state, whether some replay passes a wrap)."""
+    n = B // S
+    ys, passed = [], False
+    for seg in range(S):
+        (zr, zi, cur, tgt, s), info = _replay_parity(planes, step, seg * n)
+        passed |= bool(info["wrapped"].any())
+        y, *state = tadd.plain_parity(zr, zi, planes[2], planes[3], cur, tgt,
+                                      planes[6], s, n)
+        ys.append(y)
+    return torch.cat(ys), state, passed
+
+
+_PLAIN_PARITY = {}
+
+
+def _plain_parity(planes, step, B, key):
+    if (key, B) not in _PLAIN_PARITY:
+        _PLAIN_PARITY[(key, B)] = tadd.plain_parity(*planes, step, B)
+    return _PLAIN_PARITY[(key, B)]
+
+
+# ODD_STEPS and steps far below 0 that reach the cycle late or never
+# (the kernel walks 8 ticks at a time with the blend alone while s + 8 <
+# 0): -2^24 - 2 steps by 2, then 1, and stays below 0 for 2^24 ticks
+PARITY_STEPS = ODD_STEPS + (-1000.0, -100.5, -9.0, -8.5, -7.5,
+                            -2.0 ** 24 - 2)
+# every segment count the harmonic-sum chunks (N = 32 samples) and the
+# mix's 8-bit ticket fields allow: S <= 4 dividing B / N
+PARITY_CASES = [(B, S) for B in (64, 256, 1024, 4096) for S in (1, 2, 4)
+                if (B // tadd.subgroup_len(B, "parity")) % S == 0]
+
+
+@pytest.mark.parametrize("B,S", PARITY_CASES)
+def test_parity_segments_equal_the_plain_version(B, S):
+    """K2's segments with the entry steps 0, 1, 63, 64 among the voices
+    equal ``plain_parity`` in one piece, bit for bit: the rows, the state
+    planes and the voice mix in the kernel's order; from B=256 on some
+    replay passes a wrap."""
+    planes, step = _planes()
+    y, state, passed = _segmented_parity(planes, step, B, S)
+    y_p, *state_p = _plain_parity(planes, step, B, "cycle")
+    assert torch.equal(y, y_p)
+    for a, b in zip(state, state_p):
+        assert torch.equal(a, b)
+    assert torch.equal(_kernel_mix(y), _kernel_mix(y_p))
+    if S > 1 and B >= 256:
+        assert passed
+
+
+@pytest.mark.parametrize("B,S", PARITY_CASES)
+def test_parity_segments_for_entry_steps_outside_0_64(B, S):
+    """Entry steps the envelope never produces (``PARITY_STEPS``:
+    fractions, negatives down to -2^24 - 2, steps above 64, -0.0, a
+    denormal, 2^24, stuck counters, +-inf, NaN): K2's segments still equal
+    ``plain_parity`` in one piece, NaN equal to NaN, the rows, the state
+    and the mix in the kernel's order."""
+    planes, _ = _planes(len(PARITY_STEPS), seed=3)
+    step = torch.tensor(PARITY_STEPS, dtype=torch.float32)
+    y, state, _ = _segmented_parity(planes, step, B, S)
+    y_1, *state_1 = _plain_parity(planes, step, B, "odd")
+    assert _same(y, y_1)
+    for a, b in zip(state, state_1):
+        assert _same(a, b)
+    assert _same(_kernel_mix(y), _kernel_mix(y_1))
+
+
+def _first_on_cycle_tick(step, T):
+    """Per voice, the first tick whose step is an integer in 0..64, by the
+    body's step ops in float32 (T if none before it)."""
+    s = step.numpy().astype(F32)
+    first = np.full(s.shape, T)
+    with np.errstate(invalid="ignore"):
+        for t in range(T + 1):
+            on = (s == np.floor(s)) & (s >= 0) & (s <= 64)
+            first = np.where(on & (first == T), t, first)
+            s = np.where(s < F32(64), s + F32(1), F32(0)).astype(F32)
+    return np.minimum(first, T)
+
+
+@pytest.mark.parametrize("T", [1, 64, 65, 130, 1024, 3072])
+def test_parity_replay_steps_the_cycle(T):
+    """A voice on the step's cycle (-0.0 and 0..64) walks no tick of the
+    envelope before its wrap: it steps ``tgt * mult`` once per 65 ticks
+    after the first wrap tick (64 - s) and walks at most 64 ticks after
+    the last; a voice off the cycle walks ticks up to the first whose
+    step is an integer in 0..64 (all T for a stuck counter).  The
+    replayed state equals ``plain_parity``'s after T ticks, NaN equal to
+    NaN."""
+    on = [-0.0] + [float(i) for i in range(65)]
+    step = torch.tensor(on + list(PARITY_STEPS), dtype=torch.float32)
+    planes, _ = _planes(len(step), seed=5)
+    state, info = _replay_parity(planes, step, T)
+    n_on = len(on)
+    assert np.array_equal(info["walked"].numpy(),
+                          _first_on_cycle_tick(step, T))
+    s0 = np.asarray([0.0] + on[1:])
+    wrap = 64 - s0
+    passed = wrap < T
+    want_cycles = np.where(passed, (T - wrap - 1) // 65, 0)
+    want_tail = np.where(passed, (T - wrap - 1) % 65, T)
+    assert np.array_equal(info["cycles"][:n_on].numpy(), want_cycles)
+    assert np.array_equal(info["tail"][:n_on].numpy(), want_tail)
+    assert int(info["tail"][:n_on].max()) <= 64
+    stuck = np.isin(step.numpy(), [-2.0 ** 25, -1e9, -np.inf])
+    assert (info["walked"].numpy()[stuck] == T).all()
+    _, zr, zi, cur, tgt, s = tadd.plain_parity(*planes, step, T)
+    for a, b in zip(state, (zr, zi, cur, tgt, s)):
+        assert _same(a, b)

@@ -1176,6 +1176,45 @@ def test_phase_bodies_equal_plain(cuda, V, B):
     assert kphase.take_reruns(cuda) == 0
 
 
+@pytest.mark.parametrize("B", [1024, 4096])
+@pytest.mark.parametrize("lanes", ["on", "off", "mixed"])
+def test_fract_phase3_lanes_equal_plain(cuda, lanes, B):
+    """K12 on the models' lanes (p0 in [0, 1), dt in (0, 0.5): the short
+    wrap), on lanes off it (p0 below 0, edge dt: -0.0, a denormal, 1.0,
+    +-inf, NaN) and on warps of both, 3 chained blocks: every output equal
+    to the plain version on its bit patterns."""
+    f32 = np.float32
+    edges = np.array([-0.0, -1e-45, 1e-45, 1.0, np.nextafter(f32(1), f32(0)),
+                      2.5, np.inf, -np.inf, np.nan], f32)
+    rng = np.random.default_rng(B)
+    p = rng.uniform(0, 1, (3, 256)).astype(f32)
+    if lanes != "on":
+        p[:, 1::2] *= -1
+        if lanes == "off":
+            p[:, 0::2] *= -1
+        p[0, 1:2 * len(edges):2] = edges
+    p = _on(cuda, p)
+    before = kfm.launches["fract_phase3"]
+    for _ in range(3):
+        dt = rng.uniform(0.001, 0.5, (3, 256)).astype(f32)
+        if lanes != "on":
+            dt[1, 1:2 * len(edges):2] = edges
+        dt = _on(cuda, dt)
+        k = kfm.fract_phase3(p, dt, B)
+        torch.cuda.synchronize()
+        assert _same_bits(k, kfm.plain_fract_phase3(p, dt, B))
+        p = k[3]
+    assert kfm.launches["fract_phase3"] == before + 3
+
+
+def test_fract_wrap_equals_trunc_everywhere(cuda):
+    """K12's short wrap over all 2^32 float32 q against q - truncf(q), bit
+    patterns (NaN equal only to itself); it takes exactly [+0, 2)."""
+    wrong, taken = kfm.wrap_sweep()
+    assert wrong == 0
+    assert taken == 2 ** 30
+
+
 def test_phase_wrap_equals_floor_everywhere(cuda):
     """The short wrap over all 2^32 float32 q against q - floorf(q), bit
     patterns (NaN equal only to itself); it takes exactly [+0, 2)."""
@@ -1184,12 +1223,12 @@ def test_phase_wrap_equals_floor_everywhere(cuda):
     assert taken == 2 ** 30
 
 
-@pytest.mark.parametrize("version", ["v4", "v3", "v2"])
+@pytest.mark.parametrize("version", ["v4", "v3", "v2", "parity"])
 @pytest.mark.parametrize("V", [1, 3, 33, 256, 257])
 def test_additive_segments_match_plain(cuda, version, V):
-    """The closed-form kernels with every segment count at B from one
-    subgroup up: y within the bounds, state planes torch.equal, every
-    count's outputs equal."""
+    """Every kernel with every segment count at B from one subgroup (or
+    parity's harmonic-sum chunk) up: y within the bounds, state planes
+    torch.equal, every count's outputs equal."""
     planes_np, step_np = _inputs(V, seed=V)
     planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
     s = torch.as_tensor(step_np, device=cuda)
@@ -1206,8 +1245,8 @@ def test_additive_segments_match_plain(cuda, version, V):
             assert _equal(k_out[1:], p_out[1:])
             for S in (1, 2, 4):
                 if (B // sub) % S == 0:
-                    got = add.closed_block_segments(*planes, s, B, S,
-                                                    with_mix, version)
+                    got = add.block_segments(*planes, s, B, S,
+                                             with_mix, version)
                     torch.cuda.synchronize()
                     assert _equal(got, k_out), (B, S, with_mix)
 
@@ -1225,6 +1264,33 @@ def test_segment_choice(cuda):
     assert add.segments(8161, 1024, 64) == 2
 
 
+def test_parity_segment_choice(cuda):
+    """The parity kernel asks segments() with its 32-sample chunks: 4 at
+    the piano's B=1024 and 4096, 2 for 2 chunks, 1 for an odd count."""
+    assert add.segments(256, 1024, add.subgroup_len(1024, "parity")) == 4
+    assert add.segments(256, 4096, add.subgroup_len(4096, "parity")) == 4
+    assert add.segments(256, 64, add.subgroup_len(64, "parity")) == 2
+    assert add.segments(256, 96, add.subgroup_len(96, "parity")) == 1
+    assert add.segments(3, 40, add.subgroup_len(40, "parity")) == 1
+
+
+def test_parity_segments_refuse_tickets_that_overflow(cuda):
+    """As the closed-form kernels: 4 parity segments of 8161 voices with
+    the mix would overflow an 8-bit ticket field and are refused; 2 run and
+    equal the kernel's own choice."""
+    V, B = 8161, 256
+    planes_np, step_np = _inputs(V, seed=1)
+    planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
+    s = torch.as_tensor(step_np, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        add.block_segments(*planes, s, B, 4, True, "parity")
+    got = add.block_segments(*planes, s, B, 2, True, "parity")
+    want = add.additive_voice_block(*planes, s, B, with_mix=True,
+                                    version="parity")
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
 def test_segments_refuse_tickets_that_overflow(cuda):
     """With the mix, 4 segments of 8161 voices (256 groups) would overflow
     an 8-bit ticket field: the explicit-count entry refuses them; 2 run."""
@@ -1233,8 +1299,8 @@ def test_segments_refuse_tickets_that_overflow(cuda):
     planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
     s = torch.as_tensor(step_np, device=cuda)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        add.closed_block_segments(*planes, s, B, 4, True)
-    got = add.closed_block_segments(*planes, s, B, 2, True)
+        add.block_segments(*planes, s, B, 4, True)
+    got = add.block_segments(*planes, s, B, 2, True)
     want = add.additive_voice_block(*planes, s, B, with_mix=True)
     torch.cuda.synchronize()
     assert _equal(got, want)
@@ -1258,7 +1324,7 @@ def _same_nan(a, b):
     return all(eq(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("version", ["v4", "v3", "v2"])
+@pytest.mark.parametrize("version", ["v4", "v3", "v2", "parity"])
 @pytest.mark.parametrize("B", [1024, 4096])
 def test_additive_segments_entry_steps_outside_0_64(cuda, version, B):
     """Entry steps the envelope never produces (``ODD_STEPS``): every
@@ -1271,11 +1337,10 @@ def test_additive_segments_entry_steps_outside_0_64(cuda, version, B):
     planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
     s = torch.tensor(ODD_STEPS, dtype=torch.float32, device=cuda)
     for with_mix in (False, True):
-        one = add.closed_block_segments(*planes, s, B, 1, with_mix,
-                                        version)
+        one = add.block_segments(*planes, s, B, 1, with_mix, version)
         for S in (2, 4):
-            got = add.closed_block_segments(*planes, s, B, S, with_mix,
-                                            version)
+            got = add.block_segments(*planes, s, B, S, with_mix,
+                                     version)
             torch.cuda.synchronize()
             assert _same_nan(got, one), (S, with_mix)
     got = add.additive_voice_block(*planes, s, B, version=version)
@@ -1287,6 +1352,29 @@ def test_additive_segments_entry_steps_outside_0_64(cuda, version, B):
     y, yp = got[0][:, fin], want[0][:, fin]
     scale = yp.abs().amax(dim=0).clamp(min=1.0)
     assert bool(((y - yp).abs() <= 5e-5 * scale).all())
+
+
+@pytest.mark.parametrize("B", [1024, 4096])
+def test_parity_segments_far_negative_steps(cuda, B):
+    """K2's replay walks a step below 0 8 ticks at a time with the blend
+    alone while s + 8 < 0: steps that reach the cycle late (-1000, -100.5,
+    -9, -8.5, -7.5) or never (-2^24 - 2, -2^25, -inf), with and without
+    the mix, 2 and 4 segments equal to one warp per voice and the state
+    to the plain version's, NaN equal to NaN."""
+    steps = (-1000.0, -100.5, -9.0, -8.5, -7.5, -2.0 ** 24 - 2, -2.0 ** 25,
+             float("-inf"))
+    planes_np, step_np = _inputs(64, seed=9)
+    step_np[3:3 + len(steps)] = steps
+    planes = [torch.as_tensor(p, device=cuda) for p in planes_np]
+    s = torch.as_tensor(step_np, device=cuda)
+    for with_mix in (False, True):
+        one = add.block_segments(*planes, s, B, 1, with_mix, "parity")
+        for S in (2, 4):
+            got = add.block_segments(*planes, s, B, S, with_mix, "parity")
+            torch.cuda.synchronize()
+            assert _same_nan(got, one), (S, with_mix)
+    want = add.plain_block(*planes, s, B, False, "parity")
+    assert _same_nan(one[1:], want[1:])
 
 
 @pytest.mark.parametrize("version", add.KERNELS)
