@@ -121,9 +121,30 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             same chain fed from numpy; how many phase_scan chunks the short
             wrap re-ran in the poly synth's, the saturators' and the README
             synth's runs (the kernel's device count, read after each);
+4b. per_sample  sample mode and the scan islands, each run with its launch
+            counts set to 0 just before it and read just after, every block
+            after the first under sync debug mode "error": the 256-voice
+            piano in sample mode (``mode="sample"``, B=1024, a chord at
+            offsets 0, 10 and 100, then 2 steady blocks) against block mode
+            with K2 (``OSCEN_ADDITIVE_KERNEL=parity``; its steady blocks from
+            the sample-mode state after the chord, RMS <= 4e-5) and K1 (every
+            block, RMS <= 1.6e-2) and against the CPU (<= 1e-4), no kernel
+            launched in sample mode; the simple echo with no min-delay
+            promise (a scan island; 12 blocks of seeded noise, feedback 0.5,
+            mix 0.8 from block 3, the first echo back after sample 12001)
+            against the dissolved echo on the card and the CPU (<= 1e-6);
+            the 4x saturator in sample mode, sinc and IIR-halfband
+            boundaries (2 blocks), against block mode (RMS < 1e-3) and the
+            CPU (<= 1e-6), with exactly 2 allpass_cascade_scan launches per
+            outer sample (sinc_iir); a ``via=24`` Gain island and a Delay
+            array (count=2, no promise) at B=256 against the CPU; for the
+            piano, the echo and the saturators the device activities of
+            their first block (profiler) per sample, the wall of the second
+            (CUDA events) and the real-time factor;
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
-            IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps;
+            IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
+            over 2 and 1 (sample mode's lengths);
             biquad_scan also at V=256 with rows and with planes, and it and
             fm_operator_scan also by CUDA events behind a sleep;
             fract_phase3 on the models' lanes, and on lanes off its short
@@ -158,6 +179,9 @@ JSON kernel report (with
 last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
+``python3 chip_smoke.py per_sample`` runs the per_sample phase alone
+(after building the kernels its block-mode references launch), with no
+result lines.
 """
 
 from __future__ import annotations
@@ -168,6 +192,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -878,6 +903,383 @@ def tanh_fallback_share(torch, kiir, x, g, h, z):
         y, torch.tanh(b.reshape(-1).double()).float()))
 
 
+# ---- helpers shared by the phases ------------------------------------
+def reset_all():
+    """Every launch count to 0, and phase_scan's re-run count."""
+    from oscen_tpu_torch.ops.cuda import adsr, additive, fm, iir, phase
+    for mod in (additive, fm, phase, iir, adsr):
+        mod.reset_launches()
+    phase.take_reruns()
+
+
+def piano_env(run):
+    """The additive kernel version (or the fused epilogue) a piano built
+    next runs."""
+    from oscen_tpu_torch.ops.cuda import additive
+    os.environ["OSCEN_ADDITIVE_KERNEL"] = (
+        "v4" if run == additive.EPILOGUE else run)
+    os.environ["OSCEN_EPILOGUE_FUSION"] = (
+        "1" if run == additive.EPILOGUE else "0")
+
+
+@contextmanager
+def no_sync(on):
+    """Any wait for the card inside raises (sync debug mode)."""
+    import torch
+    if on:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def sat_graph(policy):
+    """The oversampled saturator: a 2 kHz saw and a hard clip at 4x, the
+    sinc boundary (``build_saturator``) or another policy's."""
+    from oscen_tpu_torch import Graph, HardClip, PolyBlepOscillator
+    from oscen_tpu_torch.models.simple import build_saturator
+    if policy == "sinc":
+        return build_saturator(4)
+    g = Graph("Sat4iir")
+    g.output("audio_out", "stream")
+    osc = g.add("osc", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
+    clip = g.add("clip", HardClip(), rate=4)
+    g.connect(osc.output, clip.input)
+    g.connect(clip.output, "audio_out", policy=policy)
+    return g
+
+
+def echo_input(B, n):
+    """The echo's seeded noise, ``n`` blocks of ``B``."""
+    return (np.random.default_rng(5).standard_normal(n * B) * 0.3
+            ).astype(np.float32)
+
+
+PER_SAMPLE_B = 1024
+PIANO_OFFSETS = (0, 10, 100)   # the chord's note-ons, a third at each
+# sample mode at 256 voices against block mode: K2 (parity, its steady
+# blocks from the same state) at the JAX package's 5e-6 at 4 voices x
+# sqrt(256 / 4); K1 (v4, every block) at its 2e-3 x 8; against the CPU the
+# piano's card-vs-CPU bound (PERF.md section 2)
+PIANO_K2_RMS = 4e-5
+PIANO_K1_RMS = 1.6e-2
+SAT_MODES_RMS = 1e-3   # tests/test_multirate.py:196-203
+
+
+def per_sample_phase(card):
+    """Phase ``per_sample``: the 256-voice piano in sample mode, the
+    reference echo's scan island (no promise), the 4x saturator in sample
+    mode (sinc and IIR-halfband boundaries) and two small islands, each
+    against its block-mode or dissolved counterpart and the CPU, every
+    block after the first under sync debug mode "error"; the wall per
+    block, device activities per sample and real-time factor of the
+    first three.  Returns K10's launches on the sample-mode path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from oscen_tpu_torch import Delay, Gain, Graph, raw_midi_event
+    from oscen_tpu_torch.graph.node import tree_map
+    from oscen_tpu_torch.models.electric_piano import build_electric_piano
+    from oscen_tpu_torch.models.simple import build_simple_echo
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.ops.cuda import iir as kiir
+    from oscen_tpu_torch.ops.cuda import phase as kphase
+    B = PER_SAMPLE_B
+    cuda_kind = torch.autograd.DeviceType.CUDA
+
+    def device_activities(prof):
+        """The device activities a profiler run recorded, counted on its
+        raw events (a block here holds ~10^5 of them; building the
+        profiler's event tree for them takes tens of seconds)."""
+        return sum(1 for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda_kind)
+
+    def run_blocks(step, n, device, stats):
+        """``step(i)`` for blocks 0..n-1, each after the first under sync
+        debug mode "error" on the card.  With ``stats`` (a dict), block 0
+        runs under the profiler, which counts its device activities
+        (kernels, copies, fills), and block 1 is timed by CUDA events."""
+        ys = []
+        for i in range(n):
+            on_card = device == "cuda" and i > 0
+            if stats is not None and i == 0:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    ys.append(step(i))
+                    torch.cuda.synchronize()
+                stats["activities"] = device_activities(prof)
+            elif stats is not None and i == 1:
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                with no_sync(on_card):
+                    ys.append(step(i))
+                b.record()
+                torch.cuda.synchronize()
+                stats["wall_ms"] = a.elapsed_time(b)
+            else:
+                with no_sync(on_card):
+                    ys.append(step(i))
+        return ys
+
+    def report_stats(label, stats):
+        per = stats["activities"] / B
+        rtf = (B / SR) / (stats["wall_ms"] * 1e-3)
+        phase("per_sample", f"{label}: wall {stats['wall_ms']:.1f} ms per "
+              f"B={B} block (CUDA events), {stats['activities']} device "
+              f"activities in one block ({per:.1f} per sample, profiler), "
+              f"real-time factor {rtf:.4f}x ({card})")
+        return per
+
+    def max_abs(a, b):
+        return float((a.cpu() - b.cpu()).abs().max())
+
+    def rms(a, b):
+        return float(torch.sqrt(torch.mean((a.cpu() - b.cpu()) ** 2)))
+
+    def on_cuda(c):
+        """Every state leaf of ``c`` on the card."""
+        leaves = []
+
+        def w(t):
+            if isinstance(t, dict):
+                for v in t.values():
+                    w(v)
+            elif isinstance(t, (tuple, list)):
+                for v in t:
+                    w(v)
+            else:
+                leaves.append(t)
+        w(c.state)
+        return bool(leaves) and all(x.device.type == "cuda" for x in leaves)
+
+    # -- the piano, 256 voices, sample mode ------------------------------
+    def piano(device, mode, version="v4", stats=None, snap=None,
+              start=None):
+        """A chord at PIANO_OFFSETS, then 2 steady blocks.  ``snap``: keep
+        the state after the chord block there; ``start``: a state to run
+        the steady blocks from instead of this graph's own (the chord
+        block's host-side work, the voice allocation, is this graph's)."""
+        piano_env(version)
+        p = build_electric_piano(VOICES).compile(SR, block_size=B, mode=mode,
+                                                 device=device)
+
+        def step(i):
+            if i == 0:
+                for v in range(VOICES):
+                    p.queue_event("midi_in", PIANO_OFFSETS[v % 3],
+                                  raw_midi_event([0x90, 36 + v % 64, 100]))
+            if i == 1 and snap is not None:
+                snap["state"] = tree_map(lambda t: t.clone(), p.state)
+            if i == 1 and start is not None:
+                p.state = tree_map(lambda t: t.clone(), start)
+            return p.process_block()["out"]
+        return p, run_blocks(step, 3, device, stats)
+
+    reset_all()
+    stats, snap = {}, {}
+    t0 = time.perf_counter()
+    p, ys = piano("cuda", "sample", stats=stats, snap=snap)
+    secs = time.perf_counter() - t0
+    y_sample = torch.cat(ys)
+    sample_launched = {k: v for k, v in add.launches.items() if v} | {
+        k: v for k, v in kiir.launches.items() if v} | {
+        k: v for k, v in kphase.launches.items() if v}
+    piano_per = report_stats("piano 256 voices, sample mode", stats)
+    ref, ref_launches = {}, {}
+    for version in ("parity", "v4"):
+        for synced in (True, False):
+            reset_all()
+            _, yb = piano("cuda", "block", version,
+                          start=snap["state"] if synced else None)
+            ref[(version, synced)] = yb
+            ref_launches[(version, synced)] = add.launches[version]
+    _, y_cpu = piano("cpu", "sample")
+    y_cpu = torch.cat(y_cpu)
+    steady = torch.cat(ys[1:])
+    # the kernels' anchor: the steady blocks from the sample-mode state
+    # after the chord block, so K2 and K1 are held to the ticks alone
+    readings = {
+        "K2 (parity) steady blocks from the same state, RMS":
+        (rms(steady, torch.cat(ref[("parity", True)][1:])), PIANO_K2_RMS),
+        "K1 (v4) all 3 blocks, RMS":
+        (rms(y_sample, torch.cat(ref[("v4", False)])), PIANO_K1_RMS),
+        "CPU sample mode max abs": (max_abs(y_sample, y_cpu), MAIN_TOL)}
+    info = {
+        "K1 steady from the same state": rms(
+            steady, torch.cat(ref[("v4", True)][1:])),
+        "K2 all 3 blocks": rms(y_sample, torch.cat(ref[("parity", False)])),
+        "K2 steady blocks": rms(steady,
+                                torch.cat(ref[("parity", False)][1:])),
+        "the chord block (composed closed forms)": rms(
+            ys[0], ref[("parity", False)][0])}
+    peak = float(y_sample.abs().max())
+    checks = {"shape": tuple(y_sample.shape) == (3 * B, 2),
+              "finite": bool(torch.isfinite(y_sample).all()),
+              "peak": 0.01 < peak < 1000.0,
+              "state_on_cuda": on_cuda(p),
+              "no kernel in sample mode": not sample_launched,
+              "K2 and K1 launches (2 steady blocks each)": all(
+                  n == 2 for n in ref_launches.values()),
+              **{k: v <= lim for k, (v, lim) in readings.items()}}
+    phase("per_sample", f"piano 256 voices sample mode B={B}: a chord at "
+          f"offsets {PIANO_OFFSETS} then 2 steady blocks (blocks 2-3 under "
+          f"sync debug mode 'error'), peak {peak:.4f}, {secs:.1f} s; "
+          + "; ".join(f"{k} {v:.3e} (<= {lim:.1e})"
+                      for k, (v, lim) in readings.items())
+          + "; RMS, for the record: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in info.items())
+          + f"; checks {checks}")
+    check(all(checks.values()), f"per_sample piano checks failed: {checks}")
+    piano_env("v4")
+
+    # -- the reference echo without its promise: a scan island ----------
+    # (12 blocks, 12288 samples: the first echo returns at sample 12001)
+    n_echo = 12
+
+    def echo(device, min_delay, stats=None):
+        x = echo_input(B, n_echo)
+        c = build_simple_echo(min_delay=min_delay).compile(
+            SR, block_size=B, device=device)
+        c.set_value("feedback", 0.5)
+
+        def step(i):
+            if i == 3:
+                c.set_value("mix", 0.8)
+            return c.process_block(
+                stream_inputs={"x": x[i * B:(i + 1) * B]})["out"]
+        return c, torch.cat(run_blocks(step, n_echo, device, stats)), x
+
+    reset_all()
+    stats = {}
+    t0 = time.perf_counter()
+    c, y_isl, x = echo("cuda", False, stats)
+    secs = time.perf_counter() - t0
+    island_launches = {k: v for k, v in kiir.launches.items() if v}
+    echo_per = report_stats("simple echo scan island", stats)
+    _, y_dis, _ = echo("cuda", True)
+    _, y_isl_cpu, _ = echo("cpu", False)
+    keep = np.where(np.arange(n_echo * B) < 3 * B,
+                    np.float32(1.0) - np.float32(0.5),
+                    np.float32(1.0) - np.float32(0.8)).astype(np.float32)
+    wet = np.abs(y_isl.cpu().numpy() - x * keep)
+    D = 12000 + 1          # read 12000 samples back, before the push
+    readings = {"dissolved island (card) max abs": (max_abs(y_isl, y_dis),
+                                                    TWIN_TOL),
+                "CPU island max abs": (max_abs(y_isl, y_isl_cpu),
+                                       TWIN_TOL)}
+    paths = {e["node"]: e["path"] for e in c.explain() if "path" in e}
+    checks = {"finite": bool(np.isfinite(wet).all()),
+              "dry_only_before_the_delay": float(wet[:D].max()) == 0.0,
+              "echo_returns": float(wet[D:].max()) > 0.05,
+              "scan_island": paths.get("delay") == paths.get("filter")
+              == "scan_island",
+              "state_on_cuda": on_cuda(c),
+              "no kernel in the island": not island_launches,
+              **{k: v <= lim for k, (v, lim) in readings.items()}}
+    phase("per_sample", f"simple echo, no promise (0.25 s, a scan island) "
+          f"B={B}: {n_echo} blocks of seeded noise (all but the first under "
+          f"sync debug mode 'error'), feedback 0.5, mix 0.8 from block 3, "
+          f"wet peak after sample {D} {float(wet[D:].max()):.4f}, "
+          f"{secs:.1f} s; "
+          + "; ".join(f"{k} {v:.3e} (<= {lim:.0e})"
+                      for k, (v, lim) in readings.items())
+          + f"; checks {checks}")
+    check(all(checks.values()), f"per_sample echo checks failed: {checks}")
+
+    # -- the 4x saturator in sample mode ---------------------------------
+    k10 = 0
+    sat_per = {}
+    for policy in ("sinc", "sinc_iir"):
+        def sat(device, mode, stats=None, policy=policy):
+            c = sat_graph(policy).compile(SR, block_size=B, mode=mode,
+                                          device=device)
+            return torch.cat(run_blocks(
+                lambda i: c.process_block()["audio_out"], 2, device, stats))
+        reset_all()
+        stats = {}
+        t0 = time.perf_counter()
+        y_s = sat("cuda", "sample", stats)
+        secs = time.perf_counter() - t0
+        got = kiir.launches["allpass_cascade_scan"]
+        others = {k: v for k, v in {**kphase.launches,
+                                    **add.launches}.items() if v}
+        # one down resampler run per outer sample: one launch per halfband
+        # stage (2 at 4x), over 2 and 1 samples
+        want = 2 * 2 * B if policy == "sinc_iir" else 0
+        k10 += got
+        sat_per[policy] = report_stats(
+            f"saturator 4x {policy}, sample mode", stats)
+        y_b = sat("cuda", "block")
+        y_cpu = sat("cpu", "sample")
+        readings = {"block mode RMS": (rms(y_s, y_b), SAT_MODES_RMS),
+                    "CPU sample mode max abs": (max_abs(y_s, y_cpu),
+                                                TWIN_TOL)}
+        peak = float(y_s.abs().max())
+        checks = {"finite": bool(torch.isfinite(y_s).all()),
+                  "peak": 0.5 < peak < 1.2,
+                  "allpass_cascade_scan launches": got == want,
+                  "no other kernel": not others,
+                  **{k: v <= lim for k, (v, lim) in readings.items()}}
+        phase("per_sample", f"saturator 4x {policy} sample mode B={B}: 2 "
+              f"blocks (the second under sync debug mode 'error'), peak "
+              f"{peak:.4f}, {secs:.1f} s, allpass_cascade_scan launches "
+              f"{got} (want {want}: 2 per outer sample), "
+              + "; ".join(f"{k} {v:.3e} (<= {lim:.0e})"
+                          for k, (v, lim) in readings.items())
+              + f"; checks {checks}")
+        check(all(checks.values()),
+              f"per_sample saturator {policy} checks failed: {checks}")
+
+    # -- small islands: a via=24 cycle and a Delay array ------------------
+    def via_island():
+        g = Graph("FB")
+        g.input("x", "stream")
+        g.output("out", "stream")
+        mix = g.add("mix", Gain(1.0))
+        fb = g.add("fb", Gain(0.6))
+        g.connect("x", mix.input)
+        g.connect(mix.output, fb.input)
+        g.connect(fb.output, mix.input, via=24)
+        g.connect(mix.output, "out")
+        return g
+
+    def delay_array():
+        g = Graph("DA")
+        g.input("x", "stream")
+        g.output("out", "stream")
+        d = g.add("d", Delay(37.5, 0.5), count=2)
+        g.connect("x", d.input)
+        g.connect(d.output, "out")
+        return g
+    small_B = 256
+    for label, build in (("via=24 Gain island", via_island),
+                         ("Delay array count=2, no promise", delay_array)):
+        x = echo_input(small_B, 4)
+
+        def small(device, build=build, x=x):
+            c = build().compile(SR, block_size=small_B, device=device)
+            return torch.cat(run_blocks(
+                lambda i: c.process_block(stream_inputs={
+                    "x": x[i * small_B:(i + 1) * small_B]})["out"],
+                4, device, None))
+        y_c, y_h = small("cuda"), small("cpu")
+        err = max_abs(y_c, y_h)
+        phase("per_sample", f"{label} B={small_B}: 4 blocks (2-4 under "
+              f"sync debug mode 'error'), peak {float(y_c.abs().max()):.4f},"
+              f" card against CPU max abs {err:.3e} (<= {TWIN_TOL:.0e})")
+        check(err <= TWIN_TOL and float(y_c.abs().max()) > 0.1,
+              f"per_sample {label}: card and CPU disagree")
+    phase("per_sample", f"device activities per sample: piano "
+          f"{piano_per:.1f}, echo island {echo_per:.1f}, saturator sinc "
+          f"{sat_per['sinc']:.1f}, sinc_iir {sat_per['sinc_iir']:.1f}; "
+          f"K10 launches on the sample-mode path {k10} ({card})")
+    return {"allpass_cascade_scan": k10}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -898,14 +1300,6 @@ def main() -> int:
     from oscen_tpu_torch.ops.cuda import iir as kiir
     from oscen_tpu_torch.ops.cuda import phase as kphase
     scans = {"phase_scan": kphase, "tpt_svf_scan": kiir, "adsr_scan": kadsr}
-
-    def reset_all():
-        """Every launch count to 0, and phase_scan's re-run count."""
-        add.reset_launches()
-        kfm.reset_launches()
-        for mod in scans.values():
-            mod.reset_launches()
-        kphase.take_reruns()
 
     # (lane, chunk)s phase_scan's short wrap re-ran with floor in each
     # model's main-path run (the device count after the run)
@@ -1528,12 +1922,6 @@ def main() -> int:
     # one run per kernel version, and v4 with the tremolo epilogue fused
     RUNS = add.KERNELS + (add.EPILOGUE,)
 
-    def piano_env(run):
-        os.environ["OSCEN_ADDITIVE_KERNEL"] = (
-            "v4" if run == add.EPILOGUE else run)
-        os.environ["OSCEN_EPILOGUE_FUSION"] = (
-            "1" if run == add.EPILOGUE else "0")
-
     main_out = {}
     launches = {}
     for version in RUNS:
@@ -1829,21 +2217,7 @@ def main() -> int:
           and err <= POLY_TOL, "README synth checks failed")
 
     # the twin peaks: one plugin instance, audio arriving in every block
-    from contextlib import contextmanager
-
     from oscen_tpu_torch import Graph, IirLowpass, Oscillator
-
-    @contextmanager
-    def no_sync(on):
-        """Any wait for the card inside raises (sync debug mode)."""
-        if on:
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            if on:
-                torch.cuda.set_sync_debug_mode("default")
     from oscen_tpu_torch.models.twin_peaks import build_twin_peaks
 
     def twin_input(B, n):
@@ -1991,20 +2365,7 @@ def main() -> int:
 
     # the oversampled saturator: a 2 kHz saw and a hard clip at 4x, the
     # sinc (build_saturator) or the IIR-halfband boundary
-    from oscen_tpu_torch import HardClip, PolyBlepOscillator
-    from oscen_tpu_torch.models.simple import (build_saturator,
-                                               build_simple_echo)
-
-    def sat_graph(policy):
-        if policy == "sinc":
-            return build_saturator(4)
-        g = Graph("Sat4iir")
-        g.output("audio_out", "stream")
-        osc = g.add("osc", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
-        clip = g.add("clip", HardClip(), rate=4)
-        g.connect(osc.output, clip.input)
-        g.connect(clip.output, "audio_out", policy=policy)
-        return g
+    from oscen_tpu_torch.models.simple import build_simple_echo
 
     def sat_drive(device, policy, B, n):
         c = sat_graph(policy).compile(SR, block_size=B, device=device)
@@ -2067,10 +2428,6 @@ def main() -> int:
 
     # the simple echo at its defaults: a 0.25 s delay whose feedback island
     # dissolves (min_delay 12000 >= B + 4)
-    def echo_input(B, n):
-        return (np.random.default_rng(5).standard_normal(n * B) * 0.3
-                ).astype(np.float32)
-
     def echo_drive(device, B, n):
         """Seeded noise through ``x`` block by block; feedback 0.5 from
         block 0, mix 0.8 from block n // 2; every block after the first
@@ -2158,6 +2515,9 @@ def main() -> int:
           + "; ".join(f"{k} {n}" for k, n in main_reruns.items()))
     check(not any(main_reruns.values()),
           "phase_scan: the short wrap re-ran a chunk on a model's input")
+
+    # ---- 4b. per_sample: sample mode and the scan islands ------------
+    per_sample_launches = per_sample_phase(card)
 
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
@@ -2499,7 +2859,10 @@ def main() -> int:
 
     # the allpass cascade at the IIR saturator's shapes: V=2 lanes (the two
     # branches of a halfband stage) over 2B then B samples per block at 4x
-    for V, Bp in ((2, 2048), (2, 1024), (2, 8192), (2, 4096)):
+    # (and over 2 then 1 samples: sample mode runs the down resampler once
+    # per outer sample)
+    for V, Bp in ((2, 2048), (2, 1024), (2, 8192), (2, 4096), (2, 2),
+                  (2, 1)):
         args = allpass_operands(V, Bp, np.random.default_rng(Bp))
         fn = kiir.allpass_cascade_scan
         ms = device_ms(lambda: fn(*args), 50, kernel="allpass_kernel")
@@ -2581,7 +2944,7 @@ def main() -> int:
     # epilogue's), the poly synth, the FM models
     # (fract_phase3 from the fm synth's and the pivot's runs together), the
     # twin peaks (fused and two-node, both block sizes), the IIR lowpass and
-    # the IIR-boundary saturator (both block sizes)
+    # the IIR-boundary saturator (both block sizes, and sample mode's run)
     path_launches = {k: launches[k][k] for k in RUNS}
     path_launches.update(poly_launches)
     path_launches["fract_phase3"] = sum(
@@ -2594,8 +2957,10 @@ def main() -> int:
         "fm_operator_scan"]
     path_launches["lp18_scan"] = twin_launches
     path_launches["biquad_scan"] = iir_launches
+    # K10: the IIR-boundary saturator in block mode and in sample mode
     path_launches["allpass_cascade_scan"] = sat_launches[
-        ("sinc_iir", "allpass_cascade_scan")]
+        ("sinc_iir", "allpass_cascade_scan")] + per_sample_launches[
+        "allpass_cascade_scan"]
     # the ablation kernels are on no model's main path
     path_launches.update({k: 0 for k in ABLATION_KERNELS})
     sources.update(ABLATION_KERNELS)
@@ -2628,5 +2993,31 @@ def main() -> int:
     return 0
 
 
+def per_sample_only() -> int:
+    """``python3 chip_smoke.py per_sample``: the build of the kernels that
+    phase's block-mode references launch, then the phase alone (no result
+    lines)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+    from oscen_tpu_torch.ops.cuda import build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(build.load_library, ("additive", "phase", "iir")))
+    phase("build", "additive.cu, phase.cu and iir.cu built")
+    per_sample_phase(f"{torch.cuda.get_device_name(0)} ({smi})")
+    phase("total", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(per_sample_only() if sys.argv[1:] == ["per_sample"]
+             else main())

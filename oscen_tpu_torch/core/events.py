@@ -15,7 +15,7 @@ Counterpart of ``oscen_tpu/core/events.py``.  Events live in two domains:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,11 +77,18 @@ class EventBuffer:
     ``offsets`` int32, ``values`` float32, ``valid`` bool, each ``[..., K]``
     (a leading instance axis for node arrays).  The reference caps events
     at 32 per endpoint per block (types.rs:18), so K <= 32 loses nothing.
+
+    ``slots`` (optional) is the host's copy of where the events are:
+    ``{t: (k, ...)}``, the slots ``k`` whose offset is ``t`` in at least
+    one instance (``CompiledGraph`` fills it when it stages the buffer).
+    The per-sample loops apply handlers only at those ``(t, k)`` pairs;
+    without it they take the masked form over every slot.
     """
 
     offsets: Any
     values: Any
     valid: Any
+    slots: Any = None
 
     @property
     def capacity(self) -> int:
@@ -111,6 +118,20 @@ class EventBuffer:
             val[i] = e.scalar
             ok[i] = True
         return EventBuffer(off, val, ok)
+
+    @staticmethod
+    def host_slots(offsets, valid) -> Dict[int, Tuple[int, ...]]:
+        """``{t: (k, ...)}`` of a numpy buffer: every slot ``k`` valid at
+        offset ``t`` in some instance, in slot order."""
+        ok = np.asarray(valid)
+        if not ok.any():
+            return {}
+        off = np.asarray(offsets).reshape(-1, ok.shape[-1])
+        ok = ok.reshape(off.shape)
+        out: Dict[int, set] = {}
+        for r, k in zip(*np.nonzero(ok)):
+            out.setdefault(int(off[r, k]), set()).add(int(k))
+        return {t: tuple(sorted(ks)) for t, ks in sorted(out.items())}
 
     @staticmethod
     def stack(buffers: Sequence["EventBuffer"]) -> "EventBuffer":

@@ -15,7 +15,15 @@ block shifted by one along time, seeded from ``state["__fb__"]``.  A
 feedback island (a strongly connected component) dissolves when every
 cycle passes through a ``Delay`` whose static ``min_delay >= B + 4``: the
 delays read their whole block first, the rest of the island runs as
-ordinary block nodes, and the delays write last.
+ordinary block nodes, and the delays write last.  Any other island runs as
+a **per-sample scan island**: its external inputs are evaluated as whole
+blocks first, then its nodes tick once per sample in topological order
+(events at their host-known offsets, ``__fb__`` carries for the feedback
+reads), and their outputs are stacked back into blocks.  An island inside
+an oversampled region scans at the inner rate; one that spans a rate
+boundary is refused, as in the JAX package.  A node array without an
+instance-batched block path (a ``Delay`` array) runs its ticks over the
+instance axis (the JAX package ``vmap``s there).
 
 Stream-epilogue fusion (``OSCEN_EPILOGUE_FUSION=1``, read when the block
 function is built; default off, as in the JAX package): a fused voice
@@ -24,9 +32,7 @@ mix-down whose single consumer is a scalar node with ``kernel_epilogue``
 whose consumer value inputs are block-constant; the consumer then does not
 run on its own.
 
-Not ported yet, and refused with ``NotImplementedError``: per-sample scan
-islands (a cycle that does not dissolve, including oversampled feedback
-islands; ROADMAP.md queue 1, Slice F) and voice sharding.
+Not ported: voice sharding.
 
 Besides its inputs, a node's block methods may ask, by naming the keyword
 in their signature, for what the compiler knows of them on the host:
@@ -59,7 +65,7 @@ from ..core.types import Kind
 from . import explain
 from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Fanout,
                  FrameCtor, IrEdge)
-from .node import tree_map
+from .node import apply_node_events, scan_tick_block, tree_map
 
 __all__ = ["make_block_fn", "reconstruct_step_values"]
 
@@ -171,15 +177,6 @@ def _signature_kw(fn, names) -> frozenset:
     return frozenset(names) & set(inspect.signature(fn).parameters)
 
 
-
-
-def _scan_island_error(comp, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"feedback cycle through {sorted(comp)}: {why}, so it needs a "
-        f"per-sample scan island, which comes to the port with sample mode "
-        f"(ROADMAP.md queue 1, Slice F)")
-
-
 def make_block_fn(prog, block_len: int, literal_params=None,
                   host_params=None):
     """Build ``(state, per_block, ev_bufs) -> (state, out_blocks)``.
@@ -187,8 +184,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     ``literal_params``: values of the graph value inputs never set since
     compile (``literal_ins``); ``host_params``: a callable returning the
     current host values of the graph value inputs (``host_ins``).  Raises
-    ``NotImplementedError`` for a feedback island that does not dissolve at
-    this block length."""
+    ``NotImplementedError`` for a feedback island that spans a rate
+    boundary (the reference restricts cross-rate feedback too)."""
     from ..nodes.delay import Delay
 
     ir = prog.ir
@@ -220,25 +217,22 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     def dissolve_plan(comp: List[str]):
         """(delays, the rest in evaluation order) of a feedback island
         whose every cycle passes through a single-instance Delay promising
-        ``min_delay >= B + 4`` (the JAX package's dissolution rule); every
-        read of such a delay this block addresses pre-block contents."""
+        ``min_delay >= B + 4`` (the JAX package's dissolution rule), every
+        read of which this block addresses pre-block contents; None when
+        the island does not dissolve (it runs as a scan island)."""
         if any(ir.nodes[n].rate != 1 for n in comp):
-            raise _scan_island_error(comp, "it is oversampled")
+            return None
         cset = set(comp)
         dels = [n for n in comp if isinstance(ir.nodes[n].node, Delay)
                 and ir.nodes[n].node.min_delay >= B + 4
                 and ir.nodes[n].count == 1]
         if not dels:
-            raise _scan_island_error(
-                comp, f"no single-instance Delay on it promises min_delay "
-                f">= B + 4 = {B + 4}")
+            return None
         for d in dels:
             for epn in ("delay_samples", "feedback"):
                 for e in prog.edges_by_dst.get((d, epn), []):
                     if any(r.node in cset for r in e.source.endpoints()):
-                        raise _scan_island_error(
-                            comp, f"the {epn} of '{d}' is fed from inside "
-                            f"the island")
+                        return None   # params fed from inside the island
         pending = {n: (deps[n] & cset) - set(dels)
                    for n in comp if n not in dels}
         order: List[str] = []
@@ -246,16 +240,21 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             ready = sorted((n for n, d_ in pending.items()
                             if not d_ & set(pending)), key=topo_pos.get)
             if not ready:
-                raise _scan_island_error(
-                    comp, "a cycle on it passes through no such Delay")
+                return None   # a cycle not broken by the delays
             order.extend(ready)
             for n in ready:
                 del pending[n]
         return dels, order
 
-    plans = [dissolve_plan(c) if is_island(c) else None for c in comps]
-    island_nodes = {n for c, p in zip(comps, plans) if p is not None
-                    for n in c}
+    islands = [c for c in comps if is_island(c)]
+    plans = {id(c): dissolve_plan(c) for c in islands}
+    for c in islands:
+        if plans[id(c)] is None and len({ir.nodes[n].rate for n in c}) > 1:
+            raise NotImplementedError(
+                f"feedback island {sorted(c)} spans a rate boundary: "
+                f"unsupported (the reference similarly restricts cross-rate "
+                f"feedback)")
+    island_nodes = {n for c in islands for n in c}
 
     # FanIn fusion: node-array outputs whose ONLY consumers are bare
     # full-instance fan-in sums (and which feed no island, feedback carry
@@ -608,14 +607,18 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                     fused_away.add(t)
                     explain.note(epilogue_fused_consumer=t)
             elif inst.count > 1:
-                if not node.BATCHED:
-                    raise NotImplementedError(
-                        f"node array '{name}' ({type(node).__name__}) has "
-                        f"no instance-batched block path in the port yet")
                 # the JAX package's name for this path (it vmaps there)
                 explain.note(path="vmap")
-                st, outs = node.process_block(
-                    st, ins, evs, sr, Bn, **host_kwargs(name, block_kw[name]))
+                if node.BATCHED:
+                    st, outs = node.process_block(
+                        st, ins, evs, sr, Bn,
+                        **host_kwargs(name, block_kw[name]))
+                else:
+                    # no instance-batched block path: the ticks, which
+                    # broadcast over the instance axis
+                    explain.note(tick_scan=True)
+                    st, outs = scan_tick_block(node, st, ins, evs, sr, Bn,
+                                               taxis=1)
             else:
                 explain.note(path="block")
                 kw = host_kwargs(name, block_kw[name])
@@ -646,9 +649,123 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             with explain.processing(name):
                 run_node(name)
 
-        for comp, plan in zip(comps, plans):
-            if plan is None:
+        def scan_island(island: List[str]) -> None:
+            """A feedback island, sample by sample (JAX block_mode.py:
+            729-922): external inputs as whole blocks sliced per sample,
+            the nodes' ticks in topological order with their events, the
+            feedback reads from the island's ``__fb__`` carries, and the
+            outputs stacked back into blocks (``[C, Bn, ...]`` for
+            arrays).  An oversampled island scans ``B*N`` inner samples:
+            its external inputs come through their resamplers, its event
+            offsets are scaled on the host, its carries advance one inner
+            sample."""
+            for n in island:
+                explain.note(node=n, path="scan_island",
+                             island=sorted(island))
+            island_set = set(island)
+            Bn = B * ir.nodes[island[0]].rate
+            # inputs from outside the island, fully normalized, time-major
+            ext: Dict[Tuple[str, str, int], Any] = {}
+            for name in island:
+                inst = ir.nodes[name]
+                for ep in inst.node.INPUTS:
+                    if ep.kind in (Kind.EVENT, Kind.ASSET):
+                        continue
+                    for j, e in enumerate(prog.edges_by_dst.get(
+                            (name, ep.name), [])):
+                        if {r.node for r in e.source.endpoints()
+                                if r.node} & island_set:
+                            continue   # internal edge
+                        v = edge_value(e, inst, ep, e.dst_index is not None)
+                        if inst.count > 1 and e.dst_index is None:
+                            v = v.movedim(1, 0)
+                        ext[(name, ep.name, j)] = v
+            ist = {n: ir.nodes[n].node.own_state(new_state[n])
+                   for n in island}
+            fb_here = [f"{n}.{epn}" for (n, epn) in prog.fb_keys
+                       if n in island_set]
+            carries = {k: fb[k] for k in fb_here}
+            outs_t: Dict[Tuple[str, str], list] = {}
+            for t in range(Bn):
+                env_t: Dict[Tuple[str, str], Any] = {}
+
+                def resolve_t(edge):
+                    def r(ref: EndpointRef):
+                        if ref.node == "":
+                            return per_block[ref.endpoint][t]
+                        if ref.node in prog.host_set:
+                            return per_block[
+                                f"__host__{ref.node}.{ref.endpoint}"][t]
+                        key = (ref.node, ref.endpoint)
+                        if ref.node not in island_set and key in env:
+                            return env[key].select(
+                                1 if ir.nodes[ref.node].count > 1 else 0, t)
+                        if key in env_t and not (
+                                edge is not None and edge.is_feedback
+                                and edge.src_reads_state):
+                            return env_t[key]
+                        return carries[f"{ref.node}.{ref.endpoint}"]
+                    return r
+
+                for name in island:
+                    inst = ir.nodes[name]
+                    node = inst.node
+                    sr = prog.scaled_sr(inst)
+                    ins = {}
+                    for ep in node.INPUTS:
+                        if ep.kind in (Kind.EVENT, Kind.ASSET):
+                            continue
+                        val = None
+                        for j, e in enumerate(prog.edges_by_dst.get(
+                                (name, ep.name), [])):
+                            if (name, ep.name, j) in ext:
+                                v = ext[(name, ep.name, j)][t]
+                            else:
+                                v = prog.eval_expr(e.source, resolve_t(e))
+                                if e.dst_index is None:
+                                    if e.fanout == Fanout.FAN_IN:
+                                        v = torch.sum(v, dim=0)
+                                    elif e.fanout == Fanout.REPEAT:
+                                        v = torch.repeat_interleave(
+                                            v, e.factor, dim=0)
+                                    elif e.fanout == Fanout.SEGMENT_SUM:
+                                        v = prog.segment_sum(v, e.factor)
+                                    if inst.count > 1 and e.fanout in (
+                                            Fanout.SCALAR, Fanout.BROADCAST):
+                                        v = prog._broadcast_to_count(
+                                            v, inst.count)
+                            if e.dst_index is not None:
+                                val = (val if val is not None else
+                                       prog._default_value(inst, ep)).clone()
+                                val[e.dst_index] = v
+                            elif val is None:
+                                val = v
+                            else:
+                                val = val + v
+                        ins[ep.name] = (val if val is not None
+                                        else prog._default_value(inst, ep))
+                    st = apply_node_events(node, ist[name], name, ev_bufs, t,
+                                           sr, ins)
+                    ist[name], o = node.tick_owned(st, ins, sr)
+                    for k, v in o.items():
+                        env_t[(name, k)] = v
+                carries = {**carries, **{k: env_t[tuple(k.rsplit(".", 1))]
+                                         for k in fb_here}}
+                for key, v in env_t.items():
+                    outs_t.setdefault(key, []).append(v)
+            new_state.update(ist)
+            fb.update(carries)
+            for (n, k), vs in outs_t.items():
+                env[(n, k)] = torch.stack(
+                    vs, dim=1 if ir.nodes[n].count > 1 else 0)
+
+        for comp in comps:
+            if id(comp) not in plans:
                 run(comp[0])
+                continue
+            plan = plans[id(comp)]
+            if plan is None:
+                scan_island(comp)
                 continue
             # dissolved feedback island: read the delays, run the acyclic
             # rest, write the delays

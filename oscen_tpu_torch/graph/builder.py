@@ -973,8 +973,10 @@ class Graph:
                 mode: str = "block", device="cuda"):
         """Compile to a :class:`CompiledGraph` whose state and blocks live
         on ``device``: the CUDA card by default (without a card this
-        raises), or ``"cpu"`` when asked for.  Only ``mode="block"`` is
-        ported; ``mode="sample"`` raises ``NotImplementedError``."""
+        raises), or ``"cpu"`` when asked for.  ``mode="block"`` (the
+        default here, as in the JAX package) runs time-vectorized blocks;
+        ``mode="sample"`` runs the reference's per-sample schedule, one
+        eager step per sample (``CompiledGraph``'s own default)."""
         from .compile import CompiledGraph
         ir = self.lower()
         return CompiledGraph(ir, sample_rate=sample_rate,

@@ -1,10 +1,21 @@
 """Graph compiler: IR → block function over torch tensors on one device.
 
-Counterpart of ``oscen_tpu/graph/compile.py`` in block mode.  The
-reference emits Rust whose ``process_block`` advances every node one
-sample in topological order (codegen/mod.rs:539, emit_frame.rs); here each
-node's time-vectorized ``process_block`` runs over whole ``[B]`` blocks
-(graph/block_mode.py), eagerly, on the device given to ``compile``.
+Counterpart of ``oscen_tpu/graph/compile.py``.  The reference emits Rust
+whose ``process_block`` advances every node one sample in topological
+order (codegen/mod.rs:539, emit_frame.rs).  Here a block function runs
+eagerly on the device given to ``compile``, in one of two modes:
+
+- **sample mode** (``CompiledGraph``'s default, as in the JAX package) —
+  ``_SampleStep`` replays the reference's per-sample schedule (edge
+  assignments → event dispatch → node tick, in topological order) once per
+  sample: op-order parity with the reference, every node array's ticks
+  broadcast over its instance axis.  The JAX package scans the step with
+  ``lax.scan``; the port loops over the samples in Python, so a sample
+  costs one eager launch per tensor op.
+- **block mode** (``Graph.compile``'s default) — each node's
+  time-vectorized ``process_block`` runs over whole ``[B]`` blocks
+  (graph/block_mode.py); a feedback cycle that does not dissolve runs as a
+  per-sample scan island.
 
 The host↔device split mirrors the reference's control-thread↔audio-thread
 boundary: host-domain nodes (MIDI parsing, voice allocation) run in Python
@@ -18,8 +29,15 @@ Multirate regions run as in the JAX package's block mode: a node at
 a resampler (``ops/resample.py``) whose state lives in ``state["__rs__"]``,
 and event offsets into an oversampled node are scaled by ``N`` on the host.
 Feedback edges read the previous sample through the carries in
-``state["__fb__"]``.  Sample mode (the per-sample schedule) and per-sample
-scan islands are not ported yet and raise ``NotImplementedError``.
+``state["__fb__"]``.  In sample mode an oversampled region runs the
+reference's inner loop: each up edge's resampler turns one outer sample
+into N inner ones, the inner nodes tick N times, and each down edge's
+resampler turns N inner samples into one (emit_frame.rs:114-176).
+
+Nothing in a per-sample loop reads the card: events are applied at the
+``(t, slot)`` pairs the host staged them at (``EventBuffer.slots``), and
+node state is copied once per block where a tick writes in place (the
+Delay's ring, ``Node.own_state``).
 """
 
 from __future__ import annotations
@@ -36,9 +54,10 @@ from ..core.types import (DEFAULT_MAX_BLOCK_SIZE,
                           MAX_STATIC_EVENTS_PER_ENDPOINT, Kind, Policy,
                           SampleRate)
 from ..ops import resample as _rs
-from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Expr,
+from . import explain
+from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Expr, Fanout,
                  FrameCtor, IrEdge, IrGraph, IrNodeInst)
-from .node import StepValue, tree_map
+from .node import StepValue, apply_node_events, tree_map
 
 __all__ = ["CompiledGraph", "resolve_device"]
 
@@ -77,6 +96,9 @@ class _Program:
         self.ir = ir
         self.sr = SampleRate(float(sample_rate))
         self.device = device
+        # read-only constants of the per-sample loops, filled on the device
+        # once (a fill per sample would be a launch per sample)
+        self._consts: Dict[Any, torch.Tensor] = {}
         self.host_nodes: List[str] = [
             n for n in ir.order if ir.nodes[n].node.HOST]
         self.device_nodes: List[str] = [
@@ -182,10 +204,9 @@ class _Program:
         """Evaluate a connection expression; ``resolve(ref)`` supplies
         endpoint values."""
         if isinstance(expr, Const):
-            # filled on the device: torch.tensor(value, device=cuda) is a
-            # synchronizing host-to-device copy on every block
-            return torch.full((), expr.value, dtype=torch.float32,
-                              device=self.device)
+            # filled on the device, once: torch.tensor(value, device=cuda)
+            # is a synchronizing host-to-device copy
+            return self.const(expr.value)
         if isinstance(expr, EndpointRef):
             v = resolve(expr)
             if expr.index is not None:
@@ -206,12 +227,273 @@ class _Program:
             return torch.stack([c.expand(shape) for c in chans], dim=-1)
         raise TypeError(f"bad expression {expr!r}")
 
+    def const(self, value: float, shape: tuple = ()) -> torch.Tensor:
+        """A float32 constant on the device, filled once.  Callers never
+        write into it."""
+        key = (float(value), tuple(shape))
+        c = self._consts.get(key)
+        if c is None:
+            c = torch.full(shape, float(value), dtype=torch.float32,
+                           device=self.device)
+            self._consts[key] = c
+        return c
+
     @staticmethod
     def segment_sum(v, factor: int) -> Any:
         """Per-outer-instance fan-in for arrays flattened out of array
         subgraphs: (g*m, ...) -> (g, ...) summing each m-segment."""
         return v.reshape((v.shape[0] // factor, factor)
                          + tuple(v.shape[1:])).sum(dim=1)
+
+    # ----------------------------------------------------------------- #
+    # per-sample input gathering (sample mode; JAX compile.py:240-322)
+    # ----------------------------------------------------------------- #
+    def gather_inputs(self, name: str, resolve_for_edge,
+                      override=None) -> Dict[str, Any]:
+        """One sample's inputs of ``name``: every edge into it evaluated
+        (connect, and the fan-in sum of several edges,
+        static_context.rs:160-217), unconnected inputs at their defaults,
+        broadcast for node arrays.  ``override(edge)`` may supply an
+        already destination-shaped value (cross-rate edges in the
+        multirate schedule)."""
+        inst = self.ir.nodes[name]
+        ins: Dict[str, Any] = {}
+        for ep in inst.node.INPUTS:
+            if ep.kind in (Kind.EVENT, Kind.ASSET):
+                continue
+            val = None
+            for e in self.edges_by_dst.get((name, ep.name), []):
+                v = override(e) if override is not None else None
+                if v is None:
+                    v = self.eval_expr(e.source, resolve_for_edge(e))
+                    if e.fanout == Fanout.FAN_IN and e.dst_index is None:
+                        v = torch.sum(v, dim=0)
+                    if e.dst_index is None:
+                        if e.fanout == Fanout.BROADCAST or (
+                                inst.count > 1
+                                and e.fanout == Fanout.SCALAR):
+                            v = self._broadcast_to_count(v, inst.count)
+                        elif e.fanout == Fanout.PARALLEL:
+                            v = self._truncate_parallel(v, inst.count)
+                        elif e.fanout == Fanout.REPEAT:
+                            v = torch.repeat_interleave(v, e.factor, dim=0)
+                        elif e.fanout == Fanout.SEGMENT_SUM:
+                            v = self.segment_sum(v, e.factor)
+                if e.dst_index is not None:
+                    base = val if val is not None else \
+                        self._default_value(inst, ep)
+                    val = base.clone()
+                    val[e.dst_index] = v
+                elif val is None:
+                    val = v
+                else:
+                    val = val + v   # accumulate (stream fan-in sum)
+            ins[ep.name] = val if val is not None else \
+                self._default_value(inst, ep)
+        return ins
+
+    def normalize_for_dst(self, e: IrEdge, v):
+        """Apply the fanout transforms that give the destination's
+        per-sample shape ``(count?, *payload)``."""
+        inst = self.ir.nodes[e.dst_node]
+        ep = inst.node.input(e.dst_endpoint)
+        if e.fanout == Fanout.FAN_IN and e.dst_index is None:
+            v = torch.sum(v, dim=0)
+        if e.dst_index is None and inst.count > 1:
+            if e.fanout in (Fanout.BROADCAST, Fanout.SCALAR, Fanout.FAN_IN):
+                v = self._broadcast_to_count(v, inst.count)
+            elif e.fanout == Fanout.PARALLEL:
+                v = self._truncate_parallel(v, inst.count)
+            elif e.fanout == Fanout.REPEAT:
+                v = torch.repeat_interleave(v, e.factor, dim=0)
+            elif e.fanout == Fanout.SEGMENT_SUM:
+                v = self.segment_sum(v, e.factor)
+        return v
+
+    def _default_value(self, inst: IrNodeInst, ep) -> torch.Tensor:
+        shape = ep.shape if ep.shape else (
+            () if ep.channels == 1 else (ep.channels,))
+        if inst.count > 1:
+            shape = (inst.count,) + tuple(shape)
+        return self.const(float(ep.default or 0.0), tuple(shape))
+
+    @staticmethod
+    def _broadcast_to_count(v, count: int) -> torch.Tensor:
+        return v.expand((count,) + tuple(v.shape))
+
+    @staticmethod
+    def _truncate_parallel(v, count: int) -> torch.Tensor:
+        # min-truncation on count mismatch (ir/graph.rs:48-78)
+        return v[:count] if v.shape[0] != count else v
+
+
+# ===================================================================== #
+# Sample-mode step
+# ===================================================================== #
+class _SampleStep:
+    """The per-sample body — the ``__advance_one_frame`` analogue
+    (emit_frame.rs:29-108 same-rate, :95-108 + :114-176 multirate), called
+    once per sample of the block."""
+
+    def __init__(self, prog: _Program):
+        self.prog = prog
+        ir = prog.ir
+        self.inner_nodes = [n for n in prog.device_nodes
+                            if ir.nodes[n].rate != 1]
+        rates = {ir.nodes[n].rate for n in self.inner_nodes}
+        if len(rates) > 1:
+            raise ValueError(
+                "mixed oversampling factors in one graph are unsupported "
+                "(the reference rejects mixed inner rates, "
+                "lower.rs:797-809)")
+        self.inner_rate = rates.pop() if rates else 1
+        self.up_edges = [e for e in ir.edges if e.kernel == EdgeKernel.UP]
+        self.down_edges = [e for e in ir.edges
+                           if e.kernel == EdgeKernel.DOWN]
+        # taint: outer consumers (transitive) of Down-edge outputs run
+        # after the inner loop (emit_node.rs:516-584)
+        tainted = {e.dst_node for e in self.down_edges}
+        changed = True
+        while changed:
+            changed = False
+            for e in ir.edges:
+                if e.is_feedback or e.dst_node in tainted:
+                    continue
+                if {r.node for r in e.source.endpoints() if r.node} \
+                        & tainted:
+                    tainted.add(e.dst_node)
+                    changed = True
+        for e in self.up_edges:
+            if {r.node for r in e.source.endpoints() if r.node} & tainted:
+                raise ValueError(
+                    "down-then-up diamond (an oversampled region fed from "
+                    "a downsampled signal) is rejected, as in the "
+                    "reference (emit_node.rs:516-584)")
+        outer = [n for n in prog.device_nodes if ir.nodes[n].rate == 1]
+        self.pre_nodes = [n for n in outer if n not in tainted]
+        self.post_nodes = [n for n in outer if n in tainted]
+
+    def own(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The state a block's loop carries (``Node.own_state`` of every
+        device node)."""
+        ir = self.prog.ir
+        return {**state, **{n: ir.nodes[n].node.own_state(state[n])
+                            for n in self.prog.device_nodes}}
+
+    def _run_node(self, new_state, env, name, t_ev, ev_bufs, resolver,
+                  override=None):
+        prog = self.prog
+        inst = prog.ir.nodes[name]
+        node = inst.node
+        sr = prog.scaled_sr(inst)
+        ins = prog.gather_inputs(name, resolver, override)
+        st = apply_node_events(node, new_state[name], name, ev_bufs, t_ev,
+                               sr, ins)
+        st, outs = node.tick_owned(st, ins, sr)
+        new_state[name] = st
+        for k, v in outs.items():
+            env[(name, k)] = v
+
+    def _resample(self, e: IrEdge, rs, x):
+        """Edge ``e``'s resampler over ``x`` (``[n, (C,) *payload]``): a
+        node array's instance axis moves behind the payload for it, as in
+        block mode."""
+        prog = self.prog
+        idx = prog.edge_ids[id(e)]
+        array = prog.ir.nodes[e.dst_node].count > 1 and e.dst_index is None
+        if array:
+            x = x.movedim(1, -1)
+        rs[str(idx)], y = prog.resamplers[idx].process_block(rs[str(idx)], x)
+        return y.movedim(-1, 1) if array else y
+
+    def __call__(self, state: Dict[str, Any], t: int,
+                 per_sample: Dict[str, Any], ev_bufs: Dict[str, Any]
+                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        prog = self.prog
+        ir = prog.ir
+        env: Dict[Tuple[str, str], Any] = {}
+        fb_prev = state["__fb__"]
+
+        def resolve(ref: EndpointRef):
+            if ref.node == "":
+                return per_sample[ref.endpoint]
+            if ref.node in prog.host_set:
+                return per_sample[f"__host__{ref.node}.{ref.endpoint}"]
+            v = env.get((ref.node, ref.endpoint))
+            if v is not None:
+                return v
+            # a source not yet computed this sample (a feedback edge): the
+            # previous sample's value
+            return fb_prev[f"{ref.node}.{ref.endpoint}"]
+
+        def resolver(edge: Optional[IrEdge]):
+            return resolve
+
+        new_state = dict(state)
+        if not self.inner_nodes:
+            for name in prog.device_nodes:
+                self._run_node(new_state, env, name, t, ev_bufs, resolver)
+        else:
+            # ---- multirate schedule (emit_frame.rs:114-176) ----------
+            N = self.inner_rate
+            rs = dict(new_state["__rs__"])
+            for name in self.pre_nodes:
+                self._run_node(new_state, env, name, t, ev_bufs, resolver)
+            # up-warmup: one outer value in, N inner values out per edge
+            up_vals: Dict[int, Any] = {}
+            for e in self.up_edges:
+                v = prog.normalize_for_dst(
+                    e, prog.eval_expr(e.source, resolver(e)))
+                up_vals[id(e)] = self._resample(e, rs, v[None])
+            # the inner loop, N ticks
+            down_collect: Dict[int, list] = {id(e): []
+                                             for e in self.down_edges}
+            for i in range(N):
+                def override_up(e, i=i):
+                    if e.kernel == EdgeKernel.UP:
+                        return up_vals[id(e)][i]
+                    return None
+                for name in self.inner_nodes:
+                    self._run_node(new_state, env, name, t * N + i, ev_bufs,
+                                   resolver, override_up)
+                for e in self.down_edges:
+                    down_collect[id(e)].append(prog.normalize_for_dst(
+                        e, prog.eval_expr(e.source, resolver(e))))
+            # down-finalize: N inner values in, one outer value out
+            down_vals = {id(e): self._resample(
+                e, rs, torch.stack(down_collect[id(e)]))[0]
+                for e in self.down_edges}
+
+            def override_down(e):
+                if e.kernel == EdgeKernel.DOWN:
+                    return down_vals[id(e)]
+                return None
+            for name in self.post_nodes:
+                self._run_node(new_state, env, name, t, ev_bufs, resolver,
+                               override_down)
+            new_state["__rs__"] = rs
+
+        # refresh feedback carries with this sample's outputs
+        new_state["__fb__"] = {**fb_prev, **{
+            f"{n}.{ep}": env[(n, ep)] for (n, ep) in prog.fb_keys}}
+
+        outs = {}
+        for o in ir.outputs:
+            if o.kind == Kind.EVENT:
+                continue   # event outputs are routed host-side
+            expr = ir.output_edges.get(o.name)
+            if expr is None:
+                shape = () if o.channels == 1 else (o.channels,)
+                outs[o.name] = prog.const(0.0, shape)
+                continue
+            v = prog.eval_expr(expr, resolver(None))
+            # fan-in at the graph output: array-sourced outputs mix down
+            # by summation (emit_edge.rs:67-84)
+            want = 0 if o.channels == 1 else 1
+            while v.dim() > want:
+                v = torch.sum(v, dim=0)
+            outs[o.name] = v
+        return new_state, outs
 
 
 def resolve_device(device) -> torch.device:
@@ -238,24 +520,21 @@ class CompiledGraph:
     ``set_value_with_ramp`` / ``queue_event``), and ``process_block``
     (sample-accurate events and ramps), as in the JAX package.  ``state``
     is a nested dict of tensors on ``device`` with the JAX state's keys:
-    the CUDA card unless the caller passes ``device="cpu"``.
+    the CUDA card unless the caller passes ``device="cpu"``.  ``mode`` is
+    ``"sample"`` (the default, as in the JAX package) or ``"block"``.
     """
 
     def __init__(self, ir: IrGraph, sample_rate: float = 44100.0,
                  block_size: int = DEFAULT_MAX_BLOCK_SIZE,
-                 mode: str = "block", device="cuda"):
-        if mode == "sample":
-            raise NotImplementedError(
-                "sample mode (the per-sample schedule) is not ported yet "
-                "(ROADMAP.md queue 1, Slice F); use mode='block'")
-        if mode != "block":
+                 mode: str = "sample", device="cuda"):
+        if mode not in ("sample", "block"):
             raise ValueError(f"unknown mode {mode!r}")
         self.device = resolve_device(device)
         self.ir = ir
         self.mode = mode
         self.block_size = int(block_size)
         self.sample_rate = float(sample_rate)
-        self.prog = _Program(ir, sample_rate, self.device)
+        self._new_program()
 
         # host parameter state
         self._params: Dict[str, ValueRampState] = {}
@@ -281,16 +560,23 @@ class CompiledGraph:
         self._last_event_outs: Dict[str, list] = {}
         self._control_dirty = True
         # the block function of the compiled block size, built now so that
-        # a graph the port cannot run yet (a per-sample scan island) fails
-        # at compile time
+        # a graph the port cannot run (a feedback island spanning a rate
+        # boundary) fails at compile time
         self._block_fn(self.block_size)
+
+    def _new_program(self) -> None:
+        self.prog = _Program(self.ir, self.sample_rate, self.device)
+        # built in both modes, as in the JAX package: it rejects the graphs
+        # the reference rejects (mixed inner rates, the down-then-up
+        # diamond)
+        self._step = _SampleStep(self.prog)
 
     # ------------------------------------------------------------------ #
     def init(self, sample_rate: Optional[float] = None) -> None:
         """Re-prepare: rebuild all node state at the given rate."""
         if sample_rate is not None and sample_rate != self.sample_rate:
             self.sample_rate = float(sample_rate)
-            self.prog = _Program(self.ir, self.sample_rate, self.device)
+            self._new_program()
             self._block_fns.clear()
         self.state = self.prog.init_device_state()
         self._control_dirty = True
@@ -624,6 +910,11 @@ class CompiledGraph:
         return {name: float(r.current) for name, r in self._params.items()}
 
     def _block_fn(self, B: int):
+        if self.mode == "sample":
+            fn = self._block_fns.get(B)
+            if fn is None:
+                fn = self._block_fns[B] = self._make_scan_fn(B)
+            return fn
         lits = self._literal_params()
         key = (B, self._literals[1])
         fn = self._block_fns.get(key)
@@ -633,6 +924,35 @@ class CompiledGraph:
                                host_params=self._host_params)
             self._block_fns[key] = fn
         return fn
+
+    def _make_scan_fn(self, block_len: int):
+        """The sample-mode block function: the per-sample step over the
+        block (the JAX package's ``lax.scan``, here a Python loop).  Step
+        values are expanded and ``[1]``-staged parameters broadcast to
+        ``[B]`` first; each sample reads views of them."""
+        from .block_mode import reconstruct_step_values
+        step = self._step
+        B = block_len
+
+        def block_fn(state, per_block, ev_bufs):
+            per_block = reconstruct_step_values(per_block, B)
+            per_block = {
+                k: (v.expand((B,) + tuple(v.shape[1:]))
+                    if v.dim() >= 1 and v.shape[0] == 1 and B != 1 else v)
+                for k, v in per_block.items()}
+            for n in self.prog.device_nodes:
+                explain.note(node=n, path="tick")
+            state = step.own(state)
+            outs: Dict[str, list] = {}
+            for t in range(B):
+                state, o = step(state, t,
+                                {k: v[t] for k, v in per_block.items()},
+                                ev_bufs)
+                for k, v in o.items():
+                    outs.setdefault(k, []).append(v)
+            return state, {k: torch.stack(v) for k, v in outs.items()}
+
+        return block_fn
 
     def _control_steady(self) -> bool:
         """True when block-to-block staging is reproducible: no pending
@@ -719,8 +1039,9 @@ class CompiledGraph:
         per_block = {k: v for (kind, k), v in dev.items() if kind == "pb"}
         per_block.update(on_device)
         ev_bufs = {k: EventBuffer(dev[("off", k)].to(torch.int32),
-                                  dev[("val", k)], dev[("ok", k)] > 0.5)
-                   for k in ev_np}
+                                  dev[("val", k)], dev[("ok", k)] > 0.5,
+                                  EventBuffer.host_slots(b.offsets, b.valid))
+                   for k, b in ev_np.items()}
         return per_block, ev_bufs
 
     def process_block(self, block_len: Optional[int] = None,
@@ -829,7 +1150,9 @@ class CompiledGraph:
     def explain(self, block_len: Optional[int] = None,
                 formatted: bool = False):
         """Report how each node executes in the steady-state block path
-        (batched kernel vs composed path, fused mix-down, fused epilogue).
+        (batched kernel vs composed path, fused mix-down, fused epilogue,
+        scan island or dissolved island); in sample mode every device node
+        reports ``path="tick"``.
 
         Deviation from the JAX package, which traces the block abstractly
         (``jax.eval_shape``, no device work): the port runs one real block

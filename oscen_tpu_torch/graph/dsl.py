@@ -36,9 +36,9 @@ name;`` asset slots.
 
 What the port does not have yet fails where it would anyway: a node type
 it lacks (``Convolver``, ``SamplePlayer``, ``Oscilloscope``; ROADMAP.md
-queue 1, Slice F) is an unknown type at parse time, and a graph whose
-inline via needs a per-sample scan island parses but raises
-``NotImplementedError`` (Slice F) when compiled.
+queue 1) is an unknown type at parse time.  An inline via lowers to a
+``Delay`` with no ``min_delay`` promise, so its cycle runs as a per-sample
+scan island in block mode.
 """
 
 from __future__ import annotations

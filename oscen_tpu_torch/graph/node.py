@@ -6,14 +6,25 @@ as the JAX package's state pytrees.
 
 - :meth:`Node.init_state` — the ``prepare()`` analogue: build the state
   (CPU tensors; the compiler moves them to its device).
-- ``on_<endpoint>(state, value, sr, ins)`` — event handlers.
+- :meth:`Node.tick` — the ``process()`` analogue: one sample.  The
+  sample-mode compiler (graph/compile.py ``_SampleStep``) and the block
+  compiler's scan islands call it once per sample in the reference's
+  schedule.  Every tick broadcasts over a leading instance axis: a node
+  array's state leaves are ``[C, ...]`` and its inputs ``[C, ...]`` (the
+  JAX package ``vmap``s the scalar tick instead).
+- ``on_<endpoint>(state, value, sr, ins)`` — event handlers, applied at
+  the event's frame offset (:meth:`apply_events_at`).
 - :meth:`Node.process_block` — the time-vectorized block implementation
-  (closed forms over whole ``[B]`` blocks).  A node with ``BATCHED = True``
-  takes a leading instance axis on every state leaf, input and event
-  buffer (``[C, ...]``, ``[C, B, ...]``, ``[C, K]``), so a node array of
-  256 voices is one call, never a Python loop over voices.
+  (closed forms over whole ``[B]`` blocks); the default scans :meth:`tick`
+  (:func:`scan_tick_block`).  A node with ``BATCHED = True`` takes a
+  leading instance axis on every state leaf, input and event buffer
+  (``[C, ...]``, ``[C, B, ...]``, ``[C, K]``) in ``process_block`` too, so
+  a node array of 256 voices is one call, never a Python loop over voices.
 
-Sample mode (the per-sample ``tick`` schedule) is not part of the port yet.
+A per-sample loop owns the state it carries: it calls :meth:`own_state`
+once per run and then :meth:`tick_owned`, which may write into the leaves
+``own_state`` copied (the Delay's ring) instead of copying them every
+sample.  The state the caller holds is never written.
 """
 
 from __future__ import annotations
@@ -95,14 +106,88 @@ class Node:
         """Build the node's state (the ``prepare()`` analogue)."""
         return {}
 
+    def tick(self, state: State, ins: Values, sr: SampleRate
+             ) -> Tuple[State, Values]:
+        """Advance one sample.  ``ins`` maps input endpoint names to
+        values; returns (new_state, {output endpoint -> value})."""
+        raise NotImplementedError
+
+    def own_state(self, state: State) -> State:
+        """The state a per-sample loop carries: leaves that
+        :meth:`tick_owned` writes in place are copied here, once per run."""
+        return state
+
+    def tick_owned(self, state: State, ins: Values, sr: SampleRate
+                   ) -> Tuple[State, Values]:
+        """:meth:`tick` on a state from :meth:`own_state`; it may write
+        into the leaves that copied."""
+        return self.tick(state, ins, sr)
+
+    # ------------------------------------------------------------------ #
+    # events
+    # ------------------------------------------------------------------ #
+    def apply_event(self, state: State, endpoint: str, value,
+                    sr: SampleRate, ins: Values) -> State:
+        """Invoke the ``on_<endpoint>`` handler (unmasked).  ``ins`` carries
+        this sample's already-assigned input values (the reference runs the
+        edge assignments before ``process_event_inputs``,
+        emit_node.rs:181-362)."""
+        handler = getattr(self, f"on_{endpoint}", None)
+        if handler is None:
+            return state
+        return handler(state, value, sr, ins)
+
+    def apply_events_at(self, state: State, endpoint: str,
+                        buf: EventBuffer, t: int, sr: SampleRate,
+                        ins: Values) -> State:
+        """Apply every event in ``buf`` whose offset == t, in slot order,
+        each under a mask (the reference's process_event_inputs dispatch,
+        oscen-macros lib.rs:266-295; the JAX package's form).  The masks
+        are device tensors: nothing is read back."""
+        handler = getattr(self, f"on_{endpoint}", None)
+        if handler is None or buf.capacity == 0:
+            return state
+        for k in range(buf.capacity):
+            fire = torch.logical_and(buf.valid[..., k],
+                                     buf.offsets[..., k] == t)
+            state = select_tree(fire, handler(state, buf.values[..., k], sr,
+                                              ins), state)
+        return state
+
+    def apply_events_scheduled(self, state: State, endpoint: str,
+                               buf: EventBuffer, t: int, sr: SampleRate,
+                               ins: Values) -> State:
+        """:meth:`apply_events_at` where the host knows the events'
+        offsets (``buf.slots``): the handler runs only at the slots that
+        hold an event at ``t``.  A scalar node's event there fires, so its
+        handler's result is taken unmasked; a node array keeps the mask
+        (another instance's event may share the slot).  Both equal the
+        masked form over every slot bit for bit: that form selects the old
+        state wherever nothing fires."""
+        if buf.slots is None:
+            return self.apply_events_at(state, endpoint, buf, t, sr, ins)
+        handler = getattr(self, f"on_{endpoint}", None)
+        ks = buf.slots.get(t)
+        if handler is None or not ks:
+            return state
+        array = buf.offsets.dim() > 1
+        for k in ks:
+            new = handler(state, buf.values[..., k], sr, ins)
+            if array:
+                fire = torch.logical_and(buf.valid[..., k],
+                                         buf.offsets[..., k] == t)
+                new = select_tree(fire, new, state)
+            state = new
+        return state
+
     def process_block(self, state: State, ins: Values,
                       events: Dict[str, EventBuffer], sr: SampleRate,
                       block_len: int) -> Tuple[State, Values]:
         """Advance one block; ``ins`` values carry a time axis ``[B, ...]``
-        (after the instance axis for ``BATCHED`` nodes)."""
-        raise NotImplementedError(
-            f"{type(self).__name__} has no block implementation in the "
-            f"port yet (ROADMAP.md queue 1)")
+        (after the instance axis for ``BATCHED`` nodes).  Default: the
+        per-sample :meth:`tick` with the events applied at their offsets
+        (:func:`scan_tick_block`) — always correct, not always fast."""
+        return scan_tick_block(self, state, ins, events, sr, block_len)
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"{type(self).__name__}()"
@@ -167,3 +252,43 @@ class HostNode(Node):
 
     def reset(self) -> None:
         """Return host state to its initial condition."""
+
+
+def scan_tick_block(node: Node, state: State, ins: Values,
+                    events: Dict[str, EventBuffer], sr: SampleRate,
+                    block_len: int, taxis: int = 0
+                    ) -> Tuple[State, Values]:
+    """A block as ``block_len`` ticks: the counterpart of the JAX
+    package's ``lax.scan`` over :meth:`Node.tick`, a Python loop over the
+    samples.  ``taxis`` is the time axis of ``ins`` and of the outputs: 0
+    for a scalar node, 1 for a node array (``[C, B, ...]``; its ticks
+    broadcast over the instance axis, the JAX package's ``vmap``).  The
+    state is owned for the block (:meth:`Node.own_state`)."""
+    ev_names = sorted(k for k, b in events.items() if b.capacity > 0)
+    st = node.own_state(state)
+    outs: Dict[str, list] = {}
+    for t in range(block_len):
+        per_t = {k: v.select(taxis, t) for k, v in ins.items()}
+        for name in ev_names:
+            st = node.apply_events_scheduled(st, name, events[name], t, sr,
+                                             per_t)
+        st, o = node.tick_owned(st, per_t, sr)
+        for k, v in o.items():
+            outs.setdefault(k, []).append(v)
+    return st, {k: torch.stack(v, dim=taxis) for k, v in outs.items()}
+
+
+def apply_node_events(node: Node, state: State, name: str,
+                      ev_bufs: Dict[str, EventBuffer], t: int,
+                      sr: SampleRate, ins: Values) -> State:
+    """Every event of the event inputs of graph node ``name`` at sample
+    ``t``, in endpoint order (the reference's process_event_inputs), where
+    the host staged them (:meth:`Node.apply_events_scheduled`)."""
+    for ep in node.INPUTS:
+        if ep.kind != Kind.EVENT:
+            continue
+        buf = ev_bufs.get(f"{name}.{ep.name}")
+        if buf is not None and buf.capacity > 0:
+            state = node.apply_events_scheduled(state, ep.name, buf, t, sr,
+                                                ins)
+    return state

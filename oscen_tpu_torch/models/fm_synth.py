@@ -23,6 +23,7 @@ from ..nodes.midi import MidiParser, MidiVoiceHandler
 from ..nodes.voice_allocator import VoiceAllocator
 from ..ops import fmath
 from ..ops.cuda.fm import fast_branch_eligible, fm_chain3_scan
+from ..ops.fastmath import sin_turns
 
 FB_EPS = ("op3_feedback", "op2_feedback", "op1_feedback")
 DT_EPS = frozenset({"base_freq", "op3_ratio", "op2_ratio", "op1_ratio"})
@@ -70,6 +71,37 @@ def chain_block(kernel, scan, lvl, state, ins, sr, block_len, const_ins,
     return ({"phases": ph.t(), "prevs": pv.t()}, {"output": y.t()})
 
 
+def chain_tick(pivot: bool, state, ins, sr, lvl):
+    """One sample of a fused 3-operator chain (the JAX package's ``tick``)
+    in the order of the chain kernel's plain version: each operator's sine
+    at ``(phase + pm) + prev*fb``, its phase stepped by
+    ``base_freq*ratio/sr`` and wrapped by ``.fract()``.  ``prevs`` carries
+    the enveloped outputs (fm) or the raw sines (pivot); ``lvl`` are the
+    three operator levels, folded into the envelopes as the kernel does.
+    State leaves ``[(C,) 3]``, inputs ``[(C,)]``."""
+    ph, pv = state["phases"], state["prevs"]
+    mix = torch.clamp(ins["route"], 0.0, 1.0)
+    env = [ins[f"env{i}"] * lv for i, lv in zip((3, 2, 1), lvl)]
+    sines, outs, phases = [], [], []
+    pm = None
+    for j, i in enumerate((3, 2, 1)):
+        arg = ph[..., j] if pm is None else ph[..., j] + pm
+        s = sin_turns(arg + pv[..., j] * ins[f"op{i}_feedback"])
+        y = s * env[j]
+        p = ph[..., j] + fmath.div_const(
+            ins["base_freq"] * ins[f"op{i}_ratio"], sr.hz)
+        phases.append(p - torch.trunc(p))
+        sines.append(s)
+        outs.append(y)
+        if i == 3:
+            pm, b = y * (1.0 - mix), y * mix
+        elif i == 2:
+            pm = y + b
+    return ({"phases": torch.stack(phases, dim=-1),
+             "prevs": torch.stack(sines if pivot else outs, dim=-1)},
+            {"output": outs[2]})
+
+
 class FmOperatorChain(Node):
     """The FMVoice operator section fused into one node: op3 → route
     crossfade → op2 → mixer → op1 (fm_voice.rs connections :119-147), each
@@ -95,6 +127,10 @@ class FmOperatorChain(Node):
     def init_state(self, sr: SampleRate):
         return {"phases": torch.zeros((3,), dtype=torch.float32),
                 "prevs": torch.zeros((3,), dtype=torch.float32)}
+
+    def tick(self, state, ins, sr):
+        return chain_tick(False, state, ins, sr,
+                          [ins[f"op{i}_level"] for i in (3, 2, 1)])
 
     def process_block(self, state, ins, events, sr, block_len,
                       const_ins=frozenset(), literal_ins=None,

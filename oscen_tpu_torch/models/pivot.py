@@ -34,7 +34,7 @@ from ..nodes.filters import TptFilter
 from ..nodes.midi import MidiParser, MidiVoiceHandler
 from ..nodes.voice_allocator import VoiceAllocator
 from ..ops.cuda.fm import pivot_chain3_scan
-from .fm_synth import FB_EPS, chain_block
+from .fm_synth import FB_EPS, chain_block, chain_tick
 
 # pivot_voice.rs:14-52 input defaults
 OP_DEFAULTS = {
@@ -76,6 +76,11 @@ class PivotOperatorChain(Node):
     def init_state(self, sr: SampleRate):
         return {"phases": torch.zeros((3,), dtype=torch.float32),
                 "prevs": torch.zeros((3,), dtype=torch.float32)}
+
+    def tick(self, state, ins, sr):
+        # vca1 has no level gain: op1's level is 1.0
+        return chain_tick(True, state, ins, sr,
+                          [ins["op3_level"], ins["op2_level"], 1.0])
 
     def process_block(self, state, ins, events, sr, block_len,
                       const_ins=frozenset(), literal_ins=None,

@@ -44,7 +44,7 @@ def build_simple_echo(delay_seconds: float = 0.25,
     n = int(delay_seconds * sample_rate)
     # the static min-delay promise lets the block compiler dissolve the
     # feedback island (read -> filter chain -> write, fully vectorized);
-    # without it the island needs a per-sample scan (not ported yet)
+    # without it the island runs as a per-sample scan island
     d = g.add("delay", Delay(n, 0.0, min_delay=n if min_delay else 0))
     f = g.add("filter", TptFilter(4000.0, 0.7))
     # delay input = tanh(x + filter.output * feedback): the feedback leg

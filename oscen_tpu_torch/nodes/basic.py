@@ -11,7 +11,8 @@ stream-epilogue fusion hook (``kernel_epilogue``; the block compiler uses
 it under ``OSCEN_EPILOGUE_FUSION=1``, default off as in the JAX package).
 
 The stateless nodes broadcast: they take a leading instance axis
-(``BATCHED``), so a node array is one call.
+(``BATCHED``), so a node array is one call.  Every node has the JAX
+package's per-sample ``tick``, in the op order of its block path.
 """
 
 from __future__ import annotations
@@ -22,17 +23,21 @@ from ..core.types import Kind, SampleRate, stream, value
 from ..graph.node import Node
 from ..ops import fmath
 from ..ops.cuda.additive import K_REBASE, TAU, tremolo_pan
+from ..ops.fastmath import sin_turns
 from ..ops.cuda.fm import fm_operator_scan
 
 
 class _StatelessNode(Node):
-    """Nodes whose output is a pure function of their inputs, applied to
-    whole ``[(C,) B]`` blocks."""
+    """Nodes whose output is a pure function of their inputs: the tick's
+    math, applied to one sample or to whole ``[(C,) B]`` blocks."""
 
     BATCHED = True
 
     def init_state(self, sr: SampleRate):
         return {}
+
+    def process_block(self, state, ins, events, sr, block_len):
+        return self.tick(state, ins, sr)
 
     def const_out_eps(self, const_ins, literal_ins):
         """Const-output propagation (graph/block_mode.py ``const_outs``): a
@@ -64,6 +69,9 @@ class Gain(_StatelessNode):
             return ("output",)
         return super().const_out_eps(const_ins, literal_ins)
 
+    def tick(self, state, ins, sr):
+        return state, {"output": ins["input"] * ins["gain"]}
+
     def process_block(self, state, ins, events, sr, block_len,
                       literal_ins=None):
         if literal_ins and literal_ins.get("gain") == 0.0:
@@ -71,7 +79,7 @@ class Gain(_StatelessNode):
             return state, {"output": torch.zeros(
                 _broadcast_shape(ins["input"], ins["gain"]),
                 dtype=torch.float32, device=ins["input"].device)}
-        return state, {"output": ins["input"] * ins["gain"]}
+        return self.tick(state, ins, sr)
 
 
 class Vca(_StatelessNode):
@@ -81,7 +89,7 @@ class Vca(_StatelessNode):
     INPUTS = (stream("input", 0.0), stream("control", 1.0))
     OUTPUTS = (stream("output"),)
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         return state, {"output": ins["input"] * ins["control"]}
 
 
@@ -92,7 +100,7 @@ class Value(_StatelessNode):
         self.INPUTS = (value("input", float(initial_value)),)
         self.OUTPUTS = (value("output"),)
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         return state, {"output": ins["input"]}
 
 
@@ -102,7 +110,7 @@ class AudioInput(_StatelessNode):
     INPUTS = (value("input_value", 0.0),)
     OUTPUTS = (stream("output"),)
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         return state, {"output": ins["input_value"]}
 
 
@@ -113,7 +121,7 @@ class HardClip(_StatelessNode):
     INPUTS = (stream("input", 0.0),)
     OUTPUTS = (stream("output"),)
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         return state, {"output": torch.clamp(ins["input"] * 1.5, -0.7, 0.7)}
 
 
@@ -123,7 +131,7 @@ class Mixer(_StatelessNode):
     INPUTS = (stream("input_a", 0.0), stream("input_b", 0.0))
     OUTPUTS = (stream("output"),)
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         return state, {"output": ins["input_a"] + ins["input_b"]}
 
 
@@ -134,7 +142,7 @@ class Crossfade(_StatelessNode):
     INPUTS = (stream("input", 0.0), value("mix", 0.0))
     OUTPUTS = (stream("output_a"), stream("output_b"))
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         mix = torch.clamp(ins["mix"], 0.0, 1.0)
         return state, {"output_a": ins["input"] * (1.0 - mix),
                        "output_b": ins["input"] * mix}
@@ -147,7 +155,7 @@ class AddValue(_StatelessNode):
         self.INPUTS = (stream("input", 0.0), value("value", float(v)))
         self.OUTPUTS = (stream("output"),)
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def tick(self, state, ins, sr):
         return state, {"output": ins["input"] + ins["value"]}
 
 
@@ -168,6 +176,9 @@ class MulAdd(_StatelessNode):
             return ("output",)
         return super().const_out_eps(const_ins, literal_ins)
 
+    def tick(self, state, ins, sr):
+        return state, {"output": ins["input"] * ins["gain"] + ins["value"]}
+
     def process_block(self, state, ins, events, sr, block_len,
                       literal_ins=None):
         v = ins["value"]
@@ -175,7 +186,7 @@ class MulAdd(_StatelessNode):
             # in*0 + value is value for the finite inputs the graph makes
             return state, {"output": torch.broadcast_to(
                 v, _broadcast_shape(ins["input"], v))}
-        return state, {"output": ins["input"] * ins["gain"] + v}
+        return self.tick(state, ins, sr)
 
 
 class Tremolo(Node):
@@ -217,6 +228,22 @@ class Tremolo(Node):
             changed, self._wrap(anchor + dt_last * k.to(torch.float32)),
             anchor)
         return anchor, torch.where(changed, torch.zeros_like(k), k)
+
+    def tick(self, state, ins, sr):
+        """One sample of the anchored LFO (the JAX tick): rebase on a rate
+        change, the pan at ``wrap(anchor + dt*k)``, then the count and its
+        fixed rebase at K_REBASE."""
+        dt = fmath.div(ins["rate"], sr.hz)
+        anchor, k = self._rebase(state["anchor"], state["k"],
+                                 state["dt_last"], dt)
+        phase = self._wrap(anchor + dt * k.to(torch.float32))
+        out = self._pan(ins["input"], phase, ins["depth"])
+        k = k + 1
+        rebase = k >= self.K_REBASE
+        anchor = torch.where(
+            rebase, self._wrap(anchor + dt * float(self.K_REBASE)), anchor)
+        k = torch.where(rebase, k - self.K_REBASE, k)
+        return {"anchor": anchor, "k": k, "dt_last": dt}, {"output": out}
 
     def process_block(self, state, ins, events, sr, block_len,
                       const_ins=frozenset()):
@@ -315,6 +342,18 @@ class FmOperator(Node):
     def init_state(self, sr: SampleRate):
         return {"phase": torch.tensor(0.0, dtype=torch.float32),
                 "prev_output": torch.tensor(0.0, dtype=torch.float32)}
+
+    def tick(self, state, ins, sr):
+        """One sample in the kernel's op order: ``sin_turns(phase + (pm +
+        prev*fb)) * env * lvl``, then the phase step and its ``.fract()``
+        wrap."""
+        total_pm = ins["phase_mod"] + state["prev_output"] * ins["feedback"]
+        out = sin_turns(state["phase"] + total_pm) * ins["envelope"] \
+            * ins["level"]
+        phase = state["phase"] + fmath.div_const(
+            ins["base_freq"] * ins["ratio"], sr.hz)
+        return ({"phase": phase - torch.trunc(phase), "prev_output": out},
+                {"output": out})
 
     def process_block(self, state, ins, events, sr, block_len):
         # base_freq*ratio/sr as XLA compiles it in the JAX package's graph

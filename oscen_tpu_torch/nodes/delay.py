@@ -6,6 +6,13 @@ feedback)`` over a power-of-two ring buffer sized to 2 s (capped at 88200
 samples), parameters clamped every 32 frames.  It is the feedback-capable
 node (``ALLOWS_FEEDBACK``, reference delay/mod.rs:85).
 
+The per-sample :meth:`Delay.tick` is the JAX package's: read with the
+snap / Catmull-Rom ``rb_get``, then push ``input + delayed * feedback``.
+It broadcasts over a leading instance axis (a node array of delays keeps
+one ring per instance, ``[C, cap]``).  Inside a per-sample loop the ring
+is copied once per run (:meth:`own_state`) and written in place
+(:meth:`tick_owned`, ``rb_push_``).
+
 Block paths, both resting on a static ``min_delay`` promise:
 
 - ``process_block``: the feedback recurrence has a lag of at least
@@ -17,10 +24,8 @@ Block paths, both resting on a static ``min_delay`` promise:
   (``graph/block_mode.py``): the whole block is read first, the rest of
   the island runs, and the block is written last.
 
-Without the promise, or with chunks under 8 samples, the JAX package scans
-the per-sample ``tick``; the port has no ``tick`` yet and raises
-``NotImplementedError`` (Slice F, ROADMAP.md queue 1).  ``Delay`` is
-single-instance here: a node array of delays has no batched block path.
+Without the promise, with chunks under 8 samples or with a block shorter
+than a chunk, ``process_block`` scans the tick, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,17 +34,10 @@ import torch
 
 from ..core.types import SampleRate, stream, value
 from ..graph.node import Node
-from ..ops.ringbuffer import rb_get, rb_new
+from ..ops.ringbuffer import rb_get, rb_new, rb_push, rb_push_
 
 MAX_DELAY_SAMPLES = 88200
 FRAMES_PER_UPDATE = 32
-
-
-def _per_sample_fallback(why: str):
-    return NotImplementedError(
-        f"Delay: {why}; the JAX package scans the per-sample tick here, "
-        f"which comes to the port with sample mode and scan islands "
-        f"(ROADMAP.md queue 1, Slice F)")
 
 
 class Delay(Node):
@@ -93,6 +91,31 @@ class Delay(Node):
             delay = torch.clamp_min(delay, float(self.min_delay))
         return delay, fb
 
+    def _tick(self, state, ins, push):
+        """One sample (JAX ``tick``): the parameters clamped on the
+        32-frame cadence, the read, then the push of ``input + delayed *
+        feedback``."""
+        delay, fb = self._clamp_cadence(
+            state["frame_counter"] == 0, ins["delay_samples"],
+            ins["feedback"], state["buf"].shape[-1])
+        counter = (state["frame_counter"] + 1) % FRAMES_PER_UPDATE
+        if self.min_delay:
+            delay = torch.clamp_min(delay, float(self.min_delay))
+        delayed = rb_get(state["buf"], state["write_pos"], delay)
+        buf, wp = push(state["buf"], state["write_pos"],
+                       ins["input"] + delayed * fb)
+        return ({"buf": buf, "write_pos": wp, "frame_counter": counter},
+                {"output": delayed})
+
+    def tick(self, state, ins, sr):
+        return self._tick(state, ins, rb_push)
+
+    def own_state(self, state):
+        return {**state, "buf": state["buf"].clone()}
+
+    def tick_owned(self, state, ins, sr):
+        return self._tick(state, ins, rb_push_)
+
     @staticmethod
     def _advance(state, buf, block_len: int):
         cap = buf.shape[-1]
@@ -140,16 +163,12 @@ class Delay(Node):
     def process_block(self, state, ins, events, sr, block_len):
         """Chunked block path (requires ``min_delay``): chunks of
         ``min_delay - 4`` samples (4 = the Catmull-Rom margin and the
-        boundary) read only pre-chunk buffer contents."""
+        boundary) read only pre-chunk buffer contents.  Without the
+        promise, with chunks under 8 samples or with a block shorter than a
+        chunk, the per-sample tick scan."""
         chunk = self.min_delay - 4
-        if chunk < 8:
-            raise _per_sample_fallback(
-                f"min_delay={self.min_delay} gives chunks under 8 samples"
-                if self.min_delay else "no min_delay promise")
-        if block_len < chunk:
-            raise _per_sample_fallback(
-                f"a block of {block_len} samples is shorter than a chunk "
-                f"({chunk})")
+        if chunk < 8 or block_len < chunk:
+            return super().process_block(state, ins, events, sr, block_len)
         buf = state["buf"]
         mask = buf.shape[-1] - 1
         wp = state["write_pos"]

@@ -164,13 +164,36 @@ class OscillatorBank(Node):
 
     @staticmethod
     def _multipliers(freq, sr_hz):
-        """Per-harmonic rotation multipliers for frequencies ``[C]``."""
-        harm_freq = freq[:, None] * _f32(HARMONIC_NUMBERS, freq)
+        """Per-harmonic rotation multipliers for frequencies ``[(C,)]``:
+        ``[(C,) H]``."""
+        harm_freq = freq[..., None] * _f32(HARMONIC_NUMBERS, freq)
         angle = fmath.div(2.0 * math.pi * harm_freq, sr_hz)
         below = harm_freq < (sr_hz * 0.5)
         mul_re = torch.where(below, fmath.cos(angle), 1.0)
         mul_im = torch.where(below, fmath.sin(angle), 0.0)
         return mul_re, mul_im
+
+    def tick(self, state, ins, sr):
+        """One sample (:130-170): a frequency change resets the rotation
+        (new multipliers, oscillators at zero phase), then rotate and sum
+        the imaginary parts weighted by the amplitudes."""
+        freq = ins["frequency"]
+        changed = torch.logical_and(
+            freq > 0.0, torch.abs(state["last_frequency"] - freq) >= 0.01)
+        ch = changed[..., None]
+        mul_re, mul_im = self._multipliers(freq, sr.hz)
+        mre = torch.where(ch, mul_re, state["mul_re"])
+        mim = torch.where(ch, mul_im, state["mul_im"])
+        ore = torch.where(ch, 1.0, state["osc_re"])
+        oim = torch.where(ch, 0.0, state["osc_im"])
+        nre = ore * mre - oim * mim
+        nim = ore * mim + oim * mre
+        out = torch.sum(nim * ins["amplitudes"], dim=-1) * 3.0
+        return ({"osc_re": nre, "osc_im": nim, "mul_re": mre,
+                 "mul_im": mim,
+                 "last_frequency": torch.where(changed, freq,
+                                               state["last_frequency"])},
+                {"output": out})
 
     def process_block(self, state, ins, events, sr, block_len):
         """Closed-form rotation, segmented at gate events: osc(k) =
@@ -244,8 +267,8 @@ class OscillatorBank(Node):
 
 
 def _get_decay(note, decay_rate, harmonic_decay, key_scaling):
-    """Per-harmonic hold-phase decay multipliers (:232-255); ``[C]`` ->
-    ``[C, H]``."""
+    """Per-harmonic hold-phase decay multipliers (:232-255); ``[(C,)]`` ->
+    ``[(C,) H]``."""
     base = fmath.div(100.0 - decay_rate, 40000.0)
     harmonic_scaling = 1.0 - fmath.div(100.0 - harmonic_decay, 200000.0)
     scaling_multiplier = (48.0 - note) / 12.0
@@ -255,26 +278,27 @@ def _get_decay(note, decay_rate, harmonic_decay, key_scaling):
                            1.0 - (base * (1.0 - ks)))
     idx = torch.arange(NUM_HARMONICS, dtype=torch.float32,
                        device=decay_rate.device)
-    scaling = fmath.pow(harmonic_scaling[:, None], idx)
-    return adjusted[:, None] * scaling
+    scaling = fmath.pow(harmonic_scaling[..., None], idx)
+    return adjusted[..., None] * scaling
 
 
 def _get_release(release_rate):
-    """(:257-261); ``[C]`` -> ``[C, H]``."""
+    """(:257-261); ``[(C,)]`` -> ``[(C,) H]``."""
     rel = 0.999 - fmath.div(100.0 - release_rate, 1000.0)
-    return torch.ones((rel.shape[0], NUM_HARMONICS), dtype=torch.float32,
-                      device=rel.device) * rel[:, None]
+    return torch.ones(tuple(rel.shape) + (NUM_HARMONICS,),
+                      dtype=torch.float32, device=rel.device) \
+        * rel[..., None]
 
 
 def _initial_amplitudes(velocity, brightness, velocity_scaling):
-    """(:263-280); ``[C]`` -> ``[C, H]``."""
-    v = velocity[:, None]
+    """(:263-280); ``[(C,)]`` -> ``[(C,) H]``."""
+    v = velocity[..., None]
     amps = (_f32(VELOCITY_127_SPECTRUM, v) * v
             + _f32(VELOCITY_0_SPECTRUM, v) * (1.0 - v))
     b = -0.2 + (0.8 * (brightness * 0.01))
     b = b + velocity * velocity_scaling * 0.01 * 0.5
     idx = torch.arange(NUM_HARMONICS, dtype=torch.float32, device=v.device)
-    return amps * (1.0 + b[:, None] * idx)
+    return amps * (1.0 + b[..., None] * idx)
 
 
 class AmplitudeSource(Node):
@@ -315,6 +339,24 @@ class AmplitudeSource(Node):
         rel = {**state, "released": torch.ones_like(state["released"]),
                "step": zero_step}
         return select_tree(velocity > 0.0, trig, rel)
+
+    def tick(self, state, ins, sr):
+        """One sample (:307-356): at step 0 the target moves by the decay
+        (or release) multiplier, then 64 interpolation ticks and a settle
+        tick."""
+        step = state["step"][..., None]
+        mult = torch.where(state["released"][..., None], state["release"],
+                           state["decay"])
+        target = torch.where(step == 0, state["current"] * mult,
+                             state["target"])
+        interp = step < INTERPOLATION_STEPS
+        tau = fmath.div((step + 1).to(torch.float32), INTERPOLATION_STEPS)
+        cur_i = state["current"] * (1.0 - tau) + target * tau
+        current = torch.where(interp, cur_i, target)
+        new_step = torch.where(interp[..., 0], state["step"] + 1, 0)
+        return ({**state, "current": current, "target": target,
+                 "step": new_step.to(torch.int32)},
+                {"amplitudes": current})
 
     def process_block(self, state, ins, events, sr, block_len):
         """Closed form over the 65-tick cycle: within cycle n at interp
@@ -431,6 +473,13 @@ class ElectricPianoVoice(Node):
         return {"amp": self._amp.on_gate(state["amp"], velocity, sr, ins),
                 "bank": self._bank.on_gate(state["bank"], velocity, sr,
                                            ins)}
+
+    def tick(self, state, ins, sr):
+        amp_st, amp_out = self._amp.tick(state["amp"], ins, sr)
+        bank_st, out = self._bank.tick(
+            state["bank"], {"frequency": ins["frequency"],
+                            "amplitudes": amp_out["amplitudes"]}, sr)
+        return {"amp": amp_st, "bank": bank_st}, {"output": out["output"]}
 
     def process_block(self, state, ins, events, sr, block_len):
         amp_st, amp_out = self._amp.process_block(

@@ -164,6 +164,73 @@ class AdsrEnvelope(Node):
         return select_tree(velocity > 0.0, on_state, off_state)
 
     # ------------------------------------------------------------------ #
+    def tick(self, state, ins, sr):
+        """One sample of the reference's state machine (adsr.rs), every
+        branch computed and selected, in the JAX package's order."""
+        sr_hz = sr.hz
+        # apply_parameters (reference adsr.rs:84-90): clamp params, then
+        # update_sustain_level with the *current* velocity
+        params = {**ins,
+                  "attack": torch.clamp_min(ins["attack"], 0.0),
+                  "decay": torch.clamp_min(ins["decay"], 0.0),
+                  "sustain": torch.clamp(ins["sustain"], 0.0, 1.0),
+                  "release": torch.clamp_min(ins["release"], 0.0)}
+        st = _update_sustain_level(state, params, state["velocity"], sr_hz)
+        a_n, d_n, r_n, a_c, d_c = _cached_steps(params, sr_hz)
+        stage, rem, level = st["stage"], st["rem"], st["level"]
+        sus = st["sustain_level"]
+
+        def stepping(code):
+            active = (stage == code) & (rem > 0)
+            done = (stage == code) & (torch.where(rem > 0, rem - 1, rem)
+                                      == 0)
+            return active, done
+        att_active, att_done = stepping(ATTACK)
+        dec_active, dec_done = stepping(DECAY)
+        rel_active, rel_done = stepping(RELEASE)
+        att_level = torch.clamp(level + (1.0 - level) * a_c, 0.0, 1.0)
+        dec_level = torch.clamp(level + (sus - level) * d_c, 0.0, 1.0)
+        rel_level = torch.clamp(level + st["release_inc"], 0.0, 1.0)
+
+        level = torch.where(att_active, att_level,
+                 torch.where(dec_active, dec_level,
+                  torch.where(rel_active, rel_level,
+                   torch.where(stage == SUSTAIN, sus,
+                    torch.where(stage == IDLE, 0.0, level)))))
+        stepped = att_active | dec_active | rel_active
+        rem = torch.where(stepped, rem - 1, rem)
+
+        # completions (reference complete_stage, adsr.rs:175-204); attack
+        # completion chains into set_stage(Decay, sustain)
+        level = torch.where(att_done, 1.0, level)
+        level = torch.where(dec_done, sus, level)
+        level = torch.where(rel_done, 0.0, level)
+        new_stage = torch.where(att_done, DECAY,
+                     torch.where(dec_done, SUSTAIN,
+                      torch.where(rel_done, IDLE, stage))).to(_I32)
+        dec_or_rel = dec_done | rel_done
+        any_done = att_done | dec_or_rel
+        rem = torch.where(att_done, d_n, torch.where(dec_or_rel, 0, rem))
+        release_inc = torch.where(any_done, 0.0, st["release_inc"])
+        target = torch.where(att_done, torch.clamp(sus, 0.0, 1.0),
+                             st["target"])
+
+        # absolute-time bookkeeping (used by the block-mode closed forms)
+        age = torch.where(stepped, st["age"] + 1, st["age"])
+        age = torch.where(any_done, 0, age).to(_I32)
+        entry = torch.where(att_done, 1.0,
+                 torch.where(dec_done, sus,
+                  torch.where(rel_done, 0.0, st["entry_level"])))
+        stage_len = torch.where(att_done, d_n,
+                                torch.where(dec_or_rel, 0,
+                                            st["stage_len"])).to(_I32)
+        return ({**st, "stage": new_stage, "rem": rem.to(_I32),
+                 "level": level, "target": target,
+                 "release_inc": release_inc, "entry_level": entry,
+                 "age": age, "stage_len": stage_len},
+                {"output": level})
+
+    # ------------------------------------------------------------------ #
     # block mode: segment-wise closed forms
     # ------------------------------------------------------------------ #
     def process_block(self, state, ins, events, sr, block_len):
@@ -364,6 +431,22 @@ class AdsrBank(Node):
     def init_state(self, sr: SampleRate):
         states = [sub.init_state(sr) for sub in self._subs]
         return tree_map(lambda *xs: torch.stack(xs), *states)
+
+    def _stack_ins(self, ins):
+        """Each parameter's sections stacked on a trailing axis, as the
+        state's ``[(C,) N]`` leaves."""
+        return {p: torch.stack([ins[f"{n}_{p}"] for n in self._names],
+                               dim=-1)
+                for p in self._PARAMS}
+
+    def on_gate(self, state, velocity, sr, ins):
+        return self._subs[0].on_gate(state, velocity[..., None], sr,
+                                     self._stack_ins(ins))
+
+    def tick(self, state, ins, sr):
+        st, outs = self._subs[0].tick(state, self._stack_ins(ins), sr)
+        lv = outs["output"]
+        return st, {n: lv[..., i] for i, n in enumerate(self._names)}
 
     def process_block(self, state, ins, events, sr, block_len):
         N = len(self._names)

@@ -19,6 +19,8 @@ nodes take a leading instance axis (``BATCHED``): state ``[C(, ...)]``,
 inputs ``[C, B(, ch)]``; instances (and the dual node's two filters) are
 the scan's lanes.  ``tan``, ``tanh`` and the divisions go through
 ``ops/fmath.py`` so the CPU and the card compute the same float32 values.
+Each node's ``tick`` is one sample of its scan's plain version, with the
+reference's coefficient cadence.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from ..core.types import SampleRate, stream, value
 from ..graph import explain
 from ..graph.node import Node
 from ..ops import fmath
-from ..ops.cuda.iir import biquad_scan, lp18_scan, tpt_svf_scan
+from ..ops.cuda.iir import _snap, biquad_scan, lp18_scan, tpt_svf_scan
 
 PI = math.pi
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -110,6 +112,18 @@ class TptFilter(Node):
             "h": pick(h, state["h"]), "g": pick(g, state["g"]),
             "r": pick(r, state["r"]), "k": pick(k, state["k"]),
         }
+
+    def tick(self, state, ins, sr):
+        state = self._apply_parameter_updates(state, ins, sr.hz)
+        x, z0, z1 = ins["input"], state["z0"], state["z1"]
+        h, g, k = state["h"], state["g"], state["k"]
+        if self.channels > 1:   # one coefficient set per instance
+            h, g, k = h[..., None], g[..., None], k[..., None]
+        high = (x - z0 * k - z1) * h
+        band = high * g + z0
+        low = band * g + z1
+        return ({**state, "z0": high * g + band, "z1": band * g + low},
+                {"output": low})
 
     def _filter(self, state, ins, sr, block_len, hoisted: bool):
         """One block for all instances.  ``hoisted``: every parameter is
@@ -223,6 +237,24 @@ class IirLowpass(Node):
                 "v2": torch.zeros((), dtype=f32),
                 "frame_counter": torch.zeros((), dtype=torch.int32)}
 
+    def tick(self, state, ins, sr):
+        """One sample: the coefficients latched on the 32-frame cadence,
+        then the DF-II-T step with the reference's 1e-15 snaps."""
+        update = state["frame_counter"] == 0
+        cand = self._coefficients(sr.hz, ins["cutoff"], ins["q"],
+                                  fmath.div_const)
+        c0, c1, c2, d1, d2 = [torch.where(update, c, state[k])
+                              for c, k in zip(cand, self.COEFS)]
+        x = _snap(ins["input"])
+        out = c0 * x + state["v1"]
+        v1 = _snap(c1 * x - d1 * out + state["v2"])
+        v2 = _snap(c2 * x - d2 * out)
+        return ({**dict(zip(self.COEFS, (c0, c1, c2, d1, d2))),
+                 "v1": v1, "v2": v2,
+                 "frame_counter": (state["frame_counter"] + 1)
+                 % self.FRAMES_PER_UPDATE},
+                {"output": out})
+
     def process_block(self, state, ins, events, sr, block_len):
         B = block_len
         x = ins["input"]
@@ -290,6 +322,15 @@ class _LP18Scan(Node):
                 torch.where(res_changed, resonance, state["last_resonance"]))
         return g, h, dict(zip(_LP18Scan.LAST, last))
 
+    @staticmethod
+    def _poles(x, g, h, z0, z1, z2):
+        """One sample of the three poles, in ``plain_lp18_scan``'s op order
+        (the same float32 ``tanh`` and true quotient as K8)."""
+        hp = (x - h * z0 - z1 - z2) / (1.0 + g)
+        bp1 = g * hp + z0
+        bp2 = g * bp1 + z1
+        return fmath.tanh(bp1), bp2, g * bp2 + z2
+
     def _scan(self, state, x, params, sr, hoisted: bool, **note):
         """One block for every lane: ``x`` ``[B, L]`` (L lanes, instance
         major), ``params`` ``[C, B(, 2)]``; returns the new state and
@@ -346,6 +387,14 @@ class LP18Filter(_LP18Scan):
                 "last_fmod": torch.zeros((), dtype=f32),
                 "last_resonance": torch.tensor(self.resonance, dtype=f32)}
 
+    def tick(self, state, ins, sr):
+        g, h, last = self._coefficients(state, ins["cutoff"], ins["fmod"],
+                                        ins["resonance"], sr.hz)
+        z = state["z"]
+        z = self._poles(ins["input"], g, h, z[..., 0], z[..., 1], z[..., 2])
+        return ({**state, **last, "g": g, "h": h,
+                 "z": torch.stack(z, dim=-1)}, {"output": z[2]})
+
     def process_block(self, state, ins, events, sr, block_len,
                       const_ins=frozenset()):
         hoisted = all(p in const_ins for p in self.PARAMS)
@@ -390,6 +439,19 @@ class DualLP18Diff(_LP18Scan):
                 "last_fmod": torch.zeros((2,), dtype=f32),
                 "last_resonance": torch.full((2,), self.resonance,
                                              dtype=f32)}
+
+    def tick(self, state, ins, sr):
+        pair = ins["cutoff_a"].shape + (2,)
+        g, h, last = self._coefficients(
+            state, torch.stack([ins["cutoff_a"], ins["cutoff_b"]], dim=-1),
+            ins["fmod"][..., None].expand(pair),
+            ins["resonance"][..., None].expand(pair), sr.hz)
+        z = state["z"]                                   # [(C,) 3, 2]
+        z = self._poles(ins["input"][..., None], g, h, z[..., 0, :],
+                        z[..., 1, :], z[..., 2, :])
+        return ({**state, **last, "g": g, "h": h,
+                 "z": torch.stack(z, dim=-2)},
+                {"output": z[2][..., 0] - z[2][..., 1]})
 
     def process_block(self, state, ins, events, sr, block_len,
                       const_ins=frozenset()):

@@ -8,7 +8,8 @@ the exact per-sample wrap (``ops/scan.py::exact_wrapped_phase``, one
 whole block at once with branchless masked arithmetic.
 
 Both take a leading instance axis (``BATCHED``): state ``[C]``, inputs
-``[C, B]``.  Divisions by constants and ``sin`` go through ``ops/fmath.py``
+``[C, B]``; their ``tick`` is the reference's per-sample math with the
+block path's float32 helpers.  Divisions by constants and ``sin`` go through ``ops/fmath.py``
 so the CPU and the card compute the same float32 values; a division by a
 constant is the product with its float32 reciprocal, as XLA compiles it in
 the JAX package (``fmath.div_const``), so the phase increments, and with
@@ -109,6 +110,13 @@ class Oscillator(Node):
     def init_state(self, sr: SampleRate):
         return _phase_state()
 
+    def tick(self, state, ins, sr):
+        frequency = ins["frequency"] * (1.0 + ins["frequency_mod"])
+        out = _NAIVE_WAVEFORMS[self.waveform](_rust_rem(state["phase"])) \
+            * ins["amplitude"]
+        phase = state["phase"] + fmath.div_const(frequency, sr.hz)
+        return {"phase": _rust_rem(phase)}, {"output": out}
+
     def process_block(self, state, ins, events, sr, block_len):
         dt = fmath.div_const(
             ins["frequency"] * (1.0 + ins["frequency_mod"]), sr.hz)  # [C, B]
@@ -208,6 +216,17 @@ class PolyBlepOscillator(Node):
             val = torch.where(frequency >= sr_hz * 0.25,
                               fmath.sin(phase * TAU), val)
         return val
+
+    def tick(self, state, ins, sr):
+        frequency = torch.clamp_min(
+            ins["frequency"] * (1.0 + ins["frequency_mod"]), 0.0)
+        pulse_width = torch.clamp(ins["pulse_width"], 0.0001, 0.9999)
+        phase = _wrap_phase(state["phase"] + ins["phase_mod"])
+        fps = fmath.div_const(frequency, max(sr.hz, F32_EPS))
+        val = self._synthesize(phase, torch.clamp_max(fps, 1.0),
+                               pulse_width, frequency, sr.hz)
+        return ({"phase": _wrap_phase(state["phase"] + fps)},
+                {"output": val * ins["amplitude"]})
 
     def process_block(self, state, ins, events, sr, block_len):
         frequency = torch.clamp_min(

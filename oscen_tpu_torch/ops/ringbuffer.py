@@ -4,10 +4,12 @@ Counterpart of ``oscen_tpu/ops/ringbuffer.py`` (the reference RingBuffer,
 ring_buffer/mod.rs): power-of-two capacity with mask wrapping, the
 near-integer snap at 1e-6, Catmull-Rom cubic interpolation for fractional
 offsets.  The buffer is a 1-D tensor in the state; reads are gathers
-(``torch.take``) and writes out-of-place scatters, both with index tensors
-computed on the buffer's device, so nothing is read back to the host.
-Every read position may differ per sample (a ``[B]`` ``write_pos`` and
-``offset``).
+(``torch.take``) and writes scatters, both with index tensors computed on
+the buffer's device, so nothing is read back to the host.  Every read
+position may differ per sample (a ``[B]`` ``write_pos`` and ``offset``),
+and a leading instance axis holds one ring per instance (a ``Delay`` node
+array).  :func:`rb_push` writes out of place; :func:`rb_push_` writes in
+place, for the per-sample loops that copy the ring once per run.
 """
 
 from __future__ import annotations
@@ -27,13 +29,60 @@ def rb_new(size: int):
             torch.tensor(0, dtype=torch.int32))
 
 
+_ROWS: dict = {}
+
+
+def _rows(buf, like):
+    """Flat offsets of ``buf``'s rows, shaped to broadcast against index
+    tensors shaped like ``like``: a ring per instance (``buf`` ``[C,
+    cap]``, ``like`` ``[C, ...]``) reads and writes its own row.  None for
+    a single ring.  Built once per shape and device."""
+    lead = tuple(buf.shape[:-1])
+    if not lead:
+        return None
+    key = (lead, buf.shape[-1], like.dim(), str(buf.device))
+    rows = _ROWS.get(key)
+    if rows is None:
+        n = 1
+        for d in lead:
+            n *= d
+        rows = (torch.arange(n, dtype=torch.int64, device=buf.device)
+                * buf.shape[-1]).reshape(
+                    lead + (1,) * (like.dim() - len(lead)))
+        _ROWS[key] = rows
+    return rows
+
+
+def _take(buf, rows, idx):
+    """``buf`` at the in-ring indices ``idx`` (of each instance's row)."""
+    idx = idx.long()
+    return torch.take(buf, idx if rows is None else rows + idx)
+
+
 def rb_push(buf, write_pos, v):
     """Write ``v`` at ``write_pos`` and advance with the mask wrap
-    (reference :57-76)."""
+    (reference :57-76), out of place.  ``buf`` may carry a leading
+    instance axis (``[C, cap]`` with ``write_pos`` and ``v`` ``[C]``): each
+    instance writes its own ring, as the JAX package's
+    ``buf.at[..., write_pos]`` does under ``vmap``."""
+    return _push(buf.clone(), write_pos, v)
+
+
+def rb_push_(buf, write_pos, v):
+    """:func:`rb_push` into ``buf`` itself, in place: the per-sample loops
+    copy the ring once per run and then write one sample at a time (a copy
+    per sample would move the whole ring, 512 KB for the echo's, every
+    sample).  Returns ``(buf, write_pos')``."""
+    return _push(buf, write_pos, v)
+
+
+def _push(buf, write_pos, v):
     cap = buf.shape[-1]
-    idx = write_pos.reshape(1).long()
-    buf = buf.index_put((idx,), torch.as_tensor(v, dtype=buf.dtype,
-                                                device=buf.device).reshape(1))
+    rows = _rows(buf, write_pos)
+    idx = write_pos.long()
+    idx = (idx if rows is None else rows + idx).reshape(-1)
+    v = torch.as_tensor(v, dtype=buf.dtype, device=buf.device)
+    buf.view(-1).index_put_((idx,), v.expand(write_pos.shape).reshape(-1))
     return buf, (write_pos + 1) & (cap - 1)
 
 
@@ -56,7 +105,9 @@ def rb_get(buf, write_pos, offset):
     """Read ``offset`` samples into the past (0 = most recent), with the
     reference's near-integer snap and Catmull-Rom interpolation
     (reference :121-201).  ``write_pos`` (int32) and ``offset`` (float32)
-    broadcast; the result has their shape."""
+    broadcast; the result has their shape.  A ring per instance (``buf``
+    ``[C, cap]``) takes ``write_pos`` and ``offset`` with a leading ``[C]``
+    axis."""
     cap = buf.shape[-1]
     mask = cap - 1
     off = torch.clamp_min(offset, 0.0)
@@ -66,16 +117,17 @@ def rb_get(buf, write_pos, offset):
     snap = torch.logical_or(frac_raw < 1e-6, (1.0 - frac_raw) < 1e-6)
     off_int = torch.round(off).to(torch.int32)
     snap_idx = ((write_pos + cap) - torch.remainder(off_int, cap) - 1) & mask
-    snapped = torch.take(buf, snap_idx.long())
+    rows = _rows(buf, snap_idx)
+    snapped = _take(buf, rows, snap_idx)
 
     # Catmull-Rom cubic (reference :121-164)
     rp = _read_pos(write_pos, off, cap)
     i = rp.to(torch.int32)
     f = rp - torch.floor(rp)
-    v0 = torch.take(buf, ((i - 1) & mask).long())
-    v1 = torch.take(buf, (i & mask).long())
-    v2 = torch.take(buf, ((i + 1) & mask).long())
-    v3 = torch.take(buf, ((i + 2) & mask).long())
+    v0 = _take(buf, rows, (i - 1) & mask)
+    v1 = _take(buf, rows, i & mask)
+    v2 = _take(buf, rows, (i + 1) & mask)
+    v3 = _take(buf, rows, (i + 2) & mask)
     c0 = v1
     c1 = 0.5 * (v2 - v0)
     c2 = v0 - 2.5 * v1 + 2.0 * v2 - 0.5 * v3
@@ -92,6 +144,7 @@ def rb_get_linear(buf, write_pos, offset):
     rp = _read_pos(write_pos, torch.clamp_min(offset, 0.0), cap)
     i = rp.to(torch.int32)
     f = rp - torch.floor(rp)
-    a = torch.take(buf, (i & mask).long())
-    b = torch.take(buf, ((i + 1) & mask).long())
+    rows = _rows(buf, i)
+    a = _take(buf, rows, i & mask)
+    b = _take(buf, rows, (i + 1) & mask)
     return a * (1.0 - f) + b * f

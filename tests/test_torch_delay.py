@@ -1,12 +1,12 @@
 """The delay line on the CPU: ``oscen_tpu_torch/ops/ringbuffer.py`` and
 ``nodes/delay.py`` against the JAX package, and the port's own invariants.
 
-The port's ``Delay`` has the block paths only: the chunked
+The port's ``Delay`` has the JAX package's paths: the chunked
 ``process_block`` and the dissolved-island read and write, both resting on
-a ``min_delay`` promise.  The JAX package's per-sample scan (its block
-fallback, equal to its sample mode) is the reference each is held to; the
-port raises ``NotImplementedError`` naming Slice F where the JAX package
-would fall back to that scan.
+a ``min_delay`` promise, and the per-sample tick scan everywhere else (no
+promise, short chunks, a node array, a scan island).  The JAX package's
+per-sample scan (its block fallback, equal to its sample mode) is the
+reference each is held to.
 
 Tolerances: ``rb_get`` against eager JAX bit for bit (measured 0), against
 ``jax.jit`` 1e-6 (XLA contracts the Catmull-Rom products and sums; measured
@@ -181,46 +181,59 @@ def test_named_via_delay_dissolves_and_matches_jax():
     assert {"node": "echo", "path": "dissolved_island_delay"} in c.explain()
 
 
-def _slice_f(fn):
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        fn()
-
-
 def test_what_needs_the_per_sample_scan_raises():
-    """No promise, chunks under 8, a block shorter than a chunk, a cycle
-    without a promising delay (a samples via), a promise too short for the
-    block: each raises NotImplementedError naming Slice F."""
-    x = {"x": np.zeros(64, np.float32)}
+    """What the port used to refuse now runs where the JAX package scans
+    the per-sample tick, and matches it at 1e-6 (its chunked-path bound):
+    no promise, chunks under 8, a block shorter than a chunk (the Delay's
+    tick scan), a cycle through a samples via, a promise too short for the
+    block and no promise at all on the echo (scan islands).  Nothing
+    raises."""
     for md, B in ((0, 64), (10, 64), (64, 32)):
-        c = _delay_graph(T, 100.0, 0.5, md).compile(SR, block_size=B,
-                                                     device="cpu")
-        _slice_f(lambda: c.process_block(stream_inputs=x))
+        a = _render(J, _delay_graph(J, 100.0, 0.5, md), B, 256, 4)
+        b = _render(T, _delay_graph(T, 100.0, 0.5, md), B, 256, 4,
+                    device="cpu")
+        np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
+        assert np.abs(b[101:]).max() > 0.1
 
-    g = T.Graph("FB")
-    g.input("x", "stream")
-    g.output("out", "stream")
-    mix = g.add("mix", T.Gain(1.0))
-    fb = g.add("fb", T.Gain(0.5))
-    g.connect("x", mix.input)
-    g.connect(mix.output, fb.input)
-    g.connect(fb.output, mix.input, via=32)
-    g.connect(mix.output, "out")
-    _slice_f(lambda: g.compile(SR, block_size=256, device="cpu"))
+    def cycle(pkg):
+        g = pkg.Graph("FB")
+        g.input("x", "stream")
+        g.output("out", "stream")
+        mix = g.add("mix", pkg.Gain(1.0))
+        fb = g.add("fb", pkg.Gain(0.5))
+        g.connect("x", mix.input)
+        g.connect(mix.output, fb.input)
+        g.connect(fb.output, mix.input, via=32)
+        g.connect(mix.output, "out")
+        return g
+    np.testing.assert_allclose(
+        _render(T, cycle(T), 256, 512, 5, device="cpu"),
+        _render(J, cycle(J), 256, 512, 5), atol=1e-6, rtol=0)
 
-    from oscen_tpu_torch.models.simple import build_simple_echo
-    _slice_f(lambda: build_simple_echo(0.001).compile(SR, block_size=512,
-                                                      device="cpu"))
-    _slice_f(lambda: build_simple_echo(min_delay=False).compile(
-        SR, block_size=512, device="cpu"))
+    from oscen_tpu.models.simple import build_simple_echo as jecho
+    from oscen_tpu_torch.models.simple import build_simple_echo as techo
+    for seconds, md in ((0.001, True), (0.25, False)):
+        a = _render(J, jecho(seconds, SR, min_delay=md), 512, 1024, 6, 0.3)
+        b = _render(T, techo(seconds, SR, min_delay=md), 512, 1024, 6, 0.3,
+                    device="cpu")
+        np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
 
 
 def test_delay_node_array_has_no_block_path():
-    g = T.Graph("DA")
-    g.output("out", "stream")
-    o = g.add("o", T.Oscillator.sine(220.0, 0.5))
-    d = g.add("d", T.Delay(100.0, 0.3, min_delay=100), count=2)
-    g.connect(o.output, d.input)
-    g.connect(d.output, "out")
-    c = g.compile(SR, block_size=128, device="cpu")
-    with pytest.raises(NotImplementedError, match="instance-batched"):
-        c.process_block()
+    """A Delay node array has no instance-batched block path: its ticks
+    run over the instance axis (one ring per instance), as the JAX package
+    ``vmap``s the node, and match it at 1e-6."""
+    def build(pkg):
+        g = pkg.Graph("DA")
+        g.output("out", "stream")
+        o = g.add("o", pkg.Oscillator.sine(220.0, 0.5))
+        d = g.add("d", pkg.Delay(100.0, 0.3, min_delay=100), count=2)
+        g.connect(o.output, d.input)
+        g.connect(d.output, "out")
+        return g
+    a = build(J).compile(SR, block_size=128).render_mono(512)
+    c = build(T).compile(SR, block_size=128, device="cpu")
+    b = c.render_mono(512)
+    np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
+    assert np.abs(b[:101]).max() == 0.0 and np.abs(b[101:]).max() > 0.5
+    assert tuple(c.state["d"]["buf"].shape) == (2, 131072)

@@ -10,8 +10,7 @@ against the JAX package on the CPU.
 - The ``Sat_1x`` / ``Sat_4x`` variants are within the saturator's 1e-6 of
   the JAX package's (tests/test_torch_echo_saturator.py).
 - What the port lacks fails where it would: a ``Convolver`` is an unknown
-  node type at parse time, and an inline via parses but refuses to
-  compile (Slice F).
+  node type at parse time; an inline via runs (a scan island).
 - ``Value``, ``AudioInput``, ``EventPassthrough``, ``EventQueue`` and the
   ``EventBuffer`` helpers against their JAX counterparts.
 """
@@ -199,8 +198,10 @@ def test_oversample_variants_match_jax():
 
 
 def test_what_the_port_lacks_fails_where_it_would():
-    """A Convolver (Slice F) is an unknown type at parse time, with the
-    unknown-type message; an inline via parses and refuses to compile."""
+    """A Convolver (not ported yet) is an unknown type at parse time, with
+    the unknown-type message; an inline via, which lowers to a Delay with
+    no promise on a cycle, runs as a scan island and matches the JAX
+    package's parse at 1e-6."""
     src = "nodes { conv = Convolver::new(max_ir_len=64); }"
     assert J.parse_graph(src) is not None
     msg = _message(T.parse_graph, src)
@@ -222,8 +223,9 @@ def test_what_the_port_lacks_fails_where_it_would():
     g = T.parse_graph(via)
     assert any(type(i.node).__name__ == "Delay"
                for i in g.lower().nodes.values())
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        g.compile(SR, block_size=128, device="cpu").render_mono(128)
+    b = g.compile(SR, block_size=128, device="cpu").render_mono(512)
+    a = np.asarray(jparse(via).compile(SR, block_size=128).render_mono(512))
+    np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
 
 
 def test_value_audio_input_and_passthrough_match_jax():

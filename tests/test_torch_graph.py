@@ -1,7 +1,7 @@
 """oscen_tpu_torch's graph front end against the JAX package's: the
-electric piano lowers to the same IR, and diagnostics and unported paths
-fail loudly; explain() disturbs no later run, and stream inputs given as
-tensors stage as numpy ones do."""
+electric piano lowers to the same IR, diagnostics and what neither package
+runs fail loudly, and sample mode and inline vias run; explain() disturbs
+no later run, and stream inputs given as tensors stage as numpy ones do."""
 
 import numpy as np
 import pytest
@@ -87,22 +87,35 @@ def test_expression_nodes_are_the_ports_own():
 
 
 def test_unported_paths_raise():
-    g = tbuild(4)
-    with pytest.raises(NotImplementedError, match="sample mode"):
-        g.compile(48000.0, block_size=64, mode="sample", device="cpu")
-    d = T.Graph("Delayed")
-    d.output("out", "stream", channels=2)
-    t1 = d.add("t1", T.Tremolo())
-    t2 = d.add("t2", T.Tremolo())
-    d.connect(t1.output[0], t2.input, via=16)
-    d.connect(t2.output, "out")
-    # the via lowers to a real Delay now, but one with no min_delay
-    # promise runs only as the per-sample scan (Slice F)
+    """What came with sample mode runs, and what neither package runs still
+    raises.  Sample mode compiles and plays the piano; a ``via=16`` lowers
+    to a Delay with no min_delay promise, whose block path is the tick
+    scan, and matches the JAX package at 1e-6 (the tremolo's sine); an
+    unknown mode raises ValueError."""
+    p = tbuild(4).compile(48000.0, block_size=64, mode="sample", device="cpu")
+    p.queue_event("midi_in", 0, T.raw_midi_event([0x90, 60, 100]))
+    assert float(p.process_block()["out"].abs().max()) > 0.1
+
+    def delayed(pkg):
+        d = pkg.Graph("Delayed")
+        d.output("out", "stream", channels=2)
+        osc = d.add("osc", pkg.Oscillator.saw(330.0, 0.5))
+        t1 = d.add("t1", pkg.Tremolo())
+        d.connect(osc.output, t1.input)
+        t2 = d.add("t2", pkg.Tremolo())
+        d.connect(t1.output[0], t2.input, via=16)
+        d.connect(t2.output, "out")
+        return d
+    d = delayed(T)
     assert any(type(i.node).__name__ == "Delay"
                for i in d.lower().nodes.values())
-    c = d.compile(48000.0, block_size=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        c.process_block()
+    a = np.asarray(delayed(J).compile(48000.0, block_size=64)
+                   .render(128)["out"])
+    b = d.compile(48000.0, block_size=64, device="cpu").render(128)["out"]
+    np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
+    assert np.abs(b[:17]).max() == 0.0 and np.abs(b[17:]).max() > 0.05
+    with pytest.raises(ValueError, match="unknown mode"):
+        d.compile(48000.0, block_size=64, mode="frame", device="cpu")
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

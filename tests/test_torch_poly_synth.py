@@ -281,12 +281,20 @@ def test_simple_synth_matches_jax():
 
 
 def test_unported_simple_models_raise():
-    """The echo and the saturator came with Slice E; what is left unported
-    of them is the echo without its min-delay promise, whose feedback
-    island needs a per-sample scan (Slice F)."""
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tsimple_mod.build_simple_echo(min_delay=False).compile(
-            SR, block_size=512, device="cpu")
+    """The echo and the saturator came with Slice E; the echo without its
+    min-delay promise, whose feedback island is a per-sample scan island,
+    came with sample mode: it raises no more and matches the dissolved
+    echo at 1e-6 (the JAX package's bound between the two,
+    tests/test_delay_feedback.py:236)."""
+    x = (np.random.default_rng(2).standard_normal(1024) * 0.3).astype(
+        np.float32)
+    outs = []
+    for md in (False, True):
+        e = tsimple_mod.build_simple_echo(0.002, SR, min_delay=md).compile(
+            SR, block_size=64, device="cpu")
+        e.set_value("feedback", 0.5)
+        outs.append(e.render_mono(1024, stream_inputs={"x": x}))
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-6, rtol=0)
     sat = tsimple_mod.build_saturator().compile(SR, block_size=64,
                                                device="cpu")
     assert sat.latency_samples() == 8
