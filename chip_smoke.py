@@ -141,6 +141,34 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             piano, the echo and the saturators the device activities of
             their first block (profiler) per sample, the wall of the second
             (CUDA events) and the real-time factor;
+4c. assets  the asset slice, each path with its launch counts set to 0
+            just before it and read just after: the 256-voice piano's stereo
+            output into examples/render_convolution.py's reverb
+            (``Convolver(max_ir_len=1 << 16, channels=2)``) through card
+            tensors at B=1024 and 4096: the chord, the example's 48000-tap
+            IR published (2048 samples to settle), 8 steady blocks, the
+            72000-tap IR (the capacity grows to 128 / 32 partitions), 4
+            blocks, every block but the first under sync debug mode
+            "error" (the growth publish too); exactly one K1 launch per
+            steady piano block (held against its plain version on the
+            piano's own call), one rFFT and one irFFT per reverb block and
+            two irFFTs in a fade (``ops.conv.launches``); the reverb against
+            the port on the CPU fed the same dry blocks, against float64
+            ``scipy.signal.fftconvolve`` outside the fades, and a ragged
+            ``render(..., tail=)`` against the CPU (each <= 1e-5 x the
+            peak); the wall (CUDA events), device busy and device
+            activities per block (profiler) and real-time factor of piano +
+            reverb, the reverb alone and the piano alone, steady, in a fade
+            and after the growth; a ``SamplePlayer`` (a 5 s stereo asset at
+            44.1 kHz conformed by the native resampler) -> ``TptFilter`` ->
+            ``Oscilloscope`` at B=1024, 12 blocks, one K7 launch per block
+            (held against its plain version), blocks and ``snapshot``
+            against the CPU (<= 1e-6); a checkpoint of the grown reverb
+            after a swap restored into a fresh graph on the card, and a
+            bundle of a reverb saved mid-fade loaded on the card, the next
+            4 blocks ``torch.equal`` to the uninterrupted run; the Convolver
+            in sample mode at a 4096-tap capacity, 2 blocks, against block
+            mode and the CPU (<= 1e-5 x the peak);
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
@@ -181,7 +209,7 @@ last line
 package beside it, the script exits non-zero and prints no result.
 ``python3 chip_smoke.py per_sample`` runs the per_sample phase alone
 (after building the kernels its block-mode references launch), with no
-result lines.
+result lines; ``python3 chip_smoke.py assets`` the assets phase.
 """
 
 from __future__ import annotations
@@ -1278,6 +1306,404 @@ def per_sample_phase(card):
           f"{sat_per['sinc']:.1f}, sinc_iir {sat_per['sinc_iir']:.1f}; "
           f"K10 launches on the sample-mode path {k10} ({card})")
     return {"allpass_cascade_scan": k10}
+
+
+ASSET_BLOCKS = (1024, 4096)
+REVERB_CAP = 1 << 16          # examples/render_convolution.py's capacity
+IR2_TAPS = 72000              # 1.5 s: above the capacity, so it grows
+REVERB_STEADY = 8             # steady blocks after the first fade
+REVERB_AFTER = 4              # blocks from the growth swap on
+REVERB_TOL = 1e-5             # x the output's peak: card vs CPU, vs float64
+SAMPLER_TOL = 1e-6            # K7 equals its plain version
+SAMPLER_BLOCKS = 12
+
+
+def reverb_ir(seed, n):
+    """examples/render_convolution.py's IR: seeded noise decaying with
+    tau = 0.15 s, x 0.05."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n).astype(np.float32)
+            * np.exp(-np.arange(n, dtype=np.float32) / (SR * 0.15))
+            * 0.05)
+
+
+def assets_phase(card):
+    """Phase ``assets``: the 256-voice piano into a stereo convolution
+    reverb (examples/render_convolution.py's graph) through card tensors,
+    a sampler into a filter and a scope, a checkpoint and a bundle of the
+    reverb on the card, and the Convolver in sample mode; each against
+    the port on the CPU, the reverb also against float64 ``fftconvolve``.
+    Returns the phase's K1 and K7 launches."""
+    import torch
+    from scipy.signal import fftconvolve
+    from torch.profiler import ProfilerActivity, profile
+    from oscen_tpu_torch import (AudioAsset, Convolver, Graph, Oscilloscope,
+                                 SamplePlayer, TptFilter, raw_midi_event)
+    from oscen_tpu_torch.models.electric_piano import build_electric_piano
+    from oscen_tpu_torch.ops import conv as tconv
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.ops.cuda import iir as kiir
+    from oscen_tpu_torch.nodes import filters as nfilters
+    from oscen_tpu_torch.utils import native
+    from oscen_tpu_torch.utils.bundle import load_bundle, save_bundle
+    from oscen_tpu_torch.utils.checkpoint import load_state, save_state
+    import tempfile
+    piano_env("v4")
+    scratch = tempfile.mkdtemp(prefix="oscen_assets_")
+    ir1, ir2 = reverb_ir(0, int(SR)), reverb_ir(1, IR2_TAPS)
+    fade_len = int(0.02 * SR)
+    phase_launches = {"additive_voice_v4": 0, "tpt_svf_scan": 0}
+
+    def reverb(B, device, cap=REVERB_CAP, mode="block"):
+        g = Graph("ConvolutionReverb")
+        g.input("x", "stream", channels=2)
+        g.output("out", "stream", channels=2)
+        g.external("ir")
+        cv = g.add("conv", Convolver(max_ir_len=cap, channels=2))
+        g.connect("ir", cv.ir)
+        g.connect("x", cv.input)
+        g.connect(cv.output, "out")
+        return g.compile(SR, block_size=B, mode=mode, device=device)
+
+    def capture(mod, name, seen):
+        """``mod.name`` wrapped to keep its last call's arguments."""
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            seen[name] = (a, kw)
+            return fn(*a, **kw)
+        setattr(mod, name, wrapped)
+        return fn
+
+    def block_stats(step, prep=None, reps=6):
+        """Median wall per block (CUDA events, the odd reps) and device busy
+        and activities per block (profiler, the even reps); ``prep`` runs
+        before each rep, outside both."""
+        walls, busy, acts, n = [], 0.0, 0, 0
+        for i in range(reps):
+            if prep is not None:
+                prep()
+            torch.cuda.synchronize()
+            if i % 2 == 0:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    step()
+                    torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        busy += getattr(e, "self_device_time_total",
+                                        getattr(e, "self_cuda_time_total",
+                                                0.0))
+                        acts += e.count
+                n += 1
+            else:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                step()
+                b.record()
+                torch.cuda.synchronize()
+                walls.append(a.elapsed_time(b))
+        return float(np.median(walls)), busy / n / 1e3, acts / n
+
+    def report(label, B, st):
+        wall, busy, acts = st
+        phase("assets", f"{label} B={B}: wall {wall * 1e3:.1f} us per block "
+              f"(CUDA events), device busy {busy * 1e3:.1f} us "
+              f"({100 * busy / wall:.1f}%), {acts:.0f} device activities "
+              f"per block, real-time factor "
+              f"{(B / SR) / (wall * 1e-3):.1f}x ({card})")
+
+    # ---- 1. the piano into the reverb --------------------------------
+    kept_reverb = {}
+    for B in ASSET_BLOCKS:
+        n_fade = -(-2048 // B)                  # 2048 samples to settle
+        n_first = n_fade + REVERB_STEADY
+        reset_all()
+        tconv.reset_launches()
+        t0 = time.perf_counter()
+        p = build_electric_piano(VOICES).compile(SR, block_size=B,
+                                                 mode="block", device="cuda")
+        rv = reverb(B, "cuda")
+        for i in range(VOICES):
+            p.queue_event("midi_in", 0,
+                          raw_midi_event([0x90, 36 + (i % 64), 100]))
+        rv.publish_asset("ir", AudioAsset.from_samples(ir1, int(SR)))
+        dry, wet, ffts, seen = [], [], [], {}
+        n_blocks = n_first + REVERB_AFTER
+        for i in range(n_blocks):
+            if i == n_first:
+                with no_sync(True):   # the growth swap: 64 -> 128 (16 -> 32)
+                    rv.publish_asset("ir", AudioAsset.from_samples(
+                        ir2, int(SR)))
+            if i == n_first - 1:
+                fn1 = capture(add, "additive_voice_block", seen)
+            with no_sync(i > 0):
+                tconv.reset_launches()
+                x = p.process_block()["out"]
+                y = rv.process_block(stream_inputs={"x": x})["out"]
+            if i == n_first - 1:
+                add.additive_voice_block = fn1
+            ffts.append(dict(tconv.launches))
+            dry.append(x)
+            wet.append(y)
+        k1 = add.launches["v4"]
+        phase_launches["additive_voice_v4"] += k1
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # K1 against its plain version on the call the piano made
+        a, kw = seen["additive_voice_block"]
+        outs_k = fn1(*a, **kw)
+        outs_p = add.plain_block(*a[:9], kw.get("with_mix", False), "v4")
+        k1_err = float((outs_k[0] - outs_p[0]).abs().max())
+        k1_state = all(torch.equal(u, v) for u, v in
+                       zip(outs_k[1:], outs_p[1:]))
+        # the reverb on the CPU, fed the same dry blocks
+        rc = reverb(B, "cpu")
+        rc.publish_asset("ir", AudioAsset.from_samples(ir1, int(SR)))
+        wet_cpu = []
+        for i in range(n_blocks):
+            if i == n_first:
+                rc.publish_asset("ir", AudioAsset.from_samples(ir2,
+                                                               int(SR)))
+            wet_cpu.append(rc.process_block(stream_inputs={
+                "x": dry[i].cpu().numpy()})["out"])
+        y_card = torch.cat(wet).cpu().numpy()
+        y_cpu = torch.cat(wet_cpu).numpy()
+        x64 = torch.cat(dry).cpu().numpy().astype(np.float64)
+        peak = float(np.abs(y_card).max())
+        t_swap = n_first * B
+        ref1 = np.stack([fftconvolve(x64[:, c], ir1.astype(np.float64))
+                         [:len(x64)] for c in range(2)], -1)
+        ref2 = np.stack([fftconvolve(x64[:, c], ir2.astype(np.float64))
+                         [:len(x64)] for c in range(2)], -1)
+        err_cpu = float(np.abs(y_card - y_cpu).max())
+        err_ref = max(
+            float(np.abs(y_card[fade_len:t_swap]
+                         - ref1[fade_len:t_swap]).max()),
+            float(np.abs(y_card[t_swap + fade_len:]
+                         - ref2[t_swap + fade_len:]).max()))
+        fading = {"rfft": 1, "irfft": 2}
+        steady = {"rfft": 1, "irfft": 1}
+        want_ffts = [fading if (i * B < fade_len or t_swap <= i * B
+                                < t_swap + fade_len) else steady
+                     for i in range(n_blocks)]
+        # the ragged last block of an offline render: a tail after the
+        # last dry block, on the card and the CPU
+        tail_in = dry[-1][:B // 2 + 100]
+        r_card = rv.render(B // 2 + 100, stream_inputs={"x": tail_in},
+                           tail=B // 3)["out"]
+        r_cpu = rc.render(B // 2 + 100, stream_inputs={
+            "x": tail_in.cpu().numpy()}, tail=B // 3)["out"]
+        err_tail = float(np.abs(r_card - r_cpu).max())
+        P = tuple(rv.state["conv"]["fdl"].shape)
+        checks = {
+            "shape": tuple(y_card.shape) == (n_blocks * B, 2),
+            "finite": bool(np.isfinite(y_card).all()),
+            "peak": 0.01 < peak < 1000.0,
+            "grown": P == (131072 // B, B + 1, 2),
+            # the chord's block runs the event path's closed forms
+            "K1 one launch per steady piano block": k1 == n_blocks - 1,
+            "K1 y vs plain": k1_err <= Y_TOL * math.sqrt(VOICES),
+            "K1 state vs plain (torch.equal)": k1_state,
+            "FFTs per block": ffts == want_ffts,
+            "card vs CPU": err_cpu <= REVERB_TOL * peak,
+            "vs float64 fftconvolve": err_ref <= REVERB_TOL * peak,
+            "ragged tail vs CPU": err_tail <= REVERB_TOL * peak,
+        }
+        phase("assets", f"piano 256 voices -> reverb B={B}: the chord, IR "
+              f"48000 taps published ({n_fade} fade blocks), "
+              f"{REVERB_STEADY} steady blocks, the 72000-tap IR (capacity "
+              f"grown to fdl {P}), {REVERB_AFTER} blocks; all but the first "
+              f"under sync debug mode 'error'; peak {peak:.4f}, {secs:.1f} "
+              f"s; card vs CPU {err_cpu:.3e}, vs float64 fftconvolve "
+              f"outside the fades {err_ref:.3e}, ragged tail vs CPU "
+              f"{err_tail:.3e} (each <= {REVERB_TOL:.0e} x peak); K1 "
+              f"launches {k1} (want {n_blocks - 1}: every block but the "
+              f"chord's), K1 y vs plain "
+              f"{k1_err:.3e}; FFTs per block {ffts}; checks {checks}")
+        check(all(checks.values()), f"assets reverb B={B}: {checks}")
+        kept_reverb[B] = (p, rv, dry)
+
+    # ---- timing: piano + reverb, the reverb alone; steady, in a fade,
+    # after the growth -------------------------------------------------
+    for B in ASSET_BLOCKS:
+        p, rv, dry = kept_reverb[B]
+        xb = dry[-1]
+
+        def both():
+            return rv.process_block(stream_inputs={
+                "x": p.process_block()["out"]})
+
+        def alone():
+            return rv.process_block(stream_inputs={"x": xb})
+
+        def swap():
+            rv.publish_asset("ir", AudioAsset.from_samples(ir2, int(SR)))
+        report("piano + reverb, after the growth", B, block_stats(both))
+        report("reverb alone, after the growth", B, block_stats(alone))
+        report("piano + reverb, in a fade (P=" + str(131072 // B) + ")", B,
+               block_stats(both, prep=swap))
+        report("reverb alone, in a fade", B, block_stats(alone, prep=swap))
+        q = build_electric_piano(VOICES).compile(SR, block_size=B,
+                                                 mode="block", device="cuda")
+        for i in range(VOICES):
+            q.queue_event("midi_in", 0,
+                          raw_midi_event([0x90, 36 + (i % 64), 100]))
+        r64 = reverb(B, "cuda")
+        r64.publish_asset("ir", AudioAsset.from_samples(ir1, int(SR)))
+        for _ in range(-(-2048 // B)):
+            r64.process_block(stream_inputs={"x": q.process_block()["out"]})
+        report(f"piano + reverb, steady (P={REVERB_CAP // B})", B,
+               block_stats(lambda: r64.process_block(stream_inputs={
+                   "x": q.process_block()["out"]})))
+        report("reverb alone, steady", B, block_stats(
+            lambda: r64.process_block(stream_inputs={"x": xb})))
+        report("piano alone, steady", B, block_stats(q.process_block))
+        del q, r64
+
+    # ---- 2. a sampler, a filter and a scope --------------------------
+    check(native.available(), "the native host library did not build")
+    t = np.arange(5 * 44100) / 44100.0
+    rng = np.random.default_rng(2)
+    stereo = np.stack([
+        0.5 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * rng.standard_normal(
+            len(t)),
+        0.5 * np.sin(2 * np.pi * 330.0 * t) + 0.1 * rng.standard_normal(
+            len(t))]).astype(np.float32)
+    asset = AudioAsset.from_samples(stereo, 44100)
+
+    def sampler(device, B=1024):
+        g = Graph("Sampler")
+        g.input("cutoff", "value", default=1500.0)
+        g.output("out", "stream")
+        g.external("sample")
+        sp = g.add("sp", SamplePlayer())
+        f = g.add("f", TptFilter(1500.0, 0.707))
+        sc = g.add("scope", Oscilloscope())
+        g.connect("sample", sp.buf)
+        g.connect("cutoff", f.cutoff)
+        g.connect(sp.output, f.input)
+        g.connect(f.output, sc.input)
+        g.connect(sc.output, "out")
+        c = g.compile(SR, block_size=B, device=device)
+        c.publish_asset("sample", asset)
+        ys = []
+        for i in range(SAMPLER_BLOCKS):
+            if i == 4:
+                c.set_value("cutoff", 800.0)
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(c.process_block()["out"])
+        return c, torch.cat(ys).cpu(), Oscilloscope.snapshot(
+            c.node_state("scope"))
+
+    reset_all()
+    seen = {}
+    fn7 = capture(nfilters, "tpt_svf_scan", seen)
+    try:
+        c_card, y_card, snap_card = sampler("cuda")
+    finally:
+        nfilters.tpt_svf_scan = fn7
+    k7 = kiir.launches["tpt_svf_scan"]
+    phase_launches["tpt_svf_scan"] += k7
+    a, kw = seen["tpt_svf_scan"]
+    k7_same = all(torch.equal(u, v) for u, v in zip(
+        fn7(*a, **kw), kiir.plain_tpt_svf_scan(*a, **kw)))
+    _, y_cpu, snap_cpu = sampler("cpu")
+    err = float((y_card - y_cpu).abs().max())
+    conformed = int(c_card.node_state("sp")["length"])
+    checks = {"native resampler": native.available(),
+              "conformed to 48 kHz": conformed == 240000,
+              "finite": bool(torch.isfinite(y_card).all()),
+              "peak": 0.05 < float(y_card.abs().max()) < 2.0,
+              "K7 one launch per block": k7 == SAMPLER_BLOCKS,
+              "K7 vs plain (torch.equal)": k7_same,
+              "card vs CPU": err <= SAMPLER_TOL,
+              "snapshot vs CPU": snap_card.shape == snap_cpu.shape
+              and float(np.abs(snap_card - snap_cpu).max()) <= SAMPLER_TOL}
+    phase("assets", f"sampler -> TptFilter -> scope B=1024: a 5 s stereo "
+          f"asset at 44.1 kHz conformed to {conformed} frames at 48 kHz "
+          f"(native resampler), {SAMPLER_BLOCKS} blocks (all but the first "
+          f"under sync debug mode 'error'), cutoff 800 Hz from block 4, "
+          f"card vs CPU {err:.3e} (<= {SAMPLER_TOL:.0e}), snapshot of "
+          f"{len(snap_card)} samples, tpt_svf_scan launches {k7} (want "
+          f"{SAMPLER_BLOCKS}); checks {checks}")
+    check(all(checks.values()), f"assets sampler: {checks}")
+    report("sampler -> filter -> scope, steady", 1024,
+           block_stats(c_card.process_block))
+
+    # ---- 3. checkpoint and bundle on the card ------------------------
+    B = 1024
+    p, rv, dry = kept_reverb[B]
+    x_next = [p.process_block()["out"] for _ in range(4)]
+    # the grown reverb, saved right after a swap (mid-fade), restored into
+    # a fresh graph at the grown capacity
+    rv.publish_asset("ir", AudioAsset.from_samples(ir1, int(SR)))
+    ck = f"{scratch}/reverb.pkl"
+    save_state(rv, ck)
+    fresh = reverb(B, "cuda", cap=1 << 17)
+    load_state(fresh, ck)
+    mirrors = [dict(fresh._mirrors["conv"])]
+    # a reverb at the grown capacity through a bundle: publish, a block,
+    # the swap to the 1.5 s IR, saved mid-fade
+    rb = reverb(B, "cuda", cap=1 << 17)
+    rb.publish_asset("ir", AudioAsset.from_samples(ir1, int(SR)))
+    for x in dry[:3]:
+        rb.process_block(stream_inputs={"x": x})
+    rb.publish_asset("ir", AudioAsset.from_samples(ir2, int(SR)))
+    save_bundle(rb, f"{scratch}/bundle")
+    loaded = load_bundle(f"{scratch}/bundle")
+    mirrors.append(dict(loaded._mirrors["conv"]))
+    runs = {}
+    for name, g in (("uninterrupted", rv), ("restored", fresh),
+                    ("bundle uninterrupted", rb), ("bundle loaded", loaded)):
+        with no_sync(True):
+            runs[name] = torch.cat([g.process_block(stream_inputs={"x": x})
+                                    ["out"] for x in x_next])
+    same_ck = torch.equal(runs["uninterrupted"], runs["restored"])
+    same_b = torch.equal(runs["bundle uninterrupted"], runs["bundle loaded"])
+    phase("assets", f"checkpoint of the grown reverb B={B} after a swap "
+          f"(mid-fade), restored into a fresh graph on the card: next 4 "
+          f"blocks equal (torch.equal) {same_ck}; bundle of a reverb saved "
+          f"mid-fade, load_bundle on the card: next 4 blocks equal "
+          f"{same_b}; restored fade mirrors {mirrors} (want fade_pos 0)")
+    check(same_ck and same_b and loaded.device.type == "cuda"
+          and mirrors == [{"fade_pos": 0}] * 2,
+          "assets: checkpoint or bundle resume differs")
+
+    # ---- 4. the Convolver in sample mode (depth cut: 2 blocks) -------
+    ir_s = reverb_ir(3, 3000)
+    x_s = torch.cat(dry).cpu().numpy()[:2 * B]
+    outs = {}
+    for label, device, mode in (("sample, card", "cuda", "sample"),
+                                ("block, card", "cuda", "block"),
+                                ("sample, CPU", "cpu", "sample")):
+        c = reverb(B, device, cap=4096, mode=mode)
+        c.publish_asset("ir", AudioAsset.from_samples(ir_s, int(SR)))
+        t0 = time.perf_counter()
+        ys = []
+        for i in range(2):
+            xi = x_s[i * B:(i + 1) * B]
+            xi = torch.as_tensor(xi, device=device)
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(c.process_block(stream_inputs={"x": xi})["out"])
+        outs[label] = torch.cat(ys).cpu()
+        if label == "sample, card":
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    peak = float(outs["sample, card"].abs().max())
+    e_block = float((outs["sample, card"] - outs["block, card"]).abs().max())
+    e_cpu = float((outs["sample, card"] - outs["sample, CPU"]).abs().max())
+    ok = (e_block <= REVERB_TOL * peak and e_cpu <= REVERB_TOL * peak
+          and peak > 0.01)
+    phase("assets", f"Convolver sample mode, capacity 4096, B={B}, 2 blocks "
+          f"(a 3000-tap IR faded in; the second under sync debug mode "
+          f"'error'), {secs:.1f} s: against block mode {e_block:.3e}, "
+          f"against the CPU {e_cpu:.3e} (<= {REVERB_TOL:.0e} x peak "
+          f"{peak:.4f}) {'ok' if ok else 'FAIL'}")
+    check(ok, "assets: Convolver sample mode disagrees")
+    phase("assets", f"K1 and K7 launches on the phase's paths: "
+          f"{phase_launches} ({card})")
+    return phase_launches
 
 
 def main() -> int:
@@ -2519,6 +2945,9 @@ def main() -> int:
     # ---- 4b. per_sample: sample mode and the scan islands ------------
     per_sample_launches = per_sample_phase(card)
 
+    # ---- 4c. assets: convolution, the sampler, checkpoints -----------
+    assets_phase(card)
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -3018,6 +3447,31 @@ def per_sample_only() -> int:
     return 0
 
 
+def assets_only() -> int:
+    """``python3 chip_smoke.py assets``: the build of the kernels that
+    phase launches (K1, K7), then the phase alone (no result lines)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+    from oscen_tpu_torch.ops.cuda import build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(build.load_library, ("additive", "iir")))
+    phase("build", "additive.cu and iir.cu built")
+    assets_phase(f"{torch.cuda.get_device_name(0)} ({smi})")
+    phase("total", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(per_sample_only() if sys.argv[1:] == ["per_sample"]
+    only = {"per_sample": per_sample_only, "assets": assets_only}
+    sys.exit(only[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in only
              else main())

@@ -49,7 +49,11 @@ in their signature, for what the compiler knows of them on the host:
   block-constant this block and whose value the host knows: literals and
   live graph parameters staged as ``[1]`` (the port's counterpart of the
   JAX package's ``CompiledGraph._host_input_value``; it replaces a device
-  predicate, so no block ever reads the card).
+  predicate, so no block ever reads the card);
+- ``host_mirror``: ``{leaf: int}``, the host's copy of the state leaves
+  the node names in ``HOST_MIRROR`` (the Convolver's ``fade_pos``), kept
+  by ``CompiledGraph`` through the node's ``mirror_step`` after every
+  publish and block; it too replaces a device predicate.
 """
 
 from __future__ import annotations
@@ -178,12 +182,14 @@ def _signature_kw(fn, names) -> frozenset:
 
 
 def make_block_fn(prog, block_len: int, literal_params=None,
-                  host_params=None):
+                  host_params=None, host_mirrors=None):
     """Build ``(state, per_block, ev_bufs) -> (state, out_blocks)``.
 
     ``literal_params``: values of the graph value inputs never set since
     compile (``literal_ins``); ``host_params``: a callable returning the
-    current host values of the graph value inputs (``host_ins``).  Raises
+    current host values of the graph value inputs (``host_ins``);
+    ``host_mirrors``: a callable returning ``{node: host mirror}``, read at
+    every call (``host_mirror``).  Raises
     ``NotImplementedError`` for a feedback island that spans a rate
     boundary (the reference restricts cross-rate feedback too)."""
     from ..nodes.delay import Delay
@@ -317,7 +323,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                     epi_static[name] = (epn, t)
     # the keyword arguments each node's block methods take, read from
     # their signatures as the JAX package does (block_mode.py:642-687)
-    host_kw = ("const_ins", "literal_ins", "host_ins")
+    host_kw = ("const_ins", "literal_ins", "host_ins", "host_mirror")
     block_kw = {name: _signature_kw(ir.nodes[name].node.process_block,
                                     host_kw)
                 for name in prog.device_nodes}
@@ -554,6 +560,9 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 kw["host_ins"] = {k: v for k, v in
                                   fold_eps(name, host_leaf).items()
                                   if k in value_eps}
+            if "host_mirror" in wanted:
+                kw["host_mirror"] = (host_mirrors() if host_mirrors
+                                     else {}).get(name)
             return kw
 
         def epilogue_for(name: str, Bn: int):

@@ -145,8 +145,9 @@ class Graph:
     def external(self, name: str) -> str:
         """Declare an external asset slot (reference ``external name:
         Type;``, ast.rs + lower.rs asset-binding pre-pass).  Bind it to a
-        node's asset input with ``connect(name, node.asset_endpoint)``.
-        (Publishing assets at run time is not ported yet: Slice F.)"""
+        node's asset input with ``connect(name, node.asset_endpoint)``;
+        publish into it at run time with ``CompiledGraph.publish_asset`` or
+        ``load_wav``."""
         if name in self._externals or name in self._nodes:
             raise GraphError(f"duplicate external '{name}'")
         self._externals.add(name)

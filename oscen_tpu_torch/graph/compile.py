@@ -92,10 +92,15 @@ def _round_capacity(n: int) -> int:
 # ===================================================================== #
 class _Program:
     def __init__(self, ir: IrGraph, sample_rate: float,
-                 device: torch.device):
+                 device: torch.device, block_size: Optional[int] = None):
         self.ir = ir
         self.sr = SampleRate(float(sample_rate))
         self.device = device
+        # block mode only: block-size-dependent state (init_block_state)
+        self.block_size = block_size
+        # the host copies of the state leaves a node names in HOST_MIRROR,
+        # as init_device_state built them
+        self.init_mirrors: Dict[str, Dict[str, int]] = {}
         # read-only constants of the per-sample loops, filled on the device
         # once (a fill per sample would be a launch per sample)
         self._consts: Dict[Any, torch.Tensor] = {}
@@ -159,8 +164,17 @@ class _Program:
         state: Dict[str, Any] = {}
         for name in self.device_nodes:
             inst = self.ir.nodes[name]
-            s = tree_map(lambda x: x.to(self.device),
-                         inst.node.init_state(self.scaled_sr(inst)))
+            s = inst.node.init_state(self.scaled_sr(inst))
+            # block-size-dependent extensions (the Convolver's FDL spectra
+            # and partition state); only in block mode
+            init_blk = getattr(inst.node, "init_block_state", None)
+            if init_blk is not None and self.block_size:
+                s = {**s, **init_blk(self.scaled_sr(inst),
+                                     int(self.block_size))}
+            mirror = getattr(inst.node, "HOST_MIRROR", ())
+            if mirror:   # read on the host, before the upload
+                self.init_mirrors[name] = {k: int(s[k]) for k in mirror}
+            s = tree_map(lambda x: x.to(self.device), s)
             if inst.count > 1:
                 s = tree_map(lambda x: x.expand(
                     (inst.count,) + tuple(x.shape)).clone(), s)
@@ -546,6 +560,7 @@ class CompiledGraph:
                 self._event_queues[gi.name] = []
 
         self.state = self.prog.init_device_state()
+        self._mirrors = copy.deepcopy(self.prog.init_mirrors)
         # block functions keyed on (block length, literal parameters)
         self._block_fns: Dict[Tuple[int, Tuple], Any] = {}
         # (literal parameters, their cache key); None after a setter
@@ -565,7 +580,9 @@ class CompiledGraph:
         self._block_fn(self.block_size)
 
     def _new_program(self) -> None:
-        self.prog = _Program(self.ir, self.sample_rate, self.device)
+        self.prog = _Program(
+            self.ir, self.sample_rate, self.device,
+            self.block_size if self.mode == "block" else None)
         # built in both modes, as in the JAX package: it rejects the graphs
         # the reference rejects (mixed inner rates, the down-then-up
         # diamond)
@@ -579,6 +596,7 @@ class CompiledGraph:
             self._new_program()
             self._block_fns.clear()
         self.state = self.prog.init_device_state()
+        self._mirrors = copy.deepcopy(self.prog.init_mirrors)
         self._control_dirty = True
         self._staging_cache.clear()
         self._host_steady.clear()
@@ -620,6 +638,68 @@ class CompiledGraph:
         self._control_dirty = True
         self._event_queues[name].append(
             EventInstance(int(frame_offset), payload))
+
+    # ------------------------------------------------------------------ #
+    # assets (publish -> take -> retire analogue; reference asset/mod.rs)
+    # ------------------------------------------------------------------ #
+    def publish_asset(self, external: str, a) -> None:
+        """Conform an AudioAsset to the graph rate and swap it into every
+        bound node's state between blocks (the control-thread publish).
+        The consumers build their new leaves on the host and copy them to
+        the card from pinned memory without waiting; nothing reads the
+        card, and the next blocks run as before (``_run_block``)."""
+        from ..assets import AssetError, AudioAsset
+
+        bindings = [b for b in self.ir.asset_bindings if b[0] == external]
+        if not bindings:
+            raise KeyError(f"unknown external asset '{external}'")
+        self._touch()
+        self._staging_cache.clear()
+        if not isinstance(a, AudioAsset):
+            raise AssetError("publish_asset expects an AudioAsset")
+        if a.sample_rate != int(self.sample_rate):
+            a = AudioAsset.from_samples(a.channels_data, a.sample_rate,
+                                        graph_rate=self.sample_rate)
+        for (_, node_name, endpoint) in bindings:
+            inst = self.ir.nodes[node_name]
+            node = inst.node
+            consume = getattr(node, "asset_consume", None)
+            if consume is None:
+                raise AssetError(
+                    f"node '{node_name}' has no asset consumer")
+            sr = self.prog.scaled_sr(inst)
+            if inst.count > 1:
+                # one published asset broadcast into every instance's
+                # state slot (reference asset wiring is generic over
+                # nodes, asset/mod.rs:309-320): consume once on instance
+                # 0, then broadcast the leaves the consumer replaced;
+                # leaves it left untouched (the same objects) keep their
+                # per-instance values
+                st = self.state[node_name]
+                first = tree_map(lambda x: x[0], st)
+                new_first = consume(first, a, sr)
+                cnt = inst.count
+
+                def merge(old_stacked, old_first, new_leaf):
+                    if new_leaf is old_first:   # untouched by consume
+                        return old_stacked
+                    return new_leaf[None].expand(
+                        (cnt,) + tuple(new_leaf.shape)).clone()
+                self.state[node_name] = tree_map(merge, st, first,
+                                                 new_first)
+            else:
+                self.state[node_name] = consume(
+                    self.state[node_name], a, sr)
+            if node_name in self._mirrors:
+                self._mirrors[node_name] = node.mirror_step(
+                    self._mirrors[node_name], sr, consumed=True)
+
+    def load_wav(self, external: str, path: str) -> None:
+        """Decode + conform + publish (reference AssetLoadHandle::load_wav,
+        asset/mod.rs:290-294)."""
+        from ..assets import AudioAsset
+        self.publish_asset(
+            external, AudioAsset.from_wav(path, graph_rate=self.sample_rate))
 
     # ------------------------------------------------------------------ #
     # host pre-pass (numpy; the same O(events) algorithm as the JAX
@@ -921,7 +1001,8 @@ class CompiledGraph:
         if fn is None:
             from .block_mode import make_block_fn
             fn = make_block_fn(self.prog, B, literal_params=lits,
-                               host_params=self._host_params)
+                               host_params=self._host_params,
+                               host_mirrors=lambda: self._mirrors)
             self._block_fns[key] = fn
         return fn
 
@@ -1044,6 +1125,16 @@ class CompiledGraph:
                    for k, b in ev_np.items()}
         return per_block, ev_bufs
 
+    def _run_block(self, B: int, per_block, ev_bufs) -> Dict[str, Any]:
+        """One call of the block function on the current state; then the
+        host mirrors advance by the block (each node by its own samples)."""
+        self.state, outs = self._block_fn(B)(self.state, per_block, ev_bufs)
+        for name, m in self._mirrors.items():
+            inst = self.ir.nodes[name]
+            self._mirrors[name] = inst.node.mirror_step(
+                m, self.prog.scaled_sr(inst), B * inst.rate)
+        return outs
+
     def process_block(self, block_len: Optional[int] = None,
                       stream_inputs: Optional[Dict[str, Any]] = None
                       ) -> Dict[str, Any]:
@@ -1052,18 +1143,14 @@ class CompiledGraph:
         B = int(block_len or self.block_size)
         steady = stream_inputs is None and self._control_steady()
         if steady and B in self._staging_cache:
-            per_block, ev_bufs = self._staging_cache[B]
-            self.state, outs = self._block_fn(B)(self.state, per_block,
-                                                 ev_bufs)
-            return dict(outs)
+            return dict(self._run_block(B, *self._staging_cache[B]))
         self._control_dirty = False  # staging below consumes everything
         ev_np, host_vals = self._host_prepass(B)
         per_block, ev_bufs = self._stage(B, ev_np, host_vals, stream_inputs)
         # a clean-entry block's staging reproduces verbatim until the
         # next control change: keep it on the device
         self._staging_cache = {B: (per_block, ev_bufs)} if steady else {}
-        self.state, outs = self._block_fn(B)(self.state, per_block, ev_bufs)
-        outs = dict(outs)
+        outs = dict(self._run_block(B, per_block, ev_bufs))
         outs.update(self._last_event_outs)
         return outs
 
@@ -1111,11 +1198,8 @@ class CompiledGraph:
         function; outputs stay on the device, concatenated in time."""
         B = int(block_len or self.block_size)
         per_block, ev_bufs = self._steady_staging(B)
-        fn = self._block_fn(B)
-        chunks = []
-        for _ in range(int(num_blocks)):
-            self.state, outs = fn(self.state, per_block, ev_bufs)
-            chunks.append(outs)
+        chunks = [self._run_block(B, per_block, ev_bufs)
+                  for _ in range(int(num_blocks))]
         return {k: torch.cat([c[k] for c in chunks], dim=0)
                 for k in (chunks[0] if chunks else {})}
 
@@ -1126,12 +1210,11 @@ class CompiledGraph:
         accumulated on the device and read once at the end."""
         B = int(block_len or self.block_size)
         per_block, ev_bufs = self._steady_staging(B)
-        fn = self._block_fn(B)
         stream_outs = [o.name for o in self.ir.outputs
                        if o.kind != Kind.EVENT]
         acc = torch.zeros((), dtype=torch.float32, device=self.device)
         for _ in range(int(num_blocks)):
-            self.state, outs = fn(self.state, per_block, ev_bufs)
+            outs = self._run_block(B, per_block, ev_bufs)
             acc = acc + sum(torch.sum(outs[nm] ** 2) for nm in stream_outs)
         return float(acc.item())
 
@@ -1163,10 +1246,11 @@ class CompiledGraph:
         state) are snapshotted and restored, so a later run is as if
         ``explain`` had not been called.  It costs one block of device
         time."""
+        from ..ops import conv
         from ..ops.cuda import launch_counters
         from . import explain as _explain
         B = int(block_len or self.block_size)
-        counters = launch_counters()
+        counters = launch_counters() + [conv.launches]
         saved_launches = [dict(c) for c in counters]
         saved_queues = {k: list(q) for k, q in self._event_queues.items()}
         saved_params = copy.deepcopy(self._params)

@@ -34,11 +34,9 @@ sinc_iir]``), inline delay vias (``-> [16] ->`` / ``-> [node] ->``),
 connection expressions with ``+ - * /`` and parentheses, ``external
 name;`` asset slots.
 
-What the port does not have yet fails where it would anyway: a node type
-it lacks (``Convolver``, ``SamplePlayer``, ``Oscilloscope``; ROADMAP.md
-queue 1) is an unknown type at parse time.  An inline via lowers to a
-``Delay`` with no ``min_delay`` promise, so its cycle runs as a per-sample
-scan island in block mode.
+A node type outside the registry is an unknown type at parse time.  An
+inline via lowers to a ``Delay`` with no ``min_delay`` promise, so its
+cycle runs as a per-sample scan island in block mode.
 """
 
 from __future__ import annotations

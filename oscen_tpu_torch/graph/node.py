@@ -58,6 +58,16 @@ def tree_map(fn: Callable, *trees, is_leaf=None):
     return fn(*trees)
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` without waiting for the card:
+    on CUDA it is copied from pinned memory, non-blocking (a copy from
+    pageable memory would wait for the card's queue first)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def select_tree(pred, on_true, on_false):
     """Elementwise tree select; ``pred`` broadcasts against each leaf from
     the left (a ``[C]`` predicate selects whole ``[C, ...]`` instances)."""
@@ -252,6 +262,23 @@ class HostNode(Node):
 
     def reset(self) -> None:
         """Return host state to its initial condition."""
+
+    def host_state(self):
+        """Snapshot this node's mutable control state (for checkpointing —
+        utils/checkpoint.py).  Default: a deep copy of the instance dict,
+        which covers plain-Python control state (LRU voice tables, current
+        note/frequency, counters)."""
+        import copy
+        return copy.deepcopy(self.__dict__)
+
+    def restore_host_state(self, snapshot) -> None:
+        """Restore a snapshot taken by :meth:`host_state`.  Endpoint
+        declarations (INPUTS/OUTPUTS) are structural config, not runtime
+        state, so they are excluded from the update."""
+        import copy
+        snap = {k: v for k, v in snapshot.items()
+                if k not in ("INPUTS", "OUTPUTS")}
+        self.__dict__.update(copy.deepcopy(snap))
 
 
 def scan_tick_block(node: Node, state: State, ins: Values,

@@ -3,8 +3,11 @@ version (the additive voice in all four versions and with the tremolo
 epilogue), the electric-piano (fused epilogue or not), poly-synth, FM and
 twin-peaks slices, an IIR-lowpass graph, the echo and the 4x saturators
 (sinc and IIR-halfband boundaries) on the card against the CPU, a synth
-chained into the echo through tensors on the card, and the card as the
-default device.
+chained into the echo through tensors on the card, the card as the
+default device, and the asset slice: a reverb whose steady blocks, publish
+and fade never wait for the card, a sampler into a filter and a scope
+against the CPU, checkpoint and bundle resumes on the card, and the
+streaming host's real-time claims.
 
 These tests carry the ``cuda`` marker and skip without a card.  This file
 imports no jax; on a machine with a card and no JAX run it with the JAX
@@ -1395,3 +1398,141 @@ def test_piano_steady_blocks_never_wait_for_the_card(cuda, version,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(o.device.type == "cuda" for o in outs)
+
+
+# ------------------------------------------------------------------ #
+# assets: the reverb, the sampler and scope, checkpoints, the host
+# ------------------------------------------------------------------ #
+def _reverb(device, B=256, cap=4096):
+    from oscen_tpu_torch import Convolver, Graph
+    g = Graph("Reverb")
+    g.input("x", "stream", channels=2)
+    g.output("out", "stream", channels=2)
+    g.external("ir")
+    cv = g.add("conv", Convolver(max_ir_len=cap, channels=2))
+    g.connect("ir", cv.ir)
+    g.connect("x", cv.input)
+    g.connect(cv.output, "out")
+    return g.compile(48000.0, block_size=B, device=device)
+
+
+def _ir(seed, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) * np.exp(-np.arange(n) / 2000.0)
+            * 0.05).astype(np.float32)
+
+
+def _reverb_run(c, x, B=256):
+    """A publish, 6 blocks, a growth swap (4096 -> 8192 taps), 6 blocks:
+    on the card every block after the first, the swap too, under sync
+    debug mode "error"."""
+    from oscen_tpu_torch import AudioAsset
+    on_card = c.device.type == "cuda"
+    c.publish_asset("ir", AudioAsset.from_samples(_ir(0, 3000), 48000))
+    ys = []
+    for i in range(12):
+        if on_card and i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if i == 6:
+                c.publish_asset("ir", AudioAsset.from_samples(_ir(1, 6000),
+                                                              48000))
+            ys.append(c.process_block(stream_inputs={
+                "x": x[i * B:(i + 1) * B]})["out"])
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+    return torch.cat(ys).cpu()
+
+
+def test_reverb_never_waits_and_matches_the_cpu(cuda):
+    """Steady blocks, a publish and its fade never wait for the card; the
+    card equals the CPU within 1e-5 x the peak; one rFFT and one irFFT a
+    block after the fade."""
+    from oscen_tpu_torch.ops import conv
+    x = np.random.default_rng(0).uniform(-1, 1, (12 * 256, 2)).astype(
+        np.float32)
+    card = _reverb_run(_reverb("cuda"), torch.as_tensor(x, device=cuda))
+    cpu = _reverb_run(_reverb("cpu"), x)
+    peak = float(cpu.abs().max())
+    assert float((card - cpu).abs().max()) <= 1e-5 * peak
+    c = _reverb("cuda")
+    _reverb_run(c, torch.as_tensor(x, device=cuda))
+    conv.reset_launches()
+    c.process_block(stream_inputs={"x": torch.as_tensor(x[:256],
+                                                        device=cuda)})
+    assert conv.launches == {"rfft": 1, "irfft": 1}
+
+
+def test_sampler_filter_scope_card_matches_cpu(cuda):
+    from oscen_tpu_torch import (AudioAsset, Graph, Oscilloscope,
+                                 SamplePlayer, TptFilter)
+
+    def run(device):
+        g = Graph("Sampler")
+        g.output("out", "stream")
+        g.external("buf")
+        sp = g.add("sp", SamplePlayer(capacity=1 << 14))
+        f = g.add("f", TptFilter(1200.0, 0.707))
+        sc = g.add("sc", Oscilloscope(capacity=512))
+        g.connect("buf", sp.buf)
+        g.connect(sp.output, f.input)
+        g.connect(f.output, sc.input)
+        g.connect(sc.output, "out")
+        c = g.compile(48000.0, block_size=256, device=device)
+        data = np.random.default_rng(1).uniform(-1, 1, (2, 5000)).astype(
+            np.float32)
+        c.publish_asset("buf", AudioAsset.from_samples(data, 44100))
+        ys = [c.process_block()["out"] for _ in range(8)]
+        return torch.cat(ys).cpu(), Oscilloscope.snapshot(
+            c.node_state("sc"))
+    (yc, sc), (yh, sh) = run("cuda"), run("cpu")
+    assert float((yc - yh).abs().max()) <= 1e-6
+    np.testing.assert_allclose(sc, sh, atol=1e-6, rtol=0)
+
+
+def test_reverb_checkpoint_and_bundle_resume_on_the_card(cuda, tmp_path):
+    from oscen_tpu_torch import AudioAsset
+    from oscen_tpu_torch.utils.bundle import load_bundle, save_bundle
+    from oscen_tpu_torch.utils.checkpoint import load_state, save_state
+    x = torch.as_tensor(np.random.default_rng(2).uniform(
+        -1, 1, (8 * 256, 2)).astype(np.float32), device=cuda)
+    c = _reverb("cuda")
+    c.publish_asset("ir", AudioAsset.from_samples(_ir(0, 3000), 48000))
+    for i in range(2):
+        c.process_block(stream_inputs={"x": x[i * 256:(i + 1) * 256]})
+    c.publish_asset("ir", AudioAsset.from_samples(_ir(1, 4000), 48000))
+    c.process_block(stream_inputs={"x": x[512:768]})   # mid-fade
+    save_state(c, str(tmp_path / "c.pkl"))
+    save_bundle(c, str(tmp_path / "b"))
+    fresh = _reverb("cuda")
+    load_state(fresh, str(tmp_path / "c.pkl"))
+    loaded = load_bundle(str(tmp_path / "b"))
+    assert fresh._mirrors == loaded._mirrors == {"conv": {"fade_pos": 256}}
+    outs = [torch.cat([g.process_block(stream_inputs={
+        "x": x[i * 256:(i + 1) * 256]})["out"] for i in range(3, 8)])
+        for g in (c, fresh, loaded)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_streaming_host_keeps_up_on_the_card(cuda):
+    """tests/test_streaming_host.py's real-time claims, on the card: a
+    block's submit-to-ready time (unpipelined) and the throughput beat the
+    block period, and with real-time pacing few deadlines are missed."""
+    from oscen_tpu_torch.models.poly_synth import build_poly_synth
+    from oscen_tpu_torch.utils.host import StreamingHost
+    synth = build_poly_synth(4).compile(48000.0, block_size=512,
+                                        device="cuda")
+    synth.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
+    synth.process_block()
+    synth.process_block()
+    fast = StreamingHost(synth, realtime=False, pipeline_depth=0)
+    audio = fast.run(0.5)
+    r = fast.report()
+    assert r["sustained_rtf"] > 1.0 and r["throughput_rtf"] > 1.0, r
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 0.01
+    paced = StreamingHost(synth, realtime=True)
+    paced.run(0.5, collect=False)
+    r = paced.report()
+    assert r["deadline_misses"] <= r["blocks"] // 4, r

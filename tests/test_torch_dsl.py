@@ -9,8 +9,10 @@ against the JAX package on the CPU.
   parsed render (tests/test_torch_poly_synth.py).
 - The ``Sat_1x`` / ``Sat_4x`` variants are within the saturator's 1e-6 of
   the JAX package's (tests/test_torch_echo_saturator.py).
-- What the port lacks fails where it would: a ``Convolver`` is an unknown
-  node type at parse time; an inline via runs (a scan island).
+- What the port lacks fails where it would: a type outside the registry
+  is an unknown node type at parse time; the ``Convolver`` (ported since
+  the asset slice) parses and renders as the JAX package's; an inline via
+  runs (a scan island).
 - ``Value``, ``AudioInput``, ``EventPassthrough``, ``EventQueue`` and the
   ``EventBuffer`` helpers against their JAX counterparts.
 """
@@ -198,15 +200,33 @@ def test_oversample_variants_match_jax():
 
 
 def test_what_the_port_lacks_fails_where_it_would():
-    """A Convolver (not ported yet) is an unknown type at parse time, with
-    the unknown-type message; an inline via, which lowers to a Delay with
+    """A type outside the registry is an unknown type at parse time, with
+    the unknown-type message, in both parsers; a Convolver (ported with
+    the assets) parses, binds its ``external`` and renders within 1e-5 of
+    the JAX package's parse; an inline via, which lowers to a Delay with
     no promise on a cycle, runs as a scan island and matches the JAX
     package's parse at 1e-6."""
-    src = "nodes { conv = Convolver::new(max_ir_len=64); }"
-    assert J.parse_graph(src) is not None
-    msg = _message(T.parse_graph, src)
-    assert msg == "DSL: unknown node type 'Convolver' (pass it in the " \
-                  "registry)"
+    bad = "nodes { conv = Reverb::new(max_ir_len=64); }"
+    msg = _message(T.parse_graph, bad)
+    assert msg == _message(J.parse_graph, bad) == \
+        "DSL: unknown node type 'Reverb' (pass it in the registry)"
+    src = """
+        input x: stream;
+        output out: stream;
+        external ir;
+        nodes { conv = Convolver::new(max_ir_len=64); }
+        connections { ir -> conv.ir; x -> conv.input; conv.output -> out; }
+    """
+    x = np.random.default_rng(0).uniform(-1, 1, 512).astype(np.float32)
+    ir = np.random.default_rng(1).uniform(-1, 1, 40).astype(np.float32)
+    outs = []
+    for pkg, kw in ((T, {"device": "cpu"}), (J, {})):
+        g = pkg.parse_graph(src)
+        assert g.lower().asset_bindings == [("ir", "conv", "ir")]
+        c = g.compile(SR, block_size=128, **kw)
+        c.publish_asset("ir", pkg.AudioAsset.from_samples(ir, 48000))
+        outs.append(np.asarray(c.render_mono(512, stream_inputs={"x": x})))
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-5, rtol=0)
     via = """
         output out: stream;
         nodes {

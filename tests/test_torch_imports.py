@@ -2,12 +2,14 @@
 (any ``import jax`` then raises) the package imports, and the electric
 piano, the poly synth, the README synth, the fm synth, the pivot, the twin
 peaks (fused and two-node), an IIR-lowpass graph, the echo, the
-saturators (sinc and IIR-halfband boundaries), a graph parsed from the DSL
-and the piano with the epilogue fusion and the v3 / v2 kernels build,
-compile and render on the CPU; the ablation kernels' modules
-(``ops/cuda/kabl.py``, ``ops/cuda/fractabl.py``) and every driver of
-``oscen_tpu_torch.tools`` import, and a variant of each runs, without jax,
-the JAX package or the JAX package's ``tools/``."""
+saturators (sinc and IIR-halfband boundaries), a graph parsed from the DSL,
+the piano with the epilogue fusion and the v3 / v2 kernels, a reverb
+(``Convolver``) and a sampler with a scope build, compile and render on
+the CPU, and a reverb goes through a checkpoint and a bundle; every module
+of ``oscen_tpu_torch.utils`` and ``oscen_tpu_torch.assets`` imports; the
+ablation kernels' modules (``ops/cuda/kabl.py``, ``ops/cuda/fractabl.py``)
+and every driver of ``oscen_tpu_torch.tools`` import, and a variant of
+each runs, without jax, the JAX package or the JAX package's ``tools/``."""
 
 import subprocess
 import sys
@@ -125,6 +127,49 @@ def test_port_imports_and_renders_without_jax():
         ph = torch.zeros(3, 8)
         assert fractabl.fract_layout("seg", ph, ph + 0.01, 64)[0].shape \
             == (64, 8)
+        import tempfile
+        from oscen_tpu_torch import (AudioAsset, Convolver, FloatParam,
+                                     NihParams, Oscilloscope, SamplePlayer,
+                                     TptFilter, nih_params)
+        from oscen_tpu_torch.ops import conv, offline_resample  # noqa
+        from oscen_tpu_torch.utils import (bundle, checkpoint, host,  # noqa
+                                           native, params, profile)
+        assert FloatParam and NihParams
+        n = np.random.default_rng(9).uniform(-1, 1, 512).astype("float32")
+        g = oscen_tpu_torch.Graph("Rv")
+        g.input("x", "stream", channels=2)
+        g.output("out", "stream", channels=2)
+        g.external("ir")
+        cv = g.add("cv", Convolver(max_ir_len=128, channels=2))
+        g.connect("ir", cv.ir)
+        g.connect("x", cv.input)
+        g.connect(cv.output, "out")
+        rv = g.compile(48000.0, block_size=64, device="cpu")
+        rv.publish_asset("ir", AudioAsset.from_samples(n[:100], 48000))
+        xs = np.stack([n, n], -1)
+        y = rv.render(256, stream_inputs={"x": xs}, tail=32)["out"]
+        assert y.shape == (288, 2) and abs(y).max() > 0.1
+        with tempfile.TemporaryDirectory() as d:
+            bundle.save_bundle(rv, d + "/b")
+            rv2 = bundle.load_bundle(d + "/b", device="cpu")
+            checkpoint.save_state(rv2, d + "/c.pkl")
+            checkpoint.load_state(rv, d + "/c.pkl")
+        g = oscen_tpu_torch.Graph("Sm")
+        g.output("out", "stream")
+        g.external("buf")
+        sp = g.add("sp", SamplePlayer(capacity=512))
+        f = g.add("f", TptFilter(2000.0, 0.7))
+        sc = g.add("sc", Oscilloscope(capacity=128))
+        g.connect("buf", sp.buf)
+        g.connect(sp.output, f.input)
+        g.connect(f.output, sc.input)
+        g.connect(sc.output, "out")
+        sm = g.compile(48000.0, block_size=64, device="cpu")
+        sm.publish_asset("buf", AudioAsset.from_samples(
+            np.stack([n[:300], n[:300]]), 44100, graph_rate=48000.0))
+        assert abs(sm.render_mono(256)).max() > 0.01
+        assert Oscilloscope.snapshot(sm.node_state("sc")).ndim == 1
+        assert nih_params(g).names() == []
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)
