@@ -169,6 +169,24 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             4 blocks ``torch.equal`` to the uninterrupted run; the Convolver
             in sample mode at a 4096-tap capacity, 2 blocks, against block
             mode and the CPU (<= 1e-5 x the peak);
+4d. voice_classes the 256-voice piano behind ``VoiceClassHost`` with
+            classes (64, 128, 256) at B=1024: 140 notes, steady blocks,
+            their release, the 0.2 s tail (an unheld note-off a block, so
+            the prepass runs), a down-switch to 64, 40 notes, 60 more (up
+            to 128), 60 more (up to 256), 3 steady blocks after each; every
+            block after the first, the switches too, under sync debug mode
+            "error"; K1 launched at V = 64, 128 and 256 and held against
+            its plain version on each class's last call (y <= 5e-5 x
+            sqrt(V) with the mix, state torch.equal); the card against the
+            port's class host on the CPU (<= 1e-4) and against the
+            full-capacity graph on the card (<= 2e-3 x peak / 15.94); K1's
+            device time per class and a steady block's wall, busy time and
+            device activities per class;
+    examples the seven ``oscen_tpu_torch/examples`` through ``main`` for
+            0.5 s on the card and on the CPU, at the model's card-vs-CPU
+            bound, each kernel of its path launched (K1; K6, K7; K6; K12,
+            K13; K15; none for the reverb) and held against its plain
+            version on the example's last call;
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
@@ -208,8 +226,8 @@ last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 ``python3 chip_smoke.py per_sample`` runs the per_sample phase alone
-(after building the kernels its block-mode references launch), with no
-result lines; ``python3 chip_smoke.py assets`` the assets phase.
+(after building the kernels it launches), with no result lines; so do
+``assets``, ``voice_classes`` and ``examples``.
 """
 
 from __future__ import annotations
@@ -1706,6 +1724,342 @@ def assets_phase(card):
     return phase_launches
 
 
+VC_CAPS = (64, 128, 256)   # the capacity classes of the 256-voice piano
+VC_B = 1024
+VC_TAIL = 0.2              # s after a release before a voice may be dropped
+VC_STEADY = 3              # steady blocks in each class
+# card against the full-capacity graph: tests/test_voice_classes.py's 2e-3
+# at the peak it measured, 15.94, scaled to this schedule's peak
+VC_FULL_TOL = 2e-3 / 15.94
+VC_MHZ = 1980.0            # the H100's top SM clock, for the chain floors
+
+
+def capture_calls(targets):
+    """Wrap each ``(module, name)`` of ``targets`` to keep its last call's
+    arguments by key; returns (seen, the wrapped functions by key, a
+    function that puts them back)."""
+    seen, originals = {}, {}
+    for key, (mod, name) in targets.items():
+        fn = getattr(mod, name)
+        originals[key] = (mod, name, fn)
+
+        def wrapped(*a, _fn=fn, _key=key, **kw):
+            seen.setdefault(_key, []).append((a, kw))
+            return _fn(*a, **kw)
+        setattr(mod, name, wrapped)
+
+    def restore():
+        for mod, name, fn in originals.values():
+            setattr(mod, name, fn)
+    return seen, {k: v[2] for k, v in originals.items()}, restore
+
+
+def k1_vs_plain(fn, a, kw):
+    """(max |y| error, states equal, max |y|) of K1 against its plain
+    version on a call the piano made; the y bound is Y_TOL, x sqrt(V) with
+    the mix."""
+    import torch
+    from oscen_tpu_torch.ops.cuda import additive as add
+    outs_k = fn(*a, **kw)
+    outs_p = add.plain_block(*a[:9], kw.get("with_mix", False), "v4")
+    err = float((outs_k[0] - outs_p[0]).abs().max())
+    same = all(torch.equal(u, v) for u, v in zip(outs_k[1:], outs_p[1:]))
+    return err, same, float(outs_k[0].abs().max())
+
+
+def voice_classes_phase(card):
+    """Phase ``voice_classes``: the 256-voice piano behind a
+    ``VoiceClassHost`` with classes (64, 128, 256) at B=1024, on a schedule
+    that switches 256 -> 64 -> 128 -> 256 at event blocks; every block after
+    the first (the switches too) under sync debug mode "error".  K1 against
+    its plain version on the calls it made at V = 64, 128 and 256; the card
+    against the port's class host on the CPU and against the full-capacity
+    graph on the card; K1's device time per class, and a steady block's
+    wall, busy time and device activities per class.  Returns the phase's
+    K1 launches."""
+    import torch
+    from oscen_tpu_torch import raw_midi_event, tools
+    from oscen_tpu_torch.models.electric_piano import build_electric_piano
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.utils.voice_classes import VoiceClassHost
+    piano_env("v4")
+    held = list(range(128)) + list(range(40, 52))        # 140 notes
+
+    def make(device):
+        return VoiceClassHost(build_electric_piano, capacities=VC_CAPS,
+                              sample_rate=SR, block_size=VC_B,
+                              tail_seconds=VC_TAIL, device=device)
+
+    def play(target, blocks, on_card):
+        ys = []
+        for i, evs in enumerate(blocks):
+            for e in evs:
+                target.queue_event("midi_in", 0, raw_midi_event(e))
+            with no_sync(on_card and i > 0):
+                ys.append(target.process_block()["out"])
+        return torch.cat(ys).cpu().numpy()
+
+    # ---- the schedule on the card, the blocks decided as it runs ------
+    reset_all()
+    t0 = time.perf_counter()
+    vc = make("cuda")
+    seen, fns, restore = capture_calls(
+        {"v4": (add, "additive_voice_block")})
+    blocks, caps, k1_by_cap, ys = [], [], {}, []
+
+    def step(evs):
+        n = len(seen.get("v4", []))
+        for e in evs:
+            vc.queue_event("midi_in", 0, raw_midi_event(e))
+        with no_sync(bool(blocks)):
+            ys.append(vc.process_block()["out"])
+        blocks.append(evs)
+        caps.append(vc.active_cap)
+        for a, _ in seen.get("v4", [])[n:]:
+            V = int(a[0].shape[-1])
+            k1_by_cap[V] = k1_by_cap.get(V, 0) + 1
+    try:
+        step([[0x90, k, 100] for k in held])                 # 256
+        for _ in range(VC_STEADY):
+            step([])
+        step([[0x80, k, 0] for k in held])
+        # the release tails count prepass blocks: an unheld note-off each
+        for _ in range(int(VC_TAIL * SR) // VC_B + 4):
+            step([[0x80, 0, 0]])
+            if vc.active_cap == 64:
+                break
+        step([[0x90, k, 100] for k in range(40, 80)])        # 40 in 64
+        for _ in range(VC_STEADY):
+            step([])
+        step([[0x90, k, 90] for k in range(20, 80)])         # -> 128
+        for _ in range(VC_STEADY):
+            step([])
+        step([[0x90, k, 80] for k in range(30, 90)])         # -> 256
+        for _ in range(VC_STEADY):
+            step([])
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    y_card = torch.cat(ys).cpu().numpy()
+    k1 = add.launches["v4"]
+    order = [c for i, c in enumerate(caps) if i == 0 or c != caps[i - 1]]
+    # ---- K1 against its plain version on each class's last call -------
+    k1_checks = {}
+    for V in VC_CAPS:
+        calls = [(a, kw) for a, kw in seen.get("v4", [])
+                 if int(a[0].shape[-1]) == V]
+        check(bool(calls), f"voice_classes: no K1 call at V={V} ({caps})")
+        a, kw = calls[-1]
+        err, same, y_max = k1_vs_plain(fns["v4"], a, kw)
+        check(y_max > 0.01, f"voice_classes: K1 at V={V} ran silent voices")
+        bound = Y_TOL * (math.sqrt(V) if kw.get("with_mix") else 1.0)
+        k1_checks[V] = (err, same, bound, a, kw)
+    # ---- the same blocks through the class host on the CPU and the
+    # full-capacity graph on the card ----------------------------------
+    y_cpu = play(make("cpu"), blocks, False)
+    full = build_electric_piano(VOICES).compile(SR, block_size=VC_B,
+                                                mode="block", device="cuda")
+    y_full = play(full, blocks, True)
+    peak = float(np.abs(y_full).max())
+    err_cpu = float(np.abs(y_card - y_cpu).max())
+    err_full = float(np.abs(y_card - y_full).max())
+    checks = {
+        "classes 256 -> 64 -> 128 -> 256": order == [256, 64, 128, 256],
+        "switches": vc.switches == 3,
+        "K1 at every class": all(k1_by_cap.get(V, 0) >= VC_STEADY
+                                 for V in VC_CAPS),
+        "K1 launches counted": k1 == sum(k1_by_cap.values()),
+        "finite": bool(np.isfinite(y_card).all()),
+        "card vs CPU class host": err_cpu <= MAIN_TOL,
+        "card vs full capacity": err_full <= VC_FULL_TOL * peak,
+    }
+    for V, (err, same, bound, _, _) in k1_checks.items():
+        checks[f"K1 V={V} y vs plain"] = err <= bound
+        checks[f"K1 V={V} state vs plain (torch.equal)"] = same
+    phase("voice_classes", f"piano 256 voices behind VoiceClassHost "
+          f"{VC_CAPS} B={VC_B}, tail {VC_TAIL} s: {len(blocks)} blocks, "
+          f"classes {caps}, {vc.switches} switches, every block after the "
+          f"first under sync debug mode 'error', {secs:.1f} s; K1 launches "
+          f"by V {k1_by_cap} (total {k1}); K1 vs plain "
+          + "; ".join(f"V={V} y {e:.3e} (<= {b:.1e}) state equal {s}"
+                      for V, (e, s, b, _, _) in k1_checks.items())
+          + f"; peak {peak:.3f}; card vs the CPU class host {err_cpu:.3e} "
+          f"(<= {MAIN_TOL:.0e}), vs the full-capacity graph {err_full:.3e} "
+          f"(<= {VC_FULL_TOL * peak:.3e}); checks {checks}")
+    check(all(checks.values()), f"voice_classes: {checks}")
+
+    # ---- K1's device time per class, and a steady block per class ----
+    for V in VC_CAPS:
+        _, _, _, a, kw = k1_checks[V]
+        B = int(a[8])
+        us = tools.device_ms(lambda: fns["v4"](*a, **kw), 50,
+                             kernel="additive_closed_kernel",
+                             note=lambda m: phase("voice_classes", m)) * 1e3
+        plain_us = tools.event_us(
+            lambda: add.plain_block(*a[:9], kw.get("with_mix", False),
+                                    "v4"), 3)
+        b = bound_of("v4", a[:8], fns["v4"](*a, **kw), B,
+                     int(a[0].shape[0]) * V)
+        segs = add.segments(V, B, add.subgroup_len(B, "v4"))
+        floor = tools.chain_floor_us("v4", B, VC_MHZ, segs)
+        phase("voice_classes", f"K1 V={V} B={B} with_mix "
+              f"{kw.get('with_mix')}: kernel {us:.2f} us (device), bound "
+              f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), chain floor "
+              f"{floor:.2f} us ({segs} segments at {VC_MHZ:.0f} MHz), plain "
+              f"PyTorch {plain_us:.1f} us ({card})")
+    from torch.profiler import ProfilerActivity, profile
+    for V in VC_CAPS:
+        p = build_electric_piano(V).compile(SR, block_size=VC_B,
+                                            mode="block", device="cuda")
+        for i in range(min(V, 60)):
+            p.queue_event("midi_in", 0,
+                          raw_midi_event([0x90, 36 + (i % 64), 100]))
+        p.process_block()
+        for _ in range(3):
+            p.process_block()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(9):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            p.process_block()
+            ev1.record()
+            torch.cuda.synchronize()
+            walls.append(ev0.elapsed_time(ev1))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                p.process_block()
+            torch.cuda.synchronize()
+        busy = acts = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+                acts += e.count
+        wall = float(np.median(walls)) * 1e3
+        busy /= 5.0
+        phase("voice_classes", f"steady piano block at {V} voices B={VC_B}:"
+              f" wall {wall:.1f} us (median of 9, CUDA events), device busy "
+              f"{busy:.1f} us ({100 * busy / wall:.1f}%), {acts / 5:.0f} "
+              f"device activities per block, real-time factor "
+              f"{(VC_B / SR) / (wall * 1e-6):.1f}x ({card})")
+    return {"v4": k1}
+
+
+EX_SECONDS = 0.5
+# the kernels each example's path launches (ops/cuda launch keys)
+EX_KERNELS = {
+    "electric_piano_demo": ("v4",),
+    "fm_synth_demo": ("fract_phase3", "fm_chain3_scan"),
+    "pivot_demo": ("pivot_chain3_scan",),
+    "oversampled_saturator": ("phase_scan",),
+    "render_convolution": (),
+    "simple_synth": ("phase_scan", "tpt_svf_scan"),
+    "streaming_host_demo": ("phase_scan", "tpt_svf_scan"),
+}
+
+
+def examples_phase(card, tmp):
+    """Phase ``examples``: each of the seven examples through its ``main``
+    for EX_SECONDS on the card and on the CPU, at the model's card-vs-CPU
+    bound (PERF.md section 2), with the launches of its kernels counted
+    over the card run, and each kernel held against its plain version on
+    the example's last call.  Returns the launches by kernel."""
+    import importlib
+    import torch
+    from oscen_tpu_torch.ops import conv as tconv
+    from oscen_tpu_torch.ops import scan as oscan
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.ops.cuda import fm as kfm
+    from oscen_tpu_torch.ops.cuda import iir as kiir
+    from oscen_tpu_torch.ops.cuda import phase as kphase
+    from oscen_tpu_torch.models import fm_synth as mfm
+    from oscen_tpu_torch.models import pivot as mpivot
+    from oscen_tpu_torch.nodes import filters as nfilters
+    from oscen_tpu_torch.ops.cuda import launch_counters
+    piano_env("v4")
+    targets = {"v4": (add, "additive_voice_block"),
+               "phase_scan": (oscan, "phase_scan"),
+               "tpt_svf_scan": (nfilters, "tpt_svf_scan"),
+               "fm_chain3_scan": (mfm, "fm_chain3_scan"),
+               "pivot_chain3_scan": (mpivot, "pivot_chain3_scan")}
+    plains = {"phase_scan": kphase.plain_phase_scan,
+              "tpt_svf_scan": kiir.plain_tpt_svf_scan,
+              "fm_chain3_scan": kfm.plain_fm_chain3_scan,
+              "pivot_chain3_scan": kfm.plain_pivot_chain3_scan}
+    totals = {}
+    tol = {"electric_piano_demo": MAIN_TOL, "fm_synth_demo": POLY_TOL,
+           "pivot_demo": POLY_TOL, "simple_synth": POLY_TOL,
+           "streaming_host_demo": POLY_TOL}
+    s = str(EX_SECONDS)
+    for name, kernels in EX_KERNELS.items():
+        ex = importlib.import_module(f"oscen_tpu_torch.examples.{name}")
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = f"{tmp}/{name}_{dev}"
+            argv = {"streaming_host_demo": [s, "--out", out + ".wav"],
+                    "render_convolution": ["", out + ".wav", "--seconds",
+                                           str(EX_SECONDS / 2), "--tail",
+                                           str(EX_SECONDS / 2)],
+                    "oversampled_saturator": [out, "--seconds", s]
+                    }.get(name, [out + ".wav", "--seconds", s])
+            if dev == "cuda":
+                reset_all()
+                tconv.reset_launches()
+                seen, fns, restore = capture_calls(targets)
+            t0 = time.perf_counter()
+            try:
+                outs[dev] = ex.main(argv + ["--device", dev])
+            finally:
+                if dev == "cuda":
+                    restore()
+            secs[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                counts = {k: v for c in launch_counters() for k, v in c.items()
+                          if v}
+                ffts = dict(tconv.launches)
+        # each kernel against its plain version on the example's last call
+        vs_plain = {}
+        for key, calls in seen.items():
+            a, kw = calls[-1]
+            if key == "v4":
+                err, same, _ = k1_vs_plain(fns[key], a, kw)
+                V = int(a[0].shape[-1])
+                vs_plain[key] = same and err <= Y_TOL * (
+                    math.sqrt(V) if kw.get("with_mix") else 1.0)
+            else:
+                vs_plain[key] = all(torch.equal(u, v) for u, v in zip(
+                    fns[key](*a, **kw), plains[key](*a)))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        got, want = outs["cuda"], outs["cpu"]
+        peak = float(np.abs(want).max())
+        bound = tol.get(name, TWIN_TOL * max(peak, 1.0))
+        if name == "render_convolution":
+            bound = REVERB_TOL * peak
+        err = float(np.abs(got - want).max())
+        checks = {"shape": got.shape == want.shape,
+                  "finite": bool(np.isfinite(got).all()),
+                  "not silent": peak > 0.01,
+                  "card vs CPU": err <= bound,
+                  "its kernels launched": all(counts.get(k, 0) > 0
+                                              for k in kernels),
+                  "kernels vs plain": all(vs_plain.values())}
+        if name == "render_convolution":
+            checks["no kernel, cuFFT only"] = (not counts
+                                               and ffts.get("rfft", 0) > 0)
+        phase("examples", f"{name} {EX_SECONDS} s: card {secs['cuda']:.1f} "
+              f"s, CPU {secs['cpu']:.1f} s; peak {peak:.4f}, card vs CPU "
+              f"{err:.3e} (<= {bound:.1e}); launches {counts}, FFT calls "
+              f"{ffts}; kernels vs plain on the last call {vs_plain}; "
+              f"checks {checks}")
+        check(all(checks.values()), f"examples {name}: {checks}")
+    phase("examples", f"launches on the examples' paths: {totals} ({card})")
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2948,6 +3302,9 @@ def main() -> int:
     # ---- 4c. assets: convolution, the sampler, checkpoints -----------
     assets_phase(card)
 
+    # ---- 4d. voice-capacity classes; the seven examples ---------------
+    later_launches = [voice_classes_phase(card), examples_in_tmp(card)]
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -3390,6 +3747,11 @@ def main() -> int:
     path_launches["allpass_cascade_scan"] = sat_launches[
         ("sinc_iir", "allpass_cascade_scan")] + per_sample_launches[
         "allpass_cascade_scan"]
+    # the class host's and the examples' paths
+    for got in later_launches:
+        for k, n in got.items():
+            if k in path_launches:
+                path_launches[k] += n
     # the ablation kernels are on no model's main path
     path_launches.update({k: 0 for k in ABLATION_KERNELS})
     sources.update(ABLATION_KERNELS)
@@ -3422,10 +3784,9 @@ def main() -> int:
     return 0
 
 
-def per_sample_only() -> int:
-    """``python3 chip_smoke.py per_sample``: the build of the kernels that
-    phase's block-mode references launch, then the phase alone (no result
-    lines)."""
+def phase_only(libs, run) -> int:
+    """One phase alone: the build of the kernels it launches (``libs``,
+    in parallel), then ``run(card)``; no result lines."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -3438,40 +3799,28 @@ def per_sample_only() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(build.load_library, ("additive", "phase", "iir")))
-    phase("build", "additive.cu, phase.cu and iir.cu built")
-    per_sample_phase(f"{torch.cuda.get_device_name(0)} ({smi})")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(build.load_library, libs))
+    phase("build", ", ".join(f"{n}.cu" for n in libs) + " built")
+    run(f"{torch.cuda.get_device_name(0)} ({smi})")
     phase("total", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     return 0
 
 
-def assets_only() -> int:
-    """``python3 chip_smoke.py assets``: the build of the kernels that
-    phase launches (K1, K7), then the phase alone (no result lines)."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from concurrent.futures import ThreadPoolExecutor
-    from oscen_tpu_torch.ops.cuda import build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(build.load_library, ("additive", "iir")))
-    phase("build", "additive.cu and iir.cu built")
-    assets_phase(f"{torch.cuda.get_device_name(0)} ({smi})")
-    phase("total", "seconds by phase: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
-    return 0
+def examples_in_tmp(card):
+    import tempfile
+    return examples_phase(card, tempfile.mkdtemp(prefix="oscen_examples_"))
+
+
+# ``python3 chip_smoke.py <phase>``: that phase alone, after building the
+# kernels it launches
+ONLY = {"per_sample": (("additive", "phase", "iir"), per_sample_phase),
+        "assets": (("additive", "iir"), assets_phase),
+        "voice_classes": (("additive",), voice_classes_phase),
+        "examples": (("additive", "phase", "iir", "fm"), examples_in_tmp)}
 
 
 if __name__ == "__main__":
-    only = {"per_sample": per_sample_only, "assets": assets_only}
-    sys.exit(only[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in only
-             else main())
+    sys.exit(phase_only(*ONLY[sys.argv[1]]) if sys.argv[1:2]
+             and sys.argv[1] in ONLY else main())

@@ -45,6 +45,9 @@ in their signature, for what the compiler knows of them on the host:
   ``+ - * /`` of them, and graph parameters never set since compile
   (``CompiledGraph._literal_params``; the first setter rebuilds the block
   function without them);
+- ``folded_ins``: the part of ``literal_ins`` that holds no graph
+  parameter: the values XLA folds at compile time in the JAX package,
+  where a never-set parameter stays a runtime operand;
 - ``host_ins``: ``{endpoint: float}`` of value inputs that are
   block-constant this block and whose value the host knows: literals and
   live graph parameters staged as ``[1]`` (the port's counterpart of the
@@ -323,7 +326,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                     epi_static[name] = (epn, t)
     # the keyword arguments each node's block methods take, read from
     # their signatures as the JAX package does (block_mode.py:642-687)
-    host_kw = ("const_ins", "literal_ins", "host_ins", "host_mirror")
+    host_kw = ("const_ins", "literal_ins", "folded_ins", "host_ins",
+               "host_mirror")
     block_kw = {name: _signature_kw(ir.nodes[name].node.process_block,
                                     host_kw)
                 for name in prog.device_nodes}
@@ -367,6 +371,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     # literals depend on the graph and literal_params alone
     literals = {name: fold_eps(name, literal_leaf)
                 for name in prog.device_nodes}
+    folded = {name: fold_eps(name, lambda ref: None)
+              for name in prog.device_nodes}
 
     def payload_shape(ep):
         return ep.shape if ep.shape else (
@@ -554,6 +560,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 kw["const_ins"] = const_eps(name)
             if "literal_ins" in wanted:
                 kw["literal_ins"] = literals[name]
+            if "folded_ins" in wanted:
+                kw["folded_ins"] = folded[name]
             if "host_ins" in wanted:
                 value_eps = {ep.name for ep in ir.nodes[name].node.INPUTS
                              if ep.kind == Kind.VALUE}

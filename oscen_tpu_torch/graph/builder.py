@@ -971,17 +971,19 @@ class Graph:
 
     # ------------------------------------------------------------------ #
     def compile(self, sample_rate: float = 44100.0, block_size: int = 512,
-                mode: str = "block", device="cuda"):
+                mode: str = "block", jit: bool = True, device="cuda"):
         """Compile to a :class:`CompiledGraph` whose state and blocks live
         on ``device``: the CUDA card by default (without a card this
         raises), or ``"cpu"`` when asked for.  ``mode="block"`` (the
         default here, as in the JAX package) runs time-vectorized blocks;
         ``mode="sample"`` runs the reference's per-sample schedule, one
-        eager step per sample (``CompiledGraph``'s own default)."""
+        eager step per sample (``CompiledGraph``'s own default).  ``jit`` is
+        accepted for the JAX package's signature and has no meaning here:
+        the port runs its block functions eagerly."""
         from .compile import CompiledGraph
         ir = self.lower()
         return CompiledGraph(ir, sample_rate=sample_rate,
-                             block_size=block_size, mode=mode,
+                             block_size=block_size, mode=mode, jit=jit,
                              device=device)
 
     def param_specs(self) -> Dict[str, ParamSpec]:

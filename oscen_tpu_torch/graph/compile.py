@@ -536,11 +536,13 @@ class CompiledGraph:
     is a nested dict of tensors on ``device`` with the JAX state's keys:
     the CUDA card unless the caller passes ``device="cpu"``.  ``mode`` is
     ``"sample"`` (the default, as in the JAX package) or ``"block"``.
+    ``jit`` is accepted for the JAX package's signature and has no meaning
+    here: the port runs its block functions eagerly.
     """
 
     def __init__(self, ir: IrGraph, sample_rate: float = 44100.0,
                  block_size: int = DEFAULT_MAX_BLOCK_SIZE,
-                 mode: str = "sample", device="cuda"):
+                 mode: str = "sample", jit: bool = True, device="cuda"):
         if mode not in ("sample", "block"):
             raise ValueError(f"unknown mode {mode!r}")
         self.device = resolve_device(device)
@@ -559,7 +561,7 @@ class CompiledGraph:
             elif gi.kind == Kind.EVENT:
                 self._event_queues[gi.name] = []
 
-        self.state = self.prog.init_device_state()
+        self._state = self.prog.init_device_state()
         self._mirrors = copy.deepcopy(self.prog.init_mirrors)
         # block functions keyed on (block length, literal parameters)
         self._block_fns: Dict[Tuple[int, Tuple], Any] = {}
@@ -579,6 +581,40 @@ class CompiledGraph:
         # boundary) fails at compile time
         self._block_fn(self.block_size)
 
+    @property
+    def state(self) -> Dict[str, Any]:
+        """The graph's state: a nested dict of tensors on ``device``."""
+        return self._state
+
+    @state.setter
+    def state(self, new: Dict[str, Any]) -> None:
+        """Take a state whose leaves may be numpy arrays (a JAX state mapped
+        with ``np.asarray``, a saved checkpoint) or tensors on another
+        device: each such leaf becomes a tensor on this graph's device,
+        float leaves float32, integer and bool leaves in their own dtype (as
+        ``utils.convert.state_from_jax`` does).  A numpy leaf is copied from
+        pinned memory without waiting for the card; a tensor already on the
+        device is kept as it is.  The blocks themselves write ``_state``."""
+        self._state = tree_map(self._state_leaf, new)
+
+    def _state_leaf(self, x):
+        if isinstance(x, torch.Tensor):
+            if self._holds(x):
+                return x
+            x = x.detach()
+            if x.is_floating_point() and x.dtype != torch.float32:
+                x = x.to(torch.float32)
+            if x.device.type == "cpu" and self.device.type == "cuda":
+                x = x.pin_memory()
+            return x.to(self.device, non_blocking=True)
+        a = np.asarray(x)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        t = torch.from_numpy(np.array(a, copy=True, order="C"))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _new_program(self) -> None:
         self.prog = _Program(
             self.ir, self.sample_rate, self.device,
@@ -595,7 +631,7 @@ class CompiledGraph:
             self.sample_rate = float(sample_rate)
             self._new_program()
             self._block_fns.clear()
-        self.state = self.prog.init_device_state()
+        self._state = self.prog.init_device_state()
         self._mirrors = copy.deepcopy(self.prog.init_mirrors)
         self._control_dirty = True
         self._staging_cache.clear()
@@ -675,7 +711,7 @@ class CompiledGraph:
                 # 0, then broadcast the leaves the consumer replaced;
                 # leaves it left untouched (the same objects) keep their
                 # per-instance values
-                st = self.state[node_name]
+                st = self._state[node_name]
                 first = tree_map(lambda x: x[0], st)
                 new_first = consume(first, a, sr)
                 cnt = inst.count
@@ -685,11 +721,11 @@ class CompiledGraph:
                         return old_stacked
                     return new_leaf[None].expand(
                         (cnt,) + tuple(new_leaf.shape)).clone()
-                self.state[node_name] = tree_map(merge, st, first,
+                self._state[node_name] = tree_map(merge, st, first,
                                                  new_first)
             else:
-                self.state[node_name] = consume(
-                    self.state[node_name], a, sr)
+                self._state[node_name] = consume(
+                    self._state[node_name], a, sr)
             if node_name in self._mirrors:
                 self._mirrors[node_name] = node.mirror_step(
                     self._mirrors[node_name], sr, consumed=True)
@@ -1128,7 +1164,8 @@ class CompiledGraph:
     def _run_block(self, B: int, per_block, ev_bufs) -> Dict[str, Any]:
         """One call of the block function on the current state; then the
         host mirrors advance by the block (each node by its own samples)."""
-        self.state, outs = self._block_fn(B)(self.state, per_block, ev_bufs)
+        self._state, outs = self._block_fn(B)(self._state, per_block,
+                                              ev_bufs)
         for name, m in self._mirrors.items():
             inst = self.ir.nodes[name]
             self._mirrors[name] = inst.node.mirror_step(
@@ -1220,7 +1257,7 @@ class CompiledGraph:
 
     def node_state(self, name: str):
         """A node's current state (nested dict of tensors)."""
-        return self.state[name]
+        return self._state[name]
 
     def latency_samples(self) -> int:
         """Total base-rate latency of the cross-rate Down edges (reference
@@ -1266,7 +1303,7 @@ class CompiledGraph:
         try:
             per_block, ev_bufs = self._steady_staging(B)
             with _explain.recording(entries):
-                self._block_fn(B)(self.state, per_block, ev_bufs)
+                self._block_fn(B)(self._state, per_block, ev_bufs)
         finally:
             for k, evs in saved_queues.items():
                 self._event_queues[k][:] = evs

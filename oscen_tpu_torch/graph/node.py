@@ -199,6 +199,22 @@ class Node:
         (:func:`scan_tick_block`) — always correct, not always fast."""
         return scan_tick_block(self, state, ins, events, sr, block_len)
 
+    def default_inputs(self) -> Values:
+        """Every stream and value input's default: a float32 0-d tensor for
+        a scalar input, ``torch.full(shape or (channels,), default)``
+        otherwise.  The tensors lie on the CPU (a node has no device; the
+        compiler stages inputs on its own)."""
+        out = {}
+        for e in self.INPUTS:
+            if e.kind in (Kind.STREAM, Kind.VALUE):
+                d = e.default
+                if e.shape or e.channels > 1:
+                    shape = e.shape if e.shape else (e.channels,)
+                    out[e.name] = torch.full(shape, d, dtype=torch.float32)
+                else:
+                    out[e.name] = torch.tensor(d, dtype=torch.float32)
+        return out
+
     def __repr__(self) -> str:  # pragma: no cover
         return f"{type(self).__name__}()"
 

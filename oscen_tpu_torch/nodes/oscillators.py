@@ -72,6 +72,26 @@ _NAIVE_WAVEFORMS = {
 }
 
 
+def _increment(frequency, sr_hz, folded_ins, clamp):
+    """Phase increment per sample, ``frequency / sr`` as the JAX package
+    computes it: a runtime frequency is divided by the product with the
+    float32 reciprocal (XLA's form, ``fmath.div_const``); a literal one
+    (an unconnected default, a ``Const``; ``folded_ins`` holds both the
+    frequency and its modulation) XLA folds at compile time with a true
+    float32 division, and so does this on the host.  The two differ by an
+    ulp at rates such as 44.1 kHz, enough for a saw's phase to drift."""
+    sr_hz = max(sr_hz, F32_EPS)
+    if folded_ins and "frequency" in folded_ins \
+            and "frequency_mod" in folded_ins:
+        f = np.float32(folded_ins["frequency"]) * (
+            np.float32(1.0) + np.float32(folded_ins["frequency_mod"]))
+        if clamp:
+            f = max(f, np.float32(0.0))
+        return torch.full_like(frequency,
+                               float(np.float32(f) / np.float32(sr_hz)))
+    return fmath.div_const(frequency, sr_hz)
+
+
 def _phase_state():
     return {"phase": torch.tensor(0.0, dtype=torch.float32)}
 
@@ -117,9 +137,10 @@ class Oscillator(Node):
         phase = state["phase"] + fmath.div_const(frequency, sr.hz)
         return {"phase": _rust_rem(phase)}, {"output": out}
 
-    def process_block(self, state, ins, events, sr, block_len):
-        dt = fmath.div_const(
-            ins["frequency"] * (1.0 + ins["frequency_mod"]), sr.hz)  # [C, B]
+    def process_block(self, state, ins, events, sr, block_len,
+                      folded_ins=None):
+        dt = _increment(ins["frequency"] * (1.0 + ins["frequency_mod"]),
+                        sr.hz, folded_ins, clamp=False)  # [C, B]
         # The reference keeps the phase in (-1, 1) by a truncated
         # remainder; for non-negative frequencies floor- and trunc-wrap
         # coincide, so the exact scan equals the per-sample tick.
@@ -228,10 +249,11 @@ class PolyBlepOscillator(Node):
         return ({"phase": _wrap_phase(state["phase"] + fps)},
                 {"output": val * ins["amplitude"]})
 
-    def process_block(self, state, ins, events, sr, block_len):
+    def process_block(self, state, ins, events, sr, block_len,
+                      folded_ins=None):
         frequency = torch.clamp_min(
             ins["frequency"] * (1.0 + ins["frequency_mod"]), 0.0)  # [C, B]
-        fps = fmath.div_const(frequency, max(sr.hz, F32_EPS))
+        fps = _increment(frequency, sr.hz, folded_ins, clamp=True)
         before, carry = exact_wrapped_phase(state["phase"], fps.t())
         pulse_width = torch.clamp(ins["pulse_width"], 0.0001, 0.9999)
         phase = _wrap_phase(before.t() + ins["phase_mod"])
@@ -239,10 +261,12 @@ class PolyBlepOscillator(Node):
         val = self._synthesize(phase, dt, pulse_width, frequency, sr.hz)
         return {"phase": carry}, {"output": val * ins["amplitude"]}
 
-    def process_block_batched(self, state, ins, events, sr, block_len):
+    def process_block_batched(self, state, ins, events, sr, block_len,
+                              folded_ins=None):
         """All voices at once with the exact per-sample phase wrap: ONE
         ``phase_scan`` over the instances (the kernel on the card), then the
         polyBLEP synthesis time-parallel on the exact phases.  The same
         function as :meth:`process_block`, which is already batched."""
         explain.note(kernel="phase_scan")
-        return self.process_block(state, ins, events, sr, block_len)
+        return self.process_block(state, ins, events, sr, block_len,
+                                  folded_ins)

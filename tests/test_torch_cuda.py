@@ -7,7 +7,9 @@ chained into the echo through tensors on the card, the card as the
 default device, and the asset slice: a reverb whose steady blocks, publish
 and fade never wait for the card, a sampler into a filter and a scope
 against the CPU, checkpoint and bundle resumes on the card, and the
-streaming host's real-time claims.
+streaming host's real-time claims; the voice-class piano against the CPU
+and its switches under sync debug mode "error", a numpy state taken
+without a wait, and the seven examples against the CPU.
 
 These tests carry the ``cuda`` marker and skip without a card.  This file
 imports no jax; on a machine with a card and no JAX run it with the JAX
@@ -1536,3 +1538,111 @@ def test_streaming_host_keeps_up_on_the_card(cuda):
     paced.run(0.5, collect=False)
     r = paced.report()
     assert r["deadline_misses"] <= r["blocks"] // 4, r
+
+
+# ------------------------------------------------------------------ #
+# voice-capacity classes, the state setter and the examples
+# ------------------------------------------------------------------ #
+def _class_schedule(vc, blocks=16, sync_check=False):
+    """Ten notes struck and released, a down-switch, two notes, eight more
+    (an up-switch); a note-off of an unheld key on every block runs the
+    prepass.  From the second block on, with ``sync_check``, every block
+    and every switch runs under sync debug mode "error"."""
+    outs, caps = [], []
+    for i in range(blocks):
+        evs = []
+        if i == 0:
+            evs = [[0x90, 50 + j, 100] for j in range(10)]
+        elif i == 1:
+            evs = [[0x80, 50 + j, 0] for j in range(10)]
+        elif i == 8:
+            evs = [[0x90, 70 + j, 100] for j in range(2)]
+        elif i == 11:
+            evs = [[0x90, 80 + j, 100] for j in range(8)]
+        for e in evs:
+            vc.queue_event("midi_in", 0, raw_midi_event(e))
+        vc.queue_event("midi_in", 0, raw_midi_event([0x80, 20, 0]))
+        on = sync_check and i > 0
+        if on:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(vc.process_block()["out"])
+        finally:
+            if on:
+                torch.cuda.set_sync_debug_mode("default")
+        caps.append(vc.active_cap)
+    return torch.cat(outs).cpu().numpy(), caps
+
+
+def test_voice_classes_on_card_match_cpu(cuda):
+    """The class host on the card against the same on the CPU: the same
+    switches, the piano's card-vs-CPU bound (1e-4), K1 at both classes."""
+    from oscen_tpu_torch.utils.voice_classes import VoiceClassHost
+    kw = dict(capacities=(4, 16), block_size=256, tail_seconds=0.02)
+    add.reset_launches()
+    card = VoiceClassHost(build_electric_piano, device="cuda", **kw)
+    a, caps_a = _class_schedule(card)
+    k1 = add.launches["v4"]
+    b, caps_b = _class_schedule(VoiceClassHost(build_electric_piano,
+                                               device="cpu", **kw))
+    assert caps_a == caps_b and 4 in caps_a and card.switches >= 2
+    assert k1 > 0
+    assert np.abs(b).max() > 1.0
+    np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+def test_voice_class_switches_never_wait_for_the_card(cuda):
+    """Every block after the first, the switches' permutations and state
+    moves included, under sync debug mode "error"."""
+    from oscen_tpu_torch.utils.voice_classes import VoiceClassHost
+    vc = VoiceClassHost(build_electric_piano, capacities=(4, 16),
+                        block_size=256, tail_seconds=0.02, device="cuda")
+    _, caps = _class_schedule(vc, sync_check=True)
+    assert vc.switches >= 2 and caps[-1] == 16
+
+
+def test_state_setter_takes_numpy_without_waiting(cuda):
+    """A state of numpy leaves goes to the card from pinned memory without
+    a wait, and the graph resumes bit for bit."""
+    from oscen_tpu_torch.graph.node import tree_map
+    from oscen_tpu_torch.models.simple import build_simple_synth
+    c = build_simple_synth().compile(48000.0, block_size=256,
+                                     device="cuda")
+    c.render_mono(512)
+    saved = tree_map(lambda x: x.cpu().numpy(), c.state)
+    a = c.render_mono(512)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c.state = saved
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_array_equal(c.render_mono(512), a)
+
+
+@pytest.mark.parametrize("name", [
+    "electric_piano_demo", "fm_synth_demo", "pivot_demo",
+    "oversampled_saturator", "render_convolution", "simple_synth",
+    "streaming_host_demo"])
+def test_examples_on_card_match_cpu(cuda, name, tmp_path):
+    """Each example for 0.05 s on the card and on the CPU: the piano at
+    1e-4, the FM models at 1e-5, the rest at 1e-6 x the peak (PERF.md
+    section 2)."""
+    import importlib
+    ex = importlib.import_module(f"oscen_tpu_torch.examples.{name}")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        if name == "streaming_host_demo":
+            argv = ["0.05", "--out", str(tmp_path / f"{dev}.wav")]
+        elif name == "render_convolution":
+            argv = ["", str(tmp_path / f"{dev}.wav"), "--seconds", "0.025",
+                    "--tail", "0.025"]
+        else:
+            argv = [str(tmp_path / dev), "--seconds", "0.05"]
+        outs[dev] = ex.main(argv + ["--device", dev])
+    peak = float(np.abs(outs["cpu"]).max())
+    tol = {"electric_piano_demo": 1e-4, "fm_synth_demo": 1e-5,
+           "pivot_demo": 1e-5}.get(name, 1e-6 * max(peak, 1.0))
+    assert peak > 0.01
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=tol, rtol=0)

@@ -181,3 +181,49 @@ def test_port_imports_and_renders_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_every_module_class_host_and_example_run_without_jax(tmp_path):
+    """Every module of the package imports with jax blocked, among them
+    ``utils/voice_classes.py`` and the seven ``examples``; the class host
+    switches and each example renders (0.02 s, on the CPU)."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        import oscen_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            oscen_tpu_torch.__path__, "oscen_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "oscen_tpu_torch.utils.voice_classes" in names
+        from oscen_tpu_torch import raw_midi_event
+        from oscen_tpu_torch.models.electric_piano import (
+            build_electric_piano)
+        from oscen_tpu_torch.utils.voice_classes import VoiceClassHost
+        vc = VoiceClassHost(build_electric_piano, capacities=(2, 4),
+                            block_size=64, tail_seconds=0.001,
+                            device="cpu")
+        vc.queue_event("midi_in", 0, raw_midi_event([0x90, 60, 100]))
+        vc.process_block()
+        assert vc.active_cap == 2 and vc.switches == 1
+        ex = [n for n in names if n.startswith("oscen_tpu_torch.examples.")]
+        assert len(ex) == 7, ex
+        tmp = {str(tmp_path)!r}
+        for name in ex:
+            short = name.rsplit(".", 1)[1]
+            out = tmp + "/" + short
+            argv = {{"streaming_host_demo": ["0.02", "--out", out + ".wav"],
+                    "render_convolution": ["", out + ".wav", "--seconds",
+                                           "0.01", "--tail", "0.01"]
+                    }}.get(short, [out, "--seconds", "0.02"])
+            y = importlib.import_module(name).main(argv + ["--device", "cpu"])
+            assert y.size and abs(y).max() > 0.0, name
+        assert sys.modules["jax"] is None
+        assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
+                       for m in sys.modules)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
