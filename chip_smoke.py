@@ -39,7 +39,10 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             fm_operator_scan (per-sample feedback and level) at V=256,
             B=1024 and 4096 and a ragged V=3, B=37 (the chains also at
             blocks shorter than their skew and around a chunk: V=3, B=1
-            and 2, V=33, B=3 and 33, V=256, B=65); 3 chained blocks; the
+            and 2, V=33, B=3 and 33, V=256, B=65); 3 chained blocks (the
+            pivot's at B=4096 one: its plain version emulates its fused
+            multiply-adds); the chains and fract_phase3 also with the
+            pivot's fused phase step (``inv_sr``) at V=256, B=1024; the
             chains' zero-feedback branch against their kernels; the
             filter kernels lp18_scan (inputs that saturate its tanh) and
             biquad_scan (an input that decays below 1e-15, so its snaps
@@ -187,6 +190,21 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             bound, each kernel of its path launched (K1; K6, K7; K6; K12,
             K13; K15; none for the reverb) and held against its plain
             version on the example's last call;
+4e. sharding voice sharding (``parallel/voices.py``): one rank (NCCL, a
+            ``FileStore``): the 256-voice piano at B=1024 and 4096, a chord,
+            8 steady blocks under sync debug mode "error", half released, 3
+            steady blocks, sharded against unsharded: every block and the
+            whole state ``torch.equal`` (the all-reduce of one rank changes
+            no bit), the sharded state read as ``DTensor``s, one K1 launch
+            per steady block; a steady block's wall (CUDA events), device
+            busy and device activities (profiler), sharded and not; then two
+            ranks on the one card (``torch.multiprocessing.spawn``, a gloo
+            group: NCCL refuses two ranks on one card, and gloo waits for
+            the card, so this part runs outside sync debug mode): 128
+            voices each, K1 at V=128 with the mix held against its plain
+            version, the all-reduced piano within 1e-4 and the poly synth
+            (K6, K7) within 1e-5 of the unsharded renders, the ranks equal
+            bit for bit; the phase's launches join the kernels line;
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
@@ -227,7 +245,7 @@ last line
 package beside it, the script exits non-zero and prints no result.
 ``python3 chip_smoke.py per_sample`` runs the per_sample phase alone
 (after building the kernels it launches), with no result lines; so do
-``assets``, ``voice_classes`` and ``examples``.
+``assets``, ``voice_classes``, ``examples`` and ``sharding``.
 """
 
 from __future__ import annotations
@@ -275,6 +293,9 @@ ODD_STEPS = (0.5, 64.5, 70.0, -3.0, -0.0, 1e-10, -1e-10, -2.5,
 # 1 + ulp, 2.5, +-inf, NaN), or both in every warp (even lanes on, odd
 # lanes off)
 FRACT_LANES = ("on", "off", "mixed")
+# the float32 reciprocal of the rate: the pivot's chains step their phases
+# by fma(base_freq*ratio, FUSED_INV, p)
+FUSED_INV = float(np.float32(1.0) / np.float32(SR))
 FRACT_EDGES = (-0.0, -1e-45, 1.0, float(np.nextafter(np.float32(1),
                                                      np.float32(2))),
                2.5, float("inf"), float("-inf"), float("nan"))
@@ -2030,8 +2051,10 @@ def examples_phase(card, tmp):
                 vs_plain[key] = same and err <= Y_TOL * (
                     math.sqrt(V) if kw.get("with_mix") else 1.0)
             else:
+                # the plain chains take the call's phase step (inv_sr)
+                step = {k: v for k, v in kw.items() if k == "inv_sr"}
                 vs_plain[key] = all(torch.equal(u, v) for u, v in zip(
-                    fns[key](*a, **kw), plains[key](*a)))
+                    fns[key](*a, **kw), plains[key](*a, **step)))
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         got, want = outs["cuda"], outs["cpu"]
@@ -2058,6 +2081,276 @@ def examples_phase(card, tmp):
         check(all(checks.values()), f"examples {name}: {checks}")
     phase("examples", f"launches on the examples' paths: {totals} ({card})")
     return totals
+
+
+SHARD_STEADY = 8
+# two ranks against the unsharded render: the piano's card bound (peak
+# ~190, PERF.md section 2), the poly synth's
+SHARD_PIANO_TOL = 1e-4
+SHARD_POLY_TOL = POLY_TOL
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict / tuple / list, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def shard_chord(p, raw_midi_event):
+    for i in range(VOICES):
+        p.queue_event("midi_in", 0, raw_midi_event([0x90, 36 + (i % 64), 100]))
+
+
+def shard_play(p, raw_midi_event, out, sync_free):
+    """The sharding phase's schedule: the 256-note chord, SHARD_STEADY
+    steady blocks (under sync debug mode "error" when ``sync_free``), half
+    the notes released, 3 steady blocks; returns every block's output."""
+    shard_chord(p, raw_midi_event)
+    blocks = [p.process_block()[out]]
+    with no_sync(sync_free):
+        blocks += [p.process_block()[out] for _ in range(SHARD_STEADY)]
+    for i in range(VOICES // 2):
+        p.queue_event("midi_in", 300, raw_midi_event([0x80, 36 + (i % 32), 0]))
+    blocks.append(p.process_block()[out])
+    with no_sync(sync_free):
+        blocks += [p.process_block()[out] for _ in range(3)]
+    return blocks
+
+
+def block_walls(p, n):
+    """``n`` steady blocks of ``p``, each one's wall in us (CUDA events)."""
+    import torch
+    walls = []
+    for _ in range(n):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        p.process_block()
+        ev1.record()
+        torch.cuda.synchronize()
+        walls.append(ev0.elapsed_time(ev1) * 1e3)
+    return walls
+
+
+def block_busy(p, reps=5):
+    """(device busy us, device activities) per steady block of ``p``
+    (profiler), or (None, None) when it kept no device record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            p.process_block()
+        torch.cuda.synchronize()
+    busy = acts = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+            acts += e.count
+    return (busy / reps, acts / reps) if acts else (None, None)
+
+
+def shard_rank(rank, world, tmp):
+    """One of ``world`` ranks sharing the card through a gloo group (NCCL
+    refuses two ranks on one card): the 256-voice piano and poly synth at
+    B=1024 on this rank's VOICES // world voices, K1 held against its plain
+    version on the rank's last steady call; saves the outputs, the K1 check
+    and the launches to ``shard<rank>.pt`` in ``tmp``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "gloo"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        from oscen_tpu_torch import raw_midi_event
+        from oscen_tpu_torch.models.electric_piano import (
+            build_electric_piano)
+        from oscen_tpu_torch.models.poly_synth import build_poly_synth
+        from oscen_tpu_torch.ops.cuda import additive as add
+        from oscen_tpu_torch.ops.cuda import iir as kiir
+        from oscen_tpu_torch.ops.cuda import phase as kphase
+        from oscen_tpu_torch.parallel.voices import (shard_compiled_state,
+                                                     voice_mesh)
+        piano_env("v4")
+        mesh = voice_mesh(world, device="cuda")
+        reset_all()
+        seen, fns, restore = capture_calls(
+            {"v4": (add, "additive_voice_block")})
+        try:
+            p = build_electric_piano(VOICES).compile(
+                SR, block_size=1024, mode="block", device="cuda")
+            shard_compiled_state(p, mesh)
+            piano = torch.cat(shard_play(p, raw_midi_event, "out", False))
+        finally:
+            restore()
+        # a steady block's wall on a gloo rank (its all-reduce goes through
+        # the host); every rank runs these blocks, as the collective needs
+        wall = float(np.median(block_walls(p, 9)))
+        k1 = add.launches["v4"]   # before the comparison's own launch
+        local = VOICES // world
+        calls = [(a, kw) for a, kw in seen.get("v4", [])
+                 if int(a[0].shape[-1]) == local and kw.get("with_mix")]
+        check(bool(calls), f"shard rank {rank}: no K1 call with the mix at "
+              f"V={local}")
+        err, same, y_max = k1_vs_plain(fns["v4"], *calls[-1])
+        reset_all()
+        q = build_poly_synth(VOICES).compile(SR, block_size=1024,
+                                             device="cuda")
+        shard_compiled_state(q, mesh)
+        poly = torch.cat(shard_play(q, raw_midi_event, "audio_out", False))
+        torch.save({"piano": piano.cpu().numpy(), "poly": poly.cpu().numpy(),
+                    "k1": (err, same, y_max, local, len(calls)),
+                    "wall_us": wall,
+                    "launches": {"v4": k1,
+                                 "phase_scan": kphase.launches["phase_scan"],
+                                 "tpt_svf_scan":
+                                     kiir.launches["tpt_svf_scan"]}},
+                   os.path.join(tmp, f"shard{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharding_phase(card):
+    """Phase ``sharding``: voice sharding on the card.  One rank (NCCL):
+    the 256-voice piano at B=1024 and 4096, a chord, steady blocks under
+    sync debug mode "error", a release block and steady blocks, sharded
+    against unsharded, every block and the final state torch.equal (the
+    all-reduce of one rank changes no bit); then the steady block's wall,
+    busy time and device activities, sharded and not (the all-reduce's own
+    cost).  Two ranks on the one card (gloo, spawned; exempt from sync
+    debug mode: gloo all-reduces through the host): each holds 128 voices,
+    K1 at V=128 with the mix against its plain version, the all-reduced
+    mix against the unsharded render within SHARD_PIANO_TOL, the poly synth
+    (K6, K7) within SHARD_POLY_TOL.  Returns the phase's launches."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from oscen_tpu_torch import raw_midi_event
+    from oscen_tpu_torch.models.electric_piano import build_electric_piano
+    from oscen_tpu_torch.models.poly_synth import build_poly_synth
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.parallel.voices import (shard_compiled_state,
+                                                 voice_mesh)
+    piano_env("v4")
+    tmp = tempfile.mkdtemp(prefix="oscen_shard_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1), rank=0,
+        world_size=1)
+    launches = {"v4": 0}
+    unsharded = {}
+    try:
+        mesh = voice_mesh(1, device="cuda")
+        for B in BLOCKS:
+            runs = {}
+            for sharded in (False, True):
+                p = build_electric_piano(VOICES).compile(
+                    SR, block_size=B, mode="block", device="cuda")
+                if sharded:
+                    shard_compiled_state(p, mesh)
+                reset_all()
+                blocks = shard_play(p, raw_midi_event, "out", True)
+                torch.cuda.synchronize()
+                if sharded:
+                    launches["v4"] += add.launches["v4"]
+                runs[sharded] = (p, blocks, add.launches["v4"])
+            (pu, bu, ku), (ps, bs, ks) = runs[False], runs[True]
+            st_u, st_s = tree_leaves(pu.state), tree_leaves(ps.state)
+            checks = {
+                "blocks torch.equal": all(torch.equal(a, b)
+                                          for a, b in zip(bu, bs)),
+                "state torch.equal": len(st_u) == len(st_s) and all(
+                    torch.equal(a, b.to_local()) for a, b in zip(st_u, st_s)),
+                "sharded state reads as DTensor": all(
+                    type(x).__name__ == "DTensor" for x in st_s),
+                # K1 runs the steady blocks (the chord and the release
+                # take the event path)
+                "K1 launches": ku == ks == SHARD_STEADY + 3,
+                "finite": bool(torch.isfinite(torch.cat(bs)).all()),
+            }
+            phase("sharding", f"one rank (NCCL) piano 256 voices B={B}: "
+                  f"chord, {SHARD_STEADY} steady blocks under sync debug "
+                  f"mode 'error', release, 3 steady; sharded against "
+                  f"unsharded, K1 launches {ks} / {ku}; checks {checks}")
+            check(all(checks.values()), f"sharding one rank B={B}: {checks}")
+            unsharded[B] = torch.cat(bu).cpu().numpy()
+            # walls in turns (5 blocks each, 6 rounds: the host's speed
+            # drifts within a run), then busy and activities
+            walls = {"unsharded": [], "sharded": []}
+            pair = (("unsharded", pu), ("sharded", ps))
+            for label, p in pair:
+                block_walls(p, 3)
+            for _ in range(6):
+                for label, p in pair:
+                    walls[label] += block_walls(p, 5)
+            prof = {}
+            for label, p in pair:
+                wall = float(np.median(walls[label]))
+                busy, acts = block_busy(p)
+                prof[label] = (wall, busy, acts)
+                phase("sharding", f"steady piano block B={B} {label}: wall "
+                      f"{wall:.1f} us (median of 30, CUDA events, in turns"
+                      f" with the other), device "
+                      + (f"busy {busy:.1f} us, {acts:.0f} device activities"
+                         if busy is not None else
+                         "busy not measured (no profiler records)")
+                      + f" ({card})")
+            if all(v[1] is not None for v in prof.values()):
+                d = [u - v for u, v in zip(prof["sharded"],
+                                           prof["unsharded"])]
+                phase("sharding", f"the one-rank all-reduce at B={B}: "
+                      f"{d[0]:+.1f} us wall, {d[1]:+.1f} us busy, "
+                      f"{d[2]:+.0f} device activities per steady block "
+                      f"({card})")
+    finally:
+        dist.destroy_process_group()
+    # the poly synth unsharded on the card, for the two ranks
+    reset_all()
+    q = build_poly_synth(VOICES).compile(SR, block_size=1024, device="cuda")
+    poly_ref = torch.cat(shard_play(q, raw_midi_event, "audio_out", True)
+                         ).cpu().numpy()
+    world = 2
+    t0 = time.perf_counter()
+    mp.spawn(shard_rank, args=(world, tmp), nprocs=world, join=True)
+    secs = time.perf_counter() - t0
+    res = [torch.load(os.path.join(tmp, f"shard{r}.pt"), weights_only=False)
+           for r in range(world)]
+    peak = float(np.abs(unsharded[1024]).max())
+    err_piano = max(float(np.abs(r["piano"] - unsharded[1024]).max())
+                    for r in res)
+    err_poly = max(float(np.abs(r["poly"] - poly_ref).max()) for r in res)
+    k1 = [r["k1"] for r in res]
+    checks = {
+        "ranks agree (bit for bit)": all(
+            np.array_equal(r["piano"], res[0]["piano"])
+            and np.array_equal(r["poly"], res[0]["poly"]) for r in res),
+        "piano vs unsharded": err_piano <= SHARD_PIANO_TOL,
+        "poly vs unsharded": err_poly <= SHARD_POLY_TOL,
+        "K1 V=128 y vs plain": all(e <= Y_TOL * math.sqrt(v)
+                                   for e, _, _, v, _ in k1),
+        "K1 V=128 state vs plain (torch.equal)": all(
+            s for _, s, _, _, _ in k1),
+        "K1 ran voices": all(y > 0.01 for _, _, y, _, _ in k1),
+    }
+    for r in res:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    phase("sharding", f"two ranks (gloo) on the one card, {VOICES // world} "
+          f"voices each, B=1024, exempt from sync debug mode (gloo waits for "
+          f"the card), {secs:.1f} s with the spawn: piano against unsharded "
+          f"{err_piano:.3e} (<= {SHARD_PIANO_TOL:.0e}, peak {peak:.1f}); poly "
+          f"synth {err_poly:.3e} (<= {SHARD_POLY_TOL:.0e}); a steady piano "
+          f"block's wall per rank {[round(r['wall_us'], 1) for r in res]} "
+          f"us (median of 9, CUDA events; {card}); K1 vs plain per "
+          f"rank (y err, state equal, max |y|, V, calls) {k1}; launches "
+          f"{[r['launches'] for r in res]}; checks {checks}")
+    check(all(checks.values()), f"sharding two ranks: {checks}")
+    return launches
 
 
 def main() -> int:
@@ -2437,14 +2730,17 @@ def main() -> int:
                       f"chained blocks) ok")
 
     # the FM kernels: torch.equal on every output of 3 chained blocks
-    def fm_args(name, V, B, rng_f, per_sample=False, fb=0.4):
+    def fm_args(name, V, B, rng_f, per_sample=False, fb=0.4, fused=False):
         """One block's operands after the carries: nonzero feedback, a
         per-sample pitch step (a note-on) or block-constant dt for the
-        chains; per-sample planes for the operator."""
+        chains; per-sample planes for the operator.  ``fused``: the chains'
+        and K12's dt is base_freq*ratio, stepped by fma(dt, 1/SR, p) (the
+        pivot's form; ``inv_sr=FUSED_INV``)."""
         def r(lo, hi, shape):
             return on_card(rng_f.uniform(lo, hi, shape).astype(np.float32))
+        scale = SR if fused else 1.0
         if name == "fract_phase3":
-            return (r(-0.05, 0.4, (3, V)), B)
+            return (r(-0.05 * scale, 0.4 * scale, (3, V)), B)
         if name == "fm_operator_scan":   # dt, pm, fb, env, lvl
             return tuple(r(lo, hi, (B, V)) for lo, hi in (
                 (0.002, 0.03), (-0.2, 0.2), (0.0, 0.6), (0.1, 1.0),
@@ -2452,7 +2748,7 @@ def main() -> int:
         freq = np.broadcast_to(rng_f.uniform(100, 1000, V), (B, V)).copy()
         if per_sample:
             freq[B // 3:, ::2] *= 1.5
-        dt = np.stack([freq * k / SR for k in (3.0, 2.0, 1.0)])
+        dt = np.stack([freq * k * scale / SR for k in (3.0, 2.0, 1.0)])
         return (on_card(dt.astype(np.float32) if per_sample
                         else dt[:, :1].astype(np.float32)),
                 r(0.3, 1.0, (3, V)), r(0.0, fb, (3, V)), r(0.0, 1.0, (V,)),
@@ -2467,18 +2763,24 @@ def main() -> int:
             return (r(0, 1, (V,)), r(-1, 1, (V,)))
         return (r(0, 1, (3, V)), r(-1, 1, (3, V)))
 
-    def fm_case(name, V, B, per_sample=False):
+    def fm_case(name, V, B, per_sample=False, fused=False):
         """3 chained blocks of kernel and plain version on the same
-        operands; any difference fails the run."""
+        operands; any difference fails the run.  Returns the plain
+        version's fastest block (seconds, host clock)."""
         fn, plain = getattr(kfm, name), getattr(kfm, "plain_" + name)
         rng_f = np.random.default_rng(V + B + per_sample)
         carry = fm_carry(name, V, rng_f)
         before = kfm.launches[name]
+        kw = {"inv_sr": FUSED_INV} if fused else {}
+        plain_s = []
         for _ in range(3):
-            args = fm_args(name, V, B, rng_f, per_sample)
-            k_out = fn(*carry, *args)
+            args = fm_args(name, V, B, rng_f, per_sample, fused=fused)
+            k_out = fn(*carry, *args, **kw)
             torch.cuda.synchronize()
-            p_out = plain(*carry, *args)
+            t0 = time.perf_counter()
+            p_out = plain(*carry, *args, **kw)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
             for a, b in zip(k_out, p_out):
                 if not torch.equal(a, b):
                     check(False, f"{name} V={V} B={B}: kernel and plain "
@@ -2487,6 +2789,7 @@ def main() -> int:
             carry = k_out[3:] if name == "fract_phase3" else k_out[1:]
         check(kfm.launches[name] == before + 3,
               f"{name}: launch counter did not advance")
+        return min(plain_s)
 
     for name in kfm.KERNELS:
         report[name] = {"max_abs_err": 0.0}
@@ -2496,14 +2799,25 @@ def main() -> int:
         for V, B in shapes:
             for per_sample in ((False, True) if "chain" in name
                                else (False,)):
-                fm_case(name, V, B, per_sample)
+                plain_s = fm_case(name, V, B, per_sample)
                 what = ({True: " per-sample dt, feedback",
                          False: " block-constant dt, feedback"}[per_sample]
                         if "chain" in name else " per-sample fb/lvl"
                         if "operator" in name else "")
                 phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
                       f"plain version (torch.equal, every output of 3 "
-                      f"chained blocks) ok")
+                      f"chained blocks) ok; plain version {plain_s:.3f} s "
+                      f"a block (host clock, the fastest of 3)")
+        # the fused phase step fma(base_freq*ratio, 1/SR, p), as the pivot
+        # runs K12 and K15 (the pivot's products into sums are fused
+        # multiply-adds in either form)
+        if name != "fm_operator_scan":
+            for per_sample in ((False, True) if "chain" in name
+                               else (False,)):
+                fm_case(name, VOICES, 1024, per_sample, fused=True)
+            phase("kernels", f"{name} V={VOICES} B=1024 with the fused "
+                  f"phase step (inv_sr={FUSED_INV!r}): equal to the plain "
+                  f"version (torch.equal, 3 chained blocks) ok")
 
     # K12's two loops: lanes on its short wrap (p0 and dt in [+0, 1)), off
     # it (the edges among them) and both in every warp, 3 chained blocks
@@ -2534,16 +2848,20 @@ def main() -> int:
 
     # the chains' zero-feedback branch (fract_phase3 + plain PyTorch) is
     # bit-equal to their sequential kernels, so the branch choice never
-    # changes the numbers
+    # changes the numbers (the pivot takes it on the CPU only)
     for kind in ("fm", "pivot"):
         scan = getattr(kfm, f"{kind}_chain3_scan")
         for V, B in ((VOICES, 1024), (VOICES, 4096)):
             rng_f = np.random.default_rng(B)
             fast = seq = fm_carry("chain", V, rng_f)
+            fused = kind == "pivot"   # the pivot's fused phase step
+            kw = {"inv_sr": FUSED_INV} if fused else {}
             for _ in range(3):
-                args = fm_args("chain", V, B, rng_f, fb=0.0)
-                f_out = scan(*fast, *args, fb_zero=True)
-                s_out = scan(*seq, *args)
+                args = fm_args("chain", V, B, rng_f, fb=0.0, fused=fused)
+                dt, lvl, _, mix, *envs = args
+                f_out = kfm.zero_feedback_branch(fused, fast[0], dt, lvl,
+                                                 mix, *envs, **kw)
+                s_out = scan(*seq, *args, **kw)
                 torch.cuda.synchronize()
                 check(all(torch.equal(a, b) for a, b in zip(f_out, s_out)),
                       f"{kind} zero-feedback branch differs from the "
@@ -2916,8 +3234,12 @@ def main() -> int:
             "peak": 0.01 < float(np.abs(audio).max()) < 1000.0,
             "state_on_cuda": all(x.device.type == "cuda" for x in leaves),
             "steady_blocks_never_synced": True,   # else set_sync_debug_mode
-            "both_branches_ran": got["fract_phase3"] > 0
-            and got[chain_kernel] > 0,
+            # the fm synth's zero-feedback blocks take fract_phase3, its
+            # others the chain kernel; the pivot's every block the chain
+            # kernel (on the card it never takes the branch)
+            "branches": (got["fract_phase3"] > 0 and got[chain_kernel] > 0)
+            if model == "fm synth" else
+            (got["fract_phase3"] == 0 and got[chain_kernel] == n_blocks),
             "filter_every_block": got["tpt_svf_scan"] == n_blocks,
         }
         phase("main", f"{model}: 256 voices B=1024, 8 steady blocks under "
@@ -3305,6 +3627,9 @@ def main() -> int:
     # ---- 4d. voice-capacity classes; the seven examples ---------------
     later_launches = [voice_classes_phase(card), examples_in_tmp(card)]
 
+    # ---- 4e. voice sharding: one rank (NCCL), two ranks on the card ---
+    later_launches.append(sharding_phase(card))
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -3521,15 +3846,21 @@ def main() -> int:
                     args = fract_inputs("on", VOICES, rng_f) + (B,)
                 ms = device_ms(lambda: fn(*args), 50,
                                kernel=fm_cuda_name[name])
-                plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
+                # the plain version timed where the kernels line reports
+                # it (the pivot's takes seconds a call; the kernels phase
+                # prints every shape's on the host clock)
+                reported = B == 1024 and not per_sample
+                plain_ms = (time_ms(lambda: plain(*args), 1, warm=1)
+                            if reported else None)
                 what = ((" (per-sample dt, feedback)" if per_sample else
                          " (block-constant dt, feedback)")
                         if "chain" in name else " (on lanes)"
                         if name == "fract_phase3" else "")
                 phase("timing", f"{name} V={VOICES} B={B}{what}: kernel "
-                      f"{ms * 1e3:.1f} us (device), plain PyTorch "
-                      f"{plain_ms * 1e3:.1f} us/call ({card})")
-                if B == 1024 and not per_sample:
+                      f"{ms * 1e3:.1f} us (device)"
+                      + (f", plain PyTorch {plain_ms * 1e3:.1f} us/call"
+                         if reported else "") + f" ({card})")
+                if reported:
                     report[name].update(ms=ms, plain_ms=plain_ms,
                                         **bound_of(name, args, fn(*args), B,
                                                    VOICES))
@@ -3818,7 +4149,8 @@ def examples_in_tmp(card):
 ONLY = {"per_sample": (("additive", "phase", "iir"), per_sample_phase),
         "assets": (("additive", "iir"), assets_phase),
         "voice_classes": (("additive",), voice_classes_phase),
-        "examples": (("additive", "phase", "iir", "fm"), examples_in_tmp)}
+        "examples": (("additive", "phase", "iir", "fm"), examples_in_tmp),
+        "sharding": (("additive", "phase", "iir"), sharding_phase)}
 
 
 if __name__ == "__main__":

@@ -13,9 +13,10 @@ the delay line, the resamplers, the small utility nodes, the textual
 ``graph!`` DSL (``parse_graph``), audio assets with the convolver, the
 sample player and the oscilloscope, and the host utilities of
 ``oscen_tpu_torch.utils`` (the native host library, checkpoints, bundles,
-``nih_params``, the streaming host and the profiler helpers).  Tensors on
-the CPU run each kernel's plain PyTorch version; tensors on a CUDA card
-run the kernel.
+``nih_params``, the streaming host and the profiler helpers), and voice
+sharding over ``torch.distributed`` (``oscen_tpu_torch.parallel``).
+Tensors on the CPU run each kernel's plain PyTorch version; tensors on a
+CUDA card run the kernel.
 """
 
 from .core.events import (EventBuffer, EventInstance, EventQueue,

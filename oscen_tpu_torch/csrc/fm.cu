@@ -15,19 +15,23 @@
 //                           with feedback (FmOperator.tick).
 //
 // fract_phase3_kernel (K12).  Its loop stores the phase and steps it; the
-// step's chain, FADD -> FRND.TRUNC -> FADD, is its whole cost (~28 cycles
-// a step, of which FRND's form prices 25.5: tools/scanprobe.py).  dt is
-// block-constant per lane, so a lane whose p0 and dt both lie in [+0, 1)
-// keeps every q = p + dt in [+0, 2) for the whole block, by induction: p
-// in [+0, 1) and dt in [+0, 1) give q in [+0, 2) (the largest sum of two
-// floats below 1 is 2 - 2^-23, exact, below 2; +0 + +0 is +0), and the
-// wrap of such a q lies in [+0, 1) again.  On [+0, 2), q - truncf(q) is
-// short_wrap.cuh's q - (q >= 1): FADD -> FSET -> FADD.  So each lane
-// checks its two inputs once, on their bits, before the loop (the sign
-// bit clear and below 1.0f: NaN, -0.0, negatives and values >= 1 fail;
-// -0.0 must, as -0 - trunc(-0) is +0 and the short wrap's -0 - 0 is -0),
-// and runs the short loop, with no per-step check or re-run, or else the
-// reference's loop with truncf.  A warp whose lanes disagree runs both.
+// step's chain, FFMA -> FRND.TRUNC -> FADD, is its whole cost (~28 cycles
+// a step, of which FRND's form prices 25.5: tools/scanprobe.py).  A step
+// is q = fma(dt, inv, p) (inv = 1: p + dt, the Pallas kernel's step; the
+// pivot passes base_freq*ratio and the reciprocal of the rate, as XLA
+// fuses the JAX pivot tick's p + f*ratio/sr).  dt is block-constant per
+// lane, so a lane whose p0 and rounded increment d = dt*inv both lie in
+// [+0, 1) keeps every q in [+0, 2) for the whole block, by induction: p
+// <= 1 - 2^-24 and d <= 1 - 2^-24 put the exact dt*inv below 1 (within
+// half an ulp of d) and p + dt*inv below 2 - 2^-24, which rounds to at
+// most 2 - 2^-23 (+0 + +0 is +0), and the wrap of such a q lies in [+0, 1)
+// again.  On [+0, 2), q - truncf(q) is short_wrap.cuh's q - (q >= 1):
+// FSET -> FADD.  So each lane checks p0 and d once, on their bits, before
+// the loop (the sign bit clear and below 1.0f: NaN, -0.0, negatives and
+// values >= 1 fail; -0.0 must, as -0 - trunc(-0) is +0 and the short
+// wrap's -0 - 0 is -0), and runs the short loop, with no per-step check or
+// re-run, or else the reference's loop with truncf.  A warp whose lanes
+// disagree runs both.
 //
 // Layout: one thread per voice lane (per operator and voice lane for
 // fract_phase3); phases and feedback carries stay in registers for the
@@ -63,7 +67,9 @@
 //    block (the producer's too) meet at one named barrier per step, so a
 //    step takes one operator's chain over a chunk.  What crosses operators
 //    goes through shared memory, a chunk at a time, double-buffered by
-//    chunk: op3's route a, b to op2, op2's modulation of op1, pm1 = y2 + b.
+//    chunk: op3's route to op2 (the fm chain's a = a3 * (1 - route) and
+//    b = a3 * route; the pivot's a3, from which op2 forms both inside its
+//    fused multiply-adds), and op2's modulation of op1, pm1 = a2 + b.
 //    The first two steps fill the pipeline and the last two drain it.
 //    Each operator keeps its own wrap, carry and the JAX association; only
 //    the schedule moves.
@@ -79,11 +85,16 @@
 //  - op1's warp stores y (V = 256: full rows).
 //
 // Numerics: built with --fmad=false and without fast-math, so every product
-// and sum rounds as PyTorch's separate elementwise ops do, and every output
-// equals the plain PyTorch version bit for bit.  The sine rounds half to
-// even (rintf, as torch.round; roundf would round half away from zero).
-// The FM wrap is p - truncf(p), Rust's .fract(), not the oscillators'
-// floorf.  Each operator keeps the JAX package's association:
+// and sum rounds as PyTorch's separate elementwise ops do, except the
+// explicit __fmaf_rn, which fmath.fma reproduces; every output equals the
+// plain PyTorch version bit for bit.  The pivot chain fuses what XLA fuses
+// in the JAX pivot tick: each operator's fma(prev, fb, ph + pm), op2's
+// fma(a3, 1 - route, ph), op1's modulation fma(a3, route, a2) and the
+// sine's Horner steps (sin_turns<true>); the fm chain and the lone operator
+// round each op.  Every chain phase steps by fma(dt, inv, ph).  The sine
+// rounds half to even (rintf, as torch.round; roundf would round half away
+// from zero).  The FM wrap is p - truncf(p), Rust's .fract(), not the
+// oscillators' floorf.  Each operator keeps the JAX package's association:
 //   chains:   y = sin_turns((ph + pm) + prev * fb) * (env * lvl)
 //   operator: y = sin_turns(ph + (pm + prev * fb)) * env * lvl
 //
@@ -107,21 +118,37 @@ constexpr float kC2 = 0x1.45912ep+6f;
 constexpr float kC3 = -0x1.2a8046p+6f;
 constexpr float kC4 = 0x1.08897cp+5f;
 
-// sin(2*pi*x) for x in turns: the JAX package's degree-9 odd polynomial
+// c + a * b: one rounding (kFused, __fmaf_rn) or two
+template <bool kFused>
+__device__ __forceinline__ float madd(float a, float b, float c) {
+  if constexpr (kFused)
+    return __fmaf_rn(a, b, c);
+  else
+    return c + a * b;
+}
+
+// sin(2*pi*x) for x in turns: the JAX package's degree-9 odd polynomial,
+// each Horner step one fused multiply-add when kFused (sin_turns_fma)
+template <bool kFused = false>
 __device__ __forceinline__ float sin_turns(float x) {
   const float w = x - rintf(x);
   const float u = w * w;
-  float acc = u * kC4;
-  acc = acc + kC3;
-  acc = acc * u + kC2;
-  acc = acc * u + kC1;
-  acc = acc * u + kC0;
+  float acc = madd<kFused>(u, kC4, kC3);
+  acc = madd<kFused>(acc, u, kC2);
+  acc = madd<kFused>(acc, u, kC1);
+  acc = madd<kFused>(acc, u, kC0);
   return acc * w;
 }
 
 __device__ __forceinline__ float fract_step(float p, float dt) {
   p = p + dt;
   return p - truncf(p);  // Rust .fract()
+}
+
+// a chain phase's step: fma(dt, inv, p) (inv = 1: p + dt), .fract()
+__device__ __forceinline__ float fract_fma(float p, float dt, float inv) {
+  p = __fmaf_rn(dt, inv, p);
+  return p - truncf(p);
 }
 
 // Whether x lies in [+0, 1), on its bits: the sign clear and below 1.0f.
@@ -132,7 +159,7 @@ __device__ __forceinline__ bool in_unit(float x) {
 __global__ void __launch_bounds__(kThreads)
 fract_phase3_kernel(const float* __restrict__ phases,
                     const float* __restrict__ dt, float* __restrict__ out,
-                    float* __restrict__ carry, int V, int B) {
+                    float* __restrict__ carry, int V, int B, float inv) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= 3 * V) return;
   const int r = i / V;
@@ -140,17 +167,17 @@ fract_phase3_kernel(const float* __restrict__ phases,
   float p = phases[i];
   const float d = dt[i];
   float* o = out + (size_t)r * B * V + v;
-  if (in_unit(p) && in_unit(d)) {   // every q in [+0, 2): the short wrap
+  if (in_unit(p) && in_unit(d * inv)) {   // every q in [+0, 2): short wrap
 #pragma unroll 8
     for (int t = 0; t < B; ++t) {
       o[(size_t)t * V] = p;
-      p = oscen_wrap::short_wrap(p + d);
+      p = oscen_wrap::short_wrap(__fmaf_rn(d, inv, p));
     }
   } else {
 #pragma unroll 8
     for (int t = 0; t < B; ++t) {
       o[(size_t)t * V] = p;
-      p = fract_step(p, d);
+      p = fract_fma(p, d, inv);
     }
   }
   carry[i] = p;
@@ -166,8 +193,8 @@ struct TruncWrap {
 // 32-sample chunk a step, through named barrier 1.
 constexpr int kOpWarps = 3;
 constexpr int kChainBlock = (kOpWarps + 1) * kLanes;
-// the route between operators: op3's a and b, op2's pm1, each
-// [2][kChunk][kLanes] (chunk k in buffer k % 2)
+// the route between operators: op3's a and b (the pivot's a3 in a's
+// place), op2's pm1, each [2][kChunk][kLanes] (chunk k in buffer k % 2)
 constexpr int kRouteFloats = 2 * kChunk * kLanes;
 
 __device__ __forceinline__ void step_sync() {
@@ -177,34 +204,52 @@ __device__ __forceinline__ void step_sync() {
 // Operator kOp (0: op3, 1: op2, 2: op1, 3: the lone operator of
 // fm_operator_kernel) of one voice lane over one chunk; staged inputs: its
 // envelope, (kDtP) its dt, then what it takes from the operator before it
-// (op2: a, b; op1: pm1) or, for the lone operator, its pm, fb and lvl.
+// (op2: the fm chain's a and b, the pivot's a3; op1: pm1) or, for the lone
+// operator, its pm, fb and lvl.  The pivot's (kPivot) products into sums
+// are fused multiply-adds.
 template <int kOp, bool kPivot, bool kDtP>
 struct OpBody {
-  static constexpr int kP =
-      1 + kDtP + (kOp == 1 ? 2 : kOp == 2 ? 1 : kOp == 3 ? 3 : 0);
+  static constexpr int kRouted = kOp == 1 ? (kPivot ? 1 : 2)
+                                 : kOp == 2 ? 1 : kOp == 3 ? 3 : 0;
+  static constexpr int kP = 1 + kDtP + kRouted;
+  // the operator that forms the route: op3 in the fm chain, op2 (inside
+  // its fused multiply-adds) in the pivot
+  static constexpr bool kRoutes = kPivot ? kOp == 1 : kOp == 0;
   float ph, p, fb;   // phase, feedback carry, feedback
   float d;           // dt row (block-constant dt)
-  float m, om;       // op3: the route and 1 - route
-  float* out;        // op3: a (b kRouteFloats further); op2: pm1; op1
-                     // and the lone operator: y
+  float inv;         // a chain phase steps by fma(dt, inv, ph)
+  float m, om;       // the route and 1 - route (kRoutes)
+  float* out;        // op3: a (b kRouteFloats further; the pivot: a3);
+                     // op2: pm1; op1 and the lone operator: y
   int stride;        // kLanes, or V for y
 
   __device__ __forceinline__ void step(const float (&in)[kP], int t) {
     const float dt = kDtP ? in[1] : d;
     constexpr int r = 1 + kDtP;   // the first routed input
     if constexpr (kOp == 0) {      // op3: no phase modulation
-      const float s3 = sin_turns(ph + p * fb);
+      const float s3 = sin_turns<kPivot>(madd<kPivot>(p, fb, ph));
       const float a3 = s3 * in[0];
-      out[t * kLanes] = a3 * om;
-      out[kRouteFloats + t * kLanes] = a3 * m;
+      if constexpr (kPivot) {
+        out[t * kLanes] = a3;
+      } else {
+        out[t * kLanes] = a3 * om;
+        out[kRouteFloats + t * kLanes] = a3 * m;
+      }
       p = kPivot ? s3 : a3;
+    } else if constexpr (kOp == 1 && kPivot) {   // op2 of the pivot
+      const float a3 = in[r];
+      const float s2 =
+          sin_turns<true>(__fmaf_rn(p, fb, __fmaf_rn(a3, om, ph)));
+      const float a2 = s2 * in[0];
+      out[t * kLanes] = __fmaf_rn(a3, m, a2);   // op1's: a2 + a3 * route
+      p = s2;
     } else if constexpr (kOp == 1) {   // op2, modulated by the route's a
       const float s2 = sin_turns((ph + in[r]) + p * fb);
       const float a2 = s2 * in[0];
       out[t * kLanes] = a2 + in[r + 1];   // op1's modulation: + the route's b
-      p = kPivot ? s2 : a2;
+      p = a2;
     } else if constexpr (kOp == 2) {   // op1, the carrier
-      const float s1 = sin_turns((ph + in[r]) + p * fb);
+      const float s1 = sin_turns<kPivot>(madd<kPivot>(p, fb, ph + in[r]));
       const float y1 = s1 * in[0];
       out[t * stride] = y1;
       p = kPivot ? s1 : y1;
@@ -214,7 +259,10 @@ struct OpBody {
       out[t * stride] = y1;
       p = y1;
     }
-    ph = fract_step(ph, dt);
+    if constexpr (kOp == 3)
+      ph = fract_step(ph, dt);
+    else
+      ph = fract_fma(ph, dt, inv);
   }
 };
 
@@ -226,7 +274,7 @@ __device__ __forceinline__ void run_operator(
     const float* __restrict__ prevs, const float* __restrict__ dt,
     const float* __restrict__ fb, const float* __restrict__ mix,
     float* __restrict__ y, float* __restrict__ ph_out,
-    float* __restrict__ pv_out, int V, int B, int chunks) {
+    float* __restrict__ pv_out, int V, int B, int chunks, float inv) {
   using Body = OpBody<kOp, kPivot, kDtP>;
   constexpr int kP = Body::kP;
   constexpr int kOpPlanes = 1 + kDtP;
@@ -238,8 +286,9 @@ __device__ __forceinline__ void run_operator(
     body.ph = phases[kOp * V + v];
     body.p = prevs[kOp * V + v];
     body.fb = fb[kOp * V + v];
+    body.inv = inv;
     if constexpr (!kDtP) body.d = dt[kOp * V + v];
-    if constexpr (kOp == 0) {
+    if constexpr (Body::kRoutes) {
       body.m = mix[v];
       body.om = 1.0f - body.m;
     }
@@ -261,7 +310,8 @@ __device__ __forceinline__ void run_operator(
         body.out = a_buf + buf;
       } else if constexpr (kOp == 1) {
         src[kOpPlanes] = a_buf + buf;
-        src[kOpPlanes + 1] = a_buf + kRouteFloats + buf;
+        if constexpr (!kPivot)
+          src[kOpPlanes + 1] = a_buf + kRouteFloats + buf;
         body.out = pm_buf + buf;
       } else {
         src[kOpPlanes] = pm_buf + buf;
@@ -303,7 +353,7 @@ chain3_kernel(const float* __restrict__ phases,
               const float* __restrict__ e3, const float* __restrict__ e2,
               const float* __restrict__ e1, float* __restrict__ y,
               float* __restrict__ ph_out, float* __restrict__ pv_out, int V,
-              int B) {
+              int B, float inv) {
   constexpr int kOpPlanes = 1 + kDtP;
   // dynamic shared memory: each operator's planes' slots, then the route
   extern __shared__ __align__(16) float smem[];
@@ -334,7 +384,7 @@ chain3_kernel(const float* __restrict__ phases,
   }
 #define OSCEN_OPERATOR(n)                                                   \
   run_operator<n, kPivot, kDtP>(smem, route, phases, prevs, dt, fb, mix, y, \
-                                ph_out, pv_out, V, B, chunks)
+                                ph_out, pv_out, V, B, chunks, inv)
   if (warp == 0)
     OSCEN_OPERATOR(0);
   else if (warp == 1)
@@ -409,7 +459,7 @@ cudaError_t launch_chain3(const float* phases, const float* prevs,
                           const float* dt, const float* fb, const float* mix,
                           const float* e3, const float* e2, const float* e1,
                           float* y, float* ph_out, float* pv_out, int V, int B,
-                          cudaStream_t stream) {
+                          float inv, cudaStream_t stream) {
   // each operator's planes' slots and the route (3 x 2 chunks: 2 slots):
   // 60 KB, 96 KB with per-sample dt, above the 48 KB default
   const int slots = kOpWarps * (1 + kDtP) + 2;
@@ -419,7 +469,8 @@ cudaError_t launch_chain3(const float* phases, const float* prevs,
   const dim3 grid((V + kLanes - 1) / kLanes);
   chain3_kernel<kPivot, kDtP>
       <<<grid, kChainBlock, oscen_stage::ring_bytes(slots), stream>>>(
-          phases, prevs, dt, fb, mix, e3, e2, e1, y, ph_out, pv_out, V, B);
+          phases, prevs, dt, fb, mix, e3, e2, e1, y, ph_out, pv_out, V, B,
+          inv);
   return cudaGetLastError();
 }
 
@@ -427,30 +478,32 @@ template <bool kPivot>
 int launch_chain3(const float* phases, const float* prevs, const float* dt,
                   const float* fb, const float* mix, const float* e3,
                   const float* e2, const float* e1, float* y, float* ph_out,
-                  float* pv_out, int V, int B, int dt_stride, void* stream) {
+                  float* pv_out, int V, int B, int dt_stride, float inv,
+                  void* stream) {
   if (V < 1 || B < 1 || (dt_stride != 0 && dt_stride != V))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(dt_stride
                    ? launch_chain3<kPivot, true>(phases, prevs, dt, fb, mix,
                                                  e3, e2, e1, y, ph_out,
-                                                 pv_out, V, B, st)
+                                                 pv_out, V, B, inv, st)
                    : launch_chain3<kPivot, false>(phases, prevs, dt, fb, mix,
                                                   e3, e2, e1, y, ph_out,
-                                                  pv_out, V, B, st));
+                                                  pv_out, V, B, inv, st));
 }
 
 }  // namespace
 
 extern "C" {
 
-// phases, dt [3, V] -> out [3, B, V] (pre-increment phases), carry [3, V].
+// phases, dt [3, V] -> out [3, B, V] (pre-increment phases), carry [3, V];
+// each step fma(dt, inv, p).
 int oscen_fract_phase3(const float* phases, const float* dt, float* out,
-                       float* carry, int V, int B, void* stream) {
+                       float* carry, int V, int B, float inv, void* stream) {
   if (V < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((3 * V + kThreads - 1) / kThreads);
   fract_phase3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      phases, dt, out, carry, V, B);
+      phases, dt, out, carry, V, B, inv);
   return (int)cudaGetLastError();
 }
 
@@ -461,26 +514,27 @@ int oscen_fract_wrap_sweep(unsigned long long* counts, void* stream) {
 }
 
 // phases, prevs, fb [3, V]; dt [3, B, V] (dt_stride V) or [3, 1, V]
-// (dt_stride 0); mix [V]; e3, e2, e1 [B, V] (level-folded envelopes)
-// -> y [B, V], phases' and prevs' [3, V].
+// (dt_stride 0); mix [V]; e3, e2, e1 [B, V] (level-folded envelopes); each
+// phase step fma(dt, inv, p) -> y [B, V], phases' and prevs' [3, V].
 int oscen_fm_chain3_scan(const float* phases, const float* prevs,
                          const float* dt, const float* fb, const float* mix,
                          const float* e3, const float* e2, const float* e1,
                          float* y, float* ph_out, float* pv_out, int V, int B,
-                         int dt_stride, void* stream) {
+                         int dt_stride, float inv, void* stream) {
   return launch_chain3<false>(phases, prevs, dt, fb, mix, e3, e2, e1, y,
-                              ph_out, pv_out, V, B, dt_stride, stream);
+                              ph_out, pv_out, V, B, dt_stride, inv, stream);
 }
 
-// as oscen_fm_chain3_scan; prevs carry the raw sines.
+// as oscen_fm_chain3_scan; prevs carry the raw sines, and the products
+// into sums are fused multiply-adds.
 int oscen_pivot_chain3_scan(const float* phases, const float* prevs,
                             const float* dt, const float* fb,
                             const float* mix, const float* e3,
                             const float* e2, const float* e1, float* y,
                             float* ph_out, float* pv_out, int V, int B,
-                            int dt_stride, void* stream) {
+                            int dt_stride, float inv, void* stream) {
   return launch_chain3<true>(phases, prevs, dt, fb, mix, e3, e2, e1, y,
-                             ph_out, pv_out, V, B, dt_stride, stream);
+                             ph_out, pv_out, V, B, dt_stride, inv, stream);
 }
 
 // phase0, prev0 [V]; dt, pm, fb, env, lvl [B, V] -> y [B, V], phase',

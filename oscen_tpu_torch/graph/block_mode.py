@@ -32,7 +32,13 @@ mix-down whose single consumer is a scalar node with ``kernel_epilogue``
 whose consumer value inputs are block-constant; the consumer then does not
 run on its own.
 
-Not ported: voice sharding.
+Voice sharding (``shard=(group, n)``, switched on by
+``parallel.voices.shard_compiled_state``): each of ``n`` processes runs the
+block on its slice of every node array's instances, and every sum over the
+instance axis (a fan-in mix-down, fused into the producer's kernel or not,
+inside a scan island once per sample, a graph output's reduction) finishes
+with an all-reduce over ``group``, the counterpart of the JAX package's
+``psum`` under ``shard_map``.
 
 Besides its inputs, a node's block methods may ask, by naming the keyword
 in their signature, for what the compiler knows of them on the host:
@@ -47,7 +53,8 @@ in their signature, for what the compiler knows of them on the host:
   function without them);
 - ``folded_ins``: the part of ``literal_ins`` that holds no graph
   parameter: the values XLA folds at compile time in the JAX package,
-  where a never-set parameter stays a runtime operand;
+  where a never-set parameter stays a runtime operand (a node's ``tick``
+  may name it too: sample mode and scan islands pass it);
 - ``host_ins``: ``{endpoint: float}`` of value inputs that are
   block-constant this block and whose value the host knows: literals and
   live graph parameters staged as ``[1]`` (the port's counterpart of the
@@ -74,7 +81,8 @@ from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Fanout,
                  FrameCtor, IrEdge)
 from .node import apply_node_events, scan_tick_block, tree_map
 
-__all__ = ["make_block_fn", "reconstruct_step_values"]
+__all__ = ["make_block_fn", "reconstruct_step_values", "fold_inputs",
+           "tick_kwargs"]
 
 
 def reconstruct_step_values(per_block: Dict[str, Any],
@@ -184,22 +192,90 @@ def _signature_kw(fn, names) -> frozenset:
     return frozenset(names) & set(inspect.signature(fn).parameters)
 
 
+def fold_inputs(prog, name: str, leaf) -> Dict[str, float]:
+    """Value and stream endpoints of ``name`` whose every feeding edge folds
+    to a host value (summed over fan-in edges); an unconnected endpoint
+    holds its default.  ``leaf`` resolves an endpoint reference to a host
+    value or None."""
+    out = {}
+    for ep in prog.ir.nodes[name].node.INPUTS:
+        if ep.kind not in (Kind.VALUE, Kind.STREAM):
+            continue
+        edges = prog.edges_by_dst.get((name, ep.name), [])
+        if not edges:
+            out[ep.name] = float(ep.default or 0.0)
+            continue
+        total = None
+        for e in edges:
+            v = None
+            if e.kernel == EdgeKernel.NONE and not e.is_feedback \
+                    and e.dst_index is None:
+                v = _fold_expr(e.source, leaf)
+            if v is None:
+                break
+            total = v if total is None else total + v
+        else:
+            out[ep.name] = total
+    return out
+
+
+def tick_kwargs(prog) -> Dict[str, Dict[str, Any]]:
+    """The keyword arguments each device node's ``tick`` names: its
+    ``folded_ins`` (the literals XLA folds into the JAX package's compiled
+    ticks)."""
+    return {name: {"folded_ins": fold_inputs(prog, name, lambda ref: None)}
+            for name in prog.device_nodes
+            if "folded_ins" in _signature_kw(prog.ir.nodes[name].node.tick,
+                                             ("folded_ins",))}
+
+
 def make_block_fn(prog, block_len: int, literal_params=None,
-                  host_params=None, host_mirrors=None):
+                  host_params=None, host_mirrors=None, shard=None):
     """Build ``(state, per_block, ev_bufs) -> (state, out_blocks)``.
 
     ``literal_params``: values of the graph value inputs never set since
     compile (``literal_ins``); ``host_params``: a callable returning the
     current host values of the graph value inputs (``host_ins``);
     ``host_mirrors``: a callable returning ``{node: host mirror}``, read at
-    every call (``host_mirror``).  Raises
-    ``NotImplementedError`` for a feedback island that spans a rate
-    boundary (the reference restricts cross-rate feedback too)."""
+    every call (``host_mirror``).  ``shard=(group, n)`` builds one rank's
+    body of a voice-sharded block (the JAX package's ``shard=(axis,
+    n_shards)`` under ``shard_map``): every node array runs on its local
+    instances (``count // n``; a count ``n`` does not divide raises
+    ``ValueError``), its state and per-voice inputs arrive as this rank's
+    slices, and every sum over the instance axis finishes with an
+    all-reduce over ``group``.  Raises ``NotImplementedError`` for a
+    feedback island that spans a rate boundary (the reference restricts
+    cross-rate feedback too)."""
     from ..nodes.delay import Delay
 
     ir = prog.ir
     B = block_len
     literal_params = literal_params or {}
+    group, n_shards = shard if shard is not None else (None, 1)
+
+    def eff(count: int) -> int:
+        """The local (this rank's) instance count of a node array."""
+        if shard is not None and count > 1:
+            if count % n_shards:
+                raise ValueError(
+                    f"voice count {count} not divisible by the "
+                    f"{n_shards}-process mesh")
+            return count // n_shards
+        return count
+
+    for name in prog.device_nodes:
+        eff(ir.nodes[name].count)   # a count the mesh cannot split
+
+    def all_reduce(v):
+        """``v`` (a fresh tensor) summed over the mesh."""
+        if shard is not None:
+            import torch.distributed as dist
+            dist.all_reduce(v, group=group)
+        return v
+
+    def from_arrays(ex) -> bool:
+        return any(ir.nodes[r.node].count > 1 for r in ex.endpoints()
+                   if r.node in ir.nodes)
 
     # dependency graph over device nodes (normal and feedback edges)
     deps: Dict[str, set] = {n: set() for n in prog.device_nodes}
@@ -304,7 +380,9 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     # with ``kernel_epilogue``, no event inputs, that edge as its only
     # stream input, and one output
     epi_static: Dict[str, Tuple[str, str]] = {}
-    if os.environ.get("OSCEN_EPILOGUE_FUSION", "0") != "0":
+    # off under sharding (its consumer must see the all-reduced mix)
+    if os.environ.get("OSCEN_EPILOGUE_FUSION", "0") != "0" \
+            and shard is None:
         for name, eps in fanin_only.items():
             for epn in eps:
                 edges = consumers.get((name, epn), [])
@@ -337,31 +415,6 @@ def make_block_fn(prog, block_len: int, literal_params=None,
         for name in prog.device_nodes
         if hasattr(ir.nodes[name].node, "process_block_batched")}
 
-    def fold_eps(name: str, leaf) -> Dict[str, float]:
-        """Value and stream endpoints of ``name`` whose every feeding edge
-        folds to a host value (summed over fan-in edges); an unconnected
-        endpoint holds its default."""
-        out = {}
-        for ep in ir.nodes[name].node.INPUTS:
-            if ep.kind not in (Kind.VALUE, Kind.STREAM):
-                continue
-            edges = prog.edges_by_dst.get((name, ep.name), [])
-            if not edges:
-                out[ep.name] = float(ep.default or 0.0)
-                continue
-            total = None
-            for e in edges:
-                v = None
-                if e.kernel == EdgeKernel.NONE and not e.is_feedback \
-                        and e.dst_index is None:
-                    v = _fold_expr(e.source, leaf)
-                if v is None:
-                    break
-                total = v if total is None else total + v
-            else:
-                out[ep.name] = total
-        return out
-
     def literal_leaf(ref):
         # a never-set graph parameter holding its default is a literal
         if ref.node == "" and ref.endpoint in literal_params:
@@ -369,14 +422,22 @@ def make_block_fn(prog, block_len: int, literal_params=None,
         return None
 
     # literals depend on the graph and literal_params alone
-    literals = {name: fold_eps(name, literal_leaf)
+    literals = {name: fold_inputs(prog, name, literal_leaf)
                 for name in prog.device_nodes}
-    folded = {name: fold_eps(name, lambda ref: None)
+    folded = {name: fold_inputs(prog, name, lambda ref: None)
               for name in prog.device_nodes}
+    tick_kw = tick_kwargs(prog)
 
     def payload_shape(ep):
         return ep.shape if ep.shape else (
             () if ep.channels == 1 else (ep.channels,))
+
+    def local_default(inst, ep):
+        """A scan island's per-sample default, sized to the local count
+        (the JAX package's ``_local_default``)."""
+        shape = ((eff(inst.count),) if inst.count > 1 else ()) \
+            + tuple(payload_shape(ep))
+        return prog.const(float(ep.default or 0.0), shape)
 
     def normalize(v, count, n, payload, is_array):
         """Shape an edge value as the destination's block ((C,)?, n,
@@ -448,18 +509,22 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 pre = env.get((e.source.node,
                                "__fanin__" + e.source.endpoint))
             if pre is not None:
-                v = pre   # mix-down fused into the producer's kernel
+                # mix-down fused into the producer's kernel (a copy is
+                # all-reduced: the kernel's output may feed other edges)
+                v = all_reduce(pre.clone()) if shard is not None else pre
             else:
                 v = prog.eval_expr(e.source, resolver(e))
                 if e.dst_index is None:
                     if e.fanout == Fanout.FAN_IN:
                         v = torch.sum(v, dim=0)  # instance axis leads
+                        if from_arrays(e.source):
+                            v = all_reduce(v)
                     elif e.fanout == Fanout.REPEAT:
                         v = torch.repeat_interleave(v, e.factor, dim=0)
                     elif e.fanout == Fanout.SEGMENT_SUM:
                         v = prog.segment_sum(v, e.factor)
             is_array = not indexed and inst.count > 1
-            count = 1 if indexed else inst.count
+            count = 1 if indexed else eff(inst.count)
             n_src = B * (inst.rate if e.kernel == EdgeKernel.NONE else
                          1 if e.kernel == EdgeKernel.UP else e.rate_factor)
             if is_array and e.fanout == Fanout.PARALLEL and v.dim() >= 1 \
@@ -481,7 +546,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             return v
 
         def default_block(inst, ep):
-            full = ((inst.count,) if inst.count > 1 else ()) \
+            full = ((eff(inst.count),) if inst.count > 1 else ()) \
                 + (B * inst.rate,) + payload_shape(ep)
             return torch.full(full, float(ep.default or 0.0),
                               dtype=torch.float32, device=prog.device)
@@ -566,7 +631,7 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 value_eps = {ep.name for ep in ir.nodes[name].node.INPUTS
                              if ep.kind == Kind.VALUE}
                 kw["host_ins"] = {k: v for k, v in
-                                  fold_eps(name, host_leaf).items()
+                                  fold_inputs(prog, name, host_leaf).items()
                                   if k in value_eps}
             if "host_mirror" in wanted:
                 kw["host_mirror"] = (host_mirrors() if host_mirrors
@@ -742,6 +807,8 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                                 if e.dst_index is None:
                                     if e.fanout == Fanout.FAN_IN:
                                         v = torch.sum(v, dim=0)
+                                        if from_arrays(e.source):
+                                            v = all_reduce(v)
                                     elif e.fanout == Fanout.REPEAT:
                                         v = torch.repeat_interleave(
                                             v, e.factor, dim=0)
@@ -750,20 +817,21 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                                     if inst.count > 1 and e.fanout in (
                                             Fanout.SCALAR, Fanout.BROADCAST):
                                         v = prog._broadcast_to_count(
-                                            v, inst.count)
+                                            v, eff(inst.count))
                             if e.dst_index is not None:
                                 val = (val if val is not None else
-                                       prog._default_value(inst, ep)).clone()
+                                       local_default(inst, ep)).clone()
                                 val[e.dst_index] = v
                             elif val is None:
                                 val = v
                             else:
                                 val = val + v
                         ins[ep.name] = (val if val is not None
-                                        else prog._default_value(inst, ep))
+                                        else local_default(inst, ep))
                     st = apply_node_events(node, ist[name], name, ev_bufs, t,
                                            sr, ins)
-                    ist[name], o = node.tick_owned(st, ins, sr)
+                    ist[name], o = node.tick_owned(st, ins, sr,
+                                                   **tick_kw.get(name, {}))
                     for k, v in o.items():
                         env_t[(name, k)] = v
                 carries = {**carries, **{k: env_t[tuple(k.rsplit(".", 1))]
@@ -825,8 +893,11 @@ def make_block_fn(prog, block_len: int, literal_params=None,
                 continue
             v = prog.eval_expr(expr, resolver(None))
             want = 1 if o.channels == 1 else 2
+            reduced = v.dim() > want
             while v.dim() > want:
                 v = torch.sum(v, dim=0)
+            if reduced and from_arrays(expr):
+                v = all_reduce(v)   # the instance sum spans the mesh
             outs[o.name] = v
         return new_state, outs
 

@@ -38,6 +38,13 @@ Nothing in a per-sample loop reads the card: events are applied at the
 ``(t, slot)`` pairs the host staged them at (``EventBuffer.slots``), and
 node state is copied once per block where a tick writes in place (the
 Delay's ring, ``Node.own_state``).
+
+Voice sharding (``parallel/voices.py``): one process per device, each
+holding its slice of the node arrays' state.  In block mode
+(``enable_sharding``) a rank stages its slice of the per-voice host arrays
+and event buffers and runs the block function on its local instances, the
+instance-axis sums all-reduced over the mesh; in sample mode it gathers the
+sharded state for each block's unsharded per-sample loop.
 """
 
 from __future__ import annotations
@@ -386,6 +393,10 @@ class _SampleStep:
         outer = [n for n in prog.device_nodes if ir.nodes[n].rate == 1]
         self.pre_nodes = [n for n in outer if n not in tainted]
         self.post_nodes = [n for n in outer if n in tainted]
+        # what the ticks name of the host's knowledge (folded literals),
+        # computed once, as make_block_fn does for the block methods
+        from .block_mode import tick_kwargs
+        self.tick_kw = tick_kwargs(prog)
 
     def own(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The state a block's loop carries (``Node.own_state`` of every
@@ -403,7 +414,7 @@ class _SampleStep:
         ins = prog.gather_inputs(name, resolver, override)
         st = apply_node_events(node, new_state[name], name, ev_bufs, t_ev,
                                sr, ins)
-        st, outs = node.tick_owned(st, ins, sr)
+        st, outs = node.tick_owned(st, ins, sr, **self.tick_kw.get(name, {}))
         new_state[name] = st
         for k, v in outs.items():
             env[(name, k)] = v
@@ -576,6 +587,14 @@ class CompiledGraph:
         self._host_steady: Dict[str, Any] = {}
         self._last_event_outs: Dict[str, list] = {}
         self._control_dirty = True
+        # voice sharding (parallel/voices.py): this rank's VoiceShard, the
+        # node counts its state slices, and which state leaves are slices
+        self._shard = None
+        self._shard_counts: Dict[str, int] = {}
+        self._shard_flags = None
+        # the node each staged array belongs to, by its key, recorded where
+        # it is staged (the sharded staging slices by it)
+        self._staged_owner: Dict[str, str] = {}
         # the block function of the compiled block size, built now so that
         # a graph the port cannot run (a feedback island spanning a rate
         # boundary) fails at compile time
@@ -583,8 +602,13 @@ class CompiledGraph:
 
     @property
     def state(self) -> Dict[str, Any]:
-        """The graph's state: a nested dict of tensors on ``device``."""
-        return self._state
+        """The graph's state: a nested dict of tensors on ``device``; once
+        voice-sharded, of ``DTensor``s on the mesh (``Shard(0)`` on this
+        rank's slices, ``Replicate()`` elsewhere), built from the local
+        tensors without a collective."""
+        if self._shard is None:
+            return self._state
+        return self._shard.dtensors(self._state, self._shard_flags)
 
     @state.setter
     def state(self, new: Dict[str, Any]) -> None:
@@ -594,8 +618,18 @@ class CompiledGraph:
         float leaves float32, integer and bool leaves in their own dtype (as
         ``utils.convert.state_from_jax`` does).  A numpy leaf is copied from
         pinned memory without waiting for the card; a tensor already on the
-        device is kept as it is.  The blocks themselves write ``_state``."""
-        self._state = tree_map(self._state_leaf, new)
+        device is kept as it is.  Once voice-sharded, a ``DTensor`` leaf
+        gives its local tensor, and a full leaf where this rank holds a
+        slice gives its slice.  The blocks themselves write ``_state``."""
+        if self._shard is None:
+            self._state = tree_map(self._state_leaf, new)
+            return
+        from ..parallel.voices import _dtensor
+        DTensor = _dtensor()[0]
+        self._state, self._shard_flags = self._shard.split(
+            tree_map(lambda x: self._state_leaf(
+                x.to_local() if isinstance(x, DTensor) else x), new),
+            self._shard_counts)
 
     def _state_leaf(self, x):
         if isinstance(x, torch.Tensor):
@@ -632,6 +666,9 @@ class CompiledGraph:
             self._new_program()
             self._block_fns.clear()
         self._state = self.prog.init_device_state()
+        if self._shard is not None:
+            self._state, self._shard_flags = self._shard.split(
+                self._state, self._shard_counts)
         self._mirrors = copy.deepcopy(self.prog.init_mirrors)
         self._control_dirty = True
         self._staging_cache.clear()
@@ -714,13 +751,14 @@ class CompiledGraph:
                 st = self._state[node_name]
                 first = tree_map(lambda x: x[0], st)
                 new_first = consume(first, a, sr)
-                cnt = inst.count
 
                 def merge(old_stacked, old_first, new_leaf):
                     if new_leaf is old_first:   # untouched by consume
                         return old_stacked
+                    # every instance this rank holds (all, unsharded)
                     return new_leaf[None].expand(
-                        (cnt,) + tuple(new_leaf.shape)).clone()
+                        (old_stacked.shape[0],)
+                        + tuple(new_leaf.shape)).clone()
                 self._state[node_name] = tree_map(merge, st, first,
                                                  new_first)
             else:
@@ -967,6 +1005,7 @@ class CompiledGraph:
                         ok[i, j] = True
                 ev_bufs[f"{name}.{ep}"] = EventBuffer(off * inst.rate, val,
                                                       ok)
+                self._staged_owner[f"{name}.{ep}"] = name
             else:
                 evs = []
                 for e in edges:  # last-write-wins (connect semantics)
@@ -984,13 +1023,17 @@ class CompiledGraph:
         host_vals = {}
         for (n, ep), arr in val_env.items():
             if isinstance(arr, _StepStack):
-                host_vals[f"__hstep__{n}.{ep}"] = arr.data     # (3, C)
+                key = f"__hstep__{n}.{ep}"
+                host_vals[key] = arr.data     # (3, C)
             elif isinstance(arr, StepValue):
-                host_vals[f"__hstep__{n}.{ep}"] = np.array(
+                key = f"__hstep__{n}.{ep}"
+                host_vals[key] = np.array(
                     [arr.base, arr.target, min(arr.offset, block_len - 1)],
                     np.float32)
             else:
-                host_vals[f"__host__{n}.{ep}"] = arr
+                key = f"__host__{n}.{ep}"
+                host_vals[key] = arr
+            self._staged_owner[key] = n
 
         # graph event outputs (routed host-side)
         self._last_event_outs = {}
@@ -1026,21 +1069,91 @@ class CompiledGraph:
         return {name: float(r.current) for name, r in self._params.items()}
 
     def _block_fn(self, B: int):
+        shard = self._shard
         if self.mode == "sample":
             fn = self._block_fns.get(B)
             if fn is None:
                 fn = self._block_fns[B] = self._make_scan_fn(B)
-            return fn
+            if shard is None:
+                return fn
+
+            def sharded(state, per_block, ev_bufs):
+                # the unsharded per-sample loop on the gathered state
+                state, outs = fn(shard.gather(state, self._shard_flags),
+                                 per_block, ev_bufs)
+                state, self._shard_flags = shard.split(state,
+                                                       self._shard_counts)
+                return state, outs
+            return sharded
         lits = self._literal_params()
-        key = (B, self._literals[1])
+        key = (B, self._literals[1], shard.n if shard else None)
         fn = self._block_fns.get(key)
         if fn is None:
             from .block_mode import make_block_fn
             fn = make_block_fn(self.prog, B, literal_params=lits,
                                host_params=self._host_params,
-                               host_mirrors=lambda: self._mirrors)
+                               host_mirrors=lambda: self._mirrors,
+                               shard=(shard.group, shard.n) if shard
+                               else None)
             self._block_fns[key] = fn
         return fn
+
+    # ------------------------------------------------------------------ #
+    # voice sharding (parallel/voices.py)
+    # ------------------------------------------------------------------ #
+    def enable_sharding(self, mesh, axis_name: str = "voices") -> None:
+        """Switch block-mode execution to SPMD over ``mesh`` (one process
+        per device): the block function runs on this rank's instances of
+        every node array, its fan-in mix-downs and graph-output reductions
+        all-reduced over the mesh; the per-voice host arrays and the node
+        arrays' event buffers are staged as this rank's slices.  Use
+        ``parallel.voices.shard_compiled_state``, which also slices the
+        state."""
+        if self.mode != "block":
+            raise ValueError("sharded execution requires block mode")
+        from ..parallel.voices import VoiceShard
+        self._set_shard(VoiceShard(mesh, axis_name))
+
+    def _set_shard(self, shard) -> None:
+        self._shard = shard
+        self._block_fns.clear()
+        self._staging_cache.clear()
+        self._control_dirty = True
+
+    def _shard_state(self, voice_nodes=None) -> None:
+        """Keep this rank's slice of every node array's state (in
+        ``voice_nodes``, if given) whose count the mesh divides."""
+        shard = self._shard
+        state = self._state
+        if self._shard_flags is not None:   # sharded before: gather first
+            state = shard.gather(state, self._shard_flags)
+        self._shard_counts = {
+            name: inst.count for name, inst in self.ir.nodes.items()
+            if shard.divides(inst.count)
+            and (voice_nodes is None or name in voice_nodes)}
+        self._state, self._shard_flags = shard.split(state,
+                                                     self._shard_counts)
+
+    def _shard_staging(self, ev_np, host_vals):
+        """This rank's slices of the staged arrays (block mode): host values
+        of node arrays ``[B|1|3, C]`` on axis 1, node arrays' event buffers
+        ``[C, cap]`` on axis 0, where the mesh divides ``C``; a scalar
+        node's arrays stay whole, whatever their widths.  Each array's node
+        is the one recorded where it was staged."""
+        shard = self._shard
+
+        def mine(key, x, axis):
+            inst = self.ir.nodes.get(self._staged_owner.get(key))
+            c = inst.count if inst is not None else 1
+            if shard.divides(c) and np.ndim(x) > axis \
+                    and np.shape(x)[axis] == c:
+                return shard.take(x, c, axis=axis)
+            return x
+
+        return ({k: EventBuffer(*(mine(k, a, 0) for a in
+                                  (b.offsets, b.values, b.valid)), b.slots)
+                 for k, b in ev_np.items()},
+                {k: mine(k, v, 1) for k, v in host_vals.items()})
 
     def _make_scan_fn(self, block_len: int):
         """The sample-mode block function: the per-sample step over the
@@ -1122,6 +1235,8 @@ class CompiledGraph:
         input that is already a tensor on the graph's device (another
         graph's output, say) is not copied: it is padded to B with zeros
         on the device and used as it is."""
+        if self._shard is not None and self.mode == "block":
+            ev_np, host_vals = self._shard_staging(ev_np, host_vals)
         arrays: Dict[Any, np.ndarray] = {}
         on_device: Dict[str, torch.Tensor] = {}
         for gi in self.ir.inputs:

@@ -127,11 +127,13 @@ class Node:
         :meth:`tick_owned` writes in place are copied here, once per run."""
         return state
 
-    def tick_owned(self, state: State, ins: Values, sr: SampleRate
+    def tick_owned(self, state: State, ins: Values, sr: SampleRate, **kw
                    ) -> Tuple[State, Values]:
         """:meth:`tick` on a state from :meth:`own_state`; it may write
-        into the leaves that copied."""
-        return self.tick(state, ins, sr)
+        into the leaves that copied.  ``kw``: what the compiler knows of
+        the node on the host, passed where :meth:`tick` names it (the
+        oscillators' ``folded_ins``, see ``graph/block_mode.py``)."""
+        return self.tick(state, ins, sr, **kw)
 
     # ------------------------------------------------------------------ #
     # events

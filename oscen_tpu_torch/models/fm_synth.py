@@ -23,7 +23,7 @@ from ..nodes.midi import MidiParser, MidiVoiceHandler
 from ..nodes.voice_allocator import VoiceAllocator
 from ..ops import fmath
 from ..ops.cuda.fm import fast_branch_eligible, fm_chain3_scan
-from ..ops.fastmath import sin_turns
+from ..ops.fastmath import sin_turns, sin_turns_fma
 
 FB_EPS = ("op3_feedback", "op2_feedback", "op1_feedback")
 DT_EPS = frozenset({"base_freq", "op3_ratio", "op2_ratio", "op1_ratio"})
@@ -48,8 +48,13 @@ def chain_block(kernel, scan, lvl, state, ins, sr, block_len, const_ins,
     freq = [ins["base_freq"] * ins[f"op{i}_ratio"] for i in (3, 2, 1)]
     if dt_const:
         freq = [f[:, :1] for f in freq]
-    # base_freq*ratio/sr as XLA compiles it in the JAX package's graph
-    dt = fmath.div_const(torch.stack([f.t() for f in freq]), sr.hz)
+    # base_freq*ratio/sr as XLA compiles the JAX package's graph: the
+    # product times the float32 reciprocal, rounded (fm) or contracted
+    # into the phase's sum (the pivot: fma(f*ratio, 1/sr, phase))
+    dt = torch.stack([f.t() for f in freq])
+    inv = fmath.inv_const(sr.hz)
+    if kernel != "pivot_chain3":
+        dt, inv = dt * inv, 1.0
     fb = torch.stack([ins[ep][:, 0] for ep in FB_EPS])
     mix = torch.clamp(ins["route"][:, 0], 0.0, 1.0)
     lits = literal_ins or {}
@@ -58,7 +63,7 @@ def chain_block(kernel, scan, lvl, state, ins, sr, block_len, const_ins,
     hv = host_ins or {}
     fb_zero = fb_static if fb_static is not None else (
         all(ep in hv for ep in FB_EPS) and all(hv[ep] == 0.0 for ep in FB_EPS))
-    eligible = fast_branch_eligible(dt, block_len)
+    eligible = fast_branch_eligible(dt, block_len, kernel == "pivot_chain3")
     explain.note(kernel=kernel, const_dt=dt_const, fast_path="zero_feedback",
                  eligible=eligible, engaged=eligible and fb_zero,
                  predicate="all_zero" if (eligible and fb_static is None)
@@ -67,36 +72,42 @@ def chain_block(kernel, scan, lvl, state, ins, sr, block_len, const_ins,
                      state["prevs"].t().contiguous(), dt, lvl.contiguous(),
                      fb.contiguous(), mix.contiguous(),
                      ins["env3"].t(), ins["env2"].t(), ins["env1"].t(),
-                     fb_zero=fb_zero)
+                     fb_zero=fb_zero, inv_sr=inv)
     return ({"phases": ph.t(), "prevs": pv.t()}, {"output": y.t()})
 
 
 def chain_tick(pivot: bool, state, ins, sr, lvl):
     """One sample of a fused 3-operator chain (the JAX package's ``tick``)
-    in the order of the chain kernel's plain version: each operator's sine
-    at ``(phase + pm) + prev*fb``, its phase stepped by
-    ``base_freq*ratio/sr`` and wrapped by ``.fract()``.  ``prevs`` carries
-    the enveloped outputs (fm) or the raw sines (pivot); ``lvl`` are the
-    three operator levels, folded into the envelopes as the kernel does.
-    State leaves ``[(C,) 3]``, inputs ``[(C,)]``."""
+    in the order of the chain kernel's plain version (``ops/cuda/fm.py``):
+    each operator's sine at ``(phase + pm) + prev*fb``, its phase stepped
+    by ``base_freq*ratio/sr`` and wrapped by ``.fract()``.  The pivot
+    rounds as XLA compiles its tick: each product into a sum is one fused
+    multiply-add (the phase step ``fma(base_freq*ratio, 1/sr, phase)``,
+    the sine :func:`sin_turns_fma`); the fm chain rounds each op.
+    ``prevs`` carries the enveloped outputs (fm) or the raw sines (pivot);
+    ``lvl`` are the three operator levels, folded into the envelopes as the
+    kernel does.  State leaves ``[(C,) 3]``, inputs ``[(C,)]``."""
     ph, pv = state["phases"], state["prevs"]
     mix = torch.clamp(ins["route"], 0.0, 1.0)
+    inv = fmath.inv_const(sr.hz)
+    madd = fmath.fma if pivot else (lambda a, b, c: c + a * b)
+    sine = sin_turns_fma if pivot else sin_turns
     env = [ins[f"env{i}"] * lv for i, lv in zip((3, 2, 1), lvl)]
     sines, outs, phases = [], [], []
-    pm = None
     for j, i in enumerate((3, 2, 1)):
-        arg = ph[..., j] if pm is None else ph[..., j] + pm
-        s = sin_turns(arg + pv[..., j] * ins[f"op{i}_feedback"])
-        y = s * env[j]
-        p = ph[..., j] + fmath.div_const(
-            ins["base_freq"] * ins[f"op{i}_ratio"], sr.hz)
+        if j == 0:
+            arg = ph[..., 0]
+        elif j == 1:
+            arg = madd(outs[0], 1.0 - mix, ph[..., 1])
+        else:
+            arg = ph[..., 2] + madd(outs[0], mix, outs[1])
+        s = sine(madd(pv[..., j], ins[f"op{i}_feedback"], arg))
+        fr = ins["base_freq"] * ins[f"op{i}_ratio"]
+        p = (fmath.fma(fr, inv, ph[..., j]) if pivot
+             else ph[..., j] + fmath.div_const(fr, sr.hz))
         phases.append(p - torch.trunc(p))
         sines.append(s)
-        outs.append(y)
-        if i == 3:
-            pm, b = y * (1.0 - mix), y * mix
-        elif i == 2:
-            pm = y + b
+        outs.append(s * env[j])
     return ({"phases": torch.stack(phases, dim=-1),
              "prevs": torch.stack(sines if pivot else outs, dim=-1)},
             {"output": outs[2]})

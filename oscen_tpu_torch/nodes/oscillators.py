@@ -130,11 +130,12 @@ class Oscillator(Node):
     def init_state(self, sr: SampleRate):
         return _phase_state()
 
-    def tick(self, state, ins, sr):
+    def tick(self, state, ins, sr, folded_ins=None):
         frequency = ins["frequency"] * (1.0 + ins["frequency_mod"])
         out = _NAIVE_WAVEFORMS[self.waveform](_rust_rem(state["phase"])) \
             * ins["amplitude"]
-        phase = state["phase"] + fmath.div_const(frequency, sr.hz)
+        phase = state["phase"] + _increment(frequency, sr.hz, folded_ins,
+                                            clamp=False)
         return {"phase": _rust_rem(phase)}, {"output": out}
 
     def process_block(self, state, ins, events, sr, block_len,
@@ -238,12 +239,12 @@ class PolyBlepOscillator(Node):
                               fmath.sin(phase * TAU), val)
         return val
 
-    def tick(self, state, ins, sr):
+    def tick(self, state, ins, sr, folded_ins=None):
         frequency = torch.clamp_min(
             ins["frequency"] * (1.0 + ins["frequency_mod"]), 0.0)
         pulse_width = torch.clamp(ins["pulse_width"], 0.0001, 0.9999)
         phase = _wrap_phase(state["phase"] + ins["phase_mod"])
-        fps = fmath.div_const(frequency, max(sr.hz, F32_EPS))
+        fps = _increment(frequency, sr.hz, folded_ins, clamp=True)
         val = self._synthesize(phase, torch.clamp_max(fps, 1.0),
                                pulse_width, frequency, sr.hz)
         return ({"phase": _wrap_phase(state["phase"] + fps)},

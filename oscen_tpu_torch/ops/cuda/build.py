@@ -89,16 +89,17 @@ def load_library(name: str, csrc: Path = CSRC_DIR) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, symbol: str, n_ptr: int, n_int: int):
+def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
     """``csrc/<name>.cu``'s C entry point ``symbol``, typed for ctypes:
-    ``n_ptr`` pointers, ``n_int`` ints, then the stream; returns the
-    launch's CUDA error code (built and typed at first use)."""
+    ``n_ptr`` pointers, ``n_int`` ints, ``n_float`` floats, then the
+    stream; returns the launch's CUDA error code (built and typed at first
+    use)."""
     fn = _entries.get((name, symbol))
     if fn is None:
         fn = getattr(load_library(name), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         _entries[(name, symbol)] = fn
     return fn
 

@@ -22,7 +22,25 @@ the routing vectorized over the whole block in plain PyTorch.  The caller
 says whether the feedbacks are 0 (``fb_zero``), from values it knows on the
 host; nothing here reads the card.  The two branches compute the same
 float32 expressions in the same order (``prev * 0`` adds an exact zero in
-the sequential one), so they are bit-equal.
+the sequential one), so they are bit-equal.  On the card the pivot's
+chain runs its sequential kernel for such a block too: the branch's fused
+multiply-adds would each be a float64 emulation of a dozen and more
+PyTorch ops (``fmath.fma``), where the kernel gives the same bits in one
+launch.
+
+Phase steps and contractions.  The chains' phases step by
+``fma(dt, inv_sr, p)``: with ``inv_sr=1`` that is ``p + dt`` exactly (the
+Pallas kernels' step); the pivot passes ``dt = base_freq*ratio`` and the
+float32 reciprocal of the rate, as XLA compiles the JAX pivot graph's
+``p + f*ratio/sr`` into one FMA.  The pivot chain rounds as XLA compiles
+the JAX pivot tick throughout (bit for bit against a jitted scan of it):
+each operator's argument is ``fma(prev, fb, ph + pm)``, op2's ``ph + a``
+is ``fma(a3, 1 - route, ph2)``, op1's modulation ``a2 + b`` is
+``fma(a3, route, a2)``, and the sine is :func:`sin_turns_fma`.  The fm
+chain and the lone operator round every product and sum: in the JAX fm
+synth's graph XLA leaves the phase step uncontracted (measured on the
+CPU), so nothing there is fused.  The fused multiply-adds are
+``fmath.fma`` here and ``__fmaf_rn`` in ``csrc/fm.cu``.
 
 Selection: a CPU tensor runs the plain version, a CUDA tensor runs the
 kernel of ``csrc/fm.cu`` (built at first use) or raises.  ``launches``
@@ -35,7 +53,8 @@ from typing import Dict
 
 import torch
 
-from ..fastmath import sin_turns
+from ..fastmath import sin_turns, sin_turns_fma
+from ..fmath import fma
 
 FRACT = "fract_phase3"
 FM_CHAIN = "fm_chain3_scan"
@@ -66,33 +85,45 @@ def _wrap(p):
     return p - torch.trunc(p)   # Rust .fract(), never floor
 
 
+def _madd(fused: bool):
+    """``c + a*b``: one rounding (the pivot chain) or two (the fm chain)."""
+    return fma if fused else (lambda a, b, c: c + a * b)
+
+
+def _step(p, dt, inv_sr: float):
+    """One phase step, ``fma(dt, inv_sr, p)`` wrapped by ``.fract()``
+    (``inv_sr == 1``: ``p + dt``, the same number)."""
+    return _wrap(p + dt if inv_sr == 1.0 else fma(dt, inv_sr, p))
+
+
 # ------------------------------------------------------------------ #
 # K12 fract_phase3
 # ------------------------------------------------------------------ #
-def fract_phase3(phases, dt, B: int):
+def fract_phase3(phases, dt, B: int, inv_sr: float = 1.0):
     """Sequential fract-wrapped phases of the three chain operators.
 
-    Args: ``phases``/``dt`` ``[3, V]`` (op3, op2, op1); ``B`` block length.
-    Returns (``ph3``, ``ph2``, ``ph1`` each ``[B, V]``, the phases before
-    each increment, and the carry ``[3, V]``).  On the card a lane whose
-    phase and dt both lie in ``[+0, 1)`` steps by the short exact wrap
-    ``q - (q >= 1)`` (``csrc/fm.cu``), every other lane by ``q - trunc(q)``;
-    both equal the plain version bit for bit.
+    Args: ``phases``/``dt`` ``[3, V]`` (op3, op2, op1); ``B`` block length;
+    ``inv_sr``: each step is ``fma(dt, inv_sr, p)``.  Returns (``ph3``,
+    ``ph2``, ``ph1`` each ``[B, V]``, the phases before each increment, and
+    the carry ``[3, V]``).  On the card a lane whose phase and increment
+    ``dt*inv_sr`` (rounded) both lie in ``[+0, 1)`` steps by the short exact
+    wrap ``q - (q >= 1)`` (``csrc/fm.cu``), every other lane by
+    ``q - trunc(q)``; both equal the plain version bit for bit.
     """
     if phases.dim() != 2 or phases.shape[0] != 3 \
             or tuple(dt.shape) != tuple(phases.shape):
         raise ValueError(f"fract_phase3 takes phases and dt [3, V] (got "
                          f"{tuple(phases.shape)} and {tuple(dt.shape)})")
     if _device_of(phases, FRACT) == "cpu":
-        return plain_fract_phase3(phases, dt, B)
+        return plain_fract_phase3(phases, dt, B, inv_sr)
     from . import build
     build.check_operands(phases.device, phases=phases, dt=dt)
     V = phases.shape[1]
     out = torch.empty((3, B, V), dtype=torch.float32, device=phases.device)
     carry = torch.empty_like(phases)
-    fn = build.entry("fm", "oscen_fract_phase3", 4, 2)
+    fn = build.entry("fm", "oscen_fract_phase3", 4, 2, 1)
     rc = fn(phases.data_ptr(), dt.data_ptr(), out.data_ptr(),
-            carry.data_ptr(), V, B, _stream(phases))
+            carry.data_ptr(), V, B, inv_sr, _stream(phases))
     launches[FRACT] += 1
     build.check_launch("fm", rc, FRACT)
     return out[0], out[1], out[2], carry
@@ -110,14 +141,14 @@ def wrap_sweep(device="cuda"):
     return build.run_sweep("fm", "oscen_fract_wrap_sweep", dev)
 
 
-def plain_fract_phase3(phases, dt, B: int):
+def plain_fract_phase3(phases, dt, B: int, inv_sr: float = 1.0):
     """The kernel's per-sample loop in plain PyTorch, over ``[3, V]``."""
     out = torch.empty((3, B) + tuple(phases.shape[1:]), dtype=phases.dtype,
                       device=phases.device)
     p = phases
     for t in range(B):
         out[:, t] = p
-        p = _wrap(p + dt)
+        p = _step(p, dt, inv_sr)
     return out[0], out[1], out[2], p
 
 
@@ -147,9 +178,11 @@ def _check_chain(name, phases, prevs, dt, lvl, fb, mix, env3, env2, env1):
     return B, V
 
 
-def fast_branch_eligible(dt, B: int) -> bool:
-    """The JAX package's rule: block-constant dt and ``B % 8 == 0``."""
-    return dt.shape[1] == 1 and B % 8 == 0
+def fast_branch_eligible(dt, B: int, pivot: bool = False) -> bool:
+    """The JAX package's rule: block-constant dt and ``B % 8 == 0``; never
+    the pivot's chain on the card (the module's docstring)."""
+    return dt.shape[1] == 1 and B % 8 == 0 and (
+        not pivot or dt.device.type == "cpu")
 
 
 def _fold_levels(lvl, env3, env2, env1):
@@ -159,47 +192,55 @@ def _fold_levels(lvl, env3, env2, env1):
 
 
 def _chain3(pivot, phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-            fb_zero):
+            fb_zero, inv_sr):
     name = PIVOT_CHAIN if pivot else FM_CHAIN
     B, V = _check_chain(name, phases, prevs, dt, lvl, fb, mix, env3, env2,
                         env1)
     e3, e2, e1 = _fold_levels(lvl, env3, env2, env1)
-    if fb_zero and fast_branch_eligible(dt, B):
+    if fb_zero and fast_branch_eligible(dt, B, pivot):
         return _chain3_fast(pivot, phases, dt[:, 0, :].contiguous(), mix,
-                            e3, e2, e1)
+                            e3, e2, e1, inv_sr)
     if _device_of(env3, name) == "cpu":
-        return _plain_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1)
+        return _plain_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1,
+                             inv_sr)
     from . import build
     build.check_operands(env3.device, phases=phases, prevs=prevs, dt=dt,
                          fb=fb, mix=mix, env3=e3, env2=e2, env1=e1)
     y = torch.empty_like(e3)
     ph = torch.empty_like(phases)
     pv = torch.empty_like(prevs)
-    fn = build.entry("fm", f"oscen_{name}", 11, 3)
+    fn = build.entry("fm", f"oscen_{name}", 11, 3, 1)
     rc = fn(phases.data_ptr(), prevs.data_ptr(), dt.data_ptr(),
             fb.data_ptr(), mix.data_ptr(), e3.data_ptr(), e2.data_ptr(),
             e1.data_ptr(), y.data_ptr(), ph.data_ptr(), pv.data_ptr(), V, B,
-            V if dt.shape[1] == B and B > 1 else 0, _stream(env3))
+            V if dt.shape[1] == B and B > 1 else 0, inv_sr, _stream(env3))
     launches[name] += 1
     build.check_launch("fm", rc, name)
     return y, ph, pv
 
 
-def _chain3_fast(pivot, phases, dt_rows, mix, e3, e2, e1):
+def zero_feedback_branch(pivot, phases, dt, lvl, mix, env3, env2, env1,
+                         inv_sr: float = 1.0):
+    """The zero-feedback branch on any device, for holding it against the
+    chain kernels on the card (args as :func:`fm_chain3_scan` without the
+    carried sines and feedbacks; ``dt`` ``[3, 1, V]``)."""
+    return _chain3_fast(pivot, phases, dt[:, 0, :].contiguous(), mix,
+                        *_fold_levels(lvl, env3, env2, env1), inv_sr)
+
+
+def _chain3_fast(pivot, phases, dt_rows, mix, e3, e2, e1, inv_sr):
     """Zero-feedback branch: with every feedback 0 the only cross-sample
     dependency is the phase recurrence (:func:`fract_phase3`); the sines
     and the routing vectorize over the block, in the sequential chain's
     expressions and order."""
     B = e3.shape[0]
-    ph3, ph2, ph1, phc = fract_phase3(phases, dt_rows, B)
-    om = 1.0 - mix
-    s3 = sin_turns(ph3)
+    ph3, ph2, ph1, phc = fract_phase3(phases, dt_rows, B, inv_sr)
+    madd, sine = _madd(pivot), sin_turns_fma if pivot else sin_turns
+    s3 = sine(ph3)
     a3 = s3 * e3
-    a = a3 * om
-    b = a3 * mix
-    s2 = sin_turns(ph2 + a)
+    s2 = sine(madd(a3, 1.0 - mix, ph2))
     a2 = s2 * e2
-    s1 = sin_turns(ph1 + (a2 + b))
+    s1 = sine(ph1 + madd(a3, mix, a2))
     y = s1 * e1
     if pivot:
         pv = torch.stack([s3[-1], s2[-1], s1[-1]])
@@ -208,71 +249,72 @@ def _chain3_fast(pivot, phases, dt_rows, mix, e3, e2, e1):
     return y, phc, pv
 
 
-def _plain_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1):
+def _plain_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1,
+                  inv_sr=1.0):
     """The chain kernel's per-sample loop in plain PyTorch, over ``[V]``
     rows (envelope streams already level-folded)."""
     B = e3.shape[0]
     y = torch.empty_like(e3)
-    ph3, ph2, ph1 = phases
+    ph = phases
     p3, p2, p1 = prevs
     fb3, fb2, fb1 = fb
     om = 1.0 - mix
+    madd, sine = _madd(pivot), sin_turns_fma if pivot else sin_turns
     per_sample = dt.shape[1] == B and B > 1
     for t in range(B):
-        d3, d2, d1 = dt[:, t] if per_sample else dt[:, 0]
-        s3 = sin_turns(ph3 + p3 * fb3)
+        # the three phases step together: each depends on its own only
+        ph3, ph2, ph1 = ph
+        s3 = sine(madd(p3, fb3, ph3))
         a3 = s3 * e3[t]
-        a = a3 * om
-        b = a3 * mix
-        ph3 = _wrap(ph3 + d3)
-        s2 = sin_turns((ph2 + a) + p2 * fb2)
+        s2 = sine(madd(p2, fb2, madd(a3, om, ph2)))
         a2 = s2 * e2[t]
-        ph2 = _wrap(ph2 + d2)
-        s1 = sin_turns((ph1 + (a2 + b)) + p1 * fb1)
+        s1 = sine(madd(p1, fb1, ph1 + madd(a3, mix, a2)))
         y[t] = s1 * e1[t]
-        ph1 = _wrap(ph1 + d1)
+        ph = _step(ph, dt[:, t] if per_sample else dt[:, 0], inv_sr)
         p3, p2, p1 = (s3, s2, s1) if pivot else (a3, a2, y[t])
-    return y, torch.stack([ph3, ph2, ph1]), torch.stack([p3, p2, p1])
+    return y, ph, torch.stack([p3, p2, p1])
 
 
 def fm_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                   fb_zero: bool = False):
+                   fb_zero: bool = False, inv_sr: float = 1.0):
     """One block of the fused 3-operator FM voice chain, all voices.
 
     Args: ``phases``/``prevs`` ``[3, V]`` (op3, op2, op1); ``dt``
     ``[3, B, V]`` per-sample or ``[3, 1, V]`` block-constant phase
-    increments; ``lvl``/``fb`` ``[3, V]``; ``mix`` ``[V]`` (the route,
-    clamped); ``env3/2/1`` ``[B, V]``; ``fb_zero``: every feedback is 0
-    (known on the host).  Returns (``y`` ``[B, V]``, ``phases'``,
-    ``prevs'``).
+    increments, each step ``fma(dt, inv_sr, phase)``; ``lvl``/``fb``
+    ``[3, V]``; ``mix`` ``[V]`` (the route, clamped); ``env3/2/1``
+    ``[B, V]``; ``fb_zero``: every feedback is 0 (known on the host).
+    Returns (``y`` ``[B, V]``, ``phases'``, ``prevs'``).
     """
     return _chain3(False, phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                   fb_zero)
+                   fb_zero, inv_sr)
 
 
-def plain_fm_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2, env1):
+def plain_fm_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
+                         inv_sr: float = 1.0):
     """The sequential chain in plain PyTorch (what the kernel computes)."""
     return _plain_chain3(False, phases, prevs, dt, fb, mix,
-                         *_fold_levels(lvl, env3, env2, env1))
+                         *_fold_levels(lvl, env3, env2, env1), inv_sr)
 
 
 def pivot_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                      fb_zero: bool = False):
+                      fb_zero: bool = False, inv_sr: float = 1.0):
     """One block of the fused pivot operator chain, all voices.
 
-    Args as :func:`fm_chain3_scan`; ``prevs`` carries the raw sines.
-    Returns (``y`` ``[B, V]``, op1's enveloped output before the filter;
-    ``phases'``; ``prevs'``).
+    Args as :func:`fm_chain3_scan`; ``prevs`` carries the raw sines; the
+    chain's products into sums are fused multiply-adds (the module's
+    docstring).  Returns (``y`` ``[B, V]``, op1's enveloped output before
+    the filter; ``phases'``; ``prevs'``).
     """
     return _chain3(True, phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                   fb_zero)
+                   fb_zero, inv_sr)
 
 
 def plain_pivot_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2,
-                            env1):
+                            env1, inv_sr: float = 1.0):
     """The sequential pivot chain in plain PyTorch."""
     return _plain_chain3(True, phases, prevs, dt, fb, mix,
-                         *_fold_levels(lvl, env3, env2, env1))
+                         *_fold_levels(lvl, env3, env2, env1), inv_sr)
 
 
 # ------------------------------------------------------------------ #

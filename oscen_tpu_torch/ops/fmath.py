@@ -70,12 +70,43 @@ def div(x, c: float):
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def inv_const(c: float) -> float:
+    """The float32 reciprocal of ``c`` that XLA multiplies by for
+    ``x / c`` (a Python float holding a float32 value)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def div_const(x, c: float):
     """``x / c`` as XLA compiles it: ``x`` times the float32 reciprocal of
     ``c``, one rounding, the same on every device."""
-    return x * float(np.float32(1.0) / np.float32(c))
+    return x * inv_const(c)
 
 
 def rdiv(c: float, x):
     """``c / x`` correctly rounded on every device, as in XLA."""
     return torch.full((), c, dtype=x.dtype, device=x.device) / x
+
+
+def fma(a, b, c):
+    """``a*b + c`` on float32 operands with ONE rounding, the same on every
+    device: what XLA's CPU backend computes where it contracts a product
+    that feeds a sum, and ``__fmaf_rn`` on the card.  Any operand but one
+    tensor may be a Python float holding a float32 value; the operands
+    broadcast.
+
+    The float64 product of two float32 values is exact.  The float64 sum
+    ``s`` is rounded to odd before the final rounding to float32, so that
+    rounding is the correct one, never a double rounding: TwoSum gives the
+    sum's exact error, and an inexact ``s`` is truncated toward zero and
+    its last bit set (one step in the int64 view of the float64 bits)."""
+    a, b, c = (x.double() if isinstance(x, torch.Tensor) else float(x)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    e = err * s          # > 0: the exact sum lies beyond s, < 0: inside it
+    inside = e < 0
+    bits = ((s.view(torch.int64) - inside.long())
+            | (inside | (e > 0)).long())
+    return bits.view(torch.float64).float()

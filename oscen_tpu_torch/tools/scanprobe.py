@@ -114,7 +114,7 @@ from ..ops.cuda import phase as kphase
 
 WINDOWS = 5
 LAUNCHES = 20
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PHASE_PROBES = {0: "(a) as is", 1: "(b) dt from a register",
                 2: "(c) the ring with floor"}
 TPT_PROBES = {0: "as is", 1: "x from a register", 2: "unroll 16",
@@ -213,13 +213,13 @@ def _entries(csrc: Path):
             "additive", csrc), f"oscen_additive_{v}"), [P] * 17 + [I] * 5
             + [P]) for v in ("v4", "v3", "v2", "parity")},
         "fract_phase3": _typed(fm.oscen_fract_phase3, [P] * 4 + [I] * 2
-                               + [P]),
+                               + [F, P]),
         "allpass_cascade_scan": _typed(lib.oscen_allpass_cascade_scan,
                                        [P] * 7 + [I] * 3 + [P]),
         "fm_chain3_scan": _typed(fm.oscen_fm_chain3_scan,
-                                 [P] * 11 + [I] * 3 + [P]),
+                                 [P] * 11 + [I] * 3 + [F, P]),
         "pivot_chain3_scan": _typed(fm.oscen_pivot_chain3_scan,
-                                    [P] * 11 + [I] * 3 + [P]),
+                                    [P] * 11 + [I] * 3 + [F, P]),
         "biquad_scan": _typed(lib.oscen_biquad_scan, [P] * 11 + [I] * 7
                               + [P]),
         "fm_operator_scan": _typed(fm.oscen_fm_operator_scan,
@@ -398,7 +398,7 @@ def _fract_launcher(fn, p0, dt, B):
 
     def run():
         _check(fn(p0.data_ptr(), dt.data_ptr(), out.data_ptr(),
-                  carry.data_ptr(), V, B,
+                  carry.data_ptr(), V, B, 1.0,
                   torch.cuda.current_stream().cuda_stream), "fract_phase3")
         return out[0], out[1], out[2], carry
     return run
@@ -488,9 +488,11 @@ def _chain_inputs(dev, V, B, per_sample, seed):
     return ops, torch.ones(3, V, device=dev)
 
 
-def _chain_launcher(fn, ops, head=()):
+def _chain_launcher(fn, ops, head=(), tail=(1.0,)):
     """fn(*head, phases, prevs, dt, fb, mix, e3, e2, e1, y, phases',
-    prevs', V, B, dt_stride, stream) on preallocated outputs."""
+    prevs', V, B, dt_stride, *tail, stream) on preallocated outputs (a
+    shipped chain's tail is its inv, 1: each phase steps by p + dt; a
+    probe's is empty)."""
     B, V = ops[5].shape
     outs = (torch.empty_like(ops[5]), torch.empty_like(ops[0]),
             torch.empty_like(ops[1]))
@@ -498,7 +500,7 @@ def _chain_launcher(fn, ops, head=()):
 
     def run():
         _check(fn(*head, *[t.data_ptr() for t in ops],
-                  *[t.data_ptr() for t in outs], V, B, stride,
+                  *[t.data_ptr() for t in outs], V, B, stride, *tail,
                   torch.cuda.current_stream().cuda_stream), "chain3")
         return outs
     return run
@@ -700,9 +702,12 @@ def probe(dev, mhz):
         for B, ps in CHAIN_SHAPES:
             ops, lvl = _chain_inputs(dev, 256, B, ps, B + ps)
             ref = _chain_plain(kernel, ops, lvl)
-            bodies = [(name, exact, _chain_launcher(
-                lib.probe_chain, ops, (var, int(kernel.startswith("pivot")))))
-                for var, (name, exact) in CHAIN_PROBES.items()]
+            # the probes keep the unfused bodies: exact for the fm chain only
+            bodies = [(name, exact and kernel == "fm_chain3_scan",
+                       _chain_launcher(lib.probe_chain, ops,
+                                       (var, int(kernel.startswith("pivot"))),
+                                       ()))
+                      for var, (name, exact) in CHAIN_PROBES.items()]
             bodies.append(("shipped: a warp per operator, on the ring",
                            True, _chain_launcher(shipped[kernel], ops)))
             for name, exact, run in bodies:
@@ -898,7 +903,9 @@ def ab(dev, old: Path, mhz):
         ref = iir.plain_allpass_cascade_scan(*ops)
         rows.append(("allpass_cascade_scan", f"V={V} B={B}", B, runs,
                      lambda got, ref=ref: _same(got, ref)))
-    for kernel in ("pivot_chain3_scan", "fm_chain3_scan"):
+    # the pivot chain now fuses its products into sums, which a parent tree
+    # without them rounds apart: old against new for the fm chain only
+    for kernel in ("fm_chain3_scan",):
         for B, ps in CHAIN_SHAPES:
             ops, lvl = _chain_inputs(dev, 256, B, ps, 5 * B + ps)
             runs = {w: _chain_launcher(fns[kernel], ops)

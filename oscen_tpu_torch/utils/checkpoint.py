@@ -52,7 +52,9 @@ def _leaves(tree):
 
 def save_state(compiled, path: str) -> None:
     """Serialize a CompiledGraph's device state (plus host param/ramp and
-    host-domain control state) to ``path``."""
+    host-domain control state) to ``path``.  A voice-sharded graph's state
+    is gathered whole first, so every rank calls this, each with its own
+    ``path``; the files are equal."""
     host_params = {
         name: {"current": float(r.current), "target": float(r.target),
                "increment": float(r.increment),
@@ -80,7 +82,8 @@ def save_state(compiled, path: str) -> None:
 def load_state(compiled, path: str) -> None:
     """Restore state saved by :func:`save_state` into ``compiled``, on its
     device.  Graph name, sample rate, state structure and leaf shapes must
-    match."""
+    match.  A voice-sharded graph checks the whole shapes and keeps its
+    slices (the ``state`` setter)."""
     with open(path, "rb") as f:
         blob = pickle.load(f)
     if blob["graph"] != compiled.ir.name:

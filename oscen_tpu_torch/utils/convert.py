@@ -36,5 +36,13 @@ def state_from_jax(np_state: Any, device="cuda") -> Any:
 
 
 def state_to_numpy(state: Any) -> Any:
-    """Torch state -> numpy state, e.g. to compare with the JAX package."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), state)
+    """Torch state -> numpy state, e.g. to compare with the JAX package.
+    A voice-sharded state's ``DTensor`` leaves give their whole value, as
+    ``np.asarray`` gathers a JAX array's shards: a collective, so every
+    rank of the mesh calls it."""
+    return tree_map(lambda x: _whole(x).detach().cpu().numpy(), state)
+
+
+def _whole(x):
+    full = getattr(x, "full_tensor", None)   # a DTensor
+    return x if full is None else full()

@@ -448,11 +448,52 @@ def test_chain_kernel_equals_plain(cuda, chain, V, B, per_sample, fb):
     assert kfm.launches[name] == before + 3
 
 
+INV_SR = float(np.float32(1) / np.float32(48000))
+
+
+@pytest.mark.parametrize("per_sample", [False, True],
+                         ids=["const_dt", "per_sample_dt"])
+@pytest.mark.parametrize("V,B", [(3, 37), (33, 65), (256, 1024)])
+@pytest.mark.parametrize("chain", ["fm", "pivot"])
+def test_chain_kernel_fused_step_equals_plain(cuda, chain, V, B,
+                                              per_sample):
+    """The phase step fma(base_freq*ratio, 1/sr, p) (the pivot's form,
+    ``inv_sr``), feedback on: 3 chained blocks bit for bit."""
+    scan = getattr(kfm, f"{chain}_chain3_scan")
+    plain = getattr(kfm, f"plain_{chain}_chain3_scan")
+    rng = np.random.default_rng(V * B + per_sample)
+    carry = (_on(cuda, rng.uniform(0, 1, (3, V))),
+             _on(cuda, rng.normal(size=(3, V))))
+    for _ in range(3):
+        dt, *rest = _chain_args(cuda, rng, V, B, per_sample, 0.4)
+        args = (dt * 48000.0, *rest)
+        k = scan(*carry, *args, inv_sr=INV_SR)
+        torch.cuda.synchronize()
+        assert _equal(k, plain(*carry, *args, inv_sr=INV_SR))
+        carry = k[1:]
+
+
+@pytest.mark.parametrize("V,B", SCAN_SHAPES)
+def test_fract_phase3_fused_step_equals_plain(cuda, V, B):
+    """K12 stepping by fma(dt, 1/sr, p), on and off its short wrap."""
+    rng = np.random.default_rng(V + 2 * B)
+    p = _on(cuda, rng.uniform(-1, 1, (3, V)))
+    for _ in range(3):
+        dt = _on(cuda, rng.uniform(-0.05, 0.4, (3, V)) * 48000.0)
+        k = kfm.fract_phase3(p, dt, B, INV_SR)
+        torch.cuda.synchronize()
+        assert _equal(k, kfm.plain_fract_phase3(p, dt, B, INV_SR))
+        p = k[3]
+
+
 @pytest.mark.parametrize("V,B", [(3, 64), (40, 128), (256, 1024)])
 @pytest.mark.parametrize("chain", ["fm", "pivot"])
 def test_zero_feedback_branch_equals_chain_kernel(cuda, chain, V, B):
     """On the card the zero-feedback branch (fract_phase3 and plain
-    PyTorch) and the sequential chain kernel are bit-equal too."""
+    PyTorch) and the sequential chain kernel are bit-equal too.  The fm
+    chain takes the branch there; the pivot's chain runs its kernel with
+    ``fb_zero`` (its branch is held against it all the same, as the CPU
+    takes it)."""
     scan = getattr(kfm, f"{chain}_chain3_scan")
     rng = np.random.default_rng(V + B)
     fast = seq = (_on(cuda, rng.uniform(0, 1, (3, V))),
@@ -464,10 +505,15 @@ def test_zero_feedback_branch_equals_chain_kernel(cuda, chain, V, B):
         s_ = scan(*seq, *args)
         torch.cuda.synchronize()
         assert _equal(f, s_)
+        if chain == "pivot":
+            dt, lvl, _, mix, *envs = args
+            b = kfm.zero_feedback_branch(True, fast[0], dt, lvl, mix, *envs)
+            torch.cuda.synchronize()
+            assert _equal(b, f)
         fast, seq = f[1:], s_[1:]
     assert kfm.launches["fract_phase3"] == before["fract_phase3"] + 3
     assert kfm.launches[f"{chain}_chain3_scan"] == \
-        before[f"{chain}_chain3_scan"] + 3
+        before[f"{chain}_chain3_scan"] + (3 if chain == "fm" else 6)
 
 
 @pytest.mark.parametrize("V,B", SCAN_SHAPES)
@@ -553,7 +599,14 @@ def test_fm_models_on_card_match_cpu(cuda, model, fused):
     p, a = _fm_model(build, "cuda", fused=fused)
     if fused:
         chain = f"{'fm' if model == 'fm_synth' else 'pivot'}_chain3_scan"
-        assert kfm.launches[chain] > 0 and kfm.launches["fract_phase3"] > 0
+        assert kfm.launches[chain] > 0
+        # the fm synth's zero-feedback blocks take fract_phase3; the
+        # pivot's every block its chain kernel, on the card
+        if model == "fm_synth":
+            assert kfm.launches["fract_phase3"] > 0
+        else:
+            assert kfm.launches["fract_phase3"] == 0
+            assert kfm.launches[chain] == 6
         assert p.state["voices.ops"]["phases"].device.type == "cuda"
     else:
         assert kfm.launches["fm_operator_scan"] == 3 * 6

@@ -78,12 +78,6 @@ def _within(atol):
     return check
 
 
-def _rms_within(bound):
-    def check(got, want):
-        assert np.sqrt(np.mean((got - want) ** 2)) <= bound
-    return check
-
-
 # name: (argv after the output path, the JAX run, the check against it)
 CASES = {
     # The port's steady blocks run the fused v4 closed forms; the JAX
@@ -97,10 +91,10 @@ CASES = {
     # Operator-3 feedback 0.3 from the first block amplifies ulp-level
     # differences: on this schedule the JAX package's own pivot_chain3
     # kernel (interpret mode) and its ticks differ by 5.5e-4 RMS (2.0e-2
-    # max), and the port sits 1.1e-5 RMS from that kernel.  Held at 1e-3
-    # RMS against the ticks (tests/test_torch_fm_synth.py pins 1e-4 RMS
-    # over 3 blocks of 64 with the feedback on).
-    "pivot_demo": ([], _pivot, _rms_within(1e-3)),
+    # max).  The port's pivot chain rounds as XLA compiles those ticks
+    # (fused multiply-adds), and sits 1.8e-7 max from them: held at the
+    # fm synth's 1e-5 (it was 1e-3 RMS before the chain fused them).
+    "pivot_demo": ([], _pivot, _within(1e-5)),
     # tests/test_torch_echo_saturator.py
     "oversampled_saturator": ([], _saturator, _within(1e-6)),
     # tests/test_torch_convolution.py

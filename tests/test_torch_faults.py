@@ -6,7 +6,10 @@
 3. a state whose leaves are numpy arrays resumes bit for bit, as in
    ``tests/test_models_aux.py::test_checkpoint_restore``;
 4. an oscillator's literal frequency is divided by the rate as XLA folds
-   it (the saw of ``examples/oversampled_saturator.py`` at 44.1 kHz).
+   it (the saw of ``examples/oversampled_saturator.py`` at 44.1 kHz), in
+   block mode and in sample mode;
+5. the pivot's operator chain rounds as XLA compiles the JAX pivot tick
+   (its products into sums fused): the demo's chords no longer drift.
 """
 
 import importlib
@@ -140,14 +143,18 @@ def _leaves(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("connected", [False, True],
-                         ids=["literal", "parameter"])
-def test_literal_frequency_increment_folds_like_xla(connected):
+@pytest.mark.parametrize("connected,mode",
+                         [(False, "block"), (True, "block"),
+                          (False, "sample")],
+                         ids=["literal", "parameter", "literal_sample_mode"])
+def test_literal_frequency_increment_folds_like_xla(connected, mode):
     """A saw at 2 kHz and 44.1 kHz, its frequency a node default (XLA
     folds 2000 / 44100 with a true division) or a never-set graph
     parameter (a runtime operand: the reciprocal product): block mode
     matches JAX at 1e-6 over 8820 samples either way (it drifted 5.8e-3
-    with the reciprocal on a literal)."""
+    with the reciprocal on a literal), and so does sample mode with the
+    literal, where the ticks take ``folded_ins`` (it drifted 1.2e-3 after
+    2048 samples while they did not)."""
     def build(pkg):
         g = pkg.Graph("Saw")
         g.output("o", "stream")
@@ -158,8 +165,36 @@ def test_literal_frequency_increment_folds_like_xla(connected):
             g.connect("f", osc.frequency)
         g.connect(osc.output, "o")
         return g
-    a = np.asarray(build(J).compile(44100.0, block_size=512)
+    a = np.asarray(build(J).compile(44100.0, block_size=512, mode=mode)
                    .render_mono(8820))
-    b = build(T).compile(44100.0, block_size=512, device="cpu") \
+    b = build(T).compile(44100.0, block_size=512, mode=mode, device="cpu") \
         .render_mono(8820)
     np.testing.assert_allclose(b, a, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["block", "sample"])
+def test_pivot_chords_match_jax_without_feedback(mode):
+    """The pivot demo's chords and route ramp at ``op3_feedback`` 0 over
+    0.2 s (9600 samples): the port within the fm synth's 1e-5 of JAX in
+    both modes.  With the phase step rounded separately it drifted 3.3e-6
+    a block, to 6.6e-5: XLA computes the JAX pivot tick's
+    ``p + f*ratio/sr`` as one fused multiply-add."""
+    from oscen_tpu.models.pivot import build_pivot as jpivot
+    from oscen_tpu_torch.examples import pivot_demo as ex
+    from oscen_tpu_torch.examples import to_numpy
+    from oscen_tpu_torch.models.pivot import build_pivot as tpivot
+
+    def render(synth, raw_midi):
+        synth.set_value("filter_env_amount", 1500.0)
+        synth.set_value("op3_feedback", 0.0)
+        return to_numpy(ex.play(
+            synth, raw_midi,
+            ex.note_schedule(ex.CHORDS, ex.GATE_SECONDS, ex.SR),
+            int(ex.SR * 0.2), ex.BLOCK, "audio_out",
+            on_block=ex.pivot_route))
+    a = render(jpivot(8).compile(ex.SR, block_size=ex.BLOCK, mode=mode),
+               J.raw_midi_event)
+    b = render(tpivot(8).compile(ex.SR, block_size=ex.BLOCK, mode=mode,
+                                 device="cpu"), T.raw_midi_event)
+    assert np.abs(a).max() > 0.1
+    np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)

@@ -17,8 +17,12 @@ pivot chain 1e-5 (``test_pivot.py:202``: its raw-sine feedback amplifies
 those 1-ulp seeds), for one block from zero carries at V <= 3 as the JAX
 tests run it; from a carry, or at V=130, the Pallas kernel's own drift
 from its tick (``_bound``); the JAX zero-feedback branch: phases bit for bit, the rest
-1e-5 (``test_pallas.py:215-221``).  The feedback kernels' plain versions
-also equal the JAX node's eager per-sample ``tick`` bit for bit.
+1e-5 (``test_pallas.py:215-221``).  The fm chain's and the operator's
+plain versions also equal the JAX node's eager per-sample ``tick`` bit for
+bit; the pivot chain's, given ``base_freq*ratio`` and the float32
+reciprocal of the rate, equals the JAX pivot ``tick`` as XLA compiles it
+in a graph (a jitted scan, whose products into sums are fused
+multiply-adds) bit for bit.
 """
 
 import re
@@ -146,27 +150,58 @@ def _chain_block(rng, V, B, per_sample):
 
 
 def _chain_tick(chain, st, freq, args):
-    """The JAX node's own per-sample tick, eagerly (one XLA call per op,
-    nothing contracted), over all V lanes at once."""
+    """The JAX node's own per-sample tick over all V lanes at once: the fm
+    chain's eagerly (one XLA call per op, nothing contracted), the pivot's
+    as a ``CompiledGraph`` runs it (a jitted scan, every input a runtime
+    operand, ``vmap`` over the lanes), where XLA contracts its products
+    into sums."""
+    import jax
     from oscen_tpu.core.types import SampleRate
     from oscen_tpu.models.fm_synth import FmOperatorChain
     from oscen_tpu.models.pivot import PivotOperatorChain
     node = FmOperatorChain() if chain == "fm" else PivotOperatorChain()
     _, lvl, fb, mix, e3, e2, e1 = args
-    ins = {f"op{i}_ratio": jnp.float32(r) for i, r in ((3, 3), (2, 2),
-                                                        (1, 1))}
+    prm = {f"op{i}_ratio": np.float32(r) for i, r in ((3, 3), (2, 2),
+                                                      (1, 1))}
     for r, i in enumerate((3, 2, 1)):
-        ins[f"op{i}_level"] = jnp.float32(lvl[r, 0])
-        ins[f"op{i}_feedback"] = jnp.float32(fb[r, 0])
-    ins["route"] = jnp.float32(mix[0])
-    st = {k: jnp.asarray(v) for k, v in st.items()}
-    ys = []
-    for t in range(freq.shape[0]):
-        ins.update(base_freq=jnp.asarray(freq[t]), env3=jnp.asarray(e3[t]),
-                   env2=jnp.asarray(e2[t]), env1=jnp.asarray(e1[t]))
-        st, o = node.tick(st, ins, SampleRate(48000.0))
-        ys.append(np.asarray(o["output"]))
-    return np.stack(ys), np.asarray(st["phases"]), np.asarray(st["prevs"])
+        prm[f"op{i}_level"] = lvl[r, 0]
+        prm[f"op{i}_feedback"] = fb[r, 0]
+    prm["route"] = mix[0]
+    if chain == "fm":
+        ins = {k: jnp.float32(v) for k, v in prm.items()}
+        st = {k: jnp.asarray(v) for k, v in st.items()}
+        ys = []
+        for t in range(freq.shape[0]):
+            ins.update(base_freq=jnp.asarray(freq[t]),
+                       env3=jnp.asarray(e3[t]), env2=jnp.asarray(e2[t]),
+                       env1=jnp.asarray(e1[t]))
+            st, o = node.tick(st, ins, SampleRate(48000.0))
+            ys.append(np.asarray(o["output"]))
+        return np.stack(ys), np.asarray(st["phases"]), np.asarray(st["prevs"])
+    B = freq.shape[0]
+    prm = {k: np.full((B,), v, np.float32) for k, v in prm.items()}
+    lanes = ("base_freq", "env3", "env2", "env1")
+    tick = jax.vmap(lambda s, i: node.tick(s, i, SampleRate(48000.0)),
+                    in_axes=(0, {k: 0 if k in lanes else None
+                                 for k in (*prm, *lanes)}))
+
+    def body(s, xs):
+        s, o = tick(s, xs)
+        return s, o["output"]
+
+    st = {k: jnp.asarray(np.ascontiguousarray(v.T)) for k, v in st.items()}
+    xs = {**{k: jnp.asarray(v) for k, v in prm.items()},
+          "base_freq": jnp.asarray(freq), "env3": jnp.asarray(e3),
+          "env2": jnp.asarray(e2), "env1": jnp.asarray(e1)}
+    st, ys = jax.jit(lambda s, x: jax.lax.scan(body, s, x))(st, xs)
+    return (np.asarray(ys), np.asarray(st["phases"]).T,
+            np.asarray(st["prevs"]).T)
+
+
+def _fr(freq, per_sample):
+    """``base_freq*ratio`` per operator, ``[3, B, V]`` or ``[3, 1, V]``."""
+    fr = np.stack([freq * np.float32(r) for r in (3.0, 2.0, 1.0)])
+    return fr if per_sample else fr[:, :1]
 
 
 @pytest.mark.parametrize("per_sample", [True, False],
@@ -177,7 +212,8 @@ def test_chain_plain_matches_pallas_and_tick(chain, V, B, per_sample):
     """Two chained blocks.  Against the Pallas kernel both packages start
     each block from the same carry (the bound is a one-block bound, the
     feedback amplifies the kernel's FMA seeds across blocks); against the
-    JAX tick the port runs on its own carry, bit for bit."""
+    JAX tick (the pivot's as XLA compiles it) the port runs on its own
+    carry, bit for bit."""
     jscan = getattr(jfm, f"_{chain}_chain3_pallas")
     tscan = getattr(tfm, f"{chain}_chain3_scan")
     rng = np.random.default_rng(V * 7 + B + per_sample)
@@ -199,7 +235,12 @@ def test_chain_plain_matches_pallas_and_tick(chain, V, B, per_sample):
         ys, ph_k, pv_k = _chain_tick(
             chain, {"phases": own[0].numpy(), "prevs": own[1].numpy()},
             freq, args)
-        yo, *own = tscan(*own, *map(_t, args))
+        if chain == "fm":
+            yo, *own = tscan(*own, *map(_t, args))
+        else:
+            yo, *own = tscan(*own, _t(_fr(freq, per_sample)),
+                             *map(_t, args[1:]),
+                             inv_sr=float(np.float32(1) / np.float32(48000)))
         assert torch.equal(yo, _t(ys))
         assert torch.equal(own[0], _t(ph_k))
         assert torch.equal(own[1], _t(pv_k))

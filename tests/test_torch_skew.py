@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from oscen_tpu_torch.ops.fastmath import sin_turns
+from oscen_tpu_torch.ops.fastmath import sin_turns, sin_turns_fma
+from oscen_tpu_torch.ops.fmath import fma
 from oscen_tpu_torch.ops.cuda import fm as tfm
 from oscen_tpu_torch.ops.cuda import iir as tiir
 
@@ -76,13 +77,16 @@ def _wrap(p):
     return p - torch.trunc(p)
 
 
-def skewed_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1,
+def skewed_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1, inv_sr,
                   chunk=CHUNK):
     """``chain3_kernel``'s schedule on level-folded envelopes: at step s the
     warp of op3 runs chunk s, op2's chunk s - 1, op1's chunk s - 2; op3's
-    route (a, b) and op2's modulation of op1 (pm1) pass through buffers
-    double-buffered by chunk.  Within a step the model runs op3, op2, op1
-    one after the other (the warps run at once on disjoint buffers)."""
+    route (the fm chain's a and b; the pivot's enveloped output a3, from
+    which op2 forms the route inside its fused multiply-adds) and op2's
+    modulation of op1 (pm1) pass through buffers double-buffered by chunk.
+    Within a step the model runs op3, op2, op1 one after the other (the
+    warps run at once on disjoint buffers).  Each phase steps by
+    ``fma(dt, inv_sr, p)``."""
     B, V = e3.shape
     per_sample = dt.shape[1] == B and B > 1
     chunks = -(-B // chunk)
@@ -92,28 +96,37 @@ def skewed_chain3(pivot, phases, prevs, dt, fb, mix, e3, e2, e1,
     ph, prev = list(phases.unbind(0)), list(prevs.unbind(0))
     om = 1.0 - mix
     env = (e3, e2, e1)
+    sine = sin_turns_fma if pivot else sin_turns
+    madd = fma if pivot else (lambda a, b, c: c + a * b)
 
     def run(r, k):   # operator r (0: op3, 1: op2, 2: op1) over chunk k
         for t in range(min(chunk, B - k * chunk)):
             i = k * chunk + t
             if r == 0:
-                s_ = sin_turns(ph[0] + prev[0] * fb[0])
-                a3 = s_ * env[0][i]
-                route["a"][k % 2, t] = a3 * om
-                route["b"][k % 2, t] = a3 * mix
-                out = a3
+                s_ = sine(madd(prev[0], fb[0], ph[0]))
+                out = s_ * env[0][i]
+                if pivot:
+                    route["a"][k % 2, t] = out
+                else:
+                    route["a"][k % 2, t] = out * om
+                    route["b"][k % 2, t] = out * mix
+            elif r == 1 and pivot:
+                a3 = route["a"][k % 2, t]
+                s_ = sine(fma(prev[1], fb[1], fma(a3, om, ph[1])))
+                out = s_ * env[1][i]
+                route["pm1"][k % 2, t] = fma(a3, mix, out)
             elif r == 1:
-                s_ = sin_turns((ph[1] + route["a"][k % 2, t])
-                               + prev[1] * fb[1])
+                s_ = sine((ph[1] + route["a"][k % 2, t]) + prev[1] * fb[1])
                 out = s_ * env[1][i]
                 route["pm1"][k % 2, t] = out + route["b"][k % 2, t]
             else:
-                s_ = sin_turns((ph[2] + route["pm1"][k % 2, t])
-                               + prev[2] * fb[2])
+                s_ = sine(madd(prev[2], fb[2],
+                               ph[2] + route["pm1"][k % 2, t]))
                 out = s_ * env[2][i]
                 y[i] = out
             prev[r] = s_ if pivot else out
-            ph[r] = _wrap(ph[r] + (dt[r, i] if per_sample else dt[r, 0]))
+            q = fma(dt[r, i] if per_sample else dt[r, 0], inv_sr, ph[r])
+            ph[r] = _wrap(q)
 
     for s in range(chunks + 2):
         for r in range(3):
@@ -152,12 +165,13 @@ def test_skewed_allpass_equals_plain(S, B):
 
 
 def _chain_block(rng, V, B, per_sample):
-    """One block's operands: dt per sample (the pitch steps a third of the
-    way in, as at a note-on) or as rows; feedback on all three operators."""
+    """One block's operands: ``base_freq*ratio`` per sample (the pitch
+    steps a third of the way in, as at a note-on) or as rows; feedback on
+    all three operators."""
     freq = np.broadcast_to(rng.uniform(100, 1000, V), (B, V)).copy()
     if per_sample:
         freq[B // 3:, ::2] *= 1.5
-    dt = np.stack([freq * r / 48000.0 for r in (3.0, 2.0, 1.0)])
+    dt = np.stack([freq * r for r in (3.0, 2.0, 1.0)])
     if not per_sample:
         dt = dt[:, :1]
     return (_t(dt), _t(rng.uniform(0.3, 1.0, (3, V))),
@@ -171,17 +185,19 @@ def _chain_block(rng, V, B, per_sample):
 @pytest.mark.parametrize("chain", ["fm", "pivot"])
 def test_skewed_chain_equals_plain(chain, B, per_sample):
     """Three chained blocks at V = 3, every output and carry bit for bit,
-    with feedback on every operator."""
+    with feedback on every operator, the phases stepping by
+    ``fma(base_freq*ratio, 1/sr, p)``."""
     pivot = chain == "pivot"
     plain = getattr(tfm, f"plain_{chain}_chain3_scan")
     V = 3
+    inv = float(np.float32(1) / np.float32(48000))
     rng = np.random.default_rng(B + 7 * per_sample + pivot)
     carry = (_t(rng.uniform(0, 1, (3, V))), _t(rng.normal(size=(3, V))))
     for _ in range(3):
         dt, lvl, fb, mix, *env = _chain_block(rng, V, B, per_sample)
         assert bool((fb > 0).all())
         folded = tfm._fold_levels(lvl, *env)
-        got = skewed_chain3(pivot, *carry, dt, fb, mix, *folded)
-        want = plain(*carry, dt, lvl, fb, mix, *env)
+        got = skewed_chain3(pivot, *carry, dt, fb, mix, *folded, inv)
+        want = plain(*carry, dt, lvl, fb, mix, *env, inv_sr=inv)
         assert _same(got, want)
         carry = got[1:]
