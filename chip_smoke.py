@@ -205,6 +205,15 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             version, the all-reduced piano within 1e-4 and the poly synth
             (K6, K7) within 1e-5 of the unsharded renders, the ranks equal
             bit for bit; the phase's launches join the kernels line;
+4f. bench   the port's benchmark driver and fusedrms, each a subprocess
+            that loads the kernels built above, its output re-printed
+            behind "bench ": ``python -m oscen_tpu_torch.bench`` (the
+            256-voice piano, OSCEN_BENCH_BUDGET_S=45): the B=4096 line,
+            then the B=1024 line last with a real-time factor above 1 and
+            the card's name in ``device``; ``--events --block=1024`` (45 s),
+            its line last; ``python -m oscen_tpu_torch.tools.fusedrms
+            --seconds=1`` (256 voices, B=1024): K1 (v4) against K2 (parity)
+            within 5e-4 x sqrt(256 / 4) RMS, both launched;
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
@@ -245,7 +254,7 @@ last line
 package beside it, the script exits non-zero and prints no result.
 ``python3 chip_smoke.py per_sample`` runs the per_sample phase alone
 (after building the kernels it launches), with no result lines; so do
-``assets``, ``voice_classes``, ``examples`` and ``sharding``.
+``assets``, ``voice_classes``, ``examples``, ``sharding`` and ``bench``.
 """
 
 from __future__ import annotations
@@ -2353,6 +2362,99 @@ def sharding_phase(card):
     return launches
 
 
+# the bench phase: the bench's budgets, and what the piano's lines must show
+BENCH_BUDGET_S = 45
+EVENTS_BUDGET_S = 45
+FUSEDRMS_SECONDS = 1.0
+
+
+def bench_run(args, budget):
+    """``python -m <args>`` from the repository root under the bench's
+    wall budget (``OSCEN_BENCH_BUDGET_S``): (exit code, JSON lines); every
+    line of its output re-printed behind ``bench ``, so that the only bare
+    JSON lines stay the kernels line and the last line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OSCEN_BENCH_BUDGET_S=str(budget))
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out, _ = proc.communicate(timeout=budget + 120)
+    except subprocess.TimeoutExpired:
+        proc.terminate()   # the bench's supervisor kills its child
+        out, _ = proc.communicate(timeout=30)
+        out += f"\n(killed after {budget + 120} s)"
+        proc.returncode = proc.returncode or 1
+    for ln in out.splitlines():
+        print(f"bench {ln}", flush=True)
+    return proc.returncode, [json.loads(ln) for ln in out.splitlines()
+                             if ln.startswith("{") and ln.endswith("}")]
+
+
+def bench_phase(card):
+    """Phase ``bench``: the port's benchmark driver and the v4-against-
+    parity tool, each a subprocess that loads the kernels this run built:
+    the 256-voice piano's steady lines under a 45 s budget (the B=4096
+    line, then the B=1024 line last with a real-time factor above 1, the
+    card's name in ``device``), its events line at B=1024 under 45 s, and
+    ``tools/fusedrms.py`` for 1 s at the bench config (256 voices, B=1024)
+    within its bound, K1 and K2 both launched."""
+    import torch
+    name = torch.cuda.get_device_name(0)
+    headline = "electric_piano_256v_rtf_48k"
+    rc, lines = bench_run(["oscen_tpu_torch.bench"], BENCH_BUDGET_S)
+    last = {ln["metric"]: ln for ln in lines}
+    checks = {
+        "rc 0": rc == 0,
+        "B=4096 line": headline + "_b4096" in last,
+        "B=1024 line last": bool(lines) and lines[-1]["metric"] == headline,
+        "RTF > 1": headline in last and last[headline]["value"] > 1.0,
+        "device": bool(lines) and all(ln["device"] == name for ln in lines),
+    }
+    phase("bench", "oscen_tpu_torch.bench (the piano, 256 voices, budget "
+          f"{BENCH_BUDGET_S} s): " + "; ".join(
+              f"{m} {ln['value']} x (median window {ln['median_window']}, "
+              f"{ln['us_per_block']} us a block, {ln['windows']} windows "
+              f"of spans {ln['n_small']} / {ln['n_large']})"
+              for m, ln in last.items()) + f" ({card}); checks {checks}")
+    check(all(checks.values()), f"bench steady: {checks}")
+
+    events = "electric_piano_256v_events_rtf_48k_b1024"
+    rc, lines = bench_run(["oscen_tpu_torch.bench", "--events",
+                           "--block=1024"], EVENTS_BUDGET_S)
+    # no limit on the events line's RTF: PERF.md's limit is the steady
+    # block's, and an event block of the 256-voice piano takes ~18 ms of
+    # the 21.3 ms callback on an H100 (PERF.md, section 5), so host noise
+    # alone would cross it
+    checks = {
+        "rc 0": rc == 0,
+        "events line last": bool(lines) and lines[-1]["metric"] == events,
+        "RTF > 0": bool(lines) and lines[-1]["value"] > 0.0,
+        "device": bool(lines) and all(ln["device"] == name for ln in lines),
+    }
+    phase("bench", f"--events --block=1024 (budget {EVENTS_BUDGET_S} s): "
+          + (f"{lines[-1]['value']} x, {lines[-1]['us_per_block']} us a "
+             f"block, best of {lines[-1]['windows']} loops" if lines
+             else "no line") + f" ({card}); checks {checks}")
+    check(all(checks.values()), f"bench events: {checks}")
+
+    rc, lines = bench_run(["oscen_tpu_torch.tools.fusedrms",
+                           f"--seconds={FUSEDRMS_SECONDS}"], 120)
+    r = lines[-1] if lines else {}
+    checks = {
+        "rc 0": rc == 0,
+        "within bound": bool(r) and r["rms"] <= r["bound_rms"],
+        "K1 and K2 launched": bool(r) and min(r["launches"].values()) > 0,
+        "device": r.get("device") == name,
+    }
+    phase("bench", f"fusedrms, 256 voices, B=1024, {FUSEDRMS_SECONDS} s: "
+          + (f"v4 vs parity rms {r['rms']:.3e} ({r['rel_rms']:.3e} rel, "
+             f"bound {r['bound_rms']:.1e}), max abs {r['max_abs']:.3e}, "
+             f"signal rms {r['signal_rms']:.4g}, launches {r['launches']}"
+             if r else "no line") + f" ({card}); checks {checks}")
+    check(all(checks.values()), f"fusedrms: {checks}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2393,12 +2495,9 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 2. build ----------------------------------------------------
-    from concurrent.futures import ThreadPoolExecutor
-    libs = ("additive", "phase", "iir", "adsr", "fm", "kabl", "kabl_hmaj",
-            "fractabl")
+    libs = build.SOURCES
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(build.load_library, libs))   # raises on failure
+    build.load_all()   # raises on failure
     phase("build", f"{len(libs)} sources built in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in libs:
@@ -3630,6 +3729,9 @@ def main() -> int:
     # ---- 4e. voice sharding: one rank (NCCL), two ranks on the card ---
     later_launches.append(sharding_phase(card))
 
+    # ---- 4f. bench: the port's benchmark driver, fusedrms -------------
+    bench_phase(card)
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -4117,21 +4219,21 @@ def main() -> int:
 
 def phase_only(libs, run) -> int:
     """One phase alone: the build of the kernels it launches (``libs``,
-    in parallel), then ``run(card)``; no result lines."""
+    every source if None, in parallel), then ``run(card)``; no result
+    lines."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from concurrent.futures import ThreadPoolExecutor
     from oscen_tpu_torch.ops.cuda import build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(build.load_library, libs))
+    libs = libs or build.SOURCES
+    build.load_all(libs)
     phase("build", ", ".join(f"{n}.cu" for n in libs) + " built")
     run(f"{torch.cuda.get_device_name(0)} ({smi})")
     phase("total", "seconds by phase: " + ", ".join(
@@ -4150,7 +4252,9 @@ ONLY = {"per_sample": (("additive", "phase", "iir"), per_sample_phase),
         "assets": (("additive", "iir"), assets_phase),
         "voice_classes": (("additive",), voice_classes_phase),
         "examples": (("additive", "phase", "iir", "fm"), examples_in_tmp),
-        "sharding": (("additive", "phase", "iir"), sharding_phase)}
+        "sharding": (("additive", "phase", "iir"), sharding_phase),
+        # the bench builds every source
+        "bench": (None, bench_phase)}
 
 
 if __name__ == "__main__":

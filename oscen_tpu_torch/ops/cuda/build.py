@@ -31,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
 
+# every source of csrc/ that a path or a check of the package launches
+SOURCES = ("additive", "phase", "iir", "adsr", "fm", "kabl", "kabl_hmaj",
+           "fractabl")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # name -> (build seconds, nvcc's diagnostics incl. -Xptxas -v register use)
@@ -87,6 +91,14 @@ def load_library(name: str, csrc: Path = CSRC_DIR) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _libs[key] = lib
     return lib
+
+
+def load_all(names: Tuple[str, ...] = SOURCES) -> None:
+    """Build and load ``names`` (by default every source) in parallel, one
+    ``nvcc`` each; raises if any fails."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_library, names))
 
 
 def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):

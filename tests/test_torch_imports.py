@@ -5,7 +5,9 @@ peaks (fused and two-node), an IIR-lowpass graph, the echo, the
 saturators (sinc and IIR-halfband boundaries), a graph parsed from the DSL,
 the piano with the epilogue fusion and the v3 / v2 kernels, a reverb
 (``Convolver``) and a sampler with a scope build, compile and render on
-the CPU, and a reverb goes through a checkpoint and a bundle; every module
+the CPU, and a reverb goes through a checkpoint and a bundle; the bench
+driver (``oscen_tpu_torch.bench``) builds a model, strikes its chord and
+takes a steady checksum, and ``tools/fusedrms.py`` imports; every module
 of ``oscen_tpu_torch.utils`` and ``oscen_tpu_torch.assets`` imports; the
 ablation kernels' modules (``ops/cuda/kabl.py``, ``ops/cuda/fractabl.py``)
 and every driver of ``oscen_tpu_torch.tools`` import, and a variant of
@@ -170,6 +172,15 @@ def test_port_imports_and_renders_without_jax():
         assert abs(sm.render_mono(256)).max() > 0.01
         assert Oscilloscope.snapshot(sm.node_state("sc")).ndim == 1
         assert nih_params(g).names() == []
+        from oscen_tpu_torch import bench
+        from oscen_tpu_torch.tools import fusedrms
+        bg, bv = bench.build_model("poly_synth", 2)
+        bc = bg.compile(48000.0, block_size=64, device="cpu")
+        bench.strike_chord(bc, bv)
+        bc.process_block()
+        assert bc.steady_checksum(2) > 0.0
+        assert bench.spans(20e-6) == (256, 2048)
+        assert fusedrms.rms_bound(256) == 4e-3
         assert sys.modules["jax"] is None
         assert not any(m.startswith("oscen_tpu.") or m == "oscen_tpu"
                        for m in sys.modules)
