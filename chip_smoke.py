@@ -74,6 +74,21 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             them) and both in every warp at V=256, B=1024 and 4096, 3
             chained blocks against the plain version on the bit patterns,
             and its short wrap over all 2^32 q against q - trunc(q);
+3b. adsr    K11 (``adsr_scan``) in every regime of
+            ``oscen_tpu_torch.tools.ADSR_REGIMES`` (held from t = 0:
+            sustained, idle, a mix; gate-on into sustain; stages ending at
+            chunk edges; one voice of 32 in a long decay; release to idle;
+            a per-sample sus_param ramp; a whole block in decay or in
+            release) at V=256, 1024, 3 and 33 and B=1024, 4096 and 37, 3
+            chained blocks, every output equal to the plain version; the
+            sustained, decaying, releasing and gate-on blocks' device time
+            at V=256 and 1024, B=1024 and 4096, beside their chain floors
+            and byte bounds, and the plain version's at V=256, B=1024; the
+            price of the ADSR decision: the poly synth's AdsrEnvelope and
+            the fm synth's AdsrBank closed-form blocks (a decaying and a
+            sustained steady block of each model's run at B=1024) against
+            K11 on the same state and parameters (host wall, device busy,
+            device activities; the largest level difference);
 4. main     the models through the public API, each with its launch
             counts set to 0 just before it and read just after:
             - the 256-voice electric piano at 48 kHz
@@ -221,7 +236,7 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             biquad_scan also at V=256 with rows and with planes, and it and
             fm_operator_scan also by CUDA events behind a sleep;
             fract_phase3 on the models' lanes, and on lanes off its short
-            wrap and on warps of both apart) and its
+            wrap and on warps of both apart; adsr_scan's in phase 3b) and its
             plain version's time per call (CUDA events) beside its bound (bytes over
             3.35 TB/s or float ops over 67 TFLOP/s, the larger) and, for a
             one-thread-per-lane scan, its chain floor (B x
@@ -254,7 +269,8 @@ last line
 package beside it, the script exits non-zero and prints no result.
 ``python3 chip_smoke.py per_sample`` runs the per_sample phase alone
 (after building the kernels it launches), with no result lines; so do
-``assets``, ``voice_classes``, ``examples``, ``sharding`` and ``bench``.
+``assets``, ``voice_classes``, ``examples``, ``sharding``, ``bench`` and
+``adsr``.
 """
 
 from __future__ import annotations
@@ -491,8 +507,8 @@ def sass_checks(build, tools):
     every kernel instance of csrc/kabl.cu keeps its work: the variants
     whose results nothing reads, noout its 32 shuffles (as full), dot32 one
     mma per k-tile (5) and dot4 four whole-block dots (20); and no LDL or
-    STL in either ``biquad_kernel`` instance (rows, planes) or in
-    ``fm_operator_kernel``."""
+    STL in either ``biquad_kernel`` instance (rows, planes), in
+    ``fm_operator_kernel`` or in ``adsr_kernel``."""
     import re
 
     def built(name):
@@ -504,12 +520,14 @@ def sass_checks(build, tools):
         add_c = tools.sass_counts(built("additive"), ("LDL", "STL"))
         kabl_c = tools.sass_counts(built("kabl"), ("SHFL", "HMMA"))
         scan_c = {**tools.sass_counts(built("iir"), ("LDL", "STL")),
-                  **tools.sass_counts(built("fm"), ("LDL", "STL"))}
+                  **tools.sass_counts(built("fm"), ("LDL", "STL")),
+                  **tools.sass_counts(built("adsr"), ("LDL", "STL"))}
     except (RuntimeError, subprocess.SubprocessError) as e:
         check(False, f"SASS: {e}")
-    # K9's two instances (rows, planes) and K14 keep their staged inputs in
-    # registers
-    for kern, want in (("biquad_kernel", 2), ("fm_operator_kernel", 1)):
+    # K9's two instances (rows, planes), K14 and K11 keep their staged
+    # inputs in registers
+    for kern, want in (("biquad_kernel", 2), ("fm_operator_kernel", 1),
+                       ("adsr_kernel", 1)):
         rows = [c for fn, c in scan_c.items() if kern in fn]
         local = sum(c["LDL"] + c["STL"] for c in rows)
         instr = sorted(c["instr"] for c in rows)
@@ -2455,6 +2473,208 @@ def bench_phase(card):
     check(all(checks.values()), f"fusedrms: {checks}")
 
 
+# K11's regimes (oscen_tpu_torch.tools.ADSR_REGIMES) at the poly synth's 256
+# voices, the fm synth's and pivot's AdsrBank (4 envelopes x 256 voices),
+# and ragged voice counts; at the bench's block lengths and a ragged one
+ADSR_V = (VOICES, 4 * VOICES, 3, 33)
+ADSR_B = (1024, 4096, 37)
+# the regimes timed: held from t = 0, a whole block in decay or release,
+# and gate-on through attack and decay into sustain
+ADSR_TIMED = ("sustain", "decay", "release", "gate_on")
+# each timed regime's chain floor (tools.CHAIN_OPS): the decay's, the
+# release's; none where the block is held from t = 0 (bytes bound it)
+ADSR_FLOOR = {"decay": "adsr_scan", "release": "adsr_release"}
+
+
+def adsr_bound_ms(V, B):
+    """K11's byte bound: sus_param read and the levels written once, the
+    state read and written, the five rows read."""
+    return (2 * B * V + 2 * 7 * V + 5 * V) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def adsr_phase(card):
+    """Phase ``adsr``: K11 (csrc/adsr.cu) in every regime of
+    ``tools.ADSR_REGIMES`` at V in ADSR_V and B in ADSR_B, 3 chained blocks,
+    every output torch.equal to the plain version (run once a block over
+    every case's voices side by side: it is elementwise over voices); each
+    timed regime's device time at V=256 and 1024, B=1024 and 4096, beside
+    its chain floor and byte bound, and the plain version's time at V=256,
+    B=1024; then the price of the ADSR decision: the poly synth's
+    AdsrEnvelope (256 voices) and the fm synth's AdsrBank (4 x 256 lanes)
+    closed-form blocks, on a decaying and a sustained steady block of each
+    model's own run, against K11 on the same state and parameters (its
+    rows made by ``_cached_steps``, as the closed forms make them): host
+    wall, device busy and device activities per block, and the largest
+    difference between their levels.  K11 is wired into no node."""
+    import torch
+    from oscen_tpu_torch import raw_midi_event, tools
+    from oscen_tpu_torch.models.fm_synth import build_fm_synth
+    from oscen_tpu_torch.models.poly_synth import build_poly_synth
+    from oscen_tpu_torch.nodes.envelope import _cached_steps
+    from oscen_tpu_torch.ops.cuda import adsr as kadsr
+
+    cases = [(r, V) for r in tools.ADSR_REGIMES for V in ADSR_V]
+    for B in ADSR_B:
+        t0 = time.perf_counter()
+        ins = {c: tools.adsr_regime(c[0], c[1], B, seed=c[1] + B,
+                                    device="cuda") for c in cases}
+        st = {c: ins[c][0] for c in cases}
+        rows = [torch.cat([ins[c][1][i] for c in cases]) for i in range(5)]
+        sus = torch.cat([ins[c][2] for c in cases], dim=1)
+        before = kadsr.launches["adsr_scan"]
+        held = {}
+        for _ in range(3):
+            outs = {c: kadsr.adsr_scan(st[c], *ins[c][1], ins[c][2])
+                    for c in cases}
+            torch.cuda.synchronize()
+            y_p, st_p = kadsr.plain_adsr_scan(
+                torch.cat([st[c] for c in cases], dim=1), *rows, sus)
+            at = 0
+            for c in cases:
+                V = c[1]
+                same = (torch.equal(outs[c][0], y_p[:, at:at + V])
+                        and torch.equal(outs[c][1], st_p[:, at:at + V]))
+                check(same, f"adsr_scan {c[0]} V={V} B={B}: kernel and "
+                      f"plain version differ")
+                at += V
+                st[c] = outs[c][1]
+                held[c] = bool(((st[c][0] == 3.0) | (st[c][0] == 0.0)).all())
+        check(kadsr.launches["adsr_scan"] == before + 3 * len(cases),
+              "adsr_scan: launch counter did not advance")
+        phase("adsr", f"adsr_scan B={B}: {len(tools.ADSR_REGIMES)} regimes "
+              f"({', '.join(tools.ADSR_REGIMES)}) at V in {ADSR_V}, every "
+              f"output of 3 chained blocks equal to the plain version "
+              f"(torch.equal) ok; held after them: "
+              f"{sum(held.values())} of {len(cases)} ("
+              f"{time.perf_counter() - t0:.1f} s)")
+
+    def device_us(fn, kernel):
+        return tools.device_ms(fn, 50, kernel=kernel,
+                               note=lambda m: phase("adsr", m)) * 1e3
+
+    mhz = tools.sm_clock_mhz(torch.device("cuda"))
+    timed = {}   # the kernels line's K11 entry: gate-on, V=256, B=1024
+    for regime in ADSR_TIMED:
+        parts = []
+        for V in (VOICES, 4 * VOICES):
+            for B in BLOCKS:
+                st, rows, sus = tools.adsr_regime(regime, V, B, seed=V + B,
+                                                  device="cuda")
+                us = device_us(lambda: kadsr.adsr_scan(st, *rows, sus),
+                               "adsr_kernel")
+                floor = tools.chain_floor_us(ADSR_FLOOR.get(regime, ""), B,
+                                             mhz)
+                part = (f"V={V} B={B} {us:.2f} us (bound "
+                        f"{adsr_bound_ms(V, B) * 1e3:.3f} us, bytes"
+                        + (f"; chain floor {floor:.2f} us" if floor else "")
+                        + ")")
+                if V == VOICES and B == 1024:
+                    plain_us = tools.event_us(
+                        lambda: kadsr.plain_adsr_scan(st, *rows, sus), 1)
+                    part += f", plain PyTorch {plain_us / 1e3:.1f} ms/call"
+                    if regime == "gate_on":
+                        timed = dict(ms=us / 1e3, plain_ms=plain_us / 1e3,
+                                     **bound_of("adsr_scan", (st, *rows, sus),
+                                                kadsr.adsr_scan(st, *rows,
+                                                                sus),
+                                                B, V))
+                parts.append(part)
+        phase("adsr", f"adsr_scan {regime}: " + "; ".join(parts)
+              + f" (device time, profiler; SM clock {mhz:.0f} MHz; {card})")
+
+    # the price of the ADSR decision: the closed forms against K11
+    def chord(p):
+        for i in range(VOICES):
+            p.queue_event("midi_in", 0,
+                          raw_midi_event([0x90, 36 + (i % 64), 100]))
+
+    def k11_inputs(node, args):
+        """K11's operands on the closed forms' state and parameters: the
+        lanes as AdsrEnvelope.process_block sees them (an AdsrBank's
+        C x N), the rows from the parameters at sample 0."""
+        state, ins = args[0], args[1]
+        if hasattr(node, "_names"):   # AdsrBank: C x N lanes
+            C, N = state["level"].shape
+            state = {k: v.reshape(C * N) for k, v in state.items()}
+            ins = {p: torch.stack([ins[f"{n}_{p}"] for n in node._names],
+                                  dim=1).reshape(C * N, -1)
+                   for p in node._PARAMS}
+        p0 = {k: (torch.clamp(v[:, 0], 0.0, 1.0) if k == "sustain"
+                  else torch.clamp_min(v[:, 0], 0.0))
+              for k, v in ins.items()}
+        a_n, d_n, r_n, a_c, d_c = _cached_steps(p0, SR)
+        st7 = torch.stack([state["stage"].float(), state["rem"].float(),
+                           state["level"], state["target"],
+                           state["sustain_level"], state["velocity"],
+                           state["release_inc"]])
+        sus = torch.clamp(ins["sustain"], 0.0, 1.0).t().contiguous()
+        return st7, [a_n.float(), d_n.float(), r_n.float(), a_c, d_c], sus
+
+    def k11_call(node, args):
+        st7, rows, sus = k11_inputs(node, args)
+        return kadsr.adsr_scan(st7, *rows, sus)
+
+    def block_cost(fn, reps=20):
+        """(host wall µs per call, device busy µs, device activities)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e6
+        busy, _, n = tools.device_ms(fn, reps, top=1,
+                                     note=lambda m: phase("adsr", m))
+        return wall, busy * 1e3, n
+
+    # (model, blocks of B=1024 before a decaying and a sustained one): the
+    # poly synth decays 0.08 s after a 0.005 s attack, the fm synth's bank
+    # up to 0.2 s after 0.01 s
+    for label, build, at in (("poly synth AdsrEnvelope, 256 voices",
+                              build_poly_synth, (1, 6)),
+                             ("fm synth AdsrBank, 4 x 256 lanes",
+                              build_fm_synth, (1, 12))):
+        p = build(VOICES).compile(SR, block_size=1024, device="cuda")
+        node = next(i.node for k, i in p.ir.nodes.items()
+                    if k.split(".")[-1] == "envs")
+        seen = []
+        orig = node.process_block
+
+        def wrapped(*a, _fn=orig, **kw):
+            seen.append((a, kw))
+            return _fn(*a, **kw)
+        node.process_block = wrapped
+        chord(p)
+        for _ in range(at[1] + 1):
+            p.process_block()
+        node.process_block = orig
+        for what, k in (("decaying", at[0]), ("sustained", at[1])):
+            a, kw = seen[k]
+            closed = block_cost(lambda: orig(*a, **kw))
+            levels = orig(*a, **kw)[1]
+            lv = torch.stack(list(levels.values()), dim=1).reshape(
+                -1, 1024) if len(levels) > 1 else levels["output"]
+            st7, rows, sus = k11_inputs(node, a)
+            kern = block_cost(lambda: kadsr.adsr_scan(st7, *rows, sus))
+            made = block_cost(lambda: k11_call(node, a))
+            us = device_us(lambda: kadsr.adsr_scan(st7, *rows, sus),
+                           "adsr_kernel")
+            y = kadsr.adsr_scan(st7, *rows, sus)[0]
+            stages = sorted({int(s) for s in st7[0].tolist()})
+            diff = float((y.t() - lv).abs().max())
+            phase("adsr", f"price, {label}, {what} block (block {k} at "
+                  f"B=1024, stages {stages}): closed forms {closed[0]:.0f} "
+                  f"us host wall, {closed[1]:.1f} us device busy, "
+                  f"{closed[2]:.0f} device activities; K11 {us:.2f} us "
+                  f"device, its call {kern[0]:.0f} us host wall, "
+                  f"{kern[1]:.1f} us busy, {kern[2]:.0f} activities; K11 "
+                  f"with its operands made from the block's state and "
+                  f"parameters {made[0]:.0f} us host wall, {made[1]:.1f} us "
+                  f"busy, {made[2]:.0f} activities; largest level "
+                  f"difference {diff:.3e} ({card})")
+    return timed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2827,6 +3047,8 @@ def main() -> int:
                 phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
                       f"plain version (torch.equal, every output of 3+ "
                       f"chained blocks) ok")
+    # K11's regimes, their times, and its price against the closed forms
+    report["adsr_scan"].update(adsr_phase(card))
 
     # the FM kernels: torch.equal on every output of 3 chained blocks
     def fm_args(name, V, B, rng_f, per_sample=False, fb=0.4, fused=False):
@@ -3836,23 +4058,22 @@ def main() -> int:
     os.environ.pop("OSCEN_ADDITIVE_KERNEL", None)
     os.environ.pop("OSCEN_EPILOGUE_FUSION", None)
 
-    # the scan kernels at the poly synth's shapes (V=256 voices)
+    # the scan kernels at the poly synth's shapes (V=256 voices); K11's
+    # regimes were timed in its phase
     cuda_name = {"phase_scan": "phase_ring_kernel",
-                 "tpt_svf_scan": "tpt_svf_kernel",
-                 "adsr_scan": "adsr_kernel"}
-    plain_reps = {"phase_scan": 3, "tpt_svf_scan": 2, "adsr_scan": 1}
+                 "tpt_svf_scan": "tpt_svf_kernel"}
+    plain_reps = {"phase_scan": 3, "tpt_svf_scan": 2}
     for name, mod in scans.items():
+        if name == "adsr_scan":
+            continue
         fn, plain = getattr(mod, name), getattr(mod, "plain_" + name)
         for B in BLOCKS:
             if name == "phase_scan":
                 args = (rand(0, 1, (VOICES,)), rand(0, 0.3, (B, VOICES)))
-            elif name == "tpt_svf_scan":
+            else:
                 args = (rand(-1, 1, (B, VOICES)), rand(0.3, 0.9, (VOICES,)),
                         rand(0.05, 0.5, (VOICES,)), rand(1, 2, (VOICES,)),
                         rand(-1, 1, (VOICES,)), rand(-1, 1, (VOICES,)))
-            else:
-                st, rows, sus = adsr_inputs(VOICES)
-                args = (st, *rows, sus[None].expand(B, VOICES).contiguous())
             ms = device_ms(lambda: fn(*args), 50, kernel=cuda_name[name])
             plain_ms = time_ms(lambda: plain(*args), plain_reps[name],
                                warm=1)
@@ -4253,6 +4474,8 @@ ONLY = {"per_sample": (("additive", "phase", "iir"), per_sample_phase),
         "voice_classes": (("additive",), voice_classes_phase),
         "examples": (("additive", "phase", "iir", "fm"), examples_in_tmp),
         "sharding": (("additive", "phase", "iir"), sharding_phase),
+        # K11, and the poly synth and fm synth it is priced against
+        "adsr": (("adsr", "phase", "iir", "fm"), adsr_phase),
         # the bench builds every source
         "bench": (None, bench_phase)}
 

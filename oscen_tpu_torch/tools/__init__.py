@@ -37,8 +37,11 @@ WINDOWS = 7
 # oscen_tpu_torch/csrc (a select, a floor or a clamp counts 1; a division,
 # a tanh and the FM sine's polynomial count as their ops: the division 1,
 # the tanh 1, sin_turns 12): phase 3 (add, floor, subtract); TPT 7 (the
-# z1 cycle: - z1, * h, * g, + z0, * g, + z1, + low); ADSR 6 (the level:
-# subtract, multiply, add, clamp 2, stage select); fract 3; the FM chains
+# z1 cycle: - z1, * h, * g, + z0, * g, + z1, + low); ADSR in attack and
+# decay 3 (adsr.cu's fast body as ptxas builds it: tg - level, * c, then
+# + level with the clamp folded in, FADD.SAT, under the stage's select as
+# its predicate), in release 4 (``adsr_release``: the quotient's a * y,
+# a - m q0, q0 + r y, then + level as FADD.SAT); fract 3; the FM chains
 # 15 (an operator's own feedback: * fb, + phase, sin 12, * env); the FM
 # operator 17 (* fb, + pm, + phase, sin 12, * env, * lvl); LP18 8 (* h,
 # - x, - z1, - z2, the division, * g, + z0, the tanh); biquad 6 (+ v1,
@@ -54,7 +57,8 @@ WINDOWS = 7
 # the complex sum), so the last segment's warp carries 2 ops over the
 # B - B / segments ticks before it.  K17's ``fract_abl`` walks K12's
 # fract chain (3); K16's bodies are not counted.
-CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 6,
+CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 3,
+             "adsr_release": 4,
              "fract_phase3": 3, "fract_abl": 3, "fm_chain3_scan": 15,
              "pivot_chain3_scan": 15, "fm_operator_scan": 17,
              "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3,
@@ -280,6 +284,90 @@ def report(res: Dict[str, List[tuple]], base: str, labels=("device",
                         f"{min(x[i] for x in xs):8.2f}{d}")
         print(f"{v:9s}: " + "  ".join(cols), flush=True)
     return med
+
+
+# K11's regimes: what its design treats apart (csrc/adsr.cu), each a block
+# of state7 and sus_param that adsr_scan starts from.  "sustain", "idle"
+# and "held_mix" hold from t = 0 (every voice in SUSTAIN, IDLE, or one of
+# the two); "gate_on" runs attack and decay into sustain within ~50-210
+# samples; "edge" has decaying voices whose stage ends at a group's or a
+# chunk's edge (rem 1, 8, 9, 31, 32, 33, 64, 65: the last step of chunk 0
+# at rem 32, the first of chunk 1 at 33) beside sustained ones; "one_decay"
+# one voice of every 32 in a long decay, the rest sustained (the warp stays
+# serial); "release_idle" releases every voice to IDLE within ~160
+# samples; "ramp" a per-sample sus_param ramp over voices in attack, decay,
+# sustain and a long release; "decay" and "release" a whole block of
+# B <= 4096 in decay or release (the fm synth's 0.1-0.2 s decays and 0.3-0.5
+# s releases, models/fm_synth.py).
+ADSR_REGIMES = ("sustain", "idle", "held_mix", "gate_on", "edge",
+                "one_decay", "release_idle", "ramp", "decay", "release")
+# attack, decay, sustain, release (s): tests/test_pallas.py:274-280's short
+# stages, and the fm synth's envelope bank
+_ADSR_SHORT = ((0.0005, 0.0010, 0.60, 0.0015), (0.0020, 0.0005, 0.25, 0.0008),
+               (0.0010, 0.0030, 0.90, 0.0030))
+_ADSR_LONG = ((0.01, 0.1, 0.7, 0.3), (0.01, 0.1, 0.7, 0.3),
+              (0.01, 0.2, 0.8, 0.5), (0.01, 0.2, 0.5, 0.3))
+_ADSR_EDGE_REM = (1.0, 8.0, 9.0, 31.0, 32.0, 33.0, 64.0, 65.0)
+
+
+def adsr_regime(name: str, V: int, B: int, seed: int = 0, device="cpu"):
+    """(state7 ``[7, V]``, the rows (a_n, d_n, r_n, a_c, d_c) ``[V]``,
+    sus_param ``[B, V]``) of K11's regime ``name`` (``ADSR_REGIMES``) at 48
+    kHz, made from ``seed``: the parameters tiled over the voices and
+    perturbed by up to +-10%, velocities in [0.6, 1], the rows as
+    ``nodes/envelope.py::_cached_steps`` makes them."""
+    from ..nodes.envelope import _cached_steps
+    if name not in ADSR_REGIMES:
+        raise ValueError(f"unknown regime {name!r}")
+    rng = np.random.default_rng(seed)
+    short = name in ("gate_on", "edge", "release_idle")
+    base = np.array(_ADSR_SHORT if short else _ADSR_LONG, np.float32)
+    params = np.tile(base, (-(-V // len(base)), 1))[:V]
+    params = params * rng.uniform(0.9, 1.1, params.shape)
+    vel = rng.uniform(0.6, 1.0, V).astype(np.float32)
+    kind = {"held_mix": rng.integers(0, 2, V) * 3}.get(name)
+    lane = np.arange(V)
+    if name == "edge":
+        kind = np.where(lane // 8 % 2 == 1, 3, 2)   # 8 decays, 8 sustained
+        params[:, 1] = 0.01                     # d_n = 480 >= every rem
+    elif name == "one_decay":
+        kind = np.where(lane % 32 == 5, 2, 3)
+    elif name == "ramp":
+        kind = np.array((1, 2, 3, 4))[lane % 4]
+    elif name == "decay":
+        params[:, 1] = 0.2
+    elif name == "release":
+        params[:, 3] = 0.5
+    p = {k: torch.as_tensor(params[:, i].astype(np.float32), device=device)
+         for i, k in enumerate(("attack", "decay", "sustain", "release"))}
+    a_n, d_n, r_n, a_c, d_c = _cached_steps(p, 48000.0)
+    rows = [a_n.float(), d_n.float(), r_n.float(), a_c, d_c]
+    if name == "ramp":
+        ramp = np.linspace(0.2, 1.0, B, dtype=np.float32)[:, None]
+        sus_p = torch.as_tensor(np.broadcast_to(ramp, (B, V)).copy(),
+                                device=device)
+    else:
+        sus_p = p["sustain"][None].expand(B, V).contiguous()
+    vel_t = torch.as_tensor(vel, device=device)
+    sus = torch.clamp(sus_p[0] * vel_t, 0.0, 1.0)
+    code = {"sustain": 3, "idle": 0, "gate_on": 1, "release_idle": 4,
+            "decay": 2, "release": 4}
+    if kind is None:
+        kind = np.full(V, code[name])
+    k = torch.as_tensor(kind.astype(np.float32), device=device)
+    zero = torch.zeros(V, device=device)
+    rem = torch.where(k == 1, rows[0], torch.where(
+        k == 2, rows[1], torch.where(k == 4, rows[2], zero)))
+    if name == "edge":
+        edge = np.resize(np.array(_ADSR_EDGE_REM, np.float32), V)
+        rem = torch.where(k == 2, torch.as_tensor(edge, device=device), rem)
+    level = torch.where(k == 1, zero, torch.where(k == 2, 1.0, torch.where(
+        k == 0, zero, sus)))
+    target = torch.where(k == 1, 1.0, torch.where(k == 4, zero, torch.where(
+        k == 0, zero, sus)))
+    rinc = torch.where(k == 4, -level / torch.clamp(rem, min=1.0), zero)
+    st = torch.stack([k, rem, level, target, sus, vel_t, rinc])
+    return st, rows, sus_p
 
 
 def kabl_main(tool: str, argv, doc: str, make_inputs: Callable) -> int:

@@ -42,10 +42,16 @@ Three parts, one line per row:
   shipped kernels, the exact ones first checked equal to the plain
   version; the LDL / STL count of every shipped ``chain3_kernel``,
   ``allpass_kernel``, ``biquad_kernel`` and ``fm_operator_kernel``
-  instance (built ``--fmad=false``) and their registers;
+  instance (built ``--fmad=false``) and their registers; K11
+  (``adsr_scan``) at V=256, B=1024 in the decay, release, gate-on and
+  sustained regimes, the shipped body beside ``ADSR_PROBES``' edits of it
+  (scan_stage.cuh's ring depth; for timing only the level's chain cut,
+  the release's quotient check left out, and the ring alone: a decaying
+  chunk's body empty, then no copies, then the barriers alone);
 - ``ab`` (with ``--old DIR``, a tree of the parent commit, e.g. unpacked
   by ``git archive``): that tree's ``csrc/iir.cu``, ``csrc/phase.cu``,
-  ``csrc/additive.cu`` and ``csrc/fm.cu`` and the package's own, built
+  ``csrc/additive.cu``, ``csrc/fm.cu`` and ``csrc/adsr.cu`` and the
+  package's own, built
   alike, timed in turns (old, new, new, old) per window at the main paths'
   shapes: K7 V=256 at B=1024 and 4096 (row and per-sample coefficients)
   and V=1; K8 V=2 and 1, rows and a sweep; K6 V=256 at 1024 and 4096 steps
@@ -68,7 +74,10 @@ Three parts, one line per row:
   4096 on
   the models' lanes (p0 in [0, 1), dt in (0, 0.5): the short wrap), on
   lanes off it (p0 below 0) and on warps whose lanes disagree (both
-  loops).  Each row first checks that the new
+  loops); K11 (``adsr_scan``) V=256 at B=1024 and 4096 in the regimes
+  ``ADSR_AB`` names (``tools.adsr_regime``), beside the old and new
+  ``adsr_kernel``'s SASS (LDL / STL, MUFU, FSEL, FMNMX) and registers; the
+  run fails on LDL / STL in the new one.  Each row first checks that the new
   outputs equal the old build's on the same inputs (``torch.equal``, every
   output, NaN equal to NaN) and the plain version (the scans
   ``torch.equal``, K12 on the bit patterns; K1's, K2's, K3's and K4's
@@ -106,7 +115,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import card, chain_floor_us, event_us, sass_counts, sm_clock_mhz
+from . import (adsr_regime, card, chain_floor_us, event_us, sass_counts,
+               sm_clock_mhz)
+from ..ops.cuda import adsr as kadsr
 from ..ops.cuda import additive as add
 from ..ops.cuda import build, iir
 from ..ops.cuda import fm as kfm
@@ -139,6 +150,14 @@ ODD_AB = (1024, 4096)
 PARITY_AB = (1024, 4096)
 # K10's: the 4x IIR saturator's two lanes over 2B and B steps per block
 ALLPASS_AB = ((2, 2048), (2, 1024), (2, 8192), (2, 4096))
+# K11: the poly synth's 256 voices in the regimes its design treats apart
+# (tools.ADSR_REGIMES): held from t = 0, a whole block in decay or in
+# release, gate-on into sustain, a per-sample sus_param ramp, stages ending
+# at chunk edges
+ADSR_AB = tuple((r, B) for r in ("sustain", "decay", "release", "gate_on",
+                                 "ramp", "edge") for B in (1024, 4096))
+# the chain floor of a block in one stage (tools.CHAIN_OPS)
+ADSR_FLOOR = {"decay": "adsr_scan", "release": "adsr_release"}
 # K13 / K15: 256 voices, dt as rows or per sample (a note-on block)
 CHAIN_SHAPES = tuple((B, ps) for B in (1024, 4096) for ps in (False, True))
 # probe_chain's variants: (name, computes the kernel's numbers)
@@ -201,7 +220,7 @@ def _probe_lib():
 
 def _entries(csrc: Path):
     """The C entry points of one tree's sources, typed: K7, K8, K6, K1-K4,
-    K9, K10, K12, K13, K14 and K15 by name."""
+    K9, K10, K11, K12, K13, K14 and K15 by name."""
     lib = build.load_library("iir", csrc)
     fm = build.load_library("fm", csrc)
     return {
@@ -224,6 +243,8 @@ def _entries(csrc: Path):
                               + [P]),
         "fm_operator_scan": _typed(fm.oscen_fm_operator_scan,
                                    [P] * 10 + [I] * 2 + [P]),
+        "adsr_scan": _typed(build.load_library("adsr", csrc).oscen_adsr_scan,
+                            [P] * 9 + [I] * 2 + [P]),
     }
 
 
@@ -572,6 +593,20 @@ def _operator_launcher(fn, ops, head=()):
     return run
 
 
+def _adsr_launcher(fn, st, rows, sus):
+    """fn(state7, a_n, d_n, r_n, a_c, d_c, sus_param, levels, state7', V,
+    B, stream) on preallocated outputs."""
+    B, V = sus.shape
+    y, st_o = torch.empty_like(sus), torch.empty_like(st)
+
+    def run():
+        _check(fn(st.data_ptr(), *[r.data_ptr() for r in rows],
+                  sus.data_ptr(), y.data_ptr(), st_o.data_ptr(), V, B,
+                  torch.cuda.current_stream().cuda_stream), "adsr_scan")
+        return y, st_o
+    return run
+
+
 def _dt_label(per_sample):
     return "dt per sample" if per_sample else "dt rows"
 
@@ -754,6 +789,81 @@ def probe(dev, mhz):
     local_memory()
 
 
+# K11's probes: adsr.cu with text edits (each line must be in the source),
+# built beside the shipped one: the ring of scan_stage.cuh's depth (3
+# chunks, each chunk's copies awaited before the next is issued), and, for
+# timing only (their outputs differ), the level's chain cut (each step from
+# its input alone), the release's quotient check left out, and the ring
+# alone: a decaying chunk's body emptied, then also without the producer's
+# copies, then also without its write-backs and waits (the barriers alone)
+_ADSR_EMPTY = ("      l.fast<kChunk, true, false>(x, ys);",
+               "      ys[0] = x[0] + x[31];")
+_ADSR_NO_COPY = ("        cp_async_if<16>(dst + r * kLanes + col,",
+                 "        if (false) cp_async_if<16>(dst + r * kLanes + col,")
+ADSR_PROBES = {
+    "shipped": (),
+    "ring of 3, 1 chunk of copies in flight": (
+        ("constexpr int kRing = 5;", "constexpr int kRing = 3;"),
+        ("constexpr int kAhead = 3;", "constexpr int kAhead = 1;")),
+    "no level chain (timing only)": (
+        ("const float e = clip01(level + ((isA ? 1.0f : s) - level) * c);",
+         "const float e = clip01(s + ((isA ? 1.0f : s) - s) * c);"),),
+    "release quotient unchecked (timing only)": (
+        ("const bool ok = !kR || !isR || worst < 0.0f;",
+         "const bool ok = true;"),),
+    "ring alone, decay's body empty (timing only)": (_ADSR_EMPTY,),
+    "ring alone, no copies (timing only)": (_ADSR_EMPTY, _ADSR_NO_COPY),
+    "barriers alone (timing only)": (
+        _ADSR_EMPTY, _ADSR_NO_COPY,
+        ("      wait_groups<kAhead>();\n", ""),
+        ("      io.write_back(k - kRing);", "")),
+}
+ADSR_PROBE_REGIMES = ("decay", "release", "gate_on", "sustain")
+
+
+def probe_adsr(dev, mhz):
+    """K11 (adsr_scan) at V=256, B=1024 in its regimes, the shipped body
+    beside ``ADSR_PROBES``' edits of it; each first checked against the
+    plain version (the timing-only edits print False)."""
+    import shutil
+    src = (build.CSRC_DIR / "adsr.cu").read_text()
+    fns = {}
+    for name, edits in ADSR_PROBES.items():
+        text = src
+        for a, b in edits:
+            if a not in text:
+                raise SystemExit(f"adsr probe {name!r}: {a!r} is not in "
+                                 f"adsr.cu")
+            text = text.replace(a, b)
+        d = build.BUILD_DIR / "adsr_probe" / re.sub(r"\W+", "_", name)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "adsr.cu").write_text(text)
+        shutil.copy(build.CSRC_DIR / "scan_stage.cuh", d)
+        fns[name] = _typed(build.load_library("adsr", d).oscen_adsr_scan,
+                           [P] * 9 + [I] * 2 + [P])
+    for regime in ADSR_PROBE_REGIMES:
+        st, rows, sus = adsr_regime(regime, 256, 1024, seed=1, device=dev)
+        ref = kadsr.plain_adsr_scan(st, *rows, sus)
+        runs = {n: _adsr_launcher(fn, st, rows, sus) for n, fn in fns.items()}
+        same = {}
+        for n, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            same[n] = _same(got, ref)
+        if not same["shipped"]:
+            raise SystemExit(f"adsr_scan {regime}: the shipped body is not "
+                             f"equal to the plain version")
+        t = {n: [] for n in runs}
+        for _ in range(WINDOWS):
+            for n, run in runs.items():
+                t[n].append(event_us(run, LAUNCHES))
+        for n in runs:
+            us = statistics.median(t[n])
+            print(f"[probe] adsr_scan V=256 B=1024 {regime} {n}: {us:.2f} "
+                  f"us, {us * mhz / 1024:.1f} cycles per step at {mhz:.0f} "
+                  f"MHz, equal to the plain version {same[n]}", flush=True)
+
+
 def ab(dev, old: Path, mhz):
     """Old and new bodies in turns (old, new, new, old) per window."""
     old_csrc = old / "oscen_tpu_torch" / "csrc"
@@ -818,6 +928,23 @@ def ab(dev, old: Path, mhz):
         if tree == "new" and (not inst or any(
                 c["LDL"] + c["STL"] for c in inst.values())):
             raise SystemExit("fract_phase3_kernel: local memory")
+        # K11
+        lib = build.BUILD_DIR / (f"libadsr-"
+                                 f"{build.source_digest('adsr', csrc)}.so")
+        log = build.build_info.get("adsr" if tree == "new" else
+                                   f"adsr@{csrc}", (0.0, ""))[1]
+        inst = {f: c for f, c in sass_counts(
+            lib, ("LDL", "STL", "MUFU", "FSEL", "FMNMX")).items()
+            if "adsr_kernel" in f}
+        print(f"[ab] {tree} adsr.cu adsr_kernel SASS: "
+              + "; ".join(f"LDL {c['LDL']}, STL {c['STL']}, MUFU "
+                          f"{c['MUFU']}, FSEL {c['FSEL']}, FMNMX "
+                          f"{c['FMNMX']}, {c['instr']} instructions"
+                          for c in inst.values())
+              + f"; ptxas: {_ptxas_regs(log, 'adsr_kernel')}", flush=True)
+        if tree == "new" and (not inst or any(
+                c["LDL"] + c["STL"] for c in inst.values())):
+            raise SystemExit("adsr_kernel: local memory")
     rng = np.random.default_rng(1)
     plain = {"tpt_svf_scan": iir.plain_tpt_svf_scan,
              "lp18_scan": iir.plain_lp18_scan}
@@ -928,6 +1055,13 @@ def ab(dev, old: Path, mhz):
         ref = kfm.plain_fm_operator_scan(*ops)
         rows.append(("fm_operator_scan", f"V=256 B={B}", B, runs,
                      lambda got, ref=ref: _same(got, ref)))
+    for regime, B in ADSR_AB:
+        st, a_rows, sus = adsr_regime(regime, 256, B, seed=B, device=dev)
+        runs = {w: _adsr_launcher(fns["adsr_scan"], st, a_rows, sus)
+                for w, fns in (("old", old_fns), ("new", new_fns))}
+        ref = kadsr.plain_adsr_scan(st, *a_rows, sus)
+        rows.append(("adsr_scan", f"V=256 B={B} {regime}", B, runs,
+                     lambda got, ref=ref: _same(got, ref)))
     for kernel, label, B, runs, plain_ok, *segs in rows:
         outs = {}
         for w, run in runs.items():
@@ -944,8 +1078,13 @@ def ab(dev, old: Path, mhz):
             for w in ("old", "new", "new", "old"):
                 t[w].append(event_us(runs[w], LAUNCHES))
         o, n = statistics.median(t["old"]), statistics.median(t["new"])
-        floor = (chain_floor_us("parity", B, mhz, segs[0]) if segs
-                 else chain_floor_us(kernel, B, mhz))
+        if segs:
+            floor = chain_floor_us("parity", B, mhz, segs[0])
+        elif kernel == "adsr_scan":   # the regime's stage, if it has one
+            floor = chain_floor_us(ADSR_FLOOR.get(label.split()[-1], ""),
+                                   B, mhz)
+        else:
+            floor = chain_floor_us(kernel, B, mhz)
         print(f"[ab] {kernel} {label}: old {o:.2f} us, new {n:.2f} us "
               f"(x{o / n:.2f}), new equal to old (torch.equal, NaN equal "
               f"to NaN) True"
@@ -959,8 +1098,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a tree of the parent commit: time its iir.cu, "
-                         "phase.cu, additive.cu and fm.cu against the "
-                         "package's")
+                         "phase.cu, additive.cu, fm.cu and adsr.cu against "
+                         "the package's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         ap.error("no CUDA card: the probes time the card")
@@ -970,6 +1109,7 @@ def main(argv=None) -> int:
           flush=True)
     latency(dev)
     probe(dev, mhz)
+    probe_adsr(dev, mhz)
     if args.old is not None:
         ab(dev, args.old, mhz)
     return 0

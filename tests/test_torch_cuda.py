@@ -35,6 +35,7 @@ from oscen_tpu_torch.ops.cuda import additive as add
 from oscen_tpu_torch.ops.cuda import fm as kfm
 from oscen_tpu_torch.ops.cuda import iir as kiir
 from oscen_tpu_torch.ops.cuda import phase as kphase
+from oscen_tpu_torch.tools import ADSR_REGIMES, adsr_regime
 
 pytestmark = pytest.mark.cuda
 
@@ -328,6 +329,25 @@ def test_adsr_scan_kernel_equals_plain(cuda, V, B):
             assert bool((st[0] == 3.0).all())     # all sustaining
     assert bool((st[0] == 0.0).all())             # all back to idle
     assert kadsr.launches["adsr_scan"] == before + 2 * n
+
+
+@pytest.mark.parametrize("regime", ADSR_REGIMES)
+@pytest.mark.parametrize("V,B", [(3, 37), (33, 37), (33, 100), (256, 1024),
+                                 (1024, 1024)])
+def test_adsr_scan_regimes_equal_plain(cuda, regime, V, B):
+    """K11 in each regime its design treats apart (held from t = 0, a
+    voice ending its stage at a chunk's edge, one voice of 32 serial, a
+    whole block in decay or release, a sus_param ramp, ...; see
+    ``tools.adsr_regime``): every output of 3 chained blocks equal to the
+    plain version."""
+    st, rows, sus = adsr_regime(regime, V, B, seed=V + B, device=cuda)
+    before = kadsr.launches["adsr_scan"]
+    for _ in range(3):
+        out = kadsr.adsr_scan(st, *rows, sus)
+        torch.cuda.synchronize()
+        assert _equal(out, kadsr.plain_adsr_scan(st, *rows, sus))
+        st = out[1]
+    assert kadsr.launches["adsr_scan"] == before + 3
 
 
 def test_scan_wrappers_reject_what_they_do_not_take(cuda):
