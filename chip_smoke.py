@@ -229,6 +229,19 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             its line last; ``python -m oscen_tpu_torch.tools.fusedrms
             --seconds=1`` (256 voices, B=1024): K1 (v4) against K2 (parity)
             within 5e-4 x sqrt(256 / 4) RMS, both launched;
+4g. capture every steady block above runs with ``jit=True``, the default:
+            a replay of its captured CUDA graph (graph/capture.py).  This
+            phase holds replays to eager blocks (``jit=False`` on the same
+            graph) from one state: the eight bench models at 256 voices
+            (the bench's chord), B=1024 and 4096, the echo and the twin
+            peaks with seeded audio every block, the piano under K2-K5,
+            the unfused fm synth, the IIR lowpass and the reverb with audio
+            at B=1024; outputs, states and launch counts equal
+            (``torch.equal``) under sync debug mode "error", 4 blocks
+            replayed and 4 eager as counted, one graph launch and no
+            kernel launched from Python a replayed block (profiler); walls
+            in turns (eager, replayed, replayed, eager), device busy,
+            activities and idle share printed for both;
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
@@ -1432,11 +1445,12 @@ def assets_phase(card):
         return g.compile(SR, block_size=B, mode=mode, device=device)
 
     def capture(mod, name, seen):
-        """``mod.name`` wrapped to keep its last call's arguments."""
+        """``mod.name`` wrapped to keep its last eager call's arguments."""
         fn = getattr(mod, name)
 
         def wrapped(*a, **kw):
-            seen[name] = (a, kw)
+            if not torch.cuda.is_current_stream_capturing():
+                seen[name] = (a, kw)
             return fn(*a, **kw)
         setattr(mod, name, wrapped)
         return fn
@@ -1496,19 +1510,20 @@ def assets_phase(card):
         rv.publish_asset("ir", AudioAsset.from_samples(ir1, int(SR)))
         dry, wet, ffts, seen = [], [], [], {}
         n_blocks = n_first + REVERB_AFTER
+        # the piano's last Python call of K1 (its steady blocks replay the
+        # graph captured around that call, whose tensors they refill)
+        fn1 = capture(add, "additive_voice_block", seen)
         for i in range(n_blocks):
             if i == n_first:
                 with no_sync(True):   # the growth swap: 64 -> 128 (16 -> 32)
                     rv.publish_asset("ir", AudioAsset.from_samples(
                         ir2, int(SR)))
-            if i == n_first - 1:
-                fn1 = capture(add, "additive_voice_block", seen)
+            if i == n_first:
+                add.additive_voice_block = fn1
             with no_sync(i > 0):
                 tconv.reset_launches()
                 x = p.process_block()["out"]
                 y = rv.process_block(stream_inputs={"x": x})["out"]
-            if i == n_first - 1:
-                add.additive_voice_block = fn1
             ffts.append(dict(tconv.launches))
             dry.append(x)
             wet.append(y)
@@ -1783,16 +1798,19 @@ VC_MHZ = 1980.0            # the H100's top SM clock, for the chain floors
 
 
 def capture_calls(targets):
-    """Wrap each ``(module, name)`` of ``targets`` to keep its last call's
-    arguments by key; returns (seen, the wrapped functions by key, a
-    function that puts them back)."""
+    """Wrap each ``(module, name)`` of ``targets`` to keep the arguments of
+    its eager calls by key (a call made while a CUDA graph is captured
+    holds tensors the graph fills only when replayed); returns (seen, the
+    wrapped functions by key, a function that puts them back)."""
+    import torch
     seen, originals = {}, {}
     for key, (mod, name) in targets.items():
         fn = getattr(mod, name)
         originals[key] = (mod, name, fn)
 
         def wrapped(*a, _fn=fn, _key=key, **kw):
-            seen.setdefault(_key, []).append((a, kw))
+            if not torch.cuda.is_current_stream_capturing():
+                seen.setdefault(_key, []).append((a, kw))
             return _fn(*a, **kw)
         setattr(mod, name, wrapped)
 
@@ -1855,17 +1873,23 @@ def voice_classes_phase(card):
         {"v4": (add, "additive_voice_block")})
     blocks, caps, k1_by_cap, ys = [], [], {}, []
 
+    def ran():
+        return {V: sum(c.block_counts.values()) - c.block_counts["captures"]
+                for V, c in vc.variants.items()}
+
     def step(evs):
-        n = len(seen.get("v4", []))
+        # K1's launches by the class that ran the block (a replayed block
+        # launches it without a Python call)
+        n, before = add.launches["v4"], ran()
         for e in evs:
             vc.queue_event("midi_in", 0, raw_midi_event(e))
         with no_sync(bool(blocks)):
             ys.append(vc.process_block()["out"])
         blocks.append(evs)
         caps.append(vc.active_cap)
-        for a, _ in seen.get("v4", [])[n:]:
-            V = int(a[0].shape[-1])
-            k1_by_cap[V] = k1_by_cap.get(V, 0) + 1
+        for V, k in ran().items():
+            if k != before[V] and add.launches["v4"] > n:
+                k1_by_cap[V] = k1_by_cap.get(V, 0) + add.launches["v4"] - n
     try:
         step([[0x90, k, 100] for k in held])                 # 256
         for _ in range(VC_STEADY):
@@ -1898,8 +1922,13 @@ def voice_classes_phase(card):
         calls = [(a, kw) for a, kw in seen.get("v4", [])
                  if int(a[0].shape[-1]) == V]
         check(bool(calls), f"voice_classes: no K1 call at V={V} ({caps})")
-        a, kw = calls[-1]
-        err, same, y_max = k1_vs_plain(fns["v4"], a, kw)
+        # the class's last eager call whose voices sound: its steady blocks
+        # replay without a Python call, so the last eager one may be a
+        # release tail's, below the audibility threshold
+        for a, kw in reversed(calls):
+            err, same, y_max = k1_vs_plain(fns["v4"], a, kw)
+            if y_max > 0.01:
+                break
         check(y_max > 0.01, f"voice_classes: K1 at V={V} ran silent voices")
         bound = Y_TOL * (math.sqrt(V) if kw.get("with_mix") else 1.0)
         k1_checks[V] = (err, same, bound, a, kw)
@@ -2634,7 +2663,10 @@ def adsr_phase(card):
                               build_poly_synth, (1, 6)),
                              ("fm synth AdsrBank, 4 x 256 lanes",
                               build_fm_synth, (1, 12))):
-        p = build(VOICES).compile(SR, block_size=1024, device="cuda")
+        # eager blocks: the price reads the envelope node's own call in
+        # each block, which a replayed block does not make
+        p = build(VOICES).compile(SR, block_size=1024, device="cuda",
+                                  jit=False)
         node = next(i.node for k, i in p.ir.nodes.items()
                     if k.split(".")[-1] == "envs")
         seen = []
@@ -2673,6 +2705,212 @@ def adsr_phase(card):
                   f"busy, {made[2]:.0f} activities; largest level "
                   f"difference {diff:.3e} ({card})")
     return timed
+
+
+CAPTURE_EQ = 4        # blocks from one state, eager and then replayed
+CAPTURE_WINDOW = 10   # blocks per wall window; windows eager, replayed x 2,
+CAPTURE_PROF = 3      # eager (tools/wallab.py's turns); blocks per profile
+CAPTURE_IR_TAPS = 48000
+
+
+def capture_phase(card):
+    """Phase ``capture``: each steady block-mode block as one replay of its
+    captured CUDA graph (graph/capture.py) against the same block run
+    eagerly (``jit=False`` on the same graph), from one state: outputs,
+    states and launch counts equal (``torch.equal``), every block under
+    sync debug mode "error"; walls (CUDA events around windows of
+    CAPTURE_WINDOW blocks, eager and replayed in turns), device busy,
+    activities and idle share, and from the profiler the graph launches
+    and the kernels launched from Python per block.  The eight bench
+    models at 256 voices (the bench's chord), B=1024 and 4096, the echo
+    and the twin peaks with seeded audio every block (effect blocks); the
+    unfused fm synth, the IIR lowpass, the piano under K2-K5 and the
+    reverb with audio at B=1024.  Returns the phase's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from oscen_tpu_torch import (AudioAsset, Convolver, Graph, IirLowpass,
+                                 Oscillator)
+    from oscen_tpu_torch.bench import build_model, strike_chord
+    from oscen_tpu_torch.core.types import Kind
+    from oscen_tpu_torch.models.fm_synth import build_fm_synth
+    from oscen_tpu_torch.ops import conv as tconv
+    from oscen_tpu_torch.ops.cuda import additive as add
+    from oscen_tpu_torch.ops.cuda import launch_counters
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    total = {}
+
+    def counts():
+        return [dict(c) for c in launch_counters()] + [dict(tconv.launches)]
+
+    def delta(a, b):
+        return {k: n - x.get(k, 0) for x, y in zip(a, b)
+                for k, n in y.items() if n != x.get(k, 0)}
+
+    def feeder(c, B):
+        """Stream inputs of block i: seeded noise, 16 blocks long."""
+        data = {}
+        for j, gi in enumerate(c.ir.inputs):
+            if gi.kind == Kind.STREAM:
+                shape = (16 * B,) + ((gi.channels,) if gi.channels > 1
+                                     else ())
+                data[gi.name] = (np.random.default_rng(11 + j)
+                                 .standard_normal(shape) * 0.3
+                                 ).astype(np.float32)
+        if not data:
+            return lambda i: {}
+        return lambda i: {"stream_inputs": {
+            k: v[(i % 16) * B:(i % 16 + 1) * B] for k, v in data.items()}}
+
+    def iir_graph():
+        g = Graph("IirLowpassGraph")
+        g.input("cutoff", "value", default=1000.0)
+        g.output("out", "stream")
+        o = g.add("o", Oscillator.saw(330.0, 0.5))
+        f = g.add("f", IirLowpass(1000.0))
+        g.connect("cutoff", f.cutoff)
+        g.connect(o.output, f.input)
+        g.connect(f.output, "out")
+        return g
+
+    def reverb_graph():
+        g = Graph("ConvolutionReverb")
+        g.input("x", "stream", channels=2)
+        g.output("out", "stream", channels=2)
+        g.external("ir")
+        cv = g.add("conv", Convolver(max_ir_len=REVERB_CAP, channels=2))
+        g.connect("ir", cv.ir)
+        g.connect("x", cv.input)
+        g.connect(cv.output, "out")
+        return g
+
+    def same_tree(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    def window(c, feed, i0):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for i in range(CAPTURE_WINDOW):
+            c.process_block(**feed(i0 + i))
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) * 1e3 / CAPTURE_WINDOW
+
+    def profiled(c, feed, i0):
+        """(busy us, activities, graph launches, kernel launches from
+        Python) per block."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(CAPTURE_PROF):
+                c.process_block(**feed(i0 + i))
+            torch.cuda.synchronize()
+        busy = acts = graphs = kernels = 0
+        for e in prof.key_averages():
+            if e.device_type == cuda_kind:
+                busy += getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+                acts += e.count
+            elif e.key == "cudaGraphLaunch":
+                graphs += e.count
+            elif e.key.startswith("cudaLaunchKernel"):
+                kernels += e.count
+        return tuple(x / CAPTURE_PROF for x in (busy, acts, graphs, kernels))
+
+    def case(label, build, B, version="v4", voices=0, ir=False):
+        piano_env(version)
+        c = build().compile(SR, block_size=B, mode="block", device="cuda")
+        if voices:
+            strike_chord(c, voices)
+        if ir:
+            c.publish_asset("ir", AudioAsset.from_samples(
+                reverb_ir(2, CAPTURE_IR_TAPS), int(SR)))
+        feed = feeder(c, B)
+        i = 0
+        # the chord (or the fade), the warm-up, the capture
+        for _ in range(3 if not ir else 3 + -(-int(0.02 * SR) // B)):
+            c.process_block(**feed(i))
+            i += 1
+        start = c.state
+        c0, n0 = counts(), c.block_counts
+        with no_sync(True):
+            rep = [c.process_block(**feed(i + k)) for k in range(CAPTURE_EQ)]
+        c1, n1 = counts(), c.block_counts
+        st_rep = c.state
+        c.state = start
+        c.jit = False
+        with no_sync(True):
+            eag = [c.process_block(**feed(i + k)) for k in range(CAPTURE_EQ)]
+        c2, n2 = counts(), c.block_counts
+        st_eag = c.state
+        c.jit = True
+        i += CAPTURE_EQ
+        outs_eq = all(torch.equal(r[k], e[k]) for r, e in zip(rep, eag)
+                      for k in r if isinstance(r[k], torch.Tensor))
+        launches = delta(c0, c1)
+        checks = {
+            "outputs equal": outs_eq,
+            "states equal": same_tree(st_rep, st_eag),
+            "launches equal": launches == delta(c1, c2),
+            "replayed": n1["replayed"] - n0["replayed"] == CAPTURE_EQ
+            and n1["eager"] == n0["eager"],
+            "eager": n2["eager"] - n1["eager"] == CAPTURE_EQ,
+        }
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        walls = {False: [], True: []}
+        for jit in (False, True, True, False):
+            c.jit = jit
+            walls[jit].append(window(c, feed, i))
+            i += CAPTURE_WINDOW
+        stats = {}
+        for jit in (False, True):
+            c.jit = jit
+            stats[jit] = profiled(c, feed, i)
+            i += CAPTURE_PROF
+        c.jit = True
+        checks["one graph launch a block"] = (stats[True][2] == 1
+                                              and stats[True][3] == 0)
+        rtf = {}
+        parts = []
+        for jit, name in ((False, "eager"), (True, "replayed")):
+            wall = float(np.median(walls[jit]))
+            busy, acts, graphs, kernels = stats[jit]
+            rtf[jit] = B / SR / (wall * 1e-6)
+            parts.append(
+                f"{name} wall {wall:.1f} us ({', '.join(f'{w:.1f}' for w in walls[jit])}), "
+                f"RTF {rtf[jit]:.1f}x, busy {busy:.1f} us, activities "
+                f"{acts:.1f}, idle {100 * (1 - busy / wall):.1f}%, graph "
+                f"launches {graphs:.1f}, kernel launches from Python "
+                f"{kernels:.1f}")
+        phase("capture", f"{label} B={B}: " + "; ".join(parts)
+              + f"; launches a block {launches} / {CAPTURE_EQ}; checks "
+              f"{checks} ({card})")
+        check(all(checks.values()), f"capture: {label} B={B}: {checks}")
+
+    t0 = time.perf_counter()
+    for B in BLOCKS:
+        for name in ("electric_piano", "poly_synth", "fm_synth", "pivot",
+                     "readme_synth", "simple_echo", "saturator",
+                     "twin_peaks"):
+            voiced = name in ("electric_piano", "poly_synth", "fm_synth",
+                              "pivot")
+            case(name, lambda name=name: build_model(name)[0], B,
+                 voices=VOICES if voiced else 0)
+    B = 1024
+    for version in add.KERNELS[1:] + (add.EPILOGUE,):
+        case(f"electric_piano {version}",
+             lambda: build_model("electric_piano")[0], B, version=version,
+             voices=VOICES)
+    case("unfused fm synth", lambda: build_fm_synth(VOICES, fused=False), B,
+         voices=VOICES)
+    case("IIR lowpass", iir_graph, B)
+    case("reverb", reverb_graph, B, ir=True)
+    piano_env("v4")
+    phase("capture", f"launches of the phase: {total}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def main() -> int:
@@ -3954,6 +4192,9 @@ def main() -> int:
     # ---- 4f. bench: the port's benchmark driver, fusedrms -------------
     bench_phase(card)
 
+    # ---- 4g. capture: replayed blocks against eager ones ---------------
+    later_launches.append(capture_phase(card))
+
     # ---- 5. timing ---------------------------------------------------
     def time_ms(fn, reps, warm=2):
         """Wall time per call on the card's clock (CUDA events)."""
@@ -4129,7 +4370,9 @@ def main() -> int:
         return inner
 
     def host_time_by_node(label, build):
-        p = build(VOICES).compile(SR, block_size=1024, device="cuda")
+        # eager blocks: a replayed block calls no node
+        p = build(VOICES).compile(SR, block_size=1024, device="cuda",
+                                  jit=False)
         for nm, inst in p.ir.nodes.items():
             for meth in ("process_block", "process_block_batched"):
                 if hasattr(inst.node, meth) and not inst.node.HOST:
@@ -4477,7 +4720,8 @@ ONLY = {"per_sample": (("additive", "phase", "iir"), per_sample_phase),
         # K11, and the poly synth and fm synth it is priced against
         "adsr": (("adsr", "phase", "iir", "fm"), adsr_phase),
         # the bench builds every source
-        "bench": (None, bench_phase)}
+        "bench": (None, bench_phase),
+        "capture": (("additive", "phase", "iir", "fm"), capture_phase)}
 
 
 if __name__ == "__main__":

@@ -25,10 +25,12 @@ the headline line stays last: take the last line per metric.
 
 A window is the median of 5 differences ``span(n_large) -
 span(n_small)``, each span a host clock around ``steady_checksum(n)``.
-The port's ``steady_checksum`` is a Python loop of eager blocks that ends
-in ``.item()``, a device sync, so a span measures host dispatch plus
-device time (per block, the larger of the two where they overlap), not
-device time alone.  The difference cancels what every span pays once:
+The port's ``steady_checksum`` (``jit=True``, the default) is one staging,
+then a replay of one captured CUDA graph per block that also adds the
+block's energy into a scalar on the card, and one ``.item()`` at the end,
+a device sync; so a span measures the host's replay calls plus device time
+(per block, the larger of the two where they overlap), not device time
+alone.  The difference cancels what every span pays once:
 the staging prepass (``_steady_staging``) and the final read.  ``value``
 is the best window's real-time factor, ``median_window`` the median
 window's, ``us_per_block`` the best window's wall per block.  The twin

@@ -901,4 +901,28 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             outs[o.name] = v
         return new_state, outs
 
+    # what a call decides from the host besides its inputs' shapes, the key
+    # of a captured block (graph/capture.py): the graph parameters that
+    # feed a node's host_ins, the host mirrors, the additive version
+    from ..ops.cuda.additive import kernel_version
+    asks = {name: block_kw[name] | batched_kw.get(name, frozenset())
+            for name in prog.device_nodes}
+    host_in_params = tuple(sorted({
+        r.endpoint for name in prog.device_nodes
+        if "host_ins" in asks[name]
+        for ep in ir.nodes[name].node.INPUTS
+        for e in prog.edges_by_dst.get((name, ep.name), [])
+        for r in e.source.endpoints() if r.node == ""}))
+    mirror_nodes = tuple(name for name in prog.device_nodes
+                         if "host_mirror" in asks[name])
+
+    def host_key() -> tuple:
+        p = host_params() if host_params and host_in_params else {}
+        m = host_mirrors() if host_mirrors and mirror_nodes else {}
+        return (tuple(p.get(k) for k in host_in_params),
+                tuple(tuple(sorted((m.get(n) or {}).items()))
+                      for n in mirror_nodes),
+                kernel_version())
+
+    block_fn.host_key = host_key
     return block_fn

@@ -977,9 +977,12 @@ class Graph:
         raises), or ``"cpu"`` when asked for.  ``mode="block"`` (the
         default here, as in the JAX package) runs time-vectorized blocks;
         ``mode="sample"`` runs the reference's per-sample schedule, one
-        eager step per sample (``CompiledGraph``'s own default).  ``jit`` is
-        accepted for the JAX package's signature and has no meaning here:
-        the port runs its block functions eagerly."""
+        eager step per sample (``CompiledGraph``'s own default).  ``jit=True``
+        (the default, as in the JAX package) replays each block-mode block
+        the host can reproduce, and every block of ``render_steady`` and
+        ``steady_checksum``, from a captured CUDA graph (on the CPU from the
+        capture's static buffers, graph/capture.py); ``jit=False`` runs
+        every block eagerly."""
         from .compile import CompiledGraph
         ir = self.lower()
         return CompiledGraph(ir, sample_rate=sample_rate,

@@ -22,7 +22,12 @@ boundary: host-domain nodes (MIDI parsing, voice allocation) run in Python
 per block and stage dense per-sample arrays and static event buffers to
 the device in ONE host-to-device copy per block.  Blocks whose control
 plane is idle reuse the staged tensors, which stay on the device, so a
-steady block is one call of the block function.
+steady block is one call of the block function.  With ``jit=True`` (the
+default, as in the JAX package) a block-mode block the host can reproduce
+(a steady block, or one whose only fresh input is a stream) is one replay
+of a CUDA graph captured around that call (graph/capture.py), and so is
+every block of ``render_steady`` and ``steady_checksum``; sample mode,
+event and parameter-change blocks and voice-sharded blocks stay eager.
 
 Multirate regions run as in the JAX package's block mode: a node at
 ``rate=N`` processes ``B*N`` samples per block, each cross-rate edge carries
@@ -64,6 +69,7 @@ from ..ops import resample as _rs
 from . import explain
 from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Expr, Fanout,
                  FrameCtor, IrEdge, IrGraph, IrNodeInst)
+from .capture import BlockCaptures, block_checksum, launch_counters
 from .node import StepValue, apply_node_events, tree_map
 
 __all__ = ["CompiledGraph", "resolve_device"]
@@ -547,8 +553,19 @@ class CompiledGraph:
     is a nested dict of tensors on ``device`` with the JAX state's keys:
     the CUDA card unless the caller passes ``device="cpu"``.  ``mode`` is
     ``"sample"`` (the default, as in the JAX package) or ``"block"``.
-    ``jit`` is accepted for the JAX package's signature and has no meaning
-    here: the port runs its block functions eagerly.
+
+    ``jit=True`` (the default, as in the JAX package) runs a block-mode
+    block whose staging the host reproduces (a steady block, a block whose
+    only fresh input is ``stream_inputs``) and every block of
+    ``render_steady`` and ``steady_checksum`` as a replay of a captured
+    block (graph/capture.py): on the card one ``torch.cuda.CUDAGraph``
+    replay, on the CPU the block function on the capture's static buffers,
+    bit for bit the eager result either way.  A key's first block runs
+    eagerly (the warm-up), and so do sample mode, event and
+    parameter-change blocks and voice-sharded blocks.  ``jit=False`` runs
+    every block eagerly, the JAX package's unjitted path.
+    ``block_counts`` counts replayed and eager blocks and the captures,
+    ``eager_why`` the eager blocks by reason.
     """
 
     def __init__(self, ir: IrGraph, sample_rate: float = 44100.0,
@@ -561,7 +578,10 @@ class CompiledGraph:
         self.mode = mode
         self.block_size = int(block_size)
         self.sample_rate = float(sample_rate)
+        self.jit = bool(jit)
         self._new_program()
+        # the captured blocks (jit=True, block mode), by key
+        self._captures = BlockCaptures(self.device, guard=self._cache_sizes)
 
         # host parameter state
         self._params: Dict[str, ValueRampState] = {}
@@ -605,10 +625,32 @@ class CompiledGraph:
         """The graph's state: a nested dict of tensors on ``device``; once
         voice-sharded, of ``DTensor``s on the mesh (``Shard(0)`` on this
         rank's slices, ``Replicate()`` elsewhere), built from the local
-        tensors without a collective."""
+        tensors without a collective.  Later blocks do not change it: once
+        blocks are replayed, whose state advances in the capture's buffers,
+        it is a copy."""
         if self._shard is None:
-            return self._state
+            return self._snapshot(self._state)
         return self._shard.dtensors(self._state, self._shard_flags)
+
+    def _snapshot(self, tree):
+        """``tree`` as later blocks leave it: copied on the device while
+        captures exist (a replay writes their static state in place)."""
+        if self._captures.caps:
+            return tree_map(torch.clone, tree)
+        return tree
+
+    @property
+    def block_counts(self) -> Dict[str, int]:
+        """Blocks run so far: ``replayed`` (from a captured block),
+        ``eager``, and the ``captures`` built."""
+        return dict(self._captures.counts)
+
+    @property
+    def eager_why(self) -> Dict[str, int]:
+        """The eager blocks by reason: ``jit_off``, ``sample_mode``,
+        ``sharded``, ``control`` (events, a parameter change, a ramp),
+        ``warmup`` (a key's first block) and ``state_changes_shape``."""
+        return dict(self._captures.eager_why)
 
     @state.setter
     def state(self, new: Dict[str, Any]) -> None:
@@ -673,6 +715,7 @@ class CompiledGraph:
         self._control_dirty = True
         self._staging_cache.clear()
         self._host_steady.clear()
+        self._captures.clear()
         for name in self.prog.host_nodes:
             self.ir.nodes[name].node.reset()
             for n in self.prog.host_instances.get(name, []):
@@ -728,6 +771,8 @@ class CompiledGraph:
             raise KeyError(f"unknown external asset '{external}'")
         self._touch()
         self._staging_cache.clear()
+        # a new dict: a replayed block's state dict is its capture's
+        self._state = dict(self._state)
         if not isinstance(a, AudioAsset):
             raise AssetError("publish_asset expects an AudioAsset")
         if a.sample_rate != int(self.sample_rate):
@@ -1068,6 +1113,23 @@ class CompiledGraph:
         block reads only those staged as block-constant ``[1]``)."""
         return {name: float(r.current) for name, r in self._params.items()}
 
+    def _cache_sizes(self):
+        """What the node and kernel caches hold: a CUDA-graph capture must
+        not add to them (graph/capture.py)."""
+        from ..ops.cuda import additive
+        return (len(self.prog._consts),
+                tuple(c.data_ptr() for c in additive._counters.values()),
+                tuple(len(st._coefs) for r in self.prog.resamplers.values()
+                      for st in getattr(r, "stages", ())
+                      if hasattr(st, "_coefs")))
+
+    def _block_fn_key(self, B: int):
+        """The key of ``_block_fn(B)`` in block mode: B, the literal
+        parameters, the mesh size."""
+        self._literal_params()
+        return (B, self._literals[1],
+                self._shard.n if self._shard else None)
+
     def _block_fn(self, B: int):
         shard = self._shard
         if self.mode == "sample":
@@ -1086,7 +1148,7 @@ class CompiledGraph:
                 return state, outs
             return sharded
         lits = self._literal_params()
-        key = (B, self._literals[1], shard.n if shard else None)
+        key = self._block_fn_key(B)
         fn = self._block_fns.get(key)
         if fn is None:
             from .block_mode import make_block_fn
@@ -1117,6 +1179,7 @@ class CompiledGraph:
     def _set_shard(self, shard) -> None:
         self._shard = shard
         self._block_fns.clear()
+        self._captures.clear()
         self._staging_cache.clear()
         self._control_dirty = True
 
@@ -1200,7 +1263,10 @@ class CompiledGraph:
         """All staged arrays in ONE host-to-device copy: packed into one
         float32 buffer (pinned on CUDA, copied non-blocking) and sliced
         back into views on the device.  Event offsets ride as f32 (exact
-        below 2**24) and the valid masks as 0/1."""
+        below 2**24) and the valid masks as 0/1.  Nothing to stage (every
+        stream input a tensor on the device already) is no copy."""
+        if not arrays:
+            return {}
         flat = [np.asarray(a, np.float32).ravel() for a in arrays.values()]
         n = sum(f.size for f in flat)
         if self.device.type == "cuda":
@@ -1238,29 +1304,11 @@ class CompiledGraph:
         if self._shard is not None and self.mode == "block":
             ev_np, host_vals = self._shard_staging(ev_np, host_vals)
         arrays: Dict[Any, np.ndarray] = {}
-        on_device: Dict[str, torch.Tensor] = {}
         for gi in self.ir.inputs:
             if gi.kind == Kind.VALUE:
                 arrays[("pb", gi.name)] = \
                     self._params[gi.name].materialize_block(B)
-            elif gi.kind == Kind.STREAM:
-                shape = (B,) if gi.channels == 1 else (B, gi.channels)
-                src = (stream_inputs or {}).get(gi.name)
-                if isinstance(src, torch.Tensor) and self._holds(src):
-                    x = src[:B].to(torch.float32)
-                    if x.shape[0] < B:   # short tails pad with zeros
-                        x = torch.cat([x, torch.zeros(
-                            (B - x.shape[0],) + tuple(x.shape[1:]),
-                            dtype=torch.float32, device=self.device)])
-                    on_device[gi.name] = x
-                    continue
-                arr = np.zeros(shape, np.float32)
-                if src is not None:
-                    if isinstance(src, torch.Tensor):
-                        src = src.detach().cpu()
-                    src = np.asarray(src, np.float32)[:B]
-                    arr[:src.shape[0]] = src   # short tails pad with zeros
-                arrays[("pb", gi.name)] = arr
+        on_device = self._stream_arrays(B, stream_inputs, arrays)
         for k, arr in host_vals.items():
             arrays[("pb", k)] = arr
         for k, b in ev_np.items():
@@ -1276,33 +1324,118 @@ class CompiledGraph:
                    for k, b in ev_np.items()}
         return per_block, ev_bufs
 
-    def _run_block(self, B: int, per_block, ev_bufs) -> Dict[str, Any]:
-        """One call of the block function on the current state; then the
-        host mirrors advance by the block (each node by its own samples)."""
-        self._state, outs = self._block_fn(B)(self._state, per_block,
-                                              ev_bufs)
+    def _stream_arrays(self, B: int, stream_inputs, arrays) -> Dict[
+            str, torch.Tensor]:
+        """The graph's stream inputs for a block of B: host data (zeros
+        where none is given) added to ``arrays`` under ``("pb", name)``;
+        returns those that are tensors on the graph's device already."""
+        on_device: Dict[str, torch.Tensor] = {}
+        for gi in self.ir.inputs:
+            if gi.kind != Kind.STREAM:
+                continue
+            shape = (B,) if gi.channels == 1 else (B, gi.channels)
+            src = (stream_inputs or {}).get(gi.name)
+            if isinstance(src, torch.Tensor) and self._holds(src):
+                x = src[:B].to(torch.float32)
+                if x.shape[0] < B:   # short tails pad with zeros
+                    x = torch.cat([x, torch.zeros(
+                        (B - x.shape[0],) + tuple(x.shape[1:]),
+                        dtype=torch.float32, device=self.device)])
+                on_device[gi.name] = x
+                continue
+            arr = np.zeros(shape, np.float32)
+            if src is not None:
+                if isinstance(src, torch.Tensor):
+                    src = src.detach().cpu()
+                src = np.asarray(src, np.float32)[:B]
+                arr[:src.shape[0]] = src   # short tails pad with zeros
+            arrays[("pb", gi.name)] = arr
+        return on_device
+
+    def _stage_streams(self, B: int, stream_inputs) -> Dict[str, Any]:
+        """Only the stream inputs of a block, in one transfer."""
+        arrays: Dict[Any, np.ndarray] = {}
+        on_device = self._stream_arrays(B, stream_inputs, arrays)
+        dev = self._to_device(arrays)
+        return {**{k: v for (_, k), v in dev.items()}, **on_device}
+
+    def _run_block(self, B: int, per_block, ev_bufs, steady: bool = False,
+                   fresh=None, acc=None, checksum=None):
+        """One block on the current state: a replay of its captured block
+        when ``steady`` (its staging reproduces) in block mode with ``jit``,
+        else one call of the block function; then the host mirrors advance
+        by the block (each node by its own samples).  ``fresh`` holds the
+        block's own ``per_block`` entries (its stream inputs) over the
+        reused staging; with ``acc`` the block adds ``steady_checksum``'s
+        term for the outputs ``checksum`` into it.  Returns ``(outputs,
+        acc, replayed)``: a replay's outputs are the capture's, which the
+        next replay overwrites."""
+        why = ("jit_off" if not self.jit else
+               "sample_mode" if self.mode == "sample" else
+               "sharded" if self._shard is not None else
+               None if steady else "control")
+        if why is None:
+            self._state, outs, acc, replayed = self._captures.run(
+                self._block_fn_key(B), self._block_fn(B), self._state,
+                per_block, ev_bufs, fresh, acc, checksum)
+        else:
+            self._captures.eager(why)
+            if fresh:
+                per_block = {**per_block, **fresh}
+            self._state, outs = self._block_fn(B)(self._state, per_block,
+                                                  ev_bufs)
+            if acc is not None:
+                acc = acc + block_checksum(outs, checksum)
+            replayed = False
         for name, m in self._mirrors.items():
             inst = self.ir.nodes[name]
             self._mirrors[name] = inst.node.mirror_step(
                 m, self.prog.scaled_sr(inst), B * inst.rate)
-        return outs
+        return outs, acc, replayed
+
+    @staticmethod
+    def _own(outs, replayed: bool) -> Dict[str, Any]:
+        """Outputs the caller keeps: a replay's are copied out of the
+        capture (the JAX package returns fresh arrays)."""
+        if replayed:
+            return {k: v.clone() for k, v in outs.items()}
+        return dict(outs)
 
     def process_block(self, block_len: Optional[int] = None,
                       stream_inputs: Optional[Dict[str, Any]] = None
                       ) -> Dict[str, Any]:
         """Advance one block; returns {output name: [B(,C)] tensor on the
-        device, event output name: event list}."""
+        device, event output name: event list}.  A steady block reuses the
+        staging on the device; so does an effect block (its only fresh
+        input is ``stream_inputs``), which stages its streams alone."""
         B = int(block_len or self.block_size)
-        steady = stream_inputs is None and self._control_steady()
-        if steady and B in self._staging_cache:
-            return dict(self._run_block(B, *self._staging_cache[B]))
+        steady = self._control_steady()
+        cached = self._staging_cache.get(B) if steady else None
+        if cached is not None:
+            fresh = (None if stream_inputs is None
+                     else self._stage_streams(B, stream_inputs))
+            outs, _, replayed = self._run_block(B, *cached, steady=True,
+                                                fresh=fresh)
+            outs = self._own(outs, replayed)
+            if fresh is not None:   # as the staging path below returns
+                outs.update(self._last_event_outs)
+            return outs
         self._control_dirty = False  # staging below consumes everything
         ev_np, host_vals = self._host_prepass(B)
-        per_block, ev_bufs = self._stage(B, ev_np, host_vals, stream_inputs)
+        fresh = None
+        if steady and stream_inputs is not None:
+            # the staging later blocks reuse holds no audio
+            per_block, ev_bufs = self._stage(B, ev_np, host_vals)
+            fresh = self._stage_streams(B, stream_inputs)
+        else:
+            per_block, ev_bufs = self._stage(B, ev_np, host_vals,
+                                             stream_inputs)
         # a clean-entry block's staging reproduces verbatim until the
         # next control change: keep it on the device
         self._staging_cache = {B: (per_block, ev_bufs)} if steady else {}
-        outs = dict(self._run_block(B, per_block, ev_bufs))
+        outs, _, replayed = self._run_block(B, per_block, ev_bufs,
+                                            steady=steady, fresh=fresh)
+        outs = self._own(outs, replayed)
         outs.update(self._last_event_outs)
         return outs
 
@@ -1346,33 +1479,46 @@ class CompiledGraph:
                       block_len: Optional[int] = None
                       ) -> Dict[str, torch.Tensor]:
         """Steady-state rendering with parameters frozen at their current
-        values: one staging, then ``num_blocks`` calls of the block
-        function; outputs stay on the device, concatenated in time."""
+        values: one staging, then ``num_blocks`` blocks, replays of one
+        captured block with ``jit`` (the JAX package's jitted ``lax.scan``);
+        each block's outputs are written into their span of the result,
+        which stays on the device."""
         B = int(block_len or self.block_size)
+        n = int(num_blocks)
         per_block, ev_bufs = self._steady_staging(B)
-        chunks = [self._run_block(B, per_block, ev_bufs)
-                  for _ in range(int(num_blocks))]
-        return {k: torch.cat([c[k] for c in chunks], dim=0)
-                for k in (chunks[0] if chunks else {})}
+        whole: Dict[str, torch.Tensor] = {}
+        for i in range(n):
+            outs, _, _ = self._run_block(B, per_block, ev_bufs, steady=True)
+            for k, v in outs.items():
+                if k not in whole:
+                    whole[k] = torch.empty((n * v.shape[0],)
+                                           + tuple(v.shape[1:]),
+                                           dtype=v.dtype, device=v.device)
+                whole[k][i * v.shape[0]:(i + 1) * v.shape[0]].copy_(v)
+        return whole
 
     def steady_checksum(self, num_blocks: int,
                         block_len: Optional[int] = None) -> float:
         """Render ``num_blocks`` steady-state blocks and return only the
         energy checksum (sum of squares of every stream output sample),
-        accumulated on the device and read once at the end."""
+        accumulated on the device and read once at the end.  With ``jit``
+        the blocks are replays of one captured block that also adds its
+        term into the capture's accumulator (the JAX package's jitted
+        ``fori_loop``)."""
         B = int(block_len or self.block_size)
         per_block, ev_bufs = self._steady_staging(B)
         stream_outs = [o.name for o in self.ir.outputs
                        if o.kind != Kind.EVENT]
         acc = torch.zeros((), dtype=torch.float32, device=self.device)
         for _ in range(int(num_blocks)):
-            outs = self._run_block(B, per_block, ev_bufs)
-            acc = acc + sum(torch.sum(outs[nm] ** 2) for nm in stream_outs)
+            _, acc, _ = self._run_block(B, per_block, ev_bufs, steady=True,
+                                        acc=acc, checksum=stream_outs)
         return float(acc.item())
 
     def node_state(self, name: str):
-        """A node's current state (nested dict of tensors)."""
-        return self._state[name]
+        """A node's current state (nested dict of tensors), which later
+        blocks do not change."""
+        return self._snapshot(self._state[name])
 
     def latency_samples(self) -> int:
         """Total base-rate latency of the cross-rate Down edges (reference
@@ -1398,11 +1544,9 @@ class CompiledGraph:
         state) are snapshotted and restored, so a later run is as if
         ``explain`` had not been called.  It costs one block of device
         time."""
-        from ..ops import conv
-        from ..ops.cuda import launch_counters
         from . import explain as _explain
         B = int(block_len or self.block_size)
-        counters = launch_counters() + [conv.launches]
+        counters = launch_counters()
         saved_launches = [dict(c) for c in counters]
         saved_queues = {k: list(q) for k, q in self._event_queues.items()}
         saved_params = copy.deepcopy(self._params)

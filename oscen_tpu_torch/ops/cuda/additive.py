@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -68,6 +68,9 @@ launches: Dict[str, int] = {k: 0 for k in KERNELS + (EPILOGUE,)}
 _ENTRY = {v: f"oscen_additive_{v}" for v in KERNELS}
 # per device: the mix's ticket counters (zero between launches)
 _counters: Dict[torch.device, torch.Tensor] = {}
+# counters replaced by larger ones: a captured block may still launch with
+# them (graph/capture.py), so they stay allocated
+_retired: List[torch.Tensor] = []
 
 
 def kernel_version() -> str:
@@ -193,6 +196,8 @@ def _mix_counters(dev, n: int) -> torch.Tensor:
     runs)."""
     c = _counters.get(dev)
     if c is None or c.numel() < n:
+        if c is not None:
+            _retired.append(c)
         c = torch.zeros((n,), dtype=torch.int32, device=dev)
         _counters[dev] = c
     return c

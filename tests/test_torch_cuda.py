@@ -1719,3 +1719,141 @@ def test_examples_on_card_match_cpu(cuda, name, tmp_path):
            "pivot_demo": 1e-5}.get(name, 1e-6 * max(peak, 1.0))
     assert peak > 0.01
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=tol, rtol=0)
+
+
+# ------------------------------------------------------------------ #
+# captured blocks (jit=True, graph/capture.py): replays on the card
+# ------------------------------------------------------------------ #
+# card against CPU, the whole graph (PERF.md, section 2); the README synth
+# runs the poly synth's kernels
+CAPTURE_CPU_TOL = {"electric_piano": 1e-4, "poly_synth": 1e-5,
+                   "fm_synth": 1e-5, "pivot": 1e-5, "readme_synth": 1e-5,
+                   "simple_echo": 1e-6, "saturator": 1e-6,
+                   "twin_peaks": 1e-6}
+
+
+def _capture_feed(c, B):
+    """Seeded audio for block i of each stream input."""
+    from oscen_tpu_torch.core.types import Kind
+    data = {gi.name: (np.random.default_rng(21 + j).standard_normal(
+        (16 * B,) + ((gi.channels,) if gi.channels > 1 else ())) * 0.3
+    ).astype(np.float32) for j, gi in enumerate(c.ir.inputs)
+        if gi.kind == Kind.STREAM}
+    if not data:
+        return lambda i: {}
+    return lambda i: {"stream_inputs": {k: v[i * B:(i + 1) * B]
+                                        for k, v in data.items()}}
+
+
+def _counts():
+    from oscen_tpu_torch.ops import conv
+    from oscen_tpu_torch.ops.cuda import launch_counters
+    return [dict(c) for c in launch_counters()] + [dict(conv.launches)]
+
+
+def _replay_vs_eager(name, B, dev, voices=16):
+    """The model's chord, its warm-up and capture blocks, then 4 replayed
+    blocks and the same 4 eager from the same state (the card's under
+    sync debug mode "error"): (replayed outputs, eager outputs, their
+    states, their launch-counter deltas, the block counts' deltas,
+    every output of the replayed run)."""
+    from oscen_tpu_torch import bench
+    graph, v = bench.build_model(name, voices)
+    c = graph.compile(48000.0, block_size=B, device=dev)
+    bench.strike_chord(c, v)
+    feed = _capture_feed(c, B)
+    from oscen_tpu_torch.core.types import Kind
+    out = [o.name for o in c.ir.outputs if o.kind != Kind.EVENT][0]
+    run = [c.process_block(**feed(i))[out] for i in range(3)]
+    start = c.state
+
+    def four(jit):
+        c.jit = jit
+        k0, n0 = _counts(), c.block_counts
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys = [c.process_block(**feed(3 + i))[out] for i in range(4)]
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        k1, n1 = _counts(), c.block_counts
+        launches = [{k: y[k] - x.get(k, 0) for k in y if y[k] != x.get(k, 0)}
+                    for x, y in zip(k0, k1)]
+        return ys, c.state, launches, {k: n1[k] - n0[k] for k in n1}
+    rep, st_rep, l_rep, n_rep = four(True)
+    c.state = start
+    eag, st_eag, l_eag, n_eag = four(False)
+    return rep, eag, st_rep, st_eag, l_rep, l_eag, n_rep, n_eag, run + rep
+
+
+@pytest.mark.parametrize("B", [256, 1024])
+@pytest.mark.parametrize("name", sorted(CAPTURE_CPU_TOL))
+def test_replayed_blocks_equal_eager_and_cpu(cuda, name, B):
+    from oscen_tpu_torch.graph.node import tree_map
+    (rep, eag, st_rep, st_eag, l_rep, l_eag, n_rep, n_eag,
+     whole) = _replay_vs_eager(name, B, "cuda")
+    assert all(torch.equal(a, b) for a, b in zip(rep, eag))
+    la, lb = [], []
+    tree_map(la.append, st_rep)
+    tree_map(lb.append, st_eag)
+    assert len(la) == len(lb) and all(torch.equal(a, b)
+                                      for a, b in zip(la, lb))
+    assert l_rep == l_eag
+    assert n_rep == {"replayed": 4, "eager": 0, "captures": 0}
+    assert n_eag == {"replayed": 0, "eager": 4, "captures": 0}
+    cpu = _replay_vs_eager(name, B, "cpu")[-1]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(whole, cpu))
+    assert err <= CAPTURE_CPU_TOL[name], err
+
+
+@pytest.mark.parametrize("version", add.KERNELS + (add.EPILOGUE,))
+def test_replayed_piano_equals_eager_every_version(cuda, version,
+                                                   monkeypatch):
+    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL",
+                       "v4" if version == add.EPILOGUE else version)
+    monkeypatch.setenv("OSCEN_EPILOGUE_FUSION",
+                       "1" if version == add.EPILOGUE else "0")
+    (rep, eag, _, _, l_rep, l_eag, n_rep, _,
+     whole) = _replay_vs_eager("electric_piano", 1024, "cuda")
+    assert all(torch.equal(a, b) for a, b in zip(rep, eag))
+    assert l_rep == l_eag and l_rep[0] == {version: 4}
+    assert n_rep["replayed"] == 4
+    cpu = _replay_vs_eager("electric_piano", 1024, "cpu")[-1]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(whole, cpu))
+    assert err <= CAPTURE_CPU_TOL["electric_piano"], err
+
+
+@pytest.mark.parametrize("name, kernel", [
+    ("electric_piano", "additive_closed_kernel"),
+    ("poly_synth", "tpt_svf"), ("twin_peaks", "lp18"),
+    ("simple_echo", "tpt_svf")])
+def test_a_steady_block_is_one_graph_launch(cuda, name, kernel):
+    """The profiler sees one cudaGraphLaunch per steady (or effect) block,
+    the block's kernels inside it, and no kernel launched from Python."""
+    from torch.profiler import ProfilerActivity, profile
+    from oscen_tpu_torch import bench
+    graph, v = bench.build_model(name, 16)
+    c = graph.compile(48000.0, block_size=1024, device="cuda")
+    bench.strike_chord(c, v)
+    feed = _capture_feed(c, 1024)
+    for i in range(3):
+        c.process_block(**feed(i))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            c.process_block(**feed(3 + i))
+        torch.cuda.synchronize()
+    graphs = kernels = 0
+    names = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names.append(e.key)
+        elif e.key == "cudaGraphLaunch":
+            graphs += e.count
+        elif e.key.startswith("cudaLaunchKernel"):
+            kernels += e.count
+    assert graphs == 3 and kernels == 0, (graphs, kernels)
+    assert any(kernel in n for n in names), names

@@ -77,6 +77,9 @@ def test_default_inputs_cover_every_node_class():
 
 
 def test_jit_keyword_is_accepted_and_ignored():
+    """``jit`` is accepted as in the JAX package, and the output ignores
+    it: ``jit=True`` replays captured blocks (graph/capture.py), which
+    equal the eager blocks of ``jit=False`` bit for bit."""
     a = tbuild_synth().compile(SR, block_size=256, device="cpu")
     b = tbuild_synth().compile(SR, block_size=256, jit=False, device="cpu")
     c = CompiledGraph(tbuild_synth().lower(), SR, 256, mode="block",

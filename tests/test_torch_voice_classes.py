@@ -189,7 +189,7 @@ class StagingCheck:
         self.checked += 1
         return staged
 
-    def _block(self, B, per_block, ev_bufs):
+    def _block(self, B, per_block, ev_bufs, **how):
         if self._fresh_block:
             self._fresh_block = False
         else:
@@ -197,7 +197,7 @@ class StagingCheck:
             _same_staging((per_block, ev_bufs),
                           self._fresh(B, _host_snapshot(self.c)))
             self.checked += 1
-        return self._run(B, per_block, ev_bufs)
+        return self._run(B, per_block, ev_bufs, **how)
 
 
 def _reentry(target, blocks=24):
