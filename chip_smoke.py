@@ -241,7 +241,24 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             replayed and 4 eager as counted, one graph launch and no
             kernel launched from Python a replayed block (profiler); walls
             in turns (eager, replayed, replayed, eager), device busy,
-            activities and idle share printed for both;
+            activities and idle share printed for both.  Then control
+            blocks: the piano (v4), poly synth, fm synth (its note-on
+            blocks run K13 with per-sample dt) and pivot (K15) at 256
+            voices, B=1024 and 4096, a note-off and a note-on every block
+            at offsets that change each block, and at B=1024 a ramp of
+            one parameter (``CONTROL_RAMPS``) over every block, and of the
+            piano's ``vibrato_speed`` (its replays timed alone: its eager
+            blocks run the tremolo per sample); eager against
+            replayed from one state and host state, both under sync debug
+            mode "error": outputs, states and launches equal, the event
+            blocks' kernels launched inside the replays, one graph launch,
+            no kernel from Python and no copy but the staging's and the
+            outputs' a replayed block (profiler); walls in turns, busy,
+            activities, idle share, one block's wall split into the host
+            prepass, the staging (packing, the key, the copy enqueued) and
+            the block or replay (CUDA events), the card memory the
+            captures reserve and what a second capture adds to the
+            graph's shared pool, ``block_counts`` and ``eager_why``;
 5. timing   each kernel's device time (profiler; the FM chains with
             block-constant and per-sample dt, the allpass cascade at the
             IIR saturator's V=2 over 2048, 1024, 8192 and 4096 steps, and
@@ -2725,7 +2742,9 @@ def capture_phase(card):
     models at 256 voices (the bench's chord), B=1024 and 4096, the echo
     and the twin peaks with seeded audio every block (effect blocks); the
     unfused fm synth, the IIR lowpass, the piano under K2-K5 and the
-    reverb with audio at B=1024.  Returns the phase's launches."""
+    reverb with audio at B=1024; then each ``midi_in`` model's control
+    blocks (events every block, a ramp; ``control_case``).  Returns the
+    phase's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from oscen_tpu_torch import (AudioAsset, Convolver, Graph, IirLowpass,
@@ -2788,25 +2807,25 @@ def capture_phase(card):
         return len(la) == len(lb) and all(torch.equal(x, y)
                                           for x, y in zip(la, lb))
 
-    def window(c, feed, i0):
+    def window(c, feed, i0, n=CAPTURE_WINDOW):
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
-        for i in range(CAPTURE_WINDOW):
+        for i in range(n):
             c.process_block(**feed(i0 + i))
         ev1.record()
         torch.cuda.synchronize()
-        return ev0.elapsed_time(ev1) * 1e3 / CAPTURE_WINDOW
+        return ev0.elapsed_time(ev1) * 1e3 / n
 
     def profiled(c, feed, i0):
         """(busy us, activities, graph launches, kernel launches from
-        Python) per block."""
+        Python, cudaMemcpyAsync calls) per block."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(CAPTURE_PROF):
                 c.process_block(**feed(i0 + i))
             torch.cuda.synchronize()
-        busy = acts = graphs = kernels = 0
+        busy = acts = graphs = kernels = memcpy = 0
         for e in prof.key_averages():
             if e.device_type == cuda_kind:
                 busy += getattr(e, "self_device_time_total",
@@ -2816,7 +2835,10 @@ def capture_phase(card):
                 graphs += e.count
             elif e.key.startswith("cudaLaunchKernel"):
                 kernels += e.count
-        return tuple(x / CAPTURE_PROF for x in (busy, acts, graphs, kernels))
+            elif e.key == "cudaMemcpyAsync":
+                memcpy += e.count
+        return tuple(x / CAPTURE_PROF
+                     for x in (busy, acts, graphs, kernels, memcpy))
 
     def case(label, build, B, version="v4", voices=0, ir=False):
         piano_env(version)
@@ -2876,7 +2898,7 @@ def capture_phase(card):
         parts = []
         for jit, name in ((False, "eager"), (True, "replayed")):
             wall = float(np.median(walls[jit]))
-            busy, acts, graphs, kernels = stats[jit]
+            busy, acts, graphs, kernels, _ = stats[jit]
             rtf[jit] = B / SR / (wall * 1e-6)
             parts.append(
                 f"{name} wall {wall:.1f} us ({', '.join(f'{w:.1f}' for w in walls[jit])}), "
@@ -2908,9 +2930,247 @@ def capture_phase(card):
     case("IIR lowpass", iir_graph, B)
     case("reverb", reverb_graph, B, ir=True)
     piano_env("v4")
+    # events at both block sizes, each model's ramp at B=1024; the
+    # piano's vibrato_speed ramp runs its tremolo per sample (~0.3 s an
+    # eager block): its replays timed alone
+    for B in BLOCKS:
+        for name in sorted(CONTROL_RAMPS):
+            for ramp in ((None, CONTROL_RAMPS[name]) if B == BLOCKS[0]
+                         else (None,)):
+                control_case(name, B, ramp, counts, delta, window, profiled,
+                             same_tree, total, card)
+    control_case("electric_piano", BLOCKS[0], ("vibrato_speed", 7.0), counts,
+                 delta, window, profiled, same_tree, total, card,
+                 eager_timed=False)
     phase("capture", f"launches of the phase: {total}; "
           f"{time.perf_counter() - t0:.1f} s")
     return total
+
+
+# control blocks in the capture phase: each model's ramp (a parameter
+# staged as data, its target), the kernels its event blocks launch inside
+# their replays, blocks per wall window and per split
+CONTROL_RAMPS = {"electric_piano": ("vibrato_intensity", 0.6),
+                 "poly_synth": ("resonance", 0.5),
+                 "fm_synth": ("route", 0.5), "pivot": ("cutoff", 3000.0)}
+CONTROL_KERNELS = {"electric_piano": (),
+                   "poly_synth": ("phase_scan", "tpt_svf_scan"),
+                   "fm_synth": ("fm_chain3_scan", "tpt_svf_scan"),
+                   "pivot": ("pivot_chain3_scan", "tpt_svf_scan")}
+CONTROL_WINDOW = 4
+CONTROL_SPLIT = 3
+
+
+def host_state(c, saved=None):
+    """What a block advances on the host (the host nodes' control state,
+    the parameters and their ramps, the steady host outputs): a copy, or
+    with ``saved`` that copy put back."""
+    import copy
+    insts = [n for name in c.prog.host_nodes
+             for n in ([c.ir.nodes[name].node] if c.ir.nodes[name].count == 1
+                       else c.prog.host_instances[name])]
+    if saved is None:
+        return ([n.host_state() for n in insts], copy.deepcopy(c._params),
+                copy.deepcopy(c._host_steady))
+    for n, snap in zip(insts, saved[0]):
+        n.restore_host_state(snap)
+    c._params = copy.deepcopy(saved[1])
+    c._host_steady = copy.deepcopy(saved[2])
+
+
+def split_blocks(c, feed, i0, n):
+    """A control block's wall split three ways, the medians over ``n``
+    blocks, each run alone (the card idle before it): CUDA events at its
+    start, after the host prepass (``_host_prepass``), after its staging's
+    copy is enqueued (a replay's into its capture's static vector, an eager
+    block's into a tensor of its own) and at its end; (prepass, staging,
+    block) in us."""
+    import torch
+    from oscen_tpu_torch.graph import capture as gcap
+    marks = []
+    real_prepass = c._host_prepass
+    real_copy, real_dev = gcap.Staging.copy_to, gcap.Staging.to_device
+
+    def mark(k):
+        if k not in marks[-1]:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[-1][k] = ev
+
+    def prepass(B):
+        out = real_prepass(B)
+        mark("prepass")
+        return out
+
+    def copy_to(self, dst):
+        real_copy(self, dst)
+        mark("copy")
+
+    def to_device(self):
+        out = real_dev(self)
+        mark("copy")
+        return out
+    c._host_prepass = prepass
+    gcap.Staging.copy_to, gcap.Staging.to_device = copy_to, to_device
+    try:
+        for k in range(n):
+            kw = feed(i0 + k)
+            torch.cuda.synchronize()
+            marks.append({})
+            mark("start")
+            c.process_block(**kw)
+            mark("end")
+        torch.cuda.synchronize()
+    finally:
+        del c._host_prepass
+        gcap.Staging.copy_to, gcap.Staging.to_device = real_copy, real_dev
+    parts = [(m["start"].elapsed_time(m["prepass"]),
+              m["prepass"].elapsed_time(m["copy"]),
+              m["copy"].elapsed_time(m["end"])) for m in marks]
+    return [1e3 * float(np.median([p[j] for p in parts])) for j in range(3)]
+
+
+def control_case(name, B, ramp, counts, delta, window, profiled, same_tree,
+                 total, card, eager_timed=True):
+    """One model's control blocks at 256 voices: a note-off and a note-on
+    every block at offsets that change each block (``ramp`` None), or a
+    ramp of ``ramp`` (a parameter, its target) over every block; replayed
+    against eager (``jit=False``) from one state and host state, both
+    under sync debug mode "error": outputs, states and launches equal, the
+    event blocks' kernels launched inside the replays, one graph launch,
+    no kernel from Python and, besides the outputs' copies out, one copy
+    (its staging's) a replayed block; walls in turns, busy, activities,
+    the wall's split, the card memory the captures reserve (with events,
+    also what a second capture of the graph, capacity 1, adds to its
+    shared pool), the block counts.  ``eager_timed`` False times the
+    replayed blocks only (an eager block that takes seconds)."""
+    import torch
+    from oscen_tpu_torch import raw_midi_event
+    from oscen_tpu_torch.bench import build_model, strike_chord
+    c = build_model(name)[0].compile(SR, block_size=B, mode="block",
+                                     device="cuda")
+    strike_chord(c, VOICES)
+    c.process_block()   # the chord
+    label = f"{name} {ramp[0] + ' ramp' if ramp else 'events'} B={B}"
+    if ramp:
+        c.set_value_with_ramp(*ramp, 1000 * B)
+
+        def feed(i):
+            return {}
+    else:
+        def feed(i):
+            key, h = 36 + i % 64, B // 2
+            c.queue_event("midi_in", (37 * i + 1) % h,
+                          raw_midi_event([0x80, key, 0]))
+            c.queue_event("midi_in", h + (101 * i + 3) % h,
+                          raw_midi_event([0x90, key, 90]))
+            return {}
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
+    c.process_block(**feed(0))   # the warm-up
+    c.process_block(**feed(1))   # the capture
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_reserved()
+    i = 2
+    start, hosts = c.state, host_state(c)
+    c0, n0 = counts(), c.block_counts
+    with no_sync(True):
+        rep = [c.process_block(**feed(i + k)) for k in range(CAPTURE_EQ)]
+    c1, n1 = counts(), c.block_counts
+    st_rep = c.state
+    c.state = start
+    host_state(c, hosts)
+    c.jit = False
+    with no_sync(True):
+        eag = [c.process_block(**feed(i + k)) for k in range(CAPTURE_EQ)]
+    c2, n2 = counts(), c.block_counts
+    st_eag = c.state
+    c.jit = True
+    i += CAPTURE_EQ
+    launches = delta(c0, c1)
+    checks = {
+        "outputs equal": all(torch.equal(r[k], e[k])
+                             for r, e in zip(rep, eag) for k in r
+                             if isinstance(r[k], torch.Tensor)),
+        "states equal": same_tree(st_rep, st_eag),
+        "launches equal": launches == delta(c1, c2),
+        "replayed": n1["replayed"] - n0["replayed"] == CAPTURE_EQ
+        and n1["eager"] == n0["eager"],
+        "eager": n2["eager"] - n1["eager"] == CAPTURE_EQ,
+        "kernels in the replays": all(
+            launches.get(k, 0) >= CAPTURE_EQ
+            for k in (() if ramp else CONTROL_KERNELS[name])),
+    }
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    kinds = (False, True) if eager_timed else (True,)
+    walls = {jit: [] for jit in kinds}
+    for jit in (False, True, True, False) if eager_timed else (True, True):
+        c.jit = jit
+        walls[jit].append(window(c, feed, i, CONTROL_WINDOW))
+        i += CONTROL_WINDOW
+    stats, split = {}, {}
+    for jit in kinds:
+        c.jit = jit
+        # a block first: the switch's state load is not a profiled copy
+        c.process_block(**feed(i))
+        i += 1
+        stats[jit] = profiled(c, feed, i)
+        i += CAPTURE_PROF
+        split[jit] = split_blocks(c, feed, i, CONTROL_SPLIT)
+        i += CONTROL_SPLIT
+    c.jit = True
+    # one graph launch, no kernel from Python; the cudaMemcpyAsync calls
+    # are the staging's copy and the outputs' (``_own``): no copy of a
+    # tensor into a static buffer
+    n_out = sum(isinstance(x, torch.Tensor) for x in rep[0].values())
+    checks["one copy and one graph launch a block"] = (
+        stats[True][2:4] == (1, 0) and 1 <= stats[True][4] <= 1 + n_out)
+    pool = ""
+    if not ramp:
+        # a second capture of the graph: a note-on alone, capacity 1 (the
+        # chord block warmed its key up), in the pool the first one made
+        torch.cuda.synchronize()
+        m2, caps = torch.cuda.memory_reserved(), c.block_counts["captures"]
+        for k in range(2):
+            c.queue_event("midi_in", (37 * i + 1) % B,
+                          raw_midi_event([0x90, 36 + i % 64, 90]))
+            c.process_block()
+            i += 1
+        torch.cuda.synchronize()
+        m3 = torch.cuda.memory_reserved()
+        checks["a second capture"] = c.block_counts["captures"] == caps + 1
+        # in what the first freed: a tenth of the first at most
+        checks["a second capture in the shared pool"] = (
+            m3 - m2 <= 0.1 * (mem1 - mem0))
+        pool = (f"; a second capture (capacity 1) adds "
+                f"{(m3 - m2) / 2**20:.1f} MiB to the graph's pool "
+                f"({m2 / 2**20:.1f} -> {m3 / 2**20:.1f} MiB)")
+    why = c.eager_why
+    checks["eager only at warm-ups"] = why["warmup"] == \
+        c.block_counts["eager"] - why["jit_off"] and sum(why.values()) \
+        == why["warmup"] + why["jit_off"]
+    parts = []
+    for jit in kinds:
+        kind = "replayed" if jit else "eager"
+        wall = float(np.median(walls[jit]))
+        busy, acts, graphs, kernels, memcpy = stats[jit]
+        pre, stage, blk = split[jit]
+        parts.append(
+            f"{kind} wall {wall:.1f} us ({', '.join(f'{w:.1f}' for w in walls[jit])}), "
+            f"RTF {B / SR / (wall * 1e-6):.1f}x, busy {busy:.1f} us, "
+            f"activities {acts:.1f}, idle {100 * (1 - busy / wall):.1f}%, "
+            f"graph launches {graphs:.1f}, kernel launches from Python "
+            f"{kernels:.1f}, cudaMemcpyAsync {memcpy:.1f}; one block "
+            f"alone {pre + stage + blk:.1f} us = prepass {pre:.1f} + "
+            f"staging {stage:.1f} + {'replay' if jit else 'block'} "
+            f"{blk:.1f}")
+    phase("capture", f"control {label}: " + "; ".join(parts)
+          + f"; launches a block {launches} / {CAPTURE_EQ}; captures "
+          f"reserve {(mem1 - mem0) / 2**20:.1f} MiB (memory_reserved "
+          f"{mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB){pool}; block_counts "
+          f"{c.block_counts} eager_why {why}; checks {checks} ({card})")
+    check(all(checks.values()), f"capture: control {label}: {checks}")
 
 
 def main() -> int:

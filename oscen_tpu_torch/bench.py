@@ -41,8 +41,11 @@ Events lines (``--events``): every block queues a note-off and a note-on
 at offset 17 and calls ``process_block()``; outputs are not fetched; each
 loop of 200 blocks ends in ``torch.cuda.synchronize()``, after 8 warm-up
 blocks, and a line ``{model}_{V}v_events_rtf_48k_b{B}`` follows each loop
-(the best loop so far).  The host prepass, the staging copy and the
-dispatch are inside this measurement.  Each block size gets at most
+(the best loop so far), after a ``[bench] events`` marker with the graph's
+``block_counts`` and ``eager_why`` so far: with ``jit=True`` the loop's
+event blocks are replays of one captured block, eager only where a key
+warms up.  The host prepass, the staging copy and the replay (or the
+eager dispatch) are inside this measurement.  Each block size gets at most
 ``MAX_WINDOWS`` loops, so that every size of ``--block`` gets its line.
 
 ``vs_baseline`` divides by the port's first target, 100x real time
@@ -373,6 +376,9 @@ def measure(args: argparse.Namespace, model=None) -> int:
                 best = us if best is None else min(best, us)
                 loops += 1
                 rtf = (B / SR) / (best * 1e-6)
+                print(f"[bench] events B={B} loop {loops}: block_counts "
+                      f"{json.dumps(synth.block_counts)} eager_why "
+                      f"{json.dumps(synth.eager_why)}", flush=True)
                 line(B, value=round(rtf, 4),
                      vs_baseline=round(rtf / TARGET_RTF, 4),
                      us_per_block=round(best, 1), events_per_block=2,

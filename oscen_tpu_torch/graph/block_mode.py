@@ -79,7 +79,7 @@ from ..core.types import Kind
 from . import explain
 from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Fanout,
                  FrameCtor, IrEdge)
-from .node import apply_node_events, scan_tick_block, tree_map
+from .node import Node, apply_node_events, scan_tick_block, tree_map
 
 __all__ = ["make_block_fn", "reconstruct_step_values", "fold_inputs",
            "tick_kwargs"]
@@ -452,14 +452,18 @@ def make_block_fn(prog, block_len: int, literal_params=None,
             v = v[None] if compatible else v[..., None]
         return torch.broadcast_to(v, target)
 
+    def const_keys(shapes) -> frozenset:
+        """The ``per_block`` keys staged as ``[1]`` (idle params,
+        block-constant host values), from ``{key: shape}``: block-constant
+        THIS block, so nodes may drop their per-sample parameter-change
+        paths (const_eps).  A captured block's key reads the same rule
+        (``host_key``)."""
+        return frozenset(k for k, s in shapes.items()
+                         if len(s) >= 1 and s[0] == 1 and B != 1)
+
     def block_fn(state, per_block, ev_bufs):
         per_block = reconstruct_step_values(per_block, B)
-        # per_block entries staged as [1] (idle params, block-constant
-        # host values) are block-constant THIS block: nodes may drop
-        # their per-sample parameter-change paths (const_eps)
-        const_inputs = {
-            k for k, v in per_block.items()
-            if v.dim() >= 1 and v.shape[0] == 1 and B != 1}
+        const_inputs = const_keys({k: v.shape for k, v in per_block.items()})
         per_block = {
             k: (v.expand((B,) + tuple(v.shape[1:]))
                 if k in const_inputs else v)
@@ -916,13 +920,34 @@ def make_block_fn(prog, block_len: int, literal_params=None,
     mirror_nodes = tuple(name for name in prog.device_nodes
                          if "host_mirror" in asks[name])
 
-    def host_key() -> tuple:
+    def host_key(shapes) -> tuple:
+        """``shapes``: the staged ``per_block`` shapes by key; a parameter
+        that is not block-constant (a ramp) is not read (``host_leaf``),
+        so its value is not in the key."""
         p = host_params() if host_params and host_in_params else {}
         m = host_mirrors() if host_mirrors and mirror_nodes else {}
-        return (tuple(p.get(k) for k in host_in_params),
+        const = const_keys(shapes)
+        return (tuple(p.get(k) if k in const else None
+                      for k in host_in_params),
                 tuple(tuple(sorted((m.get(n) or {}).items()))
                       for n in mirror_nodes),
                 kernel_version())
 
+    # whether a call reads the event buffers' host slots: the per-sample
+    # loops apply events at them (Node.apply_events_scheduled), a scan
+    # island's ticks and a node whose block is its tick scan (no block
+    # method of its own, or a node array without a batched one); every
+    # other block method reads the offsets on the device.  A block given no
+    # slots takes the masked form over every slot, equal bit for bit.
+    def ticks_events(name: str) -> bool:
+        inst = ir.nodes[name]
+        node = inst.node
+        return any(ep.kind == Kind.EVENT for ep in node.INPUTS) and (
+            type(node).process_block is Node.process_block
+            or (inst.count > 1 and not node.BATCHED))
+
     block_fn.host_key = host_key
+    block_fn.reads_slots = (
+        any(plans[id(c)] is None for c in islands)
+        or any(ticks_events(n) for n in prog.device_nodes))
     return block_fn

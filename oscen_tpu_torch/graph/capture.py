@@ -3,48 +3,77 @@
 The port's counterpart of what ``jax.jit`` gives the JAX package's
 ``CompiledGraph`` (``oscen_tpu/graph/compile.py``): every block function
 is jitted (``:1098-1099``), so a steady block is ONE cached jit call
-(``:579-583``, ``:1287-1292``), ``render_steady`` one jitted ``lax.scan``
-over the span (``:1398-1426``) and ``steady_checksum`` one jitted
-``fori_loop`` (``:1592-1627``).  On a CUDA card the counterpart of a jitted
-fixed-shape function that never reads the card is a ``torch.cuda.CUDAGraph``
-captured around one call of the block function, then replayed.
+(``:579-583``, ``:1287-1292``), an event block one call of its packed
+variant (``:1235-1297``, ``_packed_call`` ``:1309-1367``), a parameter
+change or a ramp a call of the steady variant, ``render_steady`` one
+jitted ``lax.scan`` over the span (``:1398-1426``) and ``steady_checksum``
+one jitted ``fori_loop`` (``:1592-1627``).  On a CUDA card the counterpart
+of a jitted fixed-shape function that never reads the card is a
+``torch.cuda.CUDAGraph`` captured around one call of the block function,
+then replayed.
 
-A :class:`CapturedBlock` owns static buffers: the state leaves, the
-``per_block`` tensors and the ``EventBuffer`` tensors of its block, cloned
-when it is built.  Its graph runs the block function on them and writes the
-new state back into the static state leaves with ``copy_``, so a replay
-advances the state in place; the outputs are the graph's own tensors, which
-the next replay overwrites (callers copy them out).  With a checksum it
-also adds ``sum(out ** 2)`` of every stream output into a static scalar.
-A replay first copies into the static buffers whatever input is not already
-that buffer (a state set from outside, a new staging, a block's audio), so
-it runs from exactly the inputs an eager call would get.  On the CPU the
-same protocol runs, with the block function called on the static buffers
-where the card replays the graph: every line but the capture itself, bit
-for bit the eager result.
+A block's inputs arrive as a :class:`Staging`: every host array of the
+block (parameters, host values, event buffers, stream audio) packed into
+one float32 vector in pinned memory, its layout, the event buffers' host
+slots, and the stream inputs that are tensors on the device already.  A
+:class:`CapturedBlock` owns static buffers: the state leaves, ONE packed
+vector of its layout, and the on-device inputs, cloned when it is built.
+Its graph unpacks the vector (the per-block views, the event offsets as
+int32, the valid masks; :func:`unpack`, the JAX package's ``packed_fn``),
+runs the block function and writes the new state back into the static
+state leaves with ``copy_``, so a replay advances the state in place; the
+outputs are the graph's own tensors, which the next replay overwrites
+(callers copy them out).  With a checksum it also adds ``sum(out ** 2)``
+of every stream output into a static scalar.  A replay first copies into
+the static buffers whatever input is not already there: a state set from
+outside, a new staging (one non-blocking copy of the pinned vector
+straight into the static one), a block's audio.  So a control block is
+the host prepass, one fill of a pinned buffer, one copy and one graph
+launch, and it runs from exactly the inputs an eager call would get.  On
+the CPU the same protocol runs, with the block function called on the
+static buffers where the card replays the graph: every line but the
+capture itself, bit for bit the eager result.
 
 :class:`BlockCaptures` keys the captures of one ``CompiledGraph`` on
 everything the block function decides on the host, the counterpart of a
 JAX retrace: a key that no longer matches builds a new capture and never
 replays a stale one.  The key, from an audit of ``graph/block_mode.py``'s
-``make_block_fn`` and every node's block methods:
+``make_block_fn``, every node's block methods and the control path
+(``CompiledGraph._host_prepass`` and ``_stage``):
 
 - the block function itself: the block length B, the literal parameters
   (graph parameters never set since compile, ``literal_ins`` and
-  ``folded_ins``) and the voice sharding (``CompiledGraph._block_fn_key``);
-- the names, shapes and dtypes of the staged ``per_block`` tensors: a value
-  staged ``[1]`` is block-constant (``const_ins``, the const-output
-  propagation, the epilogue fusion's dynamic half, the tremolo's own
-  path), a step staged ``(3, C)`` expands on the device; and the event
-  buffers' shapes (a capacity of 0 means no events) with their host slots
-  (``EventBuffer.slots``);
+  ``folded_ins``: the first ``set_value`` of a parameter turns it dynamic
+  and builds another block function) and the voice sharding
+  (``CompiledGraph._block_fn_key``);
+- the staging's layout: the names, kinds and shapes of the packed arrays,
+  in order.  A value staged ``[1]`` is block-constant (``const_ins``, the
+  const-output propagation, the epilogue fusion's dynamic half, the
+  tremolo's own path), a ramp ``[B]``; a host value of a node array
+  ``[1, C]`` is block-constant, its ``__hstep__`` step ``(3, C)`` expands
+  on the device (``CompiledGraph._host_prepass``), and so the fm and pivot
+  chains' ``dt`` is per-sample on a note-on block (a ``const_ins``
+  decision, ``models/fm_synth.py``); an event buffer's shape carries its
+  power-of-two capacity (``_round_capacity``: a capacity of 0 means no
+  events, and a note-on block of capacity 1, 2 or 4 is a key each).  The
+  event offsets, values and masks are data: block-mode nodes read them on
+  the device.  The host slots (``EventBuffer.slots``) are in the key only
+  where the block function reads them (``block_fn.reads_slots``: a scan
+  island, or a node whose block is its tick scan, applies events at the
+  slots, ``Node.apply_events_scheduled``); elsewhere a capture's block
+  gets no slots, so no slot the capture saw can reach a replay.  The
+  shapes and dtypes of the stream inputs that are tensors on the device,
+  and of ``fresh`` ones, are in it too;
 - the names, shapes and dtypes of the state leaves: ``publish_asset`` can
   grow a Convolver's IR, a voice-class switch or a state setter brings
   another state;
 - the ``host_ins`` values: the graph parameters that feed a node whose
   block methods name ``host_ins`` (the pivot's and fm chains' zero-feedback
   branch, the filters' hoisted coefficients, the oscillators' constant
-  frequency path), read through ``CompiledGraph._host_params``;
+  frequency path), read through ``CompiledGraph._host_params`` where the
+  staging holds the parameter as ``[1]`` (a block reads no other: a
+  ramping parameter's value is not in the key, so a ramp's blocks share
+  one);
 - the ``host_mirror`` values: the Convolver's ``fade_pos``
   (``nodes/convolver.py``: a fading block runs the second irFFT and the
   crossfade, a steady one does not), so each fade block has a key of its
@@ -55,18 +84,20 @@ replays a stale one.  The key, from an audit of ``graph/block_mode.py``'s
   built, so the block function carries it).
 
 Nothing else is read on the host inside a block: no node reads the card
-(the port's sync-free rule), the scan islands' event slots are in the
-staging key, and the node caches (``_Program.const``, a resampler's
-halfband coefficients, the additive mix's ticket counters) are filled by
-the warm-up.
+(the port's sync-free rule), and the node caches (``_Program.const``, a
+resampler's halfband coefficients, the additive mix's ticket counters)
+are filled by the warm-up.
 
 Capture discipline:
 
 - **Warm before capture.**  A key's first block runs eagerly
   (``WARMUP_BLOCKS``): it sets each kernel's shared-memory opt-in, builds
-  the node caches and allocates the additive mix's ticket counters.  A
-  block whose state comes back with another structure, shape or dtype than
-  it went in is never captured (``eager_why["state_changes_shape"]``).
+  the node caches and allocates the additive mix's ticket counters.  So a
+  one-off control block (a ``set_value``, one step of a ``host_ins``
+  sweep, a fade block) is its key's warm-up and runs eagerly; a repeated
+  one (events every block, a ramp's blocks) replays.  A block whose state
+  comes back with another structure, shape or dtype than it went in is
+  never captured (``eager_why["state_changes_shape"]``).
 - **Nothing cached is allocated during capture.**  ``guard()`` (the
   graph's cache sizes) is read before and after the capture; a change
   raises.
@@ -76,7 +107,22 @@ Capture discipline:
 - **One stream, in order.**  The capture runs on a side stream that waits
   for the current one; every replay launches on the current stream, after
   the work queued before it (the mix's ticket counters are zeroed by the
-  launch before).
+  launch before; the copy into the static vector waits for the replay
+  before that has read it).
+- **One memory pool a graph.**  The captures of one ``BlockCaptures``
+  allocate from one pool (``torch.cuda.graph_pool_handle``) on one side
+  stream (the caching allocator reuses a free block only on the stream
+  it was allocated on), so a capture reuses what an earlier one freed
+  instead of holding a pool of its own.  Only the outputs of a capture
+  outlive it in that pool, and a later replay may overwrite them; that is
+  safe because replays run one at a time on one stream, every caller
+  copies a replay's outputs out before the next (``CompiledGraph._own``,
+  ``render_steady``), and the static buffers (state, packed vector,
+  inputs, checksum) are allocated outside any capture.
+- **The pinned vector outlives its copy.**  Each staging packs into a
+  pinned buffer of its own from PyTorch's caching host allocator, which
+  records the copy on the stream and hands the buffer out again only
+  after it; nothing synchronizes.
 - **No host reads.**  A replay reads nothing from the card; a capture
   refuses any operation that would.
 - **No fallback.**  A capture or a replay that fails raises.
@@ -90,16 +136,18 @@ counts the same launches replayed or eager.
 from __future__ import annotations
 
 import gc
+import math
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.events import EventBuffer
 from .node import tree_map
 
-__all__ = ["BlockCaptures", "CapturedBlock", "EAGER_REASONS", "block_checksum",
-           "launch_counters", "tree_sig"]
+__all__ = ["BlockCaptures", "CapturedBlock", "EAGER_REASONS", "Staging",
+           "block_checksum", "launch_counters", "tree_sig", "unpack"]
 
 # eager blocks of a key before its capture
 WARMUP_BLOCKS = 1
@@ -108,7 +156,7 @@ MAX_CAPTURES = 16
 MAX_KEYS = 256
 
 # why a block ran eagerly (``CompiledGraph.eager_why``)
-EAGER_REASONS = ("jit_off", "sample_mode", "sharded", "control", "warmup",
+EAGER_REASONS = ("jit_off", "sample_mode", "sharded", "warmup",
                  "state_changes_shape")
 
 
@@ -122,12 +170,104 @@ def tree_sig(tree) -> tuple:
     return (tuple(tree.shape), tree.dtype)
 
 
-def _staged_sig(per_block: Dict[str, Any], ev_bufs: Dict[str, Any]) -> tuple:
-    return (tuple((k, tuple(v.shape), v.dtype)
-                  for k, v in sorted(per_block.items())),
-            tuple((k, tuple(b.offsets.shape),
-                   tuple(sorted((b.slots or {}).items())))
-                  for k, b in sorted(ev_bufs.items())))
+def _tensors_sig(tensors: Optional[Dict[str, torch.Tensor]]) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype)
+                 for k, v in sorted((tensors or {}).items()))
+
+
+def unpack(packed: torch.Tensor, layout: tuple, slots=None, extra=None
+           ) -> Tuple[Dict[str, Any], Dict[str, EventBuffer]]:
+    """``(per_block, ev_bufs)`` from a packed float32 vector: ``layout``
+    lists ``(kind, key, shape)`` in packing order, kind ``"pb"`` a
+    ``per_block`` array (a view), ``"off"`` / ``"val"`` / ``"ok"`` an event
+    buffer's offsets (exact in float32 below 2**24, cast to int32), values
+    and valid mask (0 / 1, compared with 0.5).  ``slots``: the buffers'
+    host slots by key (None: none); ``extra``: ``per_block`` tensors that
+    were not packed, added last."""
+    per_block: Dict[str, Any] = {}
+    parts: Dict[str, Dict[str, torch.Tensor]] = {}
+    pos = 0
+    for kind, key, shape in layout:
+        n = math.prod(shape)
+        v = packed[pos:pos + n].view(shape)
+        pos += n
+        if kind == "pb":
+            per_block[key] = v
+        else:
+            parts.setdefault(key, {})[kind] = (
+                v.to(torch.int32) if kind == "off" else
+                v > 0.5 if kind == "ok" else v)
+    if extra:
+        per_block.update(extra)
+    ev_bufs = {k: EventBuffer(p["off"], p["val"], p["ok"],
+                              None if slots is None else slots.get(k))
+               for k, p in parts.items()}
+    return per_block, ev_bufs
+
+
+class Staging:
+    """One block's staged inputs (``CompiledGraph._stage``): the host
+    arrays packed into one float32 vector ``host`` (pinned when the graph
+    lives on a card), its ``layout`` (:func:`unpack`), the event buffers'
+    host ``slots`` and ``extra``, the stream inputs that are tensors on the
+    device already (not packed, no copy).  The vector goes to the device
+    once: into a captured block's static vector (:meth:`copy_to`), or into
+    a tensor of its own for an eager block (:meth:`unpack`)."""
+
+    def __init__(self, arrays: Dict[Tuple[str, str], Any],
+                 device: torch.device):
+        flat = [np.asarray(a, np.float32).ravel() for a in arrays.values()]
+        n = sum(f.size for f in flat)
+        if device.type == "cuda":
+            host = torch.empty((n,), dtype=torch.float32, pin_memory=True)
+        else:
+            host = torch.empty((n,), dtype=torch.float32)
+        if n:
+            np.concatenate(flat, out=host.numpy())
+        self.host = host
+        self.device = device
+        self.layout = tuple((kind, key, tuple(np.shape(a)))
+                            for (kind, key), a in arrays.items())
+        self.slots: Optional[Dict[str, Any]] = None
+        self.extra: Dict[str, torch.Tensor] = {}
+        self.packed: Optional[torch.Tensor] = None
+        self._unpacked = None
+
+    def shapes(self) -> Dict[str, tuple]:
+        """The packed ``per_block`` arrays' shapes by key."""
+        return {key: shape for kind, key, shape in self.layout
+                if kind == "pb"}
+
+    def sig(self, slots: bool) -> tuple:
+        """The staging's part of a capture key; the host slots with
+        ``slots``."""
+        return (self.layout, _tensors_sig(self.extra),
+                tuple(sorted((k, tuple(sorted(v.items())))
+                             for k, v in (self.slots or {}).items()))
+                if slots else None)
+
+    def to_device(self) -> torch.Tensor:
+        """The packed vector on the device, copied once (non-blocking, from
+        pinned memory); on the CPU the host vector itself."""
+        if self.packed is None:
+            self.packed = (self.host.to(self.device, non_blocking=True)
+                           if self.device.type == "cuda" else self.host)
+        return self.packed
+
+    def copy_to(self, dst: torch.Tensor) -> None:
+        """The packed vector into ``dst`` (a captured block's static
+        vector): from its device copy if it has one, else straight from
+        the pinned buffer, one non-blocking copy."""
+        src = self.packed if self.packed is not None else self.host
+        dst.copy_(src, non_blocking=True)
+
+    def unpack(self) -> Tuple[Dict[str, Any], Dict[str, EventBuffer]]:
+        """``(per_block, ev_bufs)`` on the device, with the host slots (an
+        eager block); built once."""
+        if self._unpacked is None:
+            self._unpacked = unpack(self.to_device(), self.layout,
+                                    self.slots or {}, self.extra)
+        return self._unpacked
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -148,40 +288,50 @@ def block_checksum(outs: Dict[str, torch.Tensor], names) -> torch.Tensor:
 
 class CapturedBlock:
     """One block function on static buffers on ``device``: a CUDA graph on
-    the card, a direct call on the CPU.  ``checksum`` (the stream output
-    names) adds their energy into the static scalar ``acc``; ``guard()``
-    returns the sizes of the caches that must not grow during the
-    capture."""
+    the card, a direct call on the CPU.  The static inputs are the state,
+    one packed vector of ``staging``'s layout, and the unpacked inputs
+    (``staging.extra`` and ``fresh``); ``slots`` keeps the staging's host
+    slots for the block (a block function that reads them), else it gets
+    none.  ``checksum`` (the stream output names) adds their energy into
+    the static scalar ``acc``; ``guard()`` returns the sizes of the caches
+    that must not grow during the capture; on the card ``pool`` is the
+    memory pool and the side stream the capture allocates from and runs
+    on (``BlockCaptures``: one for all of a graph's captures)."""
 
     def __init__(self, fn: Callable, device: torch.device, state,
-                 per_block: Dict[str, Any],
-                 ev_bufs: Dict[str, EventBuffer], acc=None,
+                 staging: Staging, fresh=None, acc=None,
                  checksum: Optional[List[str]] = None,
-                 guard: Optional[Callable[[], Any]] = None):
+                 guard: Optional[Callable[[], Any]] = None,
+                 slots: bool = False, pool=None):
         self.fn = fn
         self.checksum = checksum
         self.state = tree_map(torch.clone, state)
-        self.per_block = {k: v.clone() for k, v in per_block.items()}
-        self.ev_bufs = {k: EventBuffer(b.offsets.clone(), b.values.clone(),
-                                       b.valid.clone(), b.slots)
-                        for k, b in ev_bufs.items()}
+        self.packed = torch.empty(staging.host.shape, dtype=torch.float32,
+                                  device=device)
+        staging.copy_to(self.packed)
+        self.layout = staging.layout
+        self.slots = (staging.slots or {}) if slots else None
+        self.extra = {k: v.clone()
+                      for k, v in {**staging.extra, **(fresh or {})}.items()}
         self.acc = acc.clone() if acc is not None else None
         self._static = {_storage(x) for x in _leaves(self.state)}
-        # the staging dicts whose tensors the static inputs hold
-        self._src: Optional[Tuple[Any, Any]] = (per_block, ev_bufs)
+        # the staging whose vector the static one holds
+        self._src: Optional[Staging] = staging
         self.graph = None
         self.outs: Dict[str, torch.Tensor] = {}
         # (counter dict, key, launches) a replay adds
         self.launches: List[Tuple[Dict[str, int], str, int]] = []
         if device.type == "cuda":
-            self._capture(device, guard)
+            self._capture(device, guard, pool)
 
     def _aliased(self, t: torch.Tensor) -> bool:
         return _storage(t) in self._static
 
     def _body(self) -> Dict[str, torch.Tensor]:
         """The block on the static buffers, its new state written back."""
-        new_state, outs = self.fn(self.state, self.per_block, self.ev_bufs)
+        per_block, ev_bufs = unpack(self.packed, self.layout, self.slots,
+                                    self.extra)
+        new_state, outs = self.fn(self.state, per_block, ev_bufs)
         # an output or a new leaf that views a static leaf is copied first,
         # so the write-back cannot change it under the reader; the outputs
         # are made contiguous here, so copying them out is one memcpy
@@ -196,12 +346,12 @@ class CapturedBlock:
             self.acc.add_(block_checksum(outs, self.checksum))
         return outs
 
-    def _capture(self, dev: torch.device, guard) -> None:
+    def _capture(self, dev: torch.device, guard, pool) -> None:
         counters = launch_counters()
         before = [dict(c) for c in counters]
         sizes = guard() if guard is not None else None
         graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(dev)
+        handle, side = pool
         cur = torch.cuda.current_stream(dev)
         side.wait_stream(cur)
         # the cyclic collector could free a dropped graph (or its events)
@@ -212,7 +362,7 @@ class CapturedBlock:
         gc.disable()
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin()
+                graph.capture_begin(pool=handle)
                 try:
                     self.outs = self._body()
                 finally:
@@ -233,27 +383,24 @@ class CapturedBlock:
             c.update(b)
         self.graph = graph
 
-    def load(self, state, per_block, ev_bufs, fresh=None, acc=None) -> None:
-        """Copy into the static buffers every input that is not one."""
+    def load(self, state, staging: Staging, fresh=None, acc=None) -> None:
+        """Copy into the static buffers every input that is not one: the
+        staging's vector once (it never changes), its on-device inputs and
+        ``fresh`` every block."""
         if state is not self.state:
+            # a leaf that is another of the static leaves (a publish keeps
+            # the current IR as the old one) is read before any is written
+            state = tree_map(lambda s, x: x.clone()
+                             if x is not s and self._aliased(x) else x,
+                             self.state, state)
             tree_map(lambda s, x: x is s or s.copy_(x), self.state, state)
-        if self._src is None or self._src[0] is not per_block \
-                or self._src[1] is not ev_bufs:
-            for k, s in self.per_block.items():
-                x = per_block[k]
-                if x is not s:
-                    s.copy_(x)
-            for k, s in self.ev_bufs.items():
-                b = ev_bufs[k]
-                for st, x in ((s.offsets, b.offsets), (s.values, b.values),
-                              (s.valid, b.valid)):
-                    if x is not st:
-                        st.copy_(x)
-            self._src = (per_block, ev_bufs)
-        if fresh:
-            for k, x in fresh.items():
-                self.per_block[k].copy_(x)
-            self._src = None   # those keys no longer hold the staging's
+        if self._src is not staging:
+            staging.copy_to(self.packed)
+            self._src = staging
+        for k, x in (*staging.extra.items(), *(fresh or {}).items()):
+            s = self.extra[k]
+            if x is not s:
+                s.copy_(x)
         if acc is not None and acc is not self.acc:
             self.acc.copy_(acc)
 
@@ -283,7 +430,8 @@ class BlockCaptures:
     """The captured blocks of one ``CompiledGraph``, by key, with the
     counts of replayed and eager blocks (``counts``: ``replayed``,
     ``eager``, ``captures``; ``eager_why``: the eager blocks by reason,
-    ``EAGER_REASONS``)."""
+    ``EAGER_REASONS``).  Its captures share one memory pool and one
+    side stream (``pool``)."""
 
     def __init__(self, device: torch.device,
                  guard: Optional[Callable[[], Any]] = None):
@@ -292,20 +440,24 @@ class BlockCaptures:
         self.caps: "OrderedDict[tuple, CapturedBlock]" = OrderedDict()
         self.seen: "OrderedDict[tuple, int]" = OrderedDict()
         self.refused: set = set()
+        self.pool = None
         self.counts = {"replayed": 0, "eager": 0, "captures": 0}
         self.eager_why = {k: 0 for k in EAGER_REASONS}
         self._ids: Dict[tuple, int] = {}
         self._state_memo: Tuple[Any, int] = (None, -1)
-        self._staged_memo: Tuple[Any, Any, int] = (None, None, -1)
+        self._staged_memo: Tuple[Any, bool, int] = (None, False, -1)
 
     def clear(self) -> None:
-        """Drop every capture and key (the counts stay)."""
+        """Drop every capture and key (the counts stay), and the pool: the
+        allocator releases a pool when its last graph goes, and a capture
+        into a released pool's handle fails."""
         self.caps.clear()
+        self.pool = None
         self.seen.clear()
         self.refused.clear()
         self._ids.clear()
         self._state_memo = (None, -1)
-        self._staged_memo = (None, None, -1)
+        self._staged_memo = (None, False, -1)
 
     def eager(self, why: str) -> None:
         self.counts["eager"] += 1
@@ -322,14 +474,14 @@ class BlockCaptures:
             self._state_memo = (state, self._id(tree_sig(state)))
         return self._state_memo[1]
 
-    def _staged_id(self, per_block, ev_bufs) -> int:
+    def _staged_id(self, staging: Staging, slots: bool) -> int:
         m = self._staged_memo
-        if m[0] is not per_block or m[1] is not ev_bufs:
-            m = self._staged_memo = (per_block, ev_bufs, self._id(
-                _staged_sig(per_block, ev_bufs)))
+        if m[0] is not staging or m[1] != slots:
+            m = self._staged_memo = (staging, slots,
+                                     self._id(staging.sig(slots)))
         return m[2]
 
-    def run(self, fn_key, fn, state, per_block, ev_bufs, fresh=None,
+    def run(self, fn_key, fn, state, staging: Staging, fresh=None,
             acc=None, checksum=None):
         """One block: replayed if its key has a capture (or one is built
         now), eager while the key warms up.  ``fresh`` holds ``per_block``
@@ -337,10 +489,9 @@ class BlockCaptures:
         block adds ``checksum``'s term into it.  Returns ``(new state,
         outputs, acc, replayed)``; a replay's state and outputs are the
         capture's static tensors."""
-        fresh_sig = tuple((k, tuple(v.shape), v.dtype)
-                          for k, v in sorted(fresh.items())) if fresh else ()
-        base = (fn_key, self._staged_id(per_block, ev_bufs), fresh_sig,
-                self._state_id(state), fn.host_key())
+        slots = fn.reads_slots
+        base = (fn_key, self._staged_id(staging, slots), _tensors_sig(fresh),
+                self._state_id(state), fn.host_key(staging.shapes()))
         key = base + (acc is not None,)
         cap = self.caps.get(key)
         if cap is None and (base in self.refused
@@ -349,8 +500,10 @@ class BlockCaptures:
             self.seen.move_to_end(base)
             if len(self.seen) > MAX_KEYS:
                 self.seen.popitem(last=False)
-            pb = {**per_block, **fresh} if fresh else per_block
-            new_state, outs = fn(state, pb, ev_bufs)
+            per_block, ev_bufs = staging.unpack()
+            if fresh:
+                per_block = {**per_block, **fresh}
+            new_state, outs = fn(state, per_block, ev_bufs)
             if acc is not None:
                 acc = acc + block_checksum(outs, checksum)
             new_id = self._id(tree_sig(new_state))
@@ -362,18 +515,20 @@ class BlockCaptures:
                 self.eager("warmup")
             return new_state, outs, acc, False
         if cap is None:
-            pb = {**per_block, **fresh} if fresh else per_block
-            cap = CapturedBlock(fn, self.device, state, pb, ev_bufs, acc=acc,
-                                checksum=checksum, guard=self.guard)
-            if fresh:
-                cap._src = None
+            if self.pool is None and self.device.type == "cuda":
+                self.pool = (torch.cuda.graph_pool_handle(),
+                             torch.cuda.Stream(self.device))
+            cap = CapturedBlock(fn, self.device, state, staging, fresh,
+                                acc=acc, checksum=checksum,
+                                guard=self.guard, slots=slots,
+                                pool=self.pool)
             self.caps[key] = cap
             if len(self.caps) > MAX_CAPTURES:
                 self.caps.popitem(last=False)
             self.counts["captures"] += 1
         else:
             self.caps.move_to_end(key)
-            cap.load(state, per_block, ev_bufs, fresh, acc)
+            cap.load(state, staging, fresh, acc)
         outs = cap.replay()
         self.counts["replayed"] += 1
         self._state_memo = (cap.state, base[3])

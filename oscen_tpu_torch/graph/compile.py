@@ -20,14 +20,16 @@ eagerly on the device given to ``compile``, in one of two modes:
 The host↔device split mirrors the reference's control-thread↔audio-thread
 boundary: host-domain nodes (MIDI parsing, voice allocation) run in Python
 per block and stage dense per-sample arrays and static event buffers to
-the device in ONE host-to-device copy per block.  Blocks whose control
-plane is idle reuse the staged tensors, which stay on the device, so a
-steady block is one call of the block function.  With ``jit=True`` (the
-default, as in the JAX package) a block-mode block the host can reproduce
-(a steady block, or one whose only fresh input is a stream) is one replay
-of a CUDA graph captured around that call (graph/capture.py), and so is
-every block of ``render_steady`` and ``steady_checksum``; sample mode,
-event and parameter-change blocks and voice-sharded blocks stay eager.
+the device in ONE host-to-device copy per block: one packed float32
+vector (graph/capture.py ``Staging``), unpacked on the device.  Blocks
+whose control plane is idle reuse the staged vector, which stays on the
+device, so a steady block is one call of the block function.  With
+``jit=True`` (the default, as in the JAX package) every block-mode block is
+one replay of a CUDA graph captured around that call (graph/capture.py),
+its unpacking included, once its key has warmed up: steady and effect
+blocks, event, parameter-change and ramp blocks, and every block of
+``render_steady`` and ``steady_checksum``; sample mode and voice-sharded
+blocks stay eager.
 
 Multirate regions run as in the JAX package's block mode: a node at
 ``rate=N`` processes ``B*N`` samples per block, each cross-rate edge carries
@@ -69,7 +71,8 @@ from ..ops import resample as _rs
 from . import explain
 from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Expr, Fanout,
                  FrameCtor, IrEdge, IrGraph, IrNodeInst)
-from .capture import BlockCaptures, block_checksum, launch_counters
+from .capture import (BlockCaptures, Staging, block_checksum,
+                      launch_counters)
 from .node import StepValue, apply_node_events, tree_map
 
 __all__ = ["CompiledGraph", "resolve_device"]
@@ -554,16 +557,16 @@ class CompiledGraph:
     the CUDA card unless the caller passes ``device="cpu"``.  ``mode`` is
     ``"sample"`` (the default, as in the JAX package) or ``"block"``.
 
-    ``jit=True`` (the default, as in the JAX package) runs a block-mode
-    block whose staging the host reproduces (a steady block, a block whose
-    only fresh input is ``stream_inputs``) and every block of
-    ``render_steady`` and ``steady_checksum`` as a replay of a captured
-    block (graph/capture.py): on the card one ``torch.cuda.CUDAGraph``
+    ``jit=True`` (the default, as in the JAX package) runs every
+    block-mode block (steady, effect, event, parameter-change and ramp
+    blocks, and every block of ``render_steady`` and ``steady_checksum``)
+    as a replay of a captured block (graph/capture.py): on the card one
+    copy of the block's packed staging and one ``torch.cuda.CUDAGraph``
     replay, on the CPU the block function on the capture's static buffers,
     bit for bit the eager result either way.  A key's first block runs
-    eagerly (the warm-up), and so do sample mode, event and
-    parameter-change blocks and voice-sharded blocks.  ``jit=False`` runs
-    every block eagerly, the JAX package's unjitted path.
+    eagerly (the warm-up: a one-off ``set_value`` block stays eager), and
+    so do sample mode and voice-sharded blocks.  ``jit=False`` runs every
+    block eagerly, the JAX package's unjitted path.
     ``block_counts`` counts replayed and eager blocks and the captures,
     ``eager_why`` the eager blocks by reason.
     """
@@ -648,8 +651,9 @@ class CompiledGraph:
     @property
     def eager_why(self) -> Dict[str, int]:
         """The eager blocks by reason: ``jit_off``, ``sample_mode``,
-        ``sharded``, ``control`` (events, a parameter change, a ramp),
-        ``warmup`` (a key's first block) and ``state_changes_shape``."""
+        ``sharded``, ``warmup`` (a key's first block: a new staging layout,
+        event capacity, block length, literal set, ``host_ins`` value, host
+        mirror or state shape) and ``state_changes_shape``."""
         return dict(self._captures.eager_why)
 
     @state.setter
@@ -1258,31 +1262,13 @@ class CompiledGraph:
         return all(getattr(self.ir.nodes[n].node, "HOST_STEADY", False)
                    for n in self.prog.host_nodes)
 
-    def _to_device(self, arrays: Dict[Any, np.ndarray]
-                   ) -> Dict[Any, torch.Tensor]:
-        """All staged arrays in ONE host-to-device copy: packed into one
-        float32 buffer (pinned on CUDA, copied non-blocking) and sliced
-        back into views on the device.  Event offsets ride as f32 (exact
-        below 2**24) and the valid masks as 0/1.  Nothing to stage (every
-        stream input a tensor on the device already) is no copy."""
-        if not arrays:
-            return {}
-        flat = [np.asarray(a, np.float32).ravel() for a in arrays.values()]
-        n = sum(f.size for f in flat)
-        if self.device.type == "cuda":
-            host = torch.empty((n,), dtype=torch.float32, pin_memory=True)
-            if n:
-                np.concatenate(flat, out=host.numpy())
-            packed = host.to(self.device, non_blocking=True)
-        else:
-            packed = torch.from_numpy(
-                np.concatenate(flat) if flat else np.zeros(0, np.float32))
-        out, pos = {}, 0
-        for k, a in arrays.items():
-            size = int(np.prod(np.shape(a)))
-            out[k] = packed[pos:pos + size].reshape(np.shape(a))
-            pos += size
-        return out
+    def _to_device(self, arrays: Dict[Any, np.ndarray]) -> Staging:
+        """All staged arrays for ONE host-to-device copy: packed into one
+        float32 vector (pinned on CUDA), which goes to the device once,
+        into a captured block's static vector or a tensor of its own
+        (graph/capture.py ``Staging``).  Event offsets ride as f32 (exact
+        below 2**24) and the valid masks as 0/1."""
+        return Staging(arrays, self.device)
 
     def _holds(self, t: torch.Tensor) -> bool:
         """True when ``t`` lies on this graph's device (``"cuda"`` names the
@@ -1295,12 +1281,13 @@ class CompiledGraph:
         return t.device == d
 
     def _stage(self, B: int, ev_np: Dict[str, EventBuffer],
-               host_vals: Dict[str, np.ndarray], stream_inputs=None):
+               host_vals: Dict[str, np.ndarray], stream_inputs=None
+               ) -> Staging:
         """Per-block staging: graph params (materialized ramps), stream
         inputs, host values and event buffers, in one transfer.  A stream
         input that is already a tensor on the graph's device (another
         graph's output, say) is not copied: it is padded to B with zeros
-        on the device and used as it is."""
+        on the device and used as it is (``Staging.extra``)."""
         if self._shard is not None and self.mode == "block":
             ev_np, host_vals = self._shard_staging(ev_np, host_vals)
         arrays: Dict[Any, np.ndarray] = {}
@@ -1315,14 +1302,11 @@ class CompiledGraph:
             arrays[("off", k)] = b.offsets
             arrays[("val", k)] = b.values
             arrays[("ok", k)] = b.valid
-        dev = self._to_device(arrays)
-        per_block = {k: v for (kind, k), v in dev.items() if kind == "pb"}
-        per_block.update(on_device)
-        ev_bufs = {k: EventBuffer(dev[("off", k)].to(torch.int32),
-                                  dev[("val", k)], dev[("ok", k)] > 0.5,
-                                  EventBuffer.host_slots(b.offsets, b.valid))
-                   for k, b in ev_np.items()}
-        return per_block, ev_bufs
+        staging = self._to_device(arrays)
+        staging.slots = {k: EventBuffer.host_slots(b.offsets, b.valid)
+                         for k, b in ev_np.items()}
+        staging.extra = on_device
+        return staging
 
     def _stream_arrays(self, B: int, stream_inputs, arrays) -> Dict[
             str, torch.Tensor]:
@@ -1356,30 +1340,29 @@ class CompiledGraph:
         """Only the stream inputs of a block, in one transfer."""
         arrays: Dict[Any, np.ndarray] = {}
         on_device = self._stream_arrays(B, stream_inputs, arrays)
-        dev = self._to_device(arrays)
-        return {**{k: v for (_, k), v in dev.items()}, **on_device}
+        return {**self._to_device(arrays).unpack()[0], **on_device}
 
-    def _run_block(self, B: int, per_block, ev_bufs, steady: bool = False,
-                   fresh=None, acc=None, checksum=None):
-        """One block on the current state: a replay of its captured block
-        when ``steady`` (its staging reproduces) in block mode with ``jit``,
-        else one call of the block function; then the host mirrors advance
-        by the block (each node by its own samples).  ``fresh`` holds the
-        block's own ``per_block`` entries (its stream inputs) over the
-        reused staging; with ``acc`` the block adds ``steady_checksum``'s
-        term for the outputs ``checksum`` into it.  Returns ``(outputs,
-        acc, replayed)``: a replay's outputs are the capture's, which the
-        next replay overwrites."""
+    def _run_block(self, B: int, staging: Staging, fresh=None, acc=None,
+                   checksum=None):
+        """One block on the current state: in block mode with ``jit`` a
+        replay of its captured block (graph/capture.py; eager while its
+        key warms up), else one call of the block function; then the host
+        mirrors advance by the block (each node by its own samples).
+        ``fresh`` holds the block's own ``per_block`` entries (its stream
+        inputs) over a reused staging; with ``acc`` the block adds
+        ``steady_checksum``'s term for the outputs ``checksum`` into it.
+        Returns ``(outputs, acc, replayed)``: a replay's outputs are the
+        capture's, which the next replay overwrites."""
         why = ("jit_off" if not self.jit else
                "sample_mode" if self.mode == "sample" else
-               "sharded" if self._shard is not None else
-               None if steady else "control")
+               "sharded" if self._shard is not None else None)
         if why is None:
             self._state, outs, acc, replayed = self._captures.run(
                 self._block_fn_key(B), self._block_fn(B), self._state,
-                per_block, ev_bufs, fresh, acc, checksum)
+                staging, fresh, acc, checksum)
         else:
             self._captures.eager(why)
+            per_block, ev_bufs = staging.unpack()
             if fresh:
                 per_block = {**per_block, **fresh}
             self._state, outs = self._block_fn(B)(self._state, per_block,
@@ -1414,8 +1397,7 @@ class CompiledGraph:
         if cached is not None:
             fresh = (None if stream_inputs is None
                      else self._stage_streams(B, stream_inputs))
-            outs, _, replayed = self._run_block(B, *cached, steady=True,
-                                                fresh=fresh)
+            outs, _, replayed = self._run_block(B, cached, fresh=fresh)
             outs = self._own(outs, replayed)
             if fresh is not None:   # as the staging path below returns
                 outs.update(self._last_event_outs)
@@ -1425,16 +1407,14 @@ class CompiledGraph:
         fresh = None
         if steady and stream_inputs is not None:
             # the staging later blocks reuse holds no audio
-            per_block, ev_bufs = self._stage(B, ev_np, host_vals)
+            staging = self._stage(B, ev_np, host_vals)
             fresh = self._stage_streams(B, stream_inputs)
         else:
-            per_block, ev_bufs = self._stage(B, ev_np, host_vals,
-                                             stream_inputs)
+            staging = self._stage(B, ev_np, host_vals, stream_inputs)
         # a clean-entry block's staging reproduces verbatim until the
-        # next control change: keep it on the device
-        self._staging_cache = {B: (per_block, ev_bufs)} if steady else {}
-        outs, _, replayed = self._run_block(B, per_block, ev_bufs,
-                                            steady=steady, fresh=fresh)
+        # next control change: keep it
+        self._staging_cache = {B: staging} if steady else {}
+        outs, _, replayed = self._run_block(B, staging, fresh=fresh)
         outs = self._own(outs, replayed)
         outs.update(self._last_event_outs)
         return outs
@@ -1469,7 +1449,7 @@ class CompiledGraph:
             raise ValueError("render_mono requires exactly one output")
         return next(iter(outs.values()))
 
-    def _steady_staging(self, B: int):
+    def _steady_staging(self, B: int) -> Staging:
         """Event-free staging at the CURRENT parameter values (shared by
         render_steady / steady_checksum / explain)."""
         ev_np, host_vals = self._host_prepass(B)
@@ -1485,10 +1465,10 @@ class CompiledGraph:
         which stays on the device."""
         B = int(block_len or self.block_size)
         n = int(num_blocks)
-        per_block, ev_bufs = self._steady_staging(B)
+        staging = self._steady_staging(B)
         whole: Dict[str, torch.Tensor] = {}
         for i in range(n):
-            outs, _, _ = self._run_block(B, per_block, ev_bufs, steady=True)
+            outs, _, _ = self._run_block(B, staging)
             for k, v in outs.items():
                 if k not in whole:
                     whole[k] = torch.empty((n * v.shape[0],)
@@ -1506,13 +1486,13 @@ class CompiledGraph:
         term into the capture's accumulator (the JAX package's jitted
         ``fori_loop``)."""
         B = int(block_len or self.block_size)
-        per_block, ev_bufs = self._steady_staging(B)
+        staging = self._steady_staging(B)
         stream_outs = [o.name for o in self.ir.outputs
                        if o.kind != Kind.EVENT]
         acc = torch.zeros((), dtype=torch.float32, device=self.device)
         for _ in range(int(num_blocks)):
-            _, acc, _ = self._run_block(B, per_block, ev_bufs, steady=True,
-                                        acc=acc, checksum=stream_outs)
+            _, acc, _ = self._run_block(B, staging, acc=acc,
+                                        checksum=stream_outs)
         return float(acc.item())
 
     def node_state(self, name: str):
@@ -1560,7 +1540,7 @@ class CompiledGraph:
         saved_ev_outs = self._last_event_outs
         entries: list = []
         try:
-            per_block, ev_bufs = self._steady_staging(B)
+            per_block, ev_bufs = self._steady_staging(B).unpack()
             with _explain.recording(entries):
                 self._block_fn(B)(self._state, per_block, ev_bufs)
         finally:

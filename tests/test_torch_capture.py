@@ -36,7 +36,7 @@ from oscen_tpu.models.poly_synth import build_poly_synth as jpoly
 from oscen_tpu.models.simple import build_simple_echo as jecho
 from oscen_tpu_torch import bench
 from oscen_tpu_torch.core.types import Kind
-from oscen_tpu_torch.graph.capture import CapturedBlock, tree_sig
+from oscen_tpu_torch.graph.capture import CapturedBlock, Staging, tree_sig
 from oscen_tpu_torch.graph.node import tree_map
 from oscen_tpu_torch.models.electric_piano import build_electric_piano
 from oscen_tpu_torch.models.pivot import build_pivot
@@ -147,14 +147,15 @@ def test_effect_blocks_reuse_the_steady_staging():
     c = bench.build_model("simple_echo")[0].compile(SR, block_size=64,
                                                     device="cpu")
     feed = _feeder(c)
-    c.process_block(**feed(64))            # control (the first block)
+    c.process_block(**feed(64))            # warm-up of the first block's
+    #                                        key (its audio packed in)
     c.process_block(**feed(64))            # warm-up, fills the staging
     staged = c._staging_cache[64]
     for _ in range(4):
         c.process_block(**feed(64))
     assert c._staging_cache[64] is staged
     assert c.block_counts == {"replayed": 4, "eager": 2, "captures": 1}
-    assert c.eager_why["control"] == 1 and c.eager_why["warmup"] == 1
+    assert c.eager_why["warmup"] == 2
     # a block without audio replays with zeros in the stream buffer
     y = c.process_block()["out"]
     e = bench.build_model("simple_echo")[0].compile(SR, block_size=64,
@@ -210,12 +211,12 @@ def test_convolver_publish_fade_steady_and_growth():
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     assert _same_state(ca.state, cb.state)
     assert tuple(ca.state["conv"]["fdl"].shape)[0] > 4   # grown
-    # publish block (control), 14 more fade blocks (one key each), the
-    # first steady block warms up, the rest replay
+    # the publish block and 14 more fade blocks (one key each, the host
+    # mirror) and the first steady block warm up, the rest replay
     assert na[15]["replayed"] == 0
     assert na[16]["captures"] == 1 and na[19]["replayed"] == 4
     assert na[39]["captures"] == 2 and na[39]["replayed"] == 8
-    assert ca.eager_why["warmup"] == 2 * 15
+    assert ca.eager_why["warmup"] == 2 * 16
 
 
 def test_voice_class_switches_replay_no_stale_capture():
@@ -433,7 +434,7 @@ def test_host_mirror_gives_a_new_key():
         (rng.standard_normal(100) * 0.1).astype(np.float32), int(SR)))
     keys = set()
     for _ in range(16):
-        keys.add(c._block_fn(64).host_key())
+        keys.add(c._block_fn(64).host_key({}))
         c.process_block(stream_inputs={"x": np.ones(64, np.float32)})
     # fade positions 0, 64, ..., 896 and the steady 960
     assert len(keys) == 16
@@ -462,14 +463,16 @@ def test_captured_block_writes_its_state_back_in_place():
     def fn(state, per_block, ev_bufs):
         return ({"a": state["a"] + per_block["x"], "b": state["b"]},
                 {"y": state["a"]})
-    pb = {"x": torch.ones(3)}
-    cap = CapturedBlock(fn, torch.device("cpu"), st, pb, {})
+    def staged(x):
+        return Staging({("pb", "x"): np.full(3, x, np.float32)},
+                       torch.device("cpu"))
+    cap = CapturedBlock(fn, torch.device("cpu"), st, staged(1.0))
     a0 = cap.state["a"]
     y1 = cap.replay()["y"].clone()
     y2 = cap.replay()["y"]
     assert cap.state["a"] is a0 and torch.equal(a0, torch.full((3,), 2.0))
     assert torch.equal(y1, torch.zeros(3)) and torch.equal(y2, torch.ones(3))
     assert torch.equal(st["a"], torch.zeros(3))   # the input is untouched
-    cap.load(st, {"x": torch.full((3,), 5.0)}, {})
+    cap.load(st, staged(5.0))
     cap.replay()
     assert torch.equal(cap.state["a"], torch.full((3,), 5.0))

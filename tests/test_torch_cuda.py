@@ -1857,3 +1857,206 @@ def test_a_steady_block_is_one_graph_launch(cuda, name, kernel):
             kernels += e.count
     assert graphs == 3 and kernels == 0, (graphs, kernels)
     assert any(kernel in n for n in names), names
+
+
+# ------------------------------------------------------------------ #
+# control blocks replayed: a note-off and a note-on every block
+# ------------------------------------------------------------------ #
+def _control_events(c, i, B, voices):
+    """Block i's note-off and note-on of one chord key, at offsets that
+    change each block."""
+    key = 36 + i % voices
+    h = B // 2
+    c.queue_event("midi_in", (37 * i + 1) % h, raw_midi_event([0x80, key, 0]))
+    c.queue_event("midi_in", h + (101 * i + 3) % h,
+                  raw_midi_event([0x90, key, 90]))
+
+
+def _events_replay_vs_eager(name, B, dev, voices=16, ramp=None):
+    """The model's chord, two event blocks (the warm-up and the capture),
+    then 4 replayed event blocks and the same 4 eager from the same state,
+    the card's under sync debug mode "error"; with ``ramp`` (a parameter,
+    its target) the 4 blocks ramp it instead (one warm-up, one capture
+    block first): (replayed outputs, eager outputs, their states, their
+    launch-counter deltas, the block counts' deltas, every output of the
+    replayed run)."""
+    from oscen_tpu_torch import bench
+    from oscen_tpu_torch.core.types import Kind
+    graph, v = bench.build_model(name, voices)
+    c = graph.compile(48000.0, block_size=B, device=dev)
+    bench.strike_chord(c, v)
+    out = [o.name for o in c.ir.outputs if o.kind != Kind.EVENT][0]
+    run = [c.process_block()[out]]
+
+    def block(i):
+        if ramp is None:
+            _control_events(c, i, B, v)
+        return c.process_block()[out]
+    if ramp is not None:
+        c.set_value_with_ramp(ramp[0], ramp[1], 12 * B)
+    run += [block(i) for i in range(2)]
+    start = c.state
+    hosts = _host_state(c)
+
+    def four(jit):
+        c.jit = jit
+        _host_state(c, hosts)   # the allocator and the ramp from the start
+        k0, n0 = _counts(), c.block_counts
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys = [block(2 + i) for i in range(4)]
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        k1, n1 = _counts(), c.block_counts
+        launches = [{k: y[k] - x.get(k, 0) for k in y if y[k] != x.get(k, 0)}
+                    for x, y in zip(k0, k1)]
+        return ys, c.state, launches, {k: n1[k] - n0[k] for k in n1}
+    rep, st_rep, l_rep, n_rep = four(True)
+    c.state = start
+    eag, st_eag, l_eag, n_eag = four(False)
+    return rep, eag, st_rep, st_eag, l_rep, l_eag, n_rep, n_eag, run + rep
+
+
+def _host_state(c, saved=None):
+    """What a block advances on the host (the host nodes' control state,
+    the parameters and their ramps, the steady host outputs): a copy, or
+    with ``saved`` that copy put back."""
+    import copy
+    insts = [n for name in c.prog.host_nodes
+             for n in ([c.ir.nodes[name].node] if c.ir.nodes[name].count == 1
+                       else c.prog.host_instances[name])]
+    if saved is None:
+        return ([n.host_state() for n in insts], copy.deepcopy(c._params),
+                copy.deepcopy(c._host_steady))
+    for n, snap in zip(insts, saved[0]):
+        n.restore_host_state(snap)
+    c._params = copy.deepcopy(saved[1])
+    c._host_steady = copy.deepcopy(saved[2])
+
+
+CONTROL_RAMPS = {"electric_piano": ("vibrato_intensity", 0.6),
+                 "poly_synth": ("resonance", 0.5),
+                 "fm_synth": ("route", 0.5), "pivot": ("cutoff", 3000.0)}
+
+
+@pytest.mark.parametrize("ramp", [False, True], ids=["events", "ramp"])
+@pytest.mark.parametrize("B", [256, 1024])
+@pytest.mark.parametrize("name", sorted(CONTROL_RAMPS))
+def test_replayed_control_blocks_equal_eager_and_cpu(cuda, name, B, ramp):
+    """Event blocks (a note-off and a note-on every block, the offsets
+    moving) and a ramp's blocks, replayed on the card from one capture:
+    outputs, state and launches equal to the eager blocks from the same
+    state, none waiting for the card, and the run within the model's bound
+    of the CPU."""
+    from oscen_tpu_torch.graph.node import tree_map
+    rp = CONTROL_RAMPS[name] if ramp else None
+    (rep, eag, st_rep, st_eag, l_rep, l_eag, n_rep, n_eag,
+     whole) = _events_replay_vs_eager(name, B, "cuda", ramp=rp)
+    assert all(torch.equal(a, b) for a, b in zip(rep, eag))
+    la, lb = [], []
+    tree_map(la.append, st_rep)
+    tree_map(lb.append, st_eag)
+    assert len(la) == len(lb) and all(torch.equal(a, b)
+                                      for a, b in zip(la, lb))
+    assert l_rep == l_eag
+    assert n_rep == {"replayed": 4, "eager": 0, "captures": 0}
+    assert n_eag == {"replayed": 0, "eager": 4, "captures": 0}
+    cpu = _events_replay_vs_eager(name, B, "cpu", ramp=rp)[-1]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(whole, cpu))
+    assert err <= CAPTURE_CPU_TOL[name], err
+
+
+@pytest.mark.parametrize("name", sorted(CONTROL_RAMPS))
+def test_a_replayed_event_block_is_one_copy_and_one_graph_launch(cuda,
+                                                                 name):
+    """Per replayed event block: one staging copy (the packed vector,
+    straight into the capture's static vector), one cudaGraphLaunch and no
+    kernel launched from Python (profiler); its cudaMemcpyAsync calls are
+    that copy and the outputs' copies out, none into a static buffer."""
+    from torch.profiler import ProfilerActivity, profile
+    from oscen_tpu_torch import bench
+    from oscen_tpu_torch.graph import capture as gcap
+    graph, v = bench.build_model(name, 16)
+    c = graph.compile(48000.0, block_size=1024, device="cuda")
+    bench.strike_chord(c, v)
+    for i in range(3):
+        if i:
+            _control_events(c, i, 1024, v)
+        c.process_block()
+    torch.cuda.synchronize()
+    n0 = c.block_counts["replayed"]
+    copies = []
+    real = gcap.Staging.copy_to
+
+    def copy_to(self, dst):
+        copies.append(dst)
+        real(self, dst)
+    gcap.Staging.copy_to = copy_to
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                _control_events(c, 3 + i, 1024, v)
+                outs = c.process_block()
+            torch.cuda.synchronize()
+    finally:
+        gcap.Staging.copy_to = real
+    assert c.block_counts["replayed"] == n0 + 3
+    statics = {id(cap.packed) for cap in c._captures.caps.values()}
+    assert len(copies) == 3 and all(id(d) in statics for d in copies)
+    graphs = kernels = memcpy = 0
+    for e in prof.key_averages():
+        if e.key == "cudaGraphLaunch":
+            graphs += e.count
+        elif e.key.startswith("cudaLaunchKernel"):
+            kernels += e.count
+        elif e.key == "cudaMemcpyAsync":
+            memcpy += e.count
+    n_out = sum(isinstance(x, torch.Tensor) for x in outs.values())
+    assert (graphs, kernels) == (3, 0)
+    assert memcpy <= 3 * (1 + n_out), memcpy
+
+
+def test_event_captures_share_one_pool_and_equal_eager(cuda):
+    """The piano's event blocks of 1, 2 and 3 MIDI events on one key
+    (capacities 1, 2 and 4), twice round on the card: three captures, all
+    in the graph's one memory pool, the second round replayed, and every
+    output equal to the eager run's (a replay overwrites no output of
+    another capture before it is copied out); after ``init()``, captures
+    again."""
+    from oscen_tpu_torch import bench
+
+    def run(jit):
+        graph, v = bench.build_model("electric_piano", 16)
+        c = graph.compile(48000.0, block_size=1024, device="cuda", jit=jit)
+        bench.strike_chord(c, v)
+        ys = [c.process_block()["out"]]
+        for rnd in range(2):
+            for n in (1, 2, 3):
+                for i in range(2 if rnd else 3):
+                    for k in range(n):
+                        ev = [0x80 if k % 2 else 0x90, 36 + i % v, 90]
+                        c.queue_event("midi_in",
+                                      (97 * i + 301 * k + rnd) % 1024,
+                                      raw_midi_event(ev))
+                    ys.append(c.process_block()["out"])
+        torch.cuda.synchronize()
+        return ys, c
+    a, ca = run(True)
+    b, _ = run(False)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+    # each capacity a warm-up, a capture, then replays (the chord block,
+    # one note-on a voice, warms up capacity 1)
+    assert ca.block_counts == {"replayed": 13, "eager": 3, "captures": 3}
+    pools = {tuple(cap.graph.pool()) for cap in ca._captures.caps.values()}
+    assert pools == {tuple(ca._captures.pool[0])}, pools
+    # init() drops the captures, and with the last graph the pool: the
+    # next captures go into a new one
+    ca.init()
+    for i in range(3):
+        ca.queue_event("midi_in", 100 * i, raw_midi_event([0x90, 40 + i, 90]))
+        ca.process_block()
+    assert ca.block_counts["captures"] == 4, ca.block_counts

@@ -140,7 +140,7 @@ def _host_restore(c, snap):
 
 
 def _same_staging(x, y):
-    (pa, ea), (pb, eb) = x, y
+    (pa, ea), (pb, eb) = x.unpack(), y.unpack()
     assert sorted(pa) == sorted(pb) and sorted(ea) == sorted(eb)
     for k in pa:
         assert torch.equal(pa[k], pb[k]), k
@@ -189,15 +189,14 @@ class StagingCheck:
         self.checked += 1
         return staged
 
-    def _block(self, B, per_block, ev_bufs, **how):
+    def _block(self, B, staging, **how):
         if self._fresh_block:
             self._fresh_block = False
         else:
             # a steady block on its cached staging
-            _same_staging((per_block, ev_bufs),
-                          self._fresh(B, _host_snapshot(self.c)))
+            _same_staging(staging, self._fresh(B, _host_snapshot(self.c)))
             self.checked += 1
-        return self._run(B, per_block, ev_bufs, **how)
+        return self._run(B, staging, **how)
 
 
 def _reentry(target, blocks=24):

@@ -236,9 +236,9 @@ def case_scalar_events(world):
     stage = c._stage
 
     def capture(B, ev_np, host_vals, stream_inputs=None):
-        pb, ev = stage(B, ev_np, host_vals, stream_inputs)
-        buf_cap.append(tuple(ev["env.gate"].offsets.shape))
-        return pb, ev
+        staging = stage(B, ev_np, host_vals, stream_inputs)
+        buf_cap.append(tuple(staging.unpack()[1]["env.gate"].offsets.shape))
+        return staging
     c._stage = capture
     return {"out": render(c, 3, "audio_out", evs), "staged": seen,
             "env_buffer": buf_cap}
