@@ -39,9 +39,10 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             fm_operator_scan (per-sample feedback and level) at V=256,
             B=1024 and 4096 and a ragged V=3, B=37 (the chains also at
             blocks shorter than their skew and around a chunk: V=3, B=1
-            and 2, V=33, B=3 and 33, V=256, B=65); 3 chained blocks (the
-            pivot's at B=4096 one: its plain version emulates its fused
-            multiply-adds); the chains and fract_phase3 also with the
+            and 2, V=33, B=3 and 33, V=256, B=65); 3 chained blocks,
+            fewer once the plain version has taken 10 s (the pivot's at
+            V=256: 2 at B=1024, 1 at 4096; its plain version emulates its
+            fused multiply-adds); the chains and fract_phase3 also with the
             pivot's fused phase step (``inv_sr``) at V=256, B=1024; the
             chains' zero-feedback branch against their kernels; the
             filter kernels lp18_scan (inputs that saturate its tanh) and
@@ -52,14 +53,14 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             at V=1, 2 and 256, B=1024, 2048 and 4096, V=3, B=37 and
             around its skew and a chunk (V=2, B=1, 2 and 33; V=33, B=1 and
             65), 3 chained blocks; tpt_svf_scan and lp18_scan on their staged
-            input ring at V=1, 2, 3, 33 and 256 and B=1, 2, 31, 32, 33,
-            1024 and 4096, rows and per-sample planes; biquad_scan on its
-            ring at V=1, 2, 3, 33 and 256 and B=1, 2, 7, 8, 31, 32, 33, 65
-            and 1024 with rows, planes and two mixes (the last block
+            input ring at V=1, 2, 3, 33 and 256 and B=1, 2, 31, 32, 33
+            and 1024 (and 4096 at V=256), rows and per-sample planes; biquad_scan on its
+            ring at V=1, 2, 3, 33 and 256 and B=1, 2, 7, 8, 31, 32, 33 and
+            65 (and 1024 at V=256) with rows, planes and two mixes (the last block
             decaying below 1e-15), and each of its 32 mixes of row and
             plane coefficients once (one launch each); fm_operator_scan on its ring at V=1,
-            3, 33 and 256 and B=1, 2, 31, 32, 33, 65, 1024 and 4096 (one
-            launch a block, every output equal); and lp18_scan on
+            3, 33 and 256 and B=1, 2, 31, 32, 33, 65 and 1024 (and 4096
+            at V=256; one launch a block, every output equal); and lp18_scan on
             silence, denormal and 1e20-sized x and signed zeros; lp18_scan's
             tanh over all 2^32 float32 inputs against (float)tanh((double)b)
             and its division over every finite float32 and 70 divisors
@@ -149,16 +150,28 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             block, RMS <= 1.6e-2) and against the CPU (<= 1e-4), no kernel
             launched in sample mode; the simple echo with no min-delay
             promise (a scan island; 12 blocks of seeded noise, feedback 0.5,
-            mix 0.8 from block 3, the first echo back after sample 12001)
+            mix 0.8 from block 1, the first echo back after sample 12001)
             against the dissolved echo on the card and the CPU (<= 1e-6);
             the 4x saturator in sample mode, sinc and IIR-halfband
             boundaries (2 blocks), against block mode (RMS < 1e-3) and the
-            CPU (<= 1e-6), with exactly 2 allpass_cascade_scan launches per
+            CPU (its first block, <= 1e-6), with exactly 2
+            allpass_cascade_scan launches per
             outer sample (sinc_iir); a ``via=24`` Gain island and a Delay
-            array (count=2, no promise) at B=256 against the CPU; for the
-            piano, the echo and the saturators the device activities of
-            their first block (profiler) per sample, the wall of the second
-            (CUDA events) and the real-time factor;
+            array (count=2, no promise) at B=256 against the CPU; every
+            block with ``jit=True``, so after each key's warm-up a replay
+            of its captured CUDA graph (a sample-mode block's B steps, K10
+            inside for sinc_iir, in one graph); for the piano, the echo
+            island (its mix set at block 1, a new key) and the saturators,
+            the key's eager warm-up block replayed from the state before
+            it, ``torch.equal`` outputs and state under sync debug mode
+            "error", then 3 more replays: both walls (CUDA events) and
+            real-time factors, a replayed block's busy time and device
+            activities per sample (profiler), and the capture's node count
+            (``keep_graph=True``, ``cuGraphGetNodes``), recording and
+            instantiation walls, the allocator's memory reserved and the
+            card's free memory taken across it; then a piano block with a
+            note-off and a note-on, with jit on (eager as
+            ``sample_events``: no capture) and off, both walls;
 4c. assets  the asset slice, each path with its launch counts set to 0
             just before it and read just after: the 256-voice piano's stereo
             output into examples/render_convolution.py's reverb
@@ -201,7 +214,8 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             device time per class and a steady block's wall, busy time and
             device activities per class;
     examples the seven ``oscen_tpu_torch/examples`` through ``main`` for
-            0.5 s on the card and on the CPU, at the model's card-vs-CPU
+            0.5 s (the pivot 0.25 s) on the card and on the CPU, at the
+            model's card-vs-CPU
             bound, each kernel of its path launched (K1; K6, K7; K6; K12,
             K13; K15; none for the reverb) and held against its plain
             version on the example's last call;
@@ -211,19 +225,26 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             steady blocks, sharded against unsharded: every block and the
             whole state ``torch.equal`` (the all-reduce of one rank changes
             no bit), the sharded state read as ``DTensor``s, one K1 launch
-            per steady block; a steady block's wall (CUDA events), device
-            busy and device activities (profiler), sharded and not; then two
+            per steady block; every block with ``jit=True``: the steady
+            sharded blocks replay their captured graph, K1 and the NCCL
+            all-reduce inside it, 3 of them ``torch.equal`` to the same 3
+            eager (``jit=False``) from one state, none eager as
+            ``sharded``; a steady block's wall (CUDA events, in turns),
+            device busy and device activities (profiler), unsharded and
+            sharded replayed and sharded eager; then two
             ranks on the one card (``torch.multiprocessing.spawn``, a gloo
             group: NCCL refuses two ranks on one card, and gloo waits for
             the card, so this part runs outside sync debug mode): 128
             voices each, K1 at V=128 with the mix held against its plain
             version, the all-reduced piano within 1e-4 and the poly synth
             (K6, K7) within 1e-5 of the unsharded renders, the ranks equal
-            bit for bit; the phase's launches join the kernels line;
+            bit for bit, every block eager as ``sharded`` (gloo waits for
+            the card on the host, which a capture refuses); the phase's
+            launches join the kernels line;
 4f. bench   the port's benchmark driver and fusedrms, each a subprocess
             that loads the kernels built above, its output re-printed
             behind "bench ": ``python -m oscen_tpu_torch.bench`` (the
-            256-voice piano, OSCEN_BENCH_BUDGET_S=45): the B=4096 line,
+            256-voice piano, OSCEN_BENCH_BUDGET_S=30): the B=4096 line,
             then the B=1024 line last with a real-time factor above 1 and
             the card's name in ``device``; ``--events --block=1024`` (45 s),
             its line last; ``python -m oscen_tpu_torch.tools.fusedrms
@@ -291,7 +312,8 @@ Phases, one line each, any miss fails the run with a non-zero exit:
             SASS.  On no model's main path: 0 launches in the kernels JSON.
 
 Each phase line goes to the phase's seconds (the time since the line
-before it); a "[total]" line sums them.  The line before the last is the
+before it); a "[total]" line sums them, and a second names the 30
+slowest lines.  The line before the last is the
 JSON kernel report (with
 ``chain_floor_ms``, null where a kernel has no serial chain per lane), the
 last line
@@ -397,11 +419,18 @@ ALLPASS_SHAPES = tuple((V, B) for V in (1, 2, VOICES)
 # apart: blocks shorter than the skew and around a chunk
 ALLPASS_EDGES = ((2, 1), (2, 2), (2, 33), (33, 1), (33, 65))
 CHAIN_EDGES = ((3, 1), (3, 2), (33, 3), (33, 33), (VOICES, 65))
+# an FM kernel's case chains no more blocks once its plain version has
+# taken this long (seconds, host clock)
+PLAIN_CASE_S = 10.0
 # K7 and K8 read x and their per-sample planes through a ring of 32-step
 # chunks (oscen_tpu_torch/csrc/scan_stage.cuh): every B around the chunk
 RING_CHUNK = 32   # steps per ring chunk (scan_stage.cuh's kChunk)
 RING_B = (1, 2, RING_CHUNK - 1, RING_CHUNK, RING_CHUNK + 1, 1024, 4096)
 RING_V = (1, 2, 3, 33, VOICES)
+# the ring's longest block, held at the main paths' voice count only (each
+# block of the plain versions there is ~1 s of per-step launches whatever
+# V; B=1024 already spans 32 chunks at every V)
+RING_LONG = 4096
 # K9 and K14 on the same ring (K9 also around its 8-step groups); K9 with
 # its coefficients as rows, planes and two mixes (bit i: b0, b1, b2, a1,
 # a2 a plane; the wrapper expands a mix's rows into planes)
@@ -455,15 +484,31 @@ def bound_of(key, inputs, outputs, steps, lanes, extra_ops=0):
 # seconds per phase: the time since the previous phase line goes to the
 # phase of the line that reports the work
 PHASE_SECONDS = {}
+# (seconds, phase, the line's start) of every phase line, for the slowest
+LINE_SECONDS = []
 T_START = time.perf_counter()
 _LAST_LINE = [T_START]
 
 
 def phase(name, msg):
     now = time.perf_counter()
-    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _LAST_LINE[0]
+    dt = now - _LAST_LINE[0]
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + dt
+    LINE_SECONDS.append((dt, name, msg[:60]))
     _LAST_LINE[0] = now
     print(f"[{name}] {msg}", flush=True)
+
+
+def total_lines(all_s=None):
+    """The "[total]" lines: the seconds by phase (and of the whole run),
+    then the 30 slowest phase lines, each with the time since the line
+    before it."""
+    phase("total", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + ("" if all_s is None else f"; all {all_s:.1f} s"))
+    slow = sorted(LINE_SECONDS, reverse=True)[:30]
+    phase("total", "slowest lines: " + "; ".join(
+        f"{dt:.1f} s [{name}] {msg}" for dt, name, msg in slow))
 
 
 def check(ok, msg):
@@ -748,6 +793,8 @@ def ring_checks(torch, dev, kiir):
     cases = 0
     for V in RING_V:
         for B in RING_B:
+            if B == RING_LONG and V != VOICES:
+                continue
             for per_sample in (False, True):
                 rng = np.random.default_rng(V * 41 + B + per_sample)
                 shape = (B, V) if per_sample else (V,)
@@ -773,7 +820,8 @@ def ring_checks(torch, dev, kiir):
                     zt, z8 = list(out[1:]), out8[1]
                 cases += 2
     phase("kernels", f"tpt_svf_scan and lp18_scan on the ring: V in {RING_V}"
-          f", B in {RING_B}, rows and per-sample planes, 3 chained blocks "
+          f", B in {RING_B} (B={RING_LONG} at V={VOICES} only), rows and "
+          f"per-sample planes, 3 chained blocks "
           f"each: {cases} cases equal to the plain versions (torch.equal) "
           f"ok ({time.perf_counter() - t0:.1f} s)")
     # the LP18's edge inputs: the division's zero and guard paths
@@ -858,6 +906,8 @@ def k9_k14_ring_checks(torch, dev, kiir, kfm):
     cases = 0
     for V in BIQUAD_RING_V:
         for B in BIQUAD_RING_B:
+            if B == BIQUAD_RING_B[-1] and V != VOICES:
+                continue
             for form, mask in BIQUAD_FORMS.items():
                 rng = np.random.default_rng(V * 41 + B + mask)
                 v = [on_card(rng.standard_normal(V)) for _ in range(2)]
@@ -891,7 +941,8 @@ def k9_k14_ring_checks(torch, dev, kiir, kfm):
               f"biquad_scan mix {mask:05b}: no launch, or kernel and plain "
               f"version differ")
     phase("kernels", f"biquad_scan on the ring: V in {BIQUAD_RING_V}, B in "
-          f"{BIQUAD_RING_B}, coefficients {list(BIQUAD_FORMS)}, 3 chained "
+          f"{BIQUAD_RING_B} (B={BIQUAD_RING_B[-1]} at V={VOICES} only), "
+          f"coefficients {list(BIQUAD_FORMS)}, 3 chained "
           f"blocks (the last decaying) each: {cases} cases, and all 32 mixes"
           f" of rows and planes, equal to the plain version (torch.equal), "
           f"one launch a block, ok ({time.perf_counter() - t0:.1f} s)")
@@ -899,6 +950,8 @@ def k9_k14_ring_checks(torch, dev, kiir, kfm):
     cases = 0
     for V in OPERATOR_RING_V:
         for B in OPERATOR_RING_B:
+            if B == RING_LONG and V != VOICES:
+                continue
             rng = np.random.default_rng(V * 43 + B)
             carry = (on_card(rng.uniform(0, 1, V)),
                      on_card(rng.normal(size=V)))
@@ -917,7 +970,8 @@ def k9_k14_ring_checks(torch, dev, kiir, kfm):
                   f"fm_operator_scan V={V} B={B}: not one launch a block")
             cases += 1
     phase("kernels", f"fm_operator_scan on the ring: V in {OPERATOR_RING_V}"
-          f", B in {OPERATOR_RING_B}, 3 chained blocks each: {cases} cases "
+          f", B in {OPERATOR_RING_B} (B={RING_LONG} at V={VOICES} only), 3 "
+          f"chained blocks each: {cases} cases "
           f"equal to the plain version (torch.equal), one launch a block, ok "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1084,6 +1138,66 @@ def echo_input(B, n):
 
 PER_SAMPLE_B = 1024
 PIANO_OFFSETS = (0, 10, 100)   # the chord's note-ons, a third at each
+# replayed blocks timed after the one held to eager, per model of
+# per_sample
+REPLAY_WALLS = 3
+# what counting_graphs() read, one dict a capture
+CAPTURES = []
+
+
+@contextmanager
+def counting_graphs():
+    """Every CUDA graph captured inside is built with ``keep_graph=True``,
+    so its node count can be read (``cuGraphGetNodes``) and its
+    instantiation timed apart from its recording; each capture appends to
+    CAPTURES its recording wall (``capture_begin`` to ``capture_end``: the
+    block function's host dispatch), ``instantiate``'s wall, its node count,
+    the caching allocator's memory reserved across it and the card's free
+    memory (``torch.cuda.mem_get_info``) lost across recording and
+    instantiation: the second also sees the memory CUDA itself takes for
+    the executable graph, outside the caching allocator.  The executable graph
+    is the one a graph built without ``keep_graph`` replays:
+    ``CUDAGraph.instantiate`` is the call ``capture_end`` makes itself
+    without it; kept besides is only the recorded graph, which no replay
+    reads."""
+    import ctypes
+    import torch
+    base = torch.cuda.CUDAGraph
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t))
+    libcuda.cuGraphGetNodes.restype = ctypes.c_int
+
+    class Counted(base):
+        def capture_begin(self, *args, **kw):
+            self.t0 = time.perf_counter()
+            self.m0 = torch.cuda.memory_reserved()
+            self.f0 = torch.cuda.mem_get_info()[0]
+            return super().capture_begin(*args, **kw)
+
+        def capture_end(self):
+            t1 = time.perf_counter()
+            super().capture_end()
+            n = ctypes.c_size_t(0)
+            rc = libcuda.cuGraphGetNodes(
+                ctypes.c_void_p(int(self.raw_cuda_graph())), None,
+                ctypes.byref(n))
+            t2 = time.perf_counter()
+            self.instantiate()
+            CAPTURES.append({
+                "record_s": t1 - self.t0,
+                "instantiate_s": time.perf_counter() - t2,
+                "nodes": int(n.value) if rc == 0 else f"error {rc}",
+                "reserved_mib": (torch.cuda.memory_reserved() - self.m0)
+                / 2**20,
+                "card_mib": (self.f0 - torch.cuda.mem_get_info()[0])
+                / 2**20})
+
+    torch.cuda.CUDAGraph = lambda: Counted(True)
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
 # sample mode at 256 voices against block mode: K2 (parity, its steady
 # blocks from the same state) at the JAX package's 5e-6 at 4 voices x
 # sqrt(256 / 4); K1 (v4, every block) at its 2e-3 x 8; against the CPU the
@@ -1094,13 +1208,23 @@ SAT_MODES_RMS = 1e-3   # tests/test_multirate.py:196-203
 
 
 def per_sample_phase(card):
-    """Phase ``per_sample``: the 256-voice piano in sample mode, the
+    """Phase ``per_sample`` (``jit=True``, the default: after each key's
+    warm-up a block is one replay of its captured CUDA graph, a sample-mode
+    block's B steps in one graph): the 256-voice piano in sample mode, the
     reference echo's scan island (no promise), the 4x saturator in sample
     mode (sinc and IIR-halfband boundaries) and two small islands, each
     against its block-mode or dissolved counterpart and the CPU, every
-    block after the first under sync debug mode "error"; the wall per
-    block, device activities per sample and real-time factor of the
-    first three.  Returns K10's launches on the sample-mode path."""
+    block after the first under sync debug mode "error"; then the first
+    four's next block replayed against the same block eager from one state
+    (``torch.equal``), with walls, busy, device activities per sample,
+    real-time factors and their capture's node count, recording and
+    instantiation walls and memory.
+    Returns K10's launches on the sample-mode path."""
+    with counting_graphs():
+        return per_sample_runs(card)
+
+
+def per_sample_runs(card):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from oscen_tpu_torch import Delay, Gain, Graph, raw_midi_event
@@ -1113,50 +1237,114 @@ def per_sample_phase(card):
     B = PER_SAMPLE_B
     cuda_kind = torch.autograd.DeviceType.CUDA
 
-    def device_activities(prof):
-        """The device activities a profiler run recorded, counted on its
-        raw events (a block here holds ~10^5 of them; building the
-        profiler's event tree for them takes tens of seconds)."""
-        return sum(1 for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == cuda_kind)
+    def device_busy(prof):
+        """(device busy ms, device activities: kernels, copies, fills) of a
+        profiler run, counted on its raw events (a block here holds ~10^5
+        of them; building the profiler's event tree for them takes tens of
+        seconds)."""
+        evs = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda_kind]
+        return sum(e.duration_ns() for e in evs) * 1e-6, len(evs)
 
-    def run_blocks(step, n, device, stats):
+    def run_blocks(step, n, device, hold=None):
         """``step(i)`` for blocks 0..n-1, each after the first under sync
-        debug mode "error" on the card.  With ``stats`` (a dict), block 0
-        runs under the profiler, which counts its device activities
-        (kernels, copies, fills), and block 1 is timed by CUDA events."""
+        debug mode "error" on the card.  ``hold``: ``(c, i)``, block ``i``
+        of graph ``c`` (its key's eager warm-up) timed by CUDA events, and
+        kept in ``held`` with the state before and after it (copies)."""
         ys = []
+        if hold is not None:
+            held.clear()
         for i in range(n):
-            on_card = device == "cuda" and i > 0
-            if stats is not None and i == 0:
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    ys.append(step(i))
-                    torch.cuda.synchronize()
-                stats["activities"] = device_activities(prof)
-            elif stats is not None and i == 1:
+            keep = hold is not None and hold[1] == i
+            if keep:
+                c = hold[0]
+                n0 = c.block_counts
+                held.update(i=i, start=tree_map(lambda t: t.clone(),
+                                                c.state))
                 torch.cuda.synchronize()
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                with no_sync(on_card):
-                    ys.append(step(i))
+            with no_sync(device == "cuda" and i > 0):
+                ys.append(step(i))
+            if keep:
                 b.record()
                 torch.cuda.synchronize()
-                stats["wall_ms"] = a.elapsed_time(b)
-            else:
-                with no_sync(on_card):
-                    ys.append(step(i))
+                n1 = c.block_counts
+                held.update(wall=a.elapsed_time(b), y=ys[-1].clone(),
+                            after=tree_map(lambda t: t.clone(), c.state),
+                            eager=n1["eager"] - n0["eager"] == 1
+                            and n1["replayed"] == n0["replayed"])
         return ys
+    held = {}
 
-    def report_stats(label, stats):
-        per = stats["activities"] / B
-        rtf = (B / SR) / (stats["wall_ms"] * 1e-3)
-        phase("per_sample", f"{label}: wall {stats['wall_ms']:.1f} ms per "
-              f"B={B} block (CUDA events), {stats['activities']} device "
-              f"activities in one block ({per:.1f} per sample, profiler), "
-              f"real-time factor {rtf:.4f}x ({card})")
-        return per
+    def timed_blocks(c, out, feed, i0, n):
+        """``n`` blocks of ``c`` from block ``i0`` of ``feed``, each under
+        sync debug mode "error" and timed by CUDA events: (outputs, walls
+        in ms)."""
+        ys, walls = [], []
+        for i in range(i0, i0 + n):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            with no_sync(True):
+                ys.append(c.process_block(**feed(i))[out])
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(a.elapsed_time(b))
+        return ys, walls
+
+    def replayed(label, c, out, feed, n_cap):
+        """The block ``held`` (its key's eager warm-up, ``jit=True``)
+        replayed from the state before it: outputs and state
+        ``torch.equal`` to the eager block's, the replay counted; the walls
+        of both, REPLAY_WALLS more replayed blocks' walls, one more
+        replayed block's busy time and device activities (profiler), and
+        the readings of ``c``'s last capture (CAPTURES since ``n_cap``).
+        Returns the device activities per sample."""
+        check(len(CAPTURES) > n_cap, f"per_sample {label}: no capture")
+        check(held.get("eager", False) and c.eager_why["warmup"] > 0,
+              f"per_sample {label}: no eager warm-up block held")
+        cap = CAPTURES[-1]
+        i0 = held["i"]
+        c.state = held["start"]
+        n0 = c.block_counts
+        rep, w_rep = timed_blocks(c, out, feed, i0, 1)
+        st_rep, n1 = c.state, c.block_counts
+        w_rep += timed_blocks(c, out, feed, i0 + 1, REPLAY_WALLS)[1]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            c.process_block(**feed(i0 + 1 + REPLAY_WALLS))
+            torch.cuda.synchronize()
+        busy, acts = device_busy(prof)
+        la, lb = tree_leaves(st_rep), tree_leaves(held["after"])
+        checks = {
+            "outputs torch.equal": torch.equal(rep[0], held["y"]),
+            "state torch.equal": len(la) == len(lb) and all(
+                torch.equal(a, b) for a, b in zip(la, lb)),
+            "replayed": n1["replayed"] - n0["replayed"] == 1
+            and n1["eager"] == n0["eager"],
+            "no sample_mode reason": "sample_mode" not in c.eager_why}
+        wr, we = float(np.median(w_rep)), held["wall"]
+        phase("per_sample", f"{label} B={B}, its key's eager warm-up block "
+              f"(block {i0}) and the same block replayed from the state "
+              f"before it (sync debug mode 'error'), then "
+              f"{REPLAY_WALLS} more replayed: wall replayed {wr:.1f} ms "
+              f"(RTF {B / SR / wr * 1e3:.4f}x; median of "
+              f"{', '.join(f'{w:.1f}' for w in w_rep)}), eager {we:.1f} ms "
+              f"(RTF {B / SR / we * 1e3:.4f}x), CUDA events; a replayed "
+              f"block busy {busy:.1f} ms (idle {100 * (1 - busy / wr):.1f}%),"
+              f" {acts} device activities ({acts / B:.1f} a sample), "
+              f"profiler; its graph {cap['nodes']} nodes, recorded in "
+              f"{cap['record_s']:.2f} s, instantiated in "
+              f"{cap['instantiate_s']:.2f} s, {cap['reserved_mib']:.1f} MiB "
+              f"reserved by the allocator and {cap['card_mib']:.1f} MiB of "
+              f"the card's free memory taken across the capture; "
+              f"block_counts {c.block_counts} eager_why {c.eager_why}; "
+              f"checks {checks} ({card})")
+        check(all(checks.values()), f"per_sample {label} replays: {checks}")
+        return acts / B
 
     def max_abs(a, b):
         return float((a.cpu() - b.cpu()).abs().max())
@@ -1181,12 +1369,14 @@ def per_sample_phase(card):
         return bool(leaves) and all(x.device.type == "cuda" for x in leaves)
 
     # -- the piano, 256 voices, sample mode ------------------------------
-    def piano(device, mode, version="v4", stats=None, snap=None,
-              start=None):
+    def piano(device, mode, version="v4", snap=None, start=None,
+              hold=False):
         """A chord at PIANO_OFFSETS, then 2 steady blocks.  ``snap``: keep
         the state after the chord block there; ``start``: a state to run
         the steady blocks from instead of this graph's own (the chord
-        block's host-side work, the voice allocation, is this graph's)."""
+        block's host-side work, the voice allocation, is this graph's);
+        ``hold``: the first steady block (the steady key's warm-up) goes to
+        ``held``."""
         piano_env(version)
         p = build_electric_piano(VOICES).compile(SR, block_size=B, mode=mode,
                                                  device=device)
@@ -1201,18 +1391,54 @@ def per_sample_phase(card):
             if i == 1 and start is not None:
                 p.state = tree_map(lambda t: t.clone(), start)
             return p.process_block()["out"]
-        return p, run_blocks(step, 3, device, stats)
+        return p, run_blocks(step, 3, device,
+                             hold=(p, 1) if hold else None)
 
     reset_all()
-    stats, snap = {}, {}
+    snap = {}
     t0 = time.perf_counter()
-    p, ys = piano("cuda", "sample", stats=stats, snap=snap)
+    n_cap = len(CAPTURES)
+    p, ys = piano("cuda", "sample", snap=snap, hold=True)
     secs = time.perf_counter() - t0
     y_sample = torch.cat(ys)
     sample_launched = {k: v for k, v in add.launches.items() if v} | {
         k: v for k, v in kiir.launches.items() if v} | {
         k: v for k, v in kphase.launches.items() if v}
-    piano_per = report_stats("piano 256 voices, sample mode", stats)
+    piano_per = replayed("piano 256 voices, sample mode", p, "out",
+                         lambda i: {}, n_cap)
+    # event-dense sample mode: a note-off and a note-on at offset 17 (as
+    # bench --events), one block with jit on and one with jit off; a
+    # sample-mode block with events runs eagerly either way
+    # (eager_why["sample_events"]), so no capture is built for it
+    ev_walls, n0, why0 = {}, p.block_counts, p.eager_why
+    for jit, key in ((True, 40), (False, 41)):
+        p.jit = jit
+        p.queue_event("midi_in", 17, raw_midi_event([0x80, key, 0]))
+        p.queue_event("midi_in", 17, raw_midi_event([0x90, key, 90]))
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        p.process_block()
+        b.record()
+        torch.cuda.synchronize()
+        ev_walls[jit] = a.elapsed_time(b)
+    p.jit = True
+    n1, why1 = p.block_counts, p.eager_why
+    checks = {"jit on: eager as sample_events":
+              why1["sample_events"] - why0["sample_events"] == 1,
+              "jit off: eager as jit_off":
+              why1["jit_off"] - why0["jit_off"] == 1,
+              "no capture": n1["captures"] == n0["captures"]
+              and n1["replayed"] == n0["replayed"]}
+    phase("per_sample", f"piano 256 voices, sample mode B={B}, a block with "
+          f"a note-off and a note-on at offset 17: jit on "
+          f"{ev_walls[True]:.1f} ms (RTF "
+          f"{B / SR / ev_walls[True] * 1e3:.4f}x), jit off "
+          f"{ev_walls[False]:.1f} ms (RTF "
+          f"{B / SR / ev_walls[False] * 1e3:.4f}x), CUDA events; checks "
+          f"{checks} ({card})")
+    check(all(checks.values()), f"per_sample piano event blocks: {checks}")
     ref, ref_launches = {}, {}
     for version in ("parity", "v4"):
         for synced in (True, False):
@@ -1263,30 +1489,39 @@ def per_sample_phase(card):
     # -- the reference echo without its promise: a scan island ----------
     # (12 blocks, 12288 samples: the first echo returns at sample 12001)
     n_echo = 12
+    # the block the mix goes to 0.8 from: a new literal set, so the key
+    # whose warm-up it is, and which the later blocks replay
+    mix_at = 1
 
-    def echo(device, min_delay, stats=None):
+    def echo(device, min_delay, hold=False):
         x = echo_input(B, n_echo)
         c = build_simple_echo(min_delay=min_delay).compile(
             SR, block_size=B, device=device)
         c.set_value("feedback", 0.5)
 
         def step(i):
-            if i == 3:
+            if i == mix_at:
                 c.set_value("mix", 0.8)
             return c.process_block(
                 stream_inputs={"x": x[i * B:(i + 1) * B]})["out"]
-        return c, torch.cat(run_blocks(step, n_echo, device, stats)), x
+        return c, torch.cat(run_blocks(
+            step, n_echo, device,
+            hold=(c, mix_at) if hold else None)), x
 
     reset_all()
-    stats = {}
     t0 = time.perf_counter()
-    c, y_isl, x = echo("cuda", False, stats)
+    n_cap = len(CAPTURES)
+    c, y_isl, x = echo("cuda", False, hold=True)
     secs = time.perf_counter() - t0
     island_launches = {k: v for k, v in kiir.launches.items() if v}
-    echo_per = report_stats("simple echo scan island", stats)
+    echo_per = replayed(
+        "simple echo scan island (block mode)", c, "out",
+        lambda i: {"stream_inputs": {"x": x[(i % n_echo) * B:
+                                            (i % n_echo + 1) * B]}},
+        n_cap)
     _, y_dis, _ = echo("cuda", True)
     _, y_isl_cpu, _ = echo("cpu", False)
-    keep = np.where(np.arange(n_echo * B) < 3 * B,
+    keep = np.where(np.arange(n_echo * B) < mix_at * B,
                     np.float32(1.0) - np.float32(0.5),
                     np.float32(1.0) - np.float32(0.8)).astype(np.float32)
     wet = np.abs(y_isl.cpu().numpy() - x * keep)
@@ -1306,7 +1541,8 @@ def per_sample_phase(card):
               **{k: v <= lim for k, (v, lim) in readings.items()}}
     phase("per_sample", f"simple echo, no promise (0.25 s, a scan island) "
           f"B={B}: {n_echo} blocks of seeded noise (all but the first under "
-          f"sync debug mode 'error'), feedback 0.5, mix 0.8 from block 3, "
+          f"sync debug mode 'error'), feedback 0.5, mix 0.8 from block "
+          f"{mix_at}, "
           f"wet peak after sample {D} {float(wet[D:].max()):.4f}, "
           f"{secs:.1f} s; "
           + "; ".join(f"{k} {v:.3e} (<= {lim:.0e})"
@@ -1318,15 +1554,16 @@ def per_sample_phase(card):
     k10 = 0
     sat_per = {}
     for policy in ("sinc", "sinc_iir"):
-        def sat(device, mode, stats=None, policy=policy):
+        def sat(device, mode, policy=policy, hold=False, n=2):
             c = sat_graph(policy).compile(SR, block_size=B, mode=mode,
                                           device=device)
-            return torch.cat(run_blocks(
-                lambda i: c.process_block()["audio_out"], 2, device, stats))
+            return c, torch.cat(run_blocks(
+                lambda i: c.process_block()["audio_out"], n, device,
+                hold=(c, 0) if hold else None))
         reset_all()
-        stats = {}
         t0 = time.perf_counter()
-        y_s = sat("cuda", "sample", stats)
+        n_cap = len(CAPTURES)
+        c_s, y_s = sat("cuda", "sample", hold=True)
         secs = time.perf_counter() - t0
         got = kiir.launches["allpass_cascade_scan"]
         others = {k: v for k, v in {**kphase.launches,
@@ -1335,13 +1572,15 @@ def per_sample_phase(card):
         # stage (2 at 4x), over 2 and 1 samples
         want = 2 * 2 * B if policy == "sinc_iir" else 0
         k10 += got
-        sat_per[policy] = report_stats(
-            f"saturator 4x {policy}, sample mode", stats)
-        y_b = sat("cuda", "block")
-        y_cpu = sat("cpu", "sample")
+        sat_per[policy] = replayed(
+            f"saturator 4x {policy}, sample mode", c_s, "audio_out",
+            lambda i: {}, n_cap)
+        y_b = sat("cuda", "block")[1]
+        # the CPU's first block only: ~13 s a block of per-sample steps
+        y_cpu = sat("cpu", "sample", n=1)[1]
         readings = {"block mode RMS": (rms(y_s, y_b), SAT_MODES_RMS),
-                    "CPU sample mode max abs": (max_abs(y_s, y_cpu),
-                                                TWIN_TOL)}
+                    "CPU sample mode max abs, block 1": (
+                        max_abs(y_s[:len(y_cpu)], y_cpu), TWIN_TOL)}
         peak = float(y_s.abs().max())
         checks = {"finite": bool(torch.isfinite(y_s).all()),
                   "peak": 0.5 < peak < 1.2,
@@ -1389,7 +1628,7 @@ def per_sample_phase(card):
             return torch.cat(run_blocks(
                 lambda i: c.process_block(stream_inputs={
                     "x": x[i * small_B:(i + 1) * small_B]})["out"],
-                4, device, None))
+                4, device))
         y_c, y_h = small("cuda"), small("cpu")
         err = max_abs(y_c, y_h)
         phase("per_sample", f"{label} B={small_B}: 4 blocks (2-4 under "
@@ -1397,7 +1636,8 @@ def per_sample_phase(card):
               f" card against CPU max abs {err:.3e} (<= {TWIN_TOL:.0e})")
         check(err <= TWIN_TOL and float(y_c.abs().max()) > 0.1,
               f"per_sample {label}: card and CPU disagree")
-    phase("per_sample", f"device activities per sample: piano "
+    phase("per_sample", f"device activities per sample (a replayed block): "
+          f"piano "
           f"{piano_per:.1f}, echo island {echo_per:.1f}, saturator sinc "
           f"{sat_per['sinc']:.1f}, sinc_iir {sat_per['sinc_iir']:.1f}; "
           f"K10 launches on the sample-mode path {k10} ({card})")
@@ -2043,6 +2283,9 @@ def voice_classes_phase(card):
 
 
 EX_SECONDS = 0.5
+# examples whose CPU run is slow get fewer seconds: the pivot's plain
+# chain steps every sample on the CPU (~90 s a second of audio)
+EX_SECONDS_OF = {"pivot_demo": EX_SECONDS / 2}
 # the kernels each example's path launches (ops/cuda launch keys)
 EX_KERNELS = {
     "electric_piano_demo": ("v4",),
@@ -2087,16 +2330,17 @@ def examples_phase(card, tmp):
     tol = {"electric_piano_demo": MAIN_TOL, "fm_synth_demo": POLY_TOL,
            "pivot_demo": POLY_TOL, "simple_synth": POLY_TOL,
            "streaming_host_demo": POLY_TOL}
-    s = str(EX_SECONDS)
     for name, kernels in EX_KERNELS.items():
+        seconds = EX_SECONDS_OF.get(name, EX_SECONDS)
+        s = str(seconds)
         ex = importlib.import_module(f"oscen_tpu_torch.examples.{name}")
         outs, secs = {}, {}
         for dev in ("cuda", "cpu"):
             out = f"{tmp}/{name}_{dev}"
             argv = {"streaming_host_demo": [s, "--out", out + ".wav"],
                     "render_convolution": ["", out + ".wav", "--seconds",
-                                           str(EX_SECONDS / 2), "--tail",
-                                           str(EX_SECONDS / 2)],
+                                           str(seconds / 2), "--tail",
+                                           str(seconds / 2)],
                     "oversampled_saturator": [out, "--seconds", s]
                     }.get(name, [out + ".wav", "--seconds", s])
             if dev == "cuda":
@@ -2146,7 +2390,7 @@ def examples_phase(card, tmp):
         if name == "render_convolution":
             checks["no kernel, cuFFT only"] = (not counts
                                                and ffts.get("rfft", 0) > 0)
-        phase("examples", f"{name} {EX_SECONDS} s: card {secs['cuda']:.1f} "
+        phase("examples", f"{name} {seconds} s: card {secs['cuda']:.1f} "
               f"s, CPU {secs['cpu']:.1f} s; peak {peak:.4f}, card vs CPU "
               f"{err:.3e} (<= {bound:.1e}); launches {counts}, FFT calls "
               f"{ffts}; kernels vs plain on the last call {vs_plain}; "
@@ -2264,6 +2508,7 @@ def shard_rank(rank, world, tmp):
         # a steady block's wall on a gloo rank (its all-reduce goes through
         # the host); every rank runs these blocks, as the collective needs
         wall = float(np.median(block_walls(p, 9)))
+        piano_why, piano_counts = p.eager_why, p.block_counts
         k1 = add.launches["v4"]   # before the comparison's own launch
         local = VOICES // world
         calls = [(a, kw) for a, kw in seen.get("v4", [])
@@ -2279,6 +2524,9 @@ def shard_rank(rank, world, tmp):
         torch.save({"piano": piano.cpu().numpy(), "poly": poly.cpu().numpy(),
                     "k1": (err, same, y_max, local, len(calls)),
                     "wall_us": wall,
+                    # gloo on the card: every block eager
+                    "eager": [(piano_why, piano_counts),
+                              (q.eager_why, q.block_counts)],
                     "launches": {"v4": k1,
                                  "phase_scan": kphase.launches["phase_scan"],
                                  "tpt_svf_scan":
@@ -2293,10 +2541,14 @@ def sharding_phase(card):
     the 256-voice piano at B=1024 and 4096, a chord, steady blocks under
     sync debug mode "error", a release block and steady blocks, sharded
     against unsharded, every block and the final state torch.equal (the
-    all-reduce of one rank changes no bit); then the steady block's wall,
-    busy time and device activities, sharded and not (the all-reduce's own
-    cost).  Two ranks on the one card (gloo, spawned; exempt from sync
-    debug mode: gloo all-reduces through the host): each holds 128 voices,
+    all-reduce of one rank changes no bit); the steady sharded blocks
+    replayed (``jit=True``: NCCL's all-reduce captured with the block)
+    against the same blocks eager from one state; then the steady block's
+    wall, busy time and device activities, unsharded, sharded replayed and
+    sharded eager (the all-reduce's own cost, and the replay's gain).  Two
+    ranks on the one card (gloo, spawned; exempt from sync debug mode: gloo
+    all-reduces through the host, so every block stays eager, counted as
+    ``eager_why["sharded"]``): each holds 128 voices,
     K1 at V=128 with the mix against its plain version, the all-reduced
     mix against the unsharded render within SHARD_PIANO_TOL, the poly synth
     (K6, K7) within SHARD_POLY_TOL.  Returns the phase's launches."""
@@ -2346,23 +2598,51 @@ def sharding_phase(card):
                 "K1 launches": ku == ks == SHARD_STEADY + 3,
                 "finite": bool(torch.isfinite(torch.cat(bs)).all()),
             }
+            # the sharded blocks replayed (NCCL: the all-reduce inside the
+            # graph) against the same blocks eager, from one state
+            start, n0 = ps.state, ps.block_counts
+            with no_sync(True):
+                rep = [ps.process_block()["out"] for _ in range(3)]
+            st_rep, n1 = tree_leaves(ps.state), ps.block_counts
+            ps.state = start
+            ps.jit = False
+            with no_sync(True):
+                eag = [ps.process_block()["out"] for _ in range(3)]
+            ps.jit = True
+            st_eag = tree_leaves(ps.state)
+            checks["replayed against eager sharded torch.equal"] = all(
+                torch.equal(a, b) for a, b in zip(rep, eag)) and all(
+                torch.equal(a.to_local(), b.to_local())
+                for a, b in zip(st_rep, st_eag))
+            checks["sharded blocks replayed"] = (
+                n1["replayed"] - n0["replayed"] == 3
+                and n1["eager"] == n0["eager"]
+                and ps.eager_why["sharded"] == 0)
             phase("sharding", f"one rank (NCCL) piano 256 voices B={B}: "
                   f"chord, {SHARD_STEADY} steady blocks under sync debug "
                   f"mode 'error', release, 3 steady; sharded against "
-                  f"unsharded, K1 launches {ks} / {ku}; checks {checks}")
+                  f"unsharded, K1 launches {ks} / {ku}; then 3 replayed and "
+                  f"3 eager sharded blocks from one state; block_counts "
+                  f"{ps.block_counts} eager_why {ps.eager_why}; checks "
+                  f"{checks}")
             check(all(checks.values()), f"sharding one rank B={B}: {checks}")
             unsharded[B] = torch.cat(bu).cpu().numpy()
             # walls in turns (5 blocks each, 6 rounds: the host's speed
-            # drifts within a run), then busy and activities
-            walls = {"unsharded": [], "sharded": []}
-            pair = (("unsharded", pu), ("sharded", ps))
-            for label, p in pair:
+            # drifts within a run), then busy and activities: unsharded and
+            # sharded replayed (jit), sharded eager
+            walls = {"unsharded": [], "sharded": [], "sharded eager": []}
+            runs3 = (("unsharded", pu, True), ("sharded", ps, True),
+                     ("sharded eager", ps, False))
+            for label, p, jit in runs3:
+                p.jit = jit
                 block_walls(p, 3)
             for _ in range(6):
-                for label, p in pair:
+                for label, p, jit in runs3:
+                    p.jit = jit
                     walls[label] += block_walls(p, 5)
             prof = {}
-            for label, p in pair:
+            for label, p, jit in runs3:
+                p.jit = jit
                 wall = float(np.median(walls[label]))
                 busy, acts = block_busy(p)
                 prof[label] = (wall, busy, acts)
@@ -2373,11 +2653,12 @@ def sharding_phase(card):
                          if busy is not None else
                          "busy not measured (no profiler records)")
                       + f" ({card})")
+            ps.jit = True
             if all(v[1] is not None for v in prof.values()):
                 d = [u - v for u, v in zip(prof["sharded"],
                                            prof["unsharded"])]
-                phase("sharding", f"the one-rank all-reduce at B={B}: "
-                      f"{d[0]:+.1f} us wall, {d[1]:+.1f} us busy, "
+                phase("sharding", f"the one-rank all-reduce at B={B}, both "
+                      f"replayed: {d[0]:+.1f} us wall, {d[1]:+.1f} us busy, "
                       f"{d[2]:+.0f} device activities per steady block "
                       f"({card})")
     finally:
@@ -2409,6 +2690,10 @@ def sharding_phase(card):
         "K1 V=128 state vs plain (torch.equal)": all(
             s for _, s, _, _, _ in k1),
         "K1 ran voices": all(y > 0.01 for _, _, y, _, _ in k1),
+        "gloo ranks eager as sharded": all(
+            why["sharded"] == counts["eager"] > 0
+            and counts["replayed"] == counts["captures"] == 0
+            for r in res for why, counts in r["eager"]),
     }
     for r in res:
         for k, n in r["launches"].items():
@@ -2421,13 +2706,14 @@ def sharding_phase(card):
           f"block's wall per rank {[round(r['wall_us'], 1) for r in res]} "
           f"us (median of 9, CUDA events; {card}); K1 vs plain per "
           f"rank (y err, state equal, max |y|, V, calls) {k1}; launches "
-          f"{[r['launches'] for r in res]}; checks {checks}")
+          f"{[r['launches'] for r in res]}; eager_why (piano, poly) rank 0 "
+          f"{[why for why, _ in res[0]['eager']]}; checks {checks}")
     check(all(checks.values()), f"sharding two ranks: {checks}")
     return launches
 
 
 # the bench phase: the bench's budgets, and what the piano's lines must show
-BENCH_BUDGET_S = 45
+BENCH_BUDGET_S = 30
 EVENTS_BUDGET_S = 45
 FUSEDRMS_SECONDS = 1.0
 
@@ -2458,7 +2744,7 @@ def bench_run(args, budget):
 def bench_phase(card):
     """Phase ``bench``: the port's benchmark driver and the v4-against-
     parity tool, each a subprocess that loads the kernels this run built:
-    the 256-voice piano's steady lines under a 45 s budget (the B=4096
+    the 256-voice piano's steady lines under a 30 s budget (the B=4096
     line, then the B=1024 line last with a real-time factor above 1, the
     card's name in ``device``), its events line at B=1024 under 45 s, and
     ``tools/fusedrms.py`` for 1 s at the bench config (256 voices, B=1024)
@@ -3584,15 +3870,17 @@ def main() -> int:
 
     def fm_case(name, V, B, per_sample=False, fused=False):
         """3 chained blocks of kernel and plain version on the same
-        operands; any difference fails the run.  Returns the plain
-        version's fastest block (seconds, host clock)."""
+        operands, fewer once the plain version has taken PLAIN_CASE_S (the
+        pivot's at V=256: ~5 s a block at B=1024, ~25 s at 4096); any
+        difference fails the run.  Returns the plain version's fastest
+        block (seconds, host clock) and the blocks run."""
         fn, plain = getattr(kfm, name), getattr(kfm, "plain_" + name)
         rng_f = np.random.default_rng(V + B + per_sample)
         carry = fm_carry(name, V, rng_f)
         before = kfm.launches[name]
         kw = {"inv_sr": FUSED_INV} if fused else {}
         plain_s = []
-        for _ in range(3):
+        while len(plain_s) < 3 and sum(plain_s) < PLAIN_CASE_S:
             args = fm_args(name, V, B, rng_f, per_sample, fused=fused)
             k_out = fn(*carry, *args, **kw)
             torch.cuda.synchronize()
@@ -3606,9 +3894,9 @@ def main() -> int:
                           f"version differ by "
                           f"{float((a - b).abs().max()):.3e}")
             carry = k_out[3:] if name == "fract_phase3" else k_out[1:]
-        check(kfm.launches[name] == before + 3,
+        check(kfm.launches[name] == before + len(plain_s),
               f"{name}: launch counter did not advance")
-        return min(plain_s)
+        return min(plain_s), len(plain_s)
 
     for name in kfm.KERNELS:
         report[name] = {"max_abs_err": 0.0}
@@ -3618,25 +3906,25 @@ def main() -> int:
         for V, B in shapes:
             for per_sample in ((False, True) if "chain" in name
                                else (False,)):
-                plain_s = fm_case(name, V, B, per_sample)
+                plain_s, n = fm_case(name, V, B, per_sample)
                 what = ({True: " per-sample dt, feedback",
                          False: " block-constant dt, feedback"}[per_sample]
                         if "chain" in name else " per-sample fb/lvl"
                         if "operator" in name else "")
                 phase("kernels", f"{name} V={V} B={B}{what}: equal to the "
-                      f"plain version (torch.equal, every output of 3 "
+                      f"plain version (torch.equal, every output of {n} "
                       f"chained blocks) ok; plain version {plain_s:.3f} s "
-                      f"a block (host clock, the fastest of 3)")
+                      f"a block (host clock, the fastest of {n})")
         # the fused phase step fma(base_freq*ratio, 1/SR, p), as the pivot
         # runs K12 and K15 (the pivot's products into sums are fused
         # multiply-adds in either form)
         if name != "fm_operator_scan":
-            for per_sample in ((False, True) if "chain" in name
-                               else (False,)):
-                fm_case(name, VOICES, 1024, per_sample, fused=True)
+            ns = [fm_case(name, VOICES, 1024, per_sample, fused=True)[1]
+                  for per_sample in ((False, True) if "chain" in name
+                                     else (False,))]
             phase("kernels", f"{name} V={VOICES} B=1024 with the fused "
                   f"phase step (inv_sr={FUSED_INV!r}): equal to the plain "
-                  f"version (torch.equal, 3 chained blocks) ok")
+                  f"version (torch.equal, {ns} chained blocks) ok")
 
     # K12's two loops: lanes on its short wrap (p0 and dt in [+0, 1)), off
     # it (the edges among them) and both in every warp, 3 chained blocks
@@ -4500,8 +4788,11 @@ def main() -> int:
             ms = device_ms(lambda: kf(*args, step, B, True), 50,
                            kernel=additive_kernel_name(version))
             call_ms = time_ms(lambda: kf(*args, step, B, True), 50)
-            plain_ms = time_ms(lambda: pf(*args, step, B, True),
-                               3 if version == "parity" else 5)
+            # the report keeps B=1024's; B=4096's (0.3-1.5 s a call) once
+            plain_ms = (time_ms(lambda: pf(*args, step, B, True),
+                                3 if version == "parity" else 5)
+                        if B == 1024 else
+                        time_ms(lambda: pf(*args, step, B, True), 1, warm=0))
             segs = add.segments(VOICES, B, add.subgroup_len(B, version))
             phase("timing", f"{version} V={VOICES} B={B} with_mix: kernel "
                   f"{ms * 1e3:.1f} us (device; {segs} time segments per "
@@ -4529,7 +4820,8 @@ def main() -> int:
             return torch.stack(fn(out[0], 0, prm), dim=-1)
         ms = device_ms(k5, 50, kernel="additive_closed_kernel")
         call_ms = time_ms(k5, 50)
-        plain_ms = time_ms(k5_plain, 5)
+        plain_ms = time_ms(k5_plain, 5) if B == 1024 else time_ms(
+            k5_plain, 1, warm=0)
         phase("timing", f"v4_epilogue V={VOICES} B={B}: kernel "
               f"{ms * 1e3:.1f} us (device), wrapper call "
               f"{call_ms * 1e3:.1f} us, plain PyTorch "
@@ -4931,9 +5223,7 @@ def main() -> int:
             # no single PyTorch call computes these per-sample recurrences
             # (no lfilter in torch; cumsum is not a wrapped phase)
             "library_ms": None})
-    phase("total", "seconds by phase: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()) + f"; all "
-        f"{time.perf_counter() - T_START:.1f} s")
+    total_lines(time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4960,8 +5250,7 @@ def phase_only(libs, run) -> int:
     build.load_all(libs)
     phase("build", ", ".join(f"{n}.cu" for n in libs) + " built")
     run(f"{torch.cuda.get_device_name(0)} ({smi})")
-    phase("total", "seconds by phase: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+    total_lines()
     return 0
 
 

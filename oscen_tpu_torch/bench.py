@@ -17,7 +17,8 @@ Steady lines.  Both latency classes are measured: B=4096 (bulk, 85 ms)
 and B=1024 (streaming, 21 ms), one JSON line each,
 ``{model}_{V}v_rtf_48k_b4096`` and ``{model}_{V}v_rtf_48k``, the streaming
 line last.  Each block size runs completely, the headline class (the last
-of ``--block``) first: compile, the chord's block, a warm block's time
+of ``--block``) first: compile, the chord's block, two steady blocks (the
+steady key's warm-up and its capture), a warm block's time
 (:func:`block_seconds`, from spans of 1 and 9 blocks), the spans it sizes
 (:func:`spans`), a warm-up of both spans, one window, its line.  Refinement windows follow while the budget lasts (at most
 ``MAX_WINDOWS`` per block size), re-emitted in ``--block`` order so that
@@ -415,7 +416,10 @@ def measure(args: argparse.Namespace, model=None) -> int:
 
     for B in reversed(blocks):   # the headline class first
         synth = synths[B] = build_one(B)
-        synth.steady_checksum(1)
+        # the steady key's eager warm-up block and its capture, so that the
+        # sizing spans time replays (a sample-mode capture records and
+        # instantiates for seconds)
+        synth.steady_checksum(2)
         counts[B] = spans(block_seconds(*(span(synth, n) for n in SIZING)))
         for n in counts[B]:
             synth.steady_checksum(n)

@@ -977,12 +977,15 @@ class Graph:
         raises), or ``"cpu"`` when asked for.  ``mode="block"`` (the
         default here, as in the JAX package) runs time-vectorized blocks;
         ``mode="sample"`` runs the reference's per-sample schedule, one
-        eager step per sample (``CompiledGraph``'s own default).  ``jit=True``
-        (the default, as in the JAX package) replays each block-mode block
-        the host can reproduce, and every block of ``render_steady`` and
-        ``steady_checksum``, from a captured CUDA graph (on the CPU from the
-        capture's static buffers, graph/capture.py); ``jit=False`` runs
-        every block eagerly."""
+        step per sample (``CompiledGraph``'s own default).  ``jit=True``
+        (the default, as in the JAX package) replays each block whose key
+        has warmed up, in either mode, and every block of ``render_steady``
+        and ``steady_checksum``, from a captured CUDA graph (a sample-mode
+        block's B steps in one graph; on the CPU from the capture's static
+        buffers, graph/capture.py); a sample-mode block that carries events
+        stays eager; a voice-sharded block replays on an NCCL group and
+        stays eager on a card's gloo group; ``jit=False`` runs every block
+        eagerly."""
         from .compile import CompiledGraph
         ir = self.lower()
         return CompiledGraph(ir, sample_rate=sample_rate,

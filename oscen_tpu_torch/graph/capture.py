@@ -1,16 +1,24 @@
-"""Captured blocks: a block-mode block as one CUDA-graph replay.
+"""Captured blocks: a block as one CUDA-graph replay.
 
 The port's counterpart of what ``jax.jit`` gives the JAX package's
 ``CompiledGraph`` (``oscen_tpu/graph/compile.py``): every block function
 is jitted (``:1098-1099``), so a steady block is ONE cached jit call
 (``:579-583``, ``:1287-1292``), an event block one call of its packed
 variant (``:1235-1297``, ``_packed_call`` ``:1309-1367``), a parameter
-change or a ramp a call of the steady variant, ``render_steady`` one
-jitted ``lax.scan`` over the span (``:1398-1426``) and ``steady_checksum``
-one jitted ``fori_loop`` (``:1592-1627``).  On a CUDA card the counterpart
-of a jitted fixed-shape function that never reads the card is a
-``torch.cuda.CUDAGraph`` captured around one call of the block function,
-then replayed.
+change or a ramp a call of the steady variant, a sample-mode block one
+jitted ``lax.scan`` of the per-sample step (``:1047-1071``), a
+voice-sharded block one jitted ``shard_map`` (``:1086-1099``),
+``render_steady`` one jitted ``lax.scan`` over the span (``:1398-1426``)
+and ``steady_checksum`` one jitted ``fori_loop`` (``:1592-1627``).  On a
+CUDA card the counterpart of a jitted fixed-shape function that never
+reads the card is a ``torch.cuda.CUDAGraph`` captured around one call of
+the block function, then replayed: a block-mode block function, or the
+sample-mode one, whose B steps the capture records one after another
+(``CompiledGraph._make_scan_fn``; ~10^5 kernel nodes a B=1024 block).  A
+voice-sharded block's all-reduces are NCCL collectives on the capturing
+stream, captured with the rest; gloo's wait for the card on the host,
+which a capture refuses, so a sharded block on a card whose group is not
+NCCL runs eagerly (:func:`eager_reason`).
 
 A block's inputs arrive as a :class:`Staging`: every host array of the
 block (parameters, host values, event buffers, stream audio) packed into
@@ -44,8 +52,8 @@ replays a stale one.  The key, from an audit of ``graph/block_mode.py``'s
 - the block function itself: the block length B, the literal parameters
   (graph parameters never set since compile, ``literal_ins`` and
   ``folded_ins``: the first ``set_value`` of a parameter turns it dynamic
-  and builds another block function) and the voice sharding
-  (``CompiledGraph._block_fn_key``);
+  and builds another block function; block mode only, as sample mode's
+  ticks read none) and the voice sharding (``CompiledGraph._block_fn_key``);
 - the staging's layout: the names, kinds and shapes of the packed arrays,
   in order.  A value staged ``[1]`` is block-constant (``const_ins``, the
   const-output propagation, the epilogue fusion's dynamic half, the
@@ -59,16 +67,25 @@ replays a stale one.  The key, from an audit of ``graph/block_mode.py``'s
   event offsets, values and masks are data: block-mode nodes read them on
   the device.  The host slots (``EventBuffer.slots``) are in the key only
   where the block function reads them (``block_fn.reads_slots``: a scan
-  island, or a node whose block is its tick scan, applies events at the
-  slots, ``Node.apply_events_scheduled``); elsewhere a capture's block
-  gets no slots, so no slot the capture saw can reach a replay.  The
-  shapes and dtypes of the stream inputs that are tensors on the device,
-  and of ``fresh`` ones, are in it too;
+  island, a node whose block is its tick scan, and every sample-mode
+  block apply events at the slots, ``Node.apply_events_scheduled``; so a
+  scan island's block whose events fall at other offsets than any before
+  is its key's warm-up, where the JAX package traces once for every
+  layout); elsewhere a capture's block gets no slots, so no slot the
+  capture saw can reach a replay.  A sample-mode block that carries
+  events is not captured at all (``eager_why["sample_events"]``): its
+  capture records all B steps, about two eager blocks' time, and pays
+  back only where the same offsets recur at least three more times, a
+  property of the traffic that no reading has shown.  The shapes and
+  dtypes of the stream inputs that are tensors on the device, and of
+  ``fresh`` ones, are in it too;
 - the names, shapes and dtypes of the state leaves: ``publish_asset`` can
   grow a Convolver's IR, a voice-class switch or a state setter brings
   another state;
-- the ``host_ins`` values: the graph parameters that feed a node whose
-  block methods name ``host_ins`` (the pivot's and fm chains' zero-feedback
+- the ``host_ins`` values (block mode; sample mode's ticks are given only
+  their ``folded_ins``, fixed when the step is built, so its block
+  function reads nothing else on the host): the graph parameters that
+  feed a node whose block methods name ``host_ins`` (the pivot's and fm chains' zero-feedback
   branch, the filters' hoisted coefficients, the oscillators' constant
   frequency path), read through ``CompiledGraph._host_params`` where the
   staging holds the parameter as ``[1]`` (a block reads no other: a
@@ -92,10 +109,12 @@ Capture discipline:
 
 - **Warm before capture.**  A key's first block runs eagerly
   (``WARMUP_BLOCKS``): it sets each kernel's shared-memory opt-in, builds
-  the node caches and allocates the additive mix's ticket counters.  So a
+  the node caches, allocates the additive mix's ticket counters and, on a
+  sharded graph, runs the group's first collective (NCCL builds its
+  communicator there, never inside a capture).  So a
   one-off control block (a ``set_value``, one step of a ``host_ins``
   sweep, a fade block) is its key's warm-up and runs eagerly; a repeated
-  one (events every block, a ramp's blocks) replays.  A block whose state
+  one (events every block in block mode, a ramp's blocks) replays.  A block whose state
   comes back with another structure, shape or dtype than it went in is
   never captured (``eager_why["state_changes_shape"]``).
 - **Nothing cached is allocated during capture.**  ``guard()`` (the
@@ -147,7 +166,8 @@ from ..core.events import EventBuffer
 from .node import tree_map
 
 __all__ = ["BlockCaptures", "CapturedBlock", "EAGER_REASONS", "Staging",
-           "block_checksum", "launch_counters", "tree_sig", "unpack"]
+           "block_checksum", "eager_reason", "launch_counters", "tree_sig",
+           "unpack"]
 
 # eager blocks of a key before its capture
 WARMUP_BLOCKS = 1
@@ -155,9 +175,36 @@ WARMUP_BLOCKS = 1
 MAX_CAPTURES = 16
 MAX_KEYS = 256
 
-# why a block ran eagerly (``CompiledGraph.eager_why``)
-EAGER_REASONS = ("jit_off", "sample_mode", "sharded", "warmup",
+# why a block ran eagerly (``CompiledGraph.eager_why``): ``jit=False``; a
+# sample-mode block that carries events; a voice-sharded block on a card
+# whose group is not NCCL (:func:`eager_reason`); a key's warm-up; a block
+# whose state changes structure
+EAGER_REASONS = ("jit_off", "sample_events", "sharded", "warmup",
                  "state_changes_shape")
+
+
+def eager_reason(jit: bool, device: torch.device, backend: Optional[str],
+                 sample_events: bool = False) -> Optional[str]:
+    """Why a block on ``device`` runs eagerly whatever its key, or None
+    when :class:`BlockCaptures` takes it: ``"jit_off"`` without ``jit``;
+    ``"sample_events"`` for a sample-mode block that carries events
+    (``sample_events``): its key would hold the events' offsets, and a
+    capture of its B steps costs about two eager blocks, which only a
+    layout that recurs pays back; ``"sharded"`` for a voice-sharded block
+    (``backend``: its group's backend, ``torch.distributed.get_backend``;
+    None unsharded) on a card whose group does not run NCCL for CUDA
+    tensors: gloo all-reduces a card's tensors through the host, waiting
+    for the card, which a capture refuses.  On the CPU every group is
+    taken: its stand-in calls the block function on static buffers, and no
+    CUDA graph is involved."""
+    if not jit:
+        return "jit_off"
+    if sample_events:
+        return "sample_events"
+    if backend is not None and device.type == "cuda" \
+            and "nccl" not in str(backend):
+        return "sharded"
+    return None
 
 
 def tree_sig(tree) -> tuple:
@@ -232,6 +279,10 @@ class Staging:
         self.extra: Dict[str, torch.Tensor] = {}
         self.packed: Optional[torch.Tensor] = None
         self._unpacked = None
+
+    def has_events(self) -> bool:
+        """Whether an event is staged at any offset."""
+        return any(bool(v) for v in (self.slots or {}).values())
 
     def shapes(self) -> Dict[str, tuple]:
         """The packed ``per_block`` arrays' shapes by key."""

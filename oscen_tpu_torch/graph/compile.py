@@ -10,8 +10,9 @@ eagerly on the device given to ``compile``, in one of two modes:
   assignments → event dispatch → node tick, in topological order) once per
   sample: op-order parity with the reference, every node array's ticks
   broadcast over its instance axis.  The JAX package scans the step with
-  ``lax.scan``; the port loops over the samples in Python, so a sample
-  costs one eager launch per tensor op.
+  ``lax.scan``; the port loops over the samples in Python, so an eager
+  sample costs one launch per tensor op, and a replayed block (``jit``)
+  one graph launch for all of them.
 - **block mode** (``Graph.compile``'s default) — each node's
   time-vectorized ``process_block`` runs over whole ``[B]`` blocks
   (graph/block_mode.py); a feedback cycle that does not dissolve runs as a
@@ -24,12 +25,17 @@ the device in ONE host-to-device copy per block: one packed float32
 vector (graph/capture.py ``Staging``), unpacked on the device.  Blocks
 whose control plane is idle reuse the staged vector, which stays on the
 device, so a steady block is one call of the block function.  With
-``jit=True`` (the default, as in the JAX package) every block-mode block is
-one replay of a CUDA graph captured around that call (graph/capture.py),
-its unpacking included, once its key has warmed up: steady and effect
-blocks, event, parameter-change and ramp blocks, and every block of
-``render_steady`` and ``steady_checksum``; sample mode and voice-sharded
-blocks stay eager.
+``jit=True`` (the default, as in the JAX package) every block is one
+replay of a CUDA graph captured around that call (graph/capture.py), its
+unpacking included, once its key has warmed up: steady and effect blocks,
+event, parameter-change and ramp blocks, every block of ``render_steady``
+and ``steady_checksum``, in block mode and in sample mode (the whole
+block's B steps in one graph, the JAX package's jitted ``lax.scan``), and
+voice-sharded blocks on an NCCL group (its all-reduces inside the graph,
+the JAX package's jitted ``shard_map``).  Two kinds stay eager: a
+sample-mode block that carries events (its capture costs about two eager
+blocks and would be keyed by the events' offsets), and a sharded block on
+a card whose group is gloo (gloo waits for the card on the host).
 
 Multirate regions run as in the JAX package's block mode: a node at
 ``rate=N`` processes ``B*N`` samples per block, each cross-rate edge carries
@@ -72,7 +78,7 @@ from . import explain
 from .ir import (BinOp, Call, Const, EdgeKernel, EndpointRef, Expr, Fanout,
                  FrameCtor, IrEdge, IrGraph, IrNodeInst)
 from .capture import (BlockCaptures, Staging, block_checksum,
-                      launch_counters)
+                      eager_reason, launch_counters)
 from .node import StepValue, apply_node_events, tree_map
 
 __all__ = ["CompiledGraph", "resolve_device"]
@@ -557,16 +563,20 @@ class CompiledGraph:
     the CUDA card unless the caller passes ``device="cpu"``.  ``mode`` is
     ``"sample"`` (the default, as in the JAX package) or ``"block"``.
 
-    ``jit=True`` (the default, as in the JAX package) runs every
-    block-mode block (steady, effect, event, parameter-change and ramp
-    blocks, and every block of ``render_steady`` and ``steady_checksum``)
-    as a replay of a captured block (graph/capture.py): on the card one
-    copy of the block's packed staging and one ``torch.cuda.CUDAGraph``
-    replay, on the CPU the block function on the capture's static buffers,
-    bit for bit the eager result either way.  A key's first block runs
-    eagerly (the warm-up: a one-off ``set_value`` block stays eager), and
-    so do sample mode and voice-sharded blocks.  ``jit=False`` runs every
-    block eagerly, the JAX package's unjitted path.
+    ``jit=True`` (the default, as in the JAX package) runs every block
+    (steady, effect, event, parameter-change and ramp blocks, and every
+    block of ``render_steady`` and ``steady_checksum``) as a replay of a
+    captured block (graph/capture.py): on the card one copy of the block's
+    packed staging and one ``torch.cuda.CUDAGraph`` replay, on the CPU the
+    block function on the capture's static buffers, bit for bit the eager
+    result either way.  Sample mode replays too: one graph holds the
+    block's B per-sample steps (the JAX package's jitted ``lax.scan``),
+    but a sample-mode block that carries events runs eagerly
+    (``eager_why["sample_events"]``).  A key's first block runs eagerly
+    (the warm-up: a one-off ``set_value`` block stays eager), and so does
+    a voice-sharded block on a card whose group is not NCCL
+    (``eager_why["sharded"]``).  ``jit=False`` runs every block eagerly,
+    the JAX package's unjitted path.
     ``block_counts`` counts replayed and eager blocks and the captures,
     ``eager_why`` the eager blocks by reason.
     """
@@ -583,7 +593,7 @@ class CompiledGraph:
         self.sample_rate = float(sample_rate)
         self.jit = bool(jit)
         self._new_program()
-        # the captured blocks (jit=True, block mode), by key
+        # the captured blocks (jit=True), by key
         self._captures = BlockCaptures(self.device, guard=self._cache_sizes)
 
         # host parameter state
@@ -613,6 +623,8 @@ class CompiledGraph:
         # voice sharding (parallel/voices.py): this rank's VoiceShard, the
         # node counts its state slices, and which state leaves are slices
         self._shard = None
+        # its group's backend, None unsharded (capture.eager_reason)
+        self._shard_backend: Optional[str] = None
         self._shard_counts: Dict[str, int] = {}
         self._shard_flags = None
         # the node each staged array belongs to, by its key, recorded where
@@ -633,7 +645,8 @@ class CompiledGraph:
         it is a copy."""
         if self._shard is None:
             return self._snapshot(self._state)
-        return self._shard.dtensors(self._state, self._shard_flags)
+        return self._shard.dtensors(self._snapshot(self._state),
+                                    self._shard_flags)
 
     def _snapshot(self, tree):
         """``tree`` as later blocks leave it: copied on the device while
@@ -650,10 +663,13 @@ class CompiledGraph:
 
     @property
     def eager_why(self) -> Dict[str, int]:
-        """The eager blocks by reason: ``jit_off``, ``sample_mode``,
-        ``sharded``, ``warmup`` (a key's first block: a new staging layout,
-        event capacity, block length, literal set, ``host_ins`` value, host
-        mirror or state shape) and ``state_changes_shape``."""
+        """The eager blocks by reason: ``jit_off``, ``sample_events`` (a
+        sample-mode block that carries events), ``sharded`` (a
+        voice-sharded block on a card whose group is not NCCL), ``warmup``
+        (a key's first block: a new staging layout, event capacity or, in
+        scan islands, event offsets, block length, literal
+        set, ``host_ins`` value, host mirror or state shape) and
+        ``state_changes_shape``."""
         return dict(self._captures.eager_why)
 
     @state.setter
@@ -1128,11 +1144,14 @@ class CompiledGraph:
                       if hasattr(st, "_coefs")))
 
     def _block_fn_key(self, B: int):
-        """The key of ``_block_fn(B)`` in block mode: B, the literal
-        parameters, the mesh size."""
+        """The key of ``_block_fn(B)``: B, the mesh size and, in block
+        mode, the literal parameters (sample mode's ticks read none:
+        ``_make_scan_fn``)."""
+        n = self._shard.n if self._shard else None
+        if self.mode == "sample":
+            return (B, n)
         self._literal_params()
-        return (B, self._literals[1],
-                self._shard.n if self._shard else None)
+        return (B, self._literals[1], n)
 
     def _block_fn(self, B: int):
         shard = self._shard
@@ -1144,12 +1163,16 @@ class CompiledGraph:
                 return fn
 
             def sharded(state, per_block, ev_bufs):
-                # the unsharded per-sample loop on the gathered state
+                # the unsharded per-sample loop on the gathered state; a
+                # replay does not run the flags' host write, which holds
+                # because split's flags follow the state's structure only,
+                # and the capture key holds that
                 state, outs = fn(shard.gather(state, self._shard_flags),
                                  per_block, ev_bufs)
                 state, self._shard_flags = shard.split(state,
                                                        self._shard_counts)
                 return state, outs
+            sharded.reads_slots, sharded.host_key = True, fn.host_key
             return sharded
         lits = self._literal_params()
         key = self._block_fn_key(B)
@@ -1181,7 +1204,9 @@ class CompiledGraph:
         self._set_shard(VoiceShard(mesh, axis_name))
 
     def _set_shard(self, shard) -> None:
+        import torch.distributed as dist
         self._shard = shard
+        self._shard_backend = str(dist.get_backend(shard.group))
         self._block_fns.clear()
         self._captures.clear()
         self._staging_cache.clear()
@@ -1224,9 +1249,19 @@ class CompiledGraph:
 
     def _make_scan_fn(self, block_len: int):
         """The sample-mode block function: the per-sample step over the
-        block (the JAX package's ``lax.scan``, here a Python loop).  Step
-        values are expanded and ``[1]``-staged parameters broadcast to
-        ``[B]`` first; each sample reads views of them."""
+        block (the JAX package's ``lax.scan``, here a Python loop; with
+        ``jit`` one captured graph of all B steps).  Step values are
+        expanded and ``[1]``-staged parameters broadcast to ``[B]`` first;
+        each sample reads views of them.
+
+        What a call decides on the host, its capture key's part
+        (graph/capture.py): the staged shapes and B, the event buffers'
+        host slots (``reads_slots``: each sample applies the events staged
+        at it, ``apply_node_events``; a block with events runs eagerly,
+        ``capture.eager_reason``), and nothing of ``host_key``: the
+        ticks are given only their ``folded_ins`` (``tick_kwargs``), the
+        graph's literals folded once when the step is built, never a
+        ``host_ins`` value or a host mirror."""
         from .block_mode import reconstruct_step_values
         step = self._step
         B = block_len
@@ -1249,6 +1284,8 @@ class CompiledGraph:
                     outs.setdefault(k, []).append(v)
             return state, {k: torch.stack(v) for k, v in outs.items()}
 
+        block_fn.reads_slots = True
+        block_fn.host_key = lambda shapes: ()
         return block_fn
 
     def _control_steady(self) -> bool:
@@ -1344,18 +1381,21 @@ class CompiledGraph:
 
     def _run_block(self, B: int, staging: Staging, fresh=None, acc=None,
                    checksum=None):
-        """One block on the current state: in block mode with ``jit`` a
-        replay of its captured block (graph/capture.py; eager while its
-        key warms up), else one call of the block function; then the host
-        mirrors advance by the block (each node by its own samples).
+        """One block on the current state: with ``jit`` a replay of its
+        captured block (graph/capture.py; eager while its key warms up, and
+        a sample-mode block with events or a sharded block on a card whose
+        group is not NCCL, ``capture.eager_reason``), else one call of the
+        block function;
+        then the host mirrors advance by the block (each node by its own
+        samples).
         ``fresh`` holds the block's own ``per_block`` entries (its stream
         inputs) over a reused staging; with ``acc`` the block adds
         ``steady_checksum``'s term for the outputs ``checksum`` into it.
         Returns ``(outputs, acc, replayed)``: a replay's outputs are the
         capture's, which the next replay overwrites."""
-        why = ("jit_off" if not self.jit else
-               "sample_mode" if self.mode == "sample" else
-               "sharded" if self._shard is not None else None)
+        why = eager_reason(
+            self.jit, self.device, self._shard_backend,
+            sample_events=self.mode == "sample" and staging.has_events())
         if why is None:
             self._state, outs, acc, replayed = self._captures.run(
                 self._block_fn_key(B), self._block_fn(B), self._state,

@@ -135,7 +135,7 @@ def test_replayed_control_blocks_equal_eager(name, B):
     # block of each capacity pattern, the first ramp block, the set_value
     # block and the steady key after it
     assert ca.eager_why["warmup"] == n["eager"]
-    assert ca.eager_why["jit_off"] == ca.eager_why["sample_mode"] == 0
+    assert ca.eager_why["jit_off"] == 0 and "sample_mode" not in ca.eager_why
     assert ca.eager_why["sharded"] == ca.eager_why["state_changes_shape"] == 0
     ev, ramp = counts["events"], counts["ramp"]
     assert ev["replayed"] >= EVENT_BLOCKS - 2

@@ -1008,22 +1008,29 @@ def test_echo_on_card_matches_cpu(cuda, B):
     assert float(y.abs().max()) > 0.3
 
 
+def _saturator(policy):
+    """The 4x saturator: a 2 kHz saw and a hard clip at 4x, its boundary
+    resampled by ``policy``."""
+    from oscen_tpu_torch import Graph, HardClip, PolyBlepOscillator
+    g = Graph("Sat4")
+    g.output("audio_out", "stream")
+    osc = g.add("osc", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
+    clip = g.add("clip", HardClip(), rate=4)
+    g.connect(osc.output, clip.input)
+    g.connect(clip.output, "audio_out", policy=policy)
+    return g
+
+
 @pytest.mark.parametrize("policy", ["sinc", "sinc_iir"])
 def test_saturator_on_card_matches_cpu(cuda, policy):
     """The 4x saturator: one phase_scan per block over 4B samples, and with
     the IIR boundary two allpass_cascade_scan launches per block (one per
     halfband stage, both branches as lanes); the card within 1e-6 of the
     CPU."""
-    from oscen_tpu_torch import Graph, HardClip, PolyBlepOscillator
 
     def run(device):
-        g = Graph("Sat4")
-        g.output("audio_out", "stream")
-        osc = g.add("osc", PolyBlepOscillator.saw(2000.0, 0.6), rate=4)
-        clip = g.add("clip", HardClip(), rate=4)
-        g.connect(osc.output, clip.input)
-        g.connect(clip.output, "audio_out", policy=policy)
-        c = g.compile(48000.0, block_size=1024, device=device)
+        c = _saturator(policy).compile(48000.0, block_size=1024,
+                                       device=device)
         return c, torch.cat([c.process_block()["audio_out"]
                              for _ in range(4)]).cpu()
     kiir.reset_launches()
@@ -2060,3 +2067,96 @@ def test_event_captures_share_one_pool_and_equal_eager(cuda):
         ca.queue_event("midi_in", 100 * i, raw_midi_event([0x90, 40 + i, 90]))
         ca.process_block()
     assert ca.block_counts["captures"] == 4, ca.block_counts
+
+
+@pytest.mark.parametrize("name", ["piano", "saturator_sinc_iir"])
+def test_sample_mode_replay_equals_eager(cuda, name):
+    """Sample mode with ``jit=True`` on the card: after its key's warm-up
+    a block is one replay of a graph of all B per-sample steps (K10 twice
+    an outer sample inside it for the IIR saturator), its outputs, state
+    and launch counts ``torch.equal`` to ``jit=False``; the replays run
+    under sync debug mode "error"."""
+    from oscen_tpu_torch.graph.node import tree_map
+    B = 256
+
+    def run(jit):
+        if name == "piano":
+            c = build_electric_piano(16).compile(
+                48000.0, block_size=B, mode="sample", device="cuda", jit=jit)
+            for v in range(16):
+                c.queue_event("midi_in", (0, 10, 100)[v % 3],
+                              raw_midi_event([0x90, 48 + v, 100]))
+            out = "out"
+        else:
+            c = _saturator("sinc_iir").compile(
+                48000.0, block_size=B, mode="sample", device="cuda", jit=jit)
+            out = "audio_out"
+        k0 = kiir.launches["allpass_cascade_scan"]
+        ys = [c.process_block()[out], c.process_block()[out]]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys += [c.process_block()[out] for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        leaves = []
+        tree_map(leaves.append, c.state)
+        return ys, leaves, kiir.launches["allpass_cascade_scan"] - k0, c
+    a, sa, ka, ca = run(True)
+    b, sb, kb, _ = run(False)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert len(sa) == len(sb) and all(torch.equal(x, y)
+                                      for x, y in zip(sa, sb))
+    assert ka == kb == (5 * 2 * B if name != "piano" else 0)
+    # the piano's chord block runs eagerly (sample_events) and its first
+    # steady block warms up, the saturator's first block its one key; the
+    # rest replay
+    assert ca.block_counts["replayed"] == (3 if name == "piano" else 4)
+    assert ca.eager_why["sample_events"] == (1 if name == "piano" else 0)
+    assert float(a[-1].abs().max()) > 0.01
+
+
+@pytest.mark.parametrize("mode", ["block", "sample"])
+def test_one_nccl_rank_replays_equal_eager_sharded(cuda, tmp_path, mode):
+    """One NCCL rank (a ``FileStore``): the sharded piano's steady blocks
+    replay after their warm-up, every block ``torch.equal`` to the eager
+    sharded run's; no block eager as ``sharded``.  In block mode K1 and
+    the mix's all-reduce are inside the graph; in sample mode the state's
+    all-gather, the B per-sample steps and the slicing back."""
+    import torch.distributed as dist
+    from oscen_tpu_torch.graph.node import tree_map
+    from oscen_tpu_torch.parallel.voices import (shard_compiled_state,
+                                                 voice_mesh)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "nccl"), 1), rank=0,
+        world_size=1)
+    B = 1024 if mode == "block" else 256
+    try:
+        mesh = voice_mesh(1, device="cuda")
+        runs = {}
+        for jit in (True, False):
+            c = build_electric_piano(32).compile(
+                48000.0, block_size=B, mode=mode, device="cuda", jit=jit)
+            shard_compiled_state(c, mesh)
+            for v in range(32):
+                c.queue_event("midi_in", 0,
+                              raw_midi_event([0x90, 36 + v, 100]))
+            k0 = add.launches["v4"]
+            ys = [c.process_block()["out"] for _ in range(6)]
+            torch.cuda.synchronize()
+            leaves = []
+            tree_map(leaves.append, c._state)
+            runs[jit] = (ys, add.launches["v4"] - k0, c, leaves)
+    finally:
+        dist.destroy_process_group()
+    (a, ka, ca, sa), (b, kb, _, sb) = runs[True], runs[False]
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert len(sa) == len(sb) and all(torch.equal(x, y)
+                                      for x, y in zip(sa, sb))
+    assert ka == kb == (5 if mode == "block" else 0)
+    # the chord block (eager as sample_events in sample mode) and the first
+    # steady block warm up; the other 4 replay
+    assert ca.block_counts["replayed"] == 4
+    assert ca.eager_why["sharded"] == 0
+    assert float(a[-1].abs().max()) > 0.01

@@ -128,6 +128,51 @@ def test_sharded_render_matches_unsharded(ranks, mode):
     assert np.abs(got).max() > 0.01
 
 
+@pytest.mark.parametrize("model", ["piano", "poly"])
+def test_sharded_replays_equal_eager(ranks, model):
+    """Sharded blocks with ``jit=True`` on gloo ranks on the CPU: after each
+    key's warm-up they replay (the stand-in of a captured block: the block
+    function, all-reduces included, on the capture's static buffers), equal
+    bit for bit to ``jit=False``; none is eager as ``sharded``; and the
+    render stays within this file's bounds of the port unsharded (piano
+    1e-4, poly synth 2e-6)."""
+    from torch_parallel_ranks import replay_render
+    world, res = _case(ranks, f"replay_{model}")
+    for r in res:
+        np.testing.assert_array_equal(r["out"], r["eager"])
+        assert r["backend"] == "gloo"
+        assert r["why"]["sharded"] == r["why"]["jit_off"] == 0
+        assert r["why"]["warmup"] == r["counts"]["eager"]
+        # the chord, the steady key, the ramp and the steady key after it
+        # (the ramped parameter no longer literal) warm up; the rest replay
+        assert r["counts"]["eager"] == 4 and r["counts"]["replayed"] == 5
+    want = _once(f"replay_{model}",
+                 lambda: replay_render(model, shard=False)[0])
+    np.testing.assert_allclose(res[0]["out"], want,
+                               atol={"piano": 1e-4, "poly": 2e-6}[model],
+                               rtol=0)
+    assert np.abs(want).max() > 0.01
+
+
+@pytest.mark.parametrize("jit,device,backend,why", [
+    (True, "cuda", "gloo", "sharded"),
+    (True, "cuda", "nccl", None),
+    (True, "cuda", "cpu:gloo,cuda:nccl", None),
+    (True, "cpu", "gloo", None),
+    (True, "cuda", None, None),
+    (True, "cpu", None, None),
+    (False, "cuda", "nccl", "jit_off"),
+    (False, "cpu", "gloo", "jit_off"),
+])
+def test_sharded_capture_decision(jit, device, backend, why):
+    """What ``CompiledGraph._run_block`` asks before a block: a sharded
+    block on a card whose group does not run NCCL for CUDA tensors stays
+    eager (``sharded``: gloo waits for the card on the host); an NCCL
+    group, or any group on the CPU (no CUDA graph there), is captured."""
+    from oscen_tpu_torch.graph.capture import eager_reason
+    assert eager_reason(jit, torch.device(device), backend) == why
+
+
 def test_sharded_state_placement(ranks):
     world, res = _case(ranks, "placement")
     for r in res:

@@ -286,8 +286,43 @@ def case_checkpoint(world, mode, tmp):
             "resumed": render(r, 2, "audio_out")}
 
 
+# case_replays' models: build function, output, the parameter it ramps
+REPLAY_MODELS = {
+    "piano": (build_electric_piano, "out", ("vibrato_intensity", 0.6)),
+    "poly": (build_poly_synth, "audio_out", ("resonance", 0.5)),
+}
+
+
+def replay_render(model, jit=True, shard=True):
+    """The 16-voice ``model`` of REPLAY_MODELS at B=64, sharded over the
+    group or not: a chord, 4 steady blocks, a ramp of 2 blocks and
+    ``render_steady(2)``; returns (the output, the graph)."""
+    build, out, (name, target) = REPLAY_MODELS[model]
+    c = build(16).compile(SR, block_size=64, mode="block", device="cpu",
+                          jit=jit)
+    if shard:
+        shard_compiled_state(c, voice_mesh(device="cpu"))
+    evs = [("midi_in", 0, T.raw_midi_event([0x90, 48 + i * 3, 100]))
+           for i in range(8)]
+    y = render(c, 5, out, evs)
+    c.set_value_with_ramp(name, target, 128)
+    return np.concatenate([y, render(c, 2, out),
+                           c.render_steady(2)[out].numpy()]), c
+
+
+def case_replays(world, model):
+    """``replay_render`` sharded with ``jit=True`` (the CPU stand-in
+    replays its captured blocks) and with ``jit=False``."""
+    y, c = replay_render(model)
+    return {"out": y, "eager": replay_render(model, jit=False)[0],
+            "counts": c.block_counts, "why": c.eager_why,
+            "backend": c._shard_backend}
+
+
 CASES = {
     "render_sample": lambda w: case_render(w, "sample"),
+    "replay_piano": lambda w: case_replays(w, "piano"),
+    "replay_poly": lambda w: case_replays(w, "poly"),
     "render_block": lambda w: case_render(w, "block"),
     "placement": case_placement,
     "poly32": case_poly32,
