@@ -27,8 +27,9 @@
 //  - time segments (the closed-form kernels v4, v3, v2 and the epilogue,
 //    which share one template, so K3-K5 take them with K1): each voice's
 //    block is split at subgroup boundaries into S segments, one warp each,
-//    so V x S warps fill the schedulers.  segments() (below, the one place
-//    the choice is made; ops/cuda/additive.py asks it) takes S = 4, halved
+//    so V x S warps fill the schedulers.  segments() (additive_common.cuh,
+//    the one place the choice is made; ops/cuda/additive.py and K16's
+//    ablations in kabl.cu ask it) takes S = 4, halved
 //    until S divides the B / SUB subgroups and each segment's ticket field
 //    (32 / S bits of the mix's counters) holds its arrivals: S = 4 at the
 //    piano's 256 voices for every B >= 4 SUB, S = 1 for B <= SUB, and
@@ -36,7 +37,8 @@
 //    dividing B, so S > 1 needs SUB = 64.  (4 segments measured 19.0 µs
 //    at V=256 B=1024 against 21.0 for 2 and 32.9 for 1: PERF.md.)  A
 //    segment starting at subgroup K replays the state the sequential
-//    kernel holds there (replay(), below) once per subgroup where the
+//    kernel holds there (replay(), additive_common.cuh, which kabl.cu's
+//    recur rows share) once per subgroup where the
 //    step counter is on its integer cycle 0..64, and with the kernel's
 //    own tick loop where it is not, so every segment computes the float
 //    values the sequential kernel computes, for any input (an entry step
@@ -96,36 +98,17 @@
 namespace {
 
 using oscen_additive::block_row;
+using oscen_additive::kMaxSegments;
 using oscen_additive::reduce_scatter;
+using oscen_additive::replay;
+using oscen_additive::segments;
+using oscen_additive::tickets_fit;
 
 constexpr int kMaxWarps = 32;
-// time segments per voice: at most 4 (a ticket field of 8 bits or more)
-constexpr int kMaxSegments = 4;
 // Tremolo: the tick count at which the anchored phase rebases (K_REBASE)
 constexpr float kRebase = 1048576.0f;
 // 2*pi rounded to float, as PyTorch multiplies a float32 tensor by it
 constexpr float kTau = (float)(2.0 * 3.14159265358979323846);
-
-// Whether segs segments' tickets fit their counter fields: segment seg
-// counts in field seg of 32 / segs bits, which must hold the arrivals of a
-// group (up to kMixGroup voice blocks) and of the groups.
-bool tickets_fit(int segs, int V, int warps_per_block) {
-  if (segs == 1) return true;
-  const long long mask = (1ll << (32 / segs)) - 1;
-  const int nb = (V + warps_per_block - 1) / warps_per_block;
-  const int ng = (nb + oscen_additive::kMixGroup - 1) /
-                 oscen_additive::kMixGroup;
-  return ng <= mask && oscen_additive::kMixGroup <= mask;
-}
-
-// Segments per voice for V voices, B ticks and subgroups of sub ticks
-// (the source note above).
-int segments(int V, int B, int sub, int warps_per_block) {
-  int s = kMaxSegments;
-  while (s > 1 && ((B / sub) % s || !tickets_fit(s, V, warps_per_block)))
-    s /= 2;
-  return s;
-}
 
 struct Planes {
   const float* osc_re;
@@ -224,136 +207,6 @@ __device__ __forceinline__ void finish_mix(const Planes& P, int B, int nb,
                               mask, [=](int c, float4 m) {
                                 store_mix(y, epi, pan, c, m);
                               });
-}
-
-// The state the sequential kernel holds at the start of subgroup K, from
-// the block-start state (zr, zi, tgt, D, s, p = 1), with the kernel's ops
-// in its order: K subgroup steps of the oscillator (x m^SUB) and of the
-// cycle's (tgt, D).
-//  - v3 and v2 carry s and p tick by tick.  Their replay walks whole
-//    subgroups with their own tick loop (without the harmonic sums) only
-//    while a subgroup starts off the step's cycle, i.e. with s not an
-//    integer in 0..64 (an entry step the envelope never produces: -2.5,
-//    1e-10, 70, inf, NaN; s >= 64, inf and NaN reach 0 after one tick, a
-//    stuck counter such as -1e9, where s + 1 == s, walks all K).  On the
-//    cycle s stays an integer, the subgroup from s wraps iff its wrap
-//    tick jw = (65 - s) mod 65 is below SUB, and the next subgroup starts
-//    at (s + SUB) mod 65, so (tgt, D) and s step once per subgroup, with
-//    the tick loop's values.  p depends only on the ticks since the last
-//    wrap (a wrap sets it to C): it is walked with the tick loop's own
-//    ops from that wrap, at most 65 ticks, or from the switch to the cycle
-//    (tick 0 with p = 1 for an entry step on it) if no wrap came since.
-//  - v4 steps s by its closed form, once per subgroup, and resets p at the
-//    tick j where jw == j: p is replayed tick by tick, with v4's factors,
-//    from the start of the last subgroup before K that holds such a tick
-//    (its ticks before the reset are overwritten by it), or from tick 0 if
-//    none does.  For an entry step in 0..64 a subgroup resets at least
-//    once every 65 ticks, so that is at most 64 + SUB ticks.
-template <int SUB, int VER>
-__device__ __forceinline__ void replay(int K, float msr, float msi,
-                                       float mult, float& zr, float& zi,
-                                       float& tgt, float& D, float& s,
-                                       float& p) {
-  const float C = 63.f / 64.f;
-  p = 1.f;
-  if constexpr (VER == 4) {
-    int kr = -1;        // the last subgroup before K that resets p
-    float sr = 0.f;     // its entry step
-    const float s0 = s;
-#pragma unroll 1
-    for (int k = 0; k < K; ++k) {
-      const float tgtm = tgt * mult;
-      const float G1 = tgtm - tgt;
-      const bool at0 = s == 0.f;
-      const float jw = at0 ? 0.f : 65.f - s;
-      const bool w_last = jw <= (float)(SUB - 1);
-      if (w_last && jw >= 0.f && jw == floorf(jw)) {   // jw in 0..SUB-1
-        kr = k;
-        sr = s;
-      }
-      const float nzr = zr * msr - zi * msi;
-      const float nzi = zr * msi + zi * msr;
-      zr = nzr;
-      zi = nzi;
-      tgt = w_last ? tgtm : tgt;
-      D = w_last ? -G1 : D;
-      const float t = s + (float)SUB;
-      s = t >= 65.f ? t - 65.f : t;
-    }
-    float sk = kr >= 0 ? sr : s0;
-#pragma unroll 1
-    for (int k = kr >= 0 ? kr : 0; k < K; ++k) {
-      const bool at0 = sk == 0.f;
-      const float jw = at0 ? 0.f : 65.f - sk;
-      const float basef = sk * (-1.f / 64.f);
-      const float addf = at0 ? 0.f : 65.f / 64.f;
-#pragma unroll 8
-      for (int j = 0; j < SUB; ++j) {
-        const bool wfb = jw <= (float)j;
-        const float cjb = basef + (63.f - (float)j) * (1.f / 64.f);
-        const float f = cjb + (wfb ? addf : 0.f);
-        p = (jw == (float)j) ? C : p * f;
-      }
-      const float t = sk + (float)SUB;
-      sk = t >= 65.f ? t - 65.f : t;
-    }
-  } else {
-    // (a) off the cycle: whole subgroups of the kernel's own tick loop
-    int k = 0;
-#pragma unroll 1
-    for (; k < K && !(s == floorf(s) && s >= 0.f && s <= 64.f); ++k) {
-      const float tgtm = tgt * mult;
-      const float G1 = tgtm - tgt;
-      const float D2 = tgt - tgtm;
-      bool wrapped = false;
-#pragma unroll 8
-      for (int j = 0; j < SUB; ++j) {
-        const bool wrap = s == 0.f;
-        wrapped = wrapped || wrap;
-        p = wrap ? C : p * (1.f - (s + 1.f) / 64.f);
-        s = s < 64.f ? s + 1.f : 0.f;
-      }
-      const float nzr = zr * msr - zi * msi;
-      const float nzi = zr * msi + zi * msr;
-      zr = nzr;
-      zi = nzi;
-      tgt = wrapped ? tgtm : tgt;
-      D = wrapped ? (VER == 2 ? D2 : -G1) : D;
-    }
-    // (b) on the cycle (s an integer in 0..64, and so it stays): the step
-    // and the wrap once per subgroup, as v4 steps them.  tw and sw are the
-    // tick and the step p is walked from: the last wrap, else the switch.
-    int tw = k * SUB;
-    float sw = s;
-#pragma unroll 1
-    for (; k < K; ++k) {
-      const float tgtm = tgt * mult;
-      const float G1 = tgtm - tgt;
-      const float D2 = tgt - tgtm;
-      const float jw = s == 0.f ? 0.f : 65.f - s;   // the tick s is 0
-      const bool wrapped = jw <= (float)(SUB - 1);
-      if (wrapped) {
-        tw = k * SUB + (int)jw;
-        sw = 0.f;
-      }
-      const float nzr = zr * msr - zi * msi;
-      const float nzi = zr * msi + zi * msr;
-      zr = nzr;
-      zi = nzi;
-      tgt = wrapped ? tgtm : tgt;
-      D = wrapped ? (VER == 2 ? D2 : -G1) : D;
-      const float t = s + (float)SUB;
-      s = t >= 65.f ? t - 65.f : t;
-    }
-    // (c) p by the tick loop's own ops from tick tw, at most 65 ticks.  No
-    // wrap follows tw before the segment, so the step never passes 64
-    // there and its reset to 0 is never taken.
-#pragma unroll 1
-    for (int i = tw; i < K * SUB; ++i) {
-      p = sw == 0.f ? C : p * (1.f - (sw + 1.f) / 64.f);
-      sw = sw + 1.f;
-    }
-  }
 }
 
 // The closed-form kernels over subgroups of SUB ticks (at most one envelope

@@ -13,7 +13,9 @@
 //
 // A launch may run several tick ranges (segments) of the same rows at
 // once: each segment counts in its own field of the counter words, and
-// its finishers sum only its columns.
+// its finishers sum only its columns.  segments() picks how many, and
+// replay() rebuilds the state of a closed-form voice (v4, v3, v2) at a
+// segment's first subgroup; additive.cu and kabl.cu both ask them.
 
 #pragma once
 
@@ -186,6 +188,166 @@ __device__ __forceinline__ void finish_rows(float* part, unsigned* cnt,
     if (c1 >= 0) store(c1, a1);
   }
   if (threadIdx.x == 0) atomicAdd(&cnt[0], 0u - (unsigned)ng * unit);
+}
+
+// time segments per voice: at most 4 (a ticket field of 8 bits or more)
+constexpr int kMaxSegments = 4;
+
+// Whether segs segments' tickets fit their counter fields: segment seg
+// counts in field seg of 32 / segs bits, which must hold the arrivals of a
+// group (up to kMixGroup voice blocks) and of the groups.
+inline bool tickets_fit(int segs, int V, int warps_per_block) {
+  if (segs == 1) return true;
+  const long long mask = (1ll << (32 / segs)) - 1;
+  const int nb = (V + warps_per_block - 1) / warps_per_block;
+  const int ng = (nb + kMixGroup - 1) / kMixGroup;
+  return ng <= mask && kMixGroup <= mask;
+}
+
+// Segments per voice for V voices, B ticks and subgroups of sub ticks
+// (additive.cu's source note): kMaxSegments, halved until they divide the
+// B / sub subgroups and their tickets fit.
+inline int segments(int V, int B, int sub, int warps_per_block) {
+  int s = kMaxSegments;
+  while (s > 1 && ((B / sub) % s || !tickets_fit(s, V, warps_per_block)))
+    s /= 2;
+  return s;
+}
+
+// The state the sequential kernel holds at the start of subgroup K, from
+// the block-start state (zr, zi, tgt, D, s, p = 1), with the kernel's ops
+// in its order: K subgroup steps of the oscillator (x m^SUB) and of the
+// cycle's (tgt, D).
+//  - v3 and v2 carry s and p tick by tick.  Their replay walks whole
+//    subgroups with their own tick loop (without the harmonic sums) only
+//    while a subgroup starts off the step's cycle, i.e. with s not an
+//    integer in 0..64 (an entry step the envelope never produces: -2.5,
+//    1e-10, 70, inf, NaN; s >= 64, inf and NaN reach 0 after one tick, a
+//    stuck counter such as -1e9, where s + 1 == s, walks all K).  On the
+//    cycle s stays an integer, the subgroup from s wraps iff its wrap
+//    tick jw = (65 - s) mod 65 is below SUB, and the next subgroup starts
+//    at (s + SUB) mod 65, so (tgt, D) and s step once per subgroup, with
+//    the tick loop's values.  p depends only on the ticks since the last
+//    wrap (a wrap sets it to C): it is walked with the tick loop's own
+//    ops from that wrap, at most 65 ticks, or from the switch to the cycle
+//    (tick 0 with p = 1 for an entry step on it) if no wrap came since.
+//  - v4 steps s by its closed form, once per subgroup, and resets p at the
+//    tick j where jw == j: p is replayed tick by tick, with v4's factors,
+//    from the start of the last subgroup before K that holds such a tick
+//    (its ticks before the reset are overwritten by it), or from tick 0 if
+//    none does.  For an entry step in 0..64 a subgroup resets at least
+//    once every 65 ticks, so that is at most 64 + SUB ticks.
+// W2 (v3 only): (tgt, D) step by kabl2's rule instead of the wrap seen in
+// the subgroup: they move to the next cycle iff the step after the
+// subgroup, s', is 0 or s' >= 66 - SUB (kabl.cu's recur2 rows); p and s
+// still walk v3's chain.
+template <int SUB, int VER, bool W2 = false>
+__device__ __forceinline__ void replay(int K, float msr, float msi,
+                                       float mult, float& zr, float& zi,
+                                       float& tgt, float& D, float& s,
+                                       float& p) {
+  const float C = 63.f / 64.f;
+  p = 1.f;
+  if constexpr (VER == 4) {
+    int kr = -1;        // the last subgroup before K that resets p
+    float sr = 0.f;     // its entry step
+    const float s0 = s;
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const float tgtm = tgt * mult;
+      const float G1 = tgtm - tgt;
+      const bool at0 = s == 0.f;
+      const float jw = at0 ? 0.f : 65.f - s;
+      const bool w_last = jw <= (float)(SUB - 1);
+      if (w_last && jw >= 0.f && jw == floorf(jw)) {   // jw in 0..SUB-1
+        kr = k;
+        sr = s;
+      }
+      const float nzr = zr * msr - zi * msi;
+      const float nzi = zr * msi + zi * msr;
+      zr = nzr;
+      zi = nzi;
+      tgt = w_last ? tgtm : tgt;
+      D = w_last ? -G1 : D;
+      const float t = s + (float)SUB;
+      s = t >= 65.f ? t - 65.f : t;
+    }
+    float sk = kr >= 0 ? sr : s0;
+#pragma unroll 1
+    for (int k = kr >= 0 ? kr : 0; k < K; ++k) {
+      const bool at0 = sk == 0.f;
+      const float jw = at0 ? 0.f : 65.f - sk;
+      const float basef = sk * (-1.f / 64.f);
+      const float addf = at0 ? 0.f : 65.f / 64.f;
+#pragma unroll 8
+      for (int j = 0; j < SUB; ++j) {
+        const bool wfb = jw <= (float)j;
+        const float cjb = basef + (63.f - (float)j) * (1.f / 64.f);
+        const float f = cjb + (wfb ? addf : 0.f);
+        p = (jw == (float)j) ? C : p * f;
+      }
+      const float t = sk + (float)SUB;
+      sk = t >= 65.f ? t - 65.f : t;
+    }
+  } else {
+    // (a) off the cycle: whole subgroups of the kernel's own tick loop
+    int k = 0;
+#pragma unroll 1
+    for (; k < K && !(s == floorf(s) && s >= 0.f && s <= 64.f); ++k) {
+      const float tgtm = tgt * mult;
+      const float G1 = tgtm - tgt;
+      const float D2 = tgt - tgtm;
+      bool wrapped = false;
+#pragma unroll 8
+      for (int j = 0; j < SUB; ++j) {
+        const bool wrap = s == 0.f;
+        wrapped = wrapped || wrap;
+        p = wrap ? C : p * (1.f - (s + 1.f) / 64.f);
+        s = s < 64.f ? s + 1.f : 0.f;
+      }
+      const float nzr = zr * msr - zi * msi;
+      const float nzi = zr * msi + zi * msr;
+      zr = nzr;
+      zi = nzi;
+      const bool w = W2 ? (s == 0.f || s >= 66.f - (float)SUB) : wrapped;
+      tgt = w ? tgtm : tgt;
+      D = w ? (VER == 2 ? D2 : -G1) : D;
+    }
+    // (b) on the cycle (s an integer in 0..64, and so it stays): the step
+    // and the wrap once per subgroup, as v4 steps them.  tw and sw are the
+    // tick and the step p is walked from: the last wrap, else the switch.
+    int tw = k * SUB;
+    float sw = s;
+#pragma unroll 1
+    for (; k < K; ++k) {
+      const float tgtm = tgt * mult;
+      const float G1 = tgtm - tgt;
+      const float D2 = tgt - tgtm;
+      const float jw = s == 0.f ? 0.f : 65.f - s;   // the tick s is 0
+      const bool wrapped = jw <= (float)(SUB - 1);
+      if (wrapped) {
+        tw = k * SUB + (int)jw;
+        sw = 0.f;
+      }
+      const float nzr = zr * msr - zi * msi;
+      const float nzi = zr * msi + zi * msr;
+      zr = nzr;
+      zi = nzi;
+      const float t = s + (float)SUB;
+      s = t >= 65.f ? t - 65.f : t;
+      const bool w = W2 ? (s == 0.f || s >= 66.f - (float)SUB) : wrapped;
+      tgt = w ? tgtm : tgt;
+      D = w ? (VER == 2 ? D2 : -G1) : D;
+    }
+    // (c) p by the tick loop's own ops from tick tw, at most 65 ticks.  No
+    // wrap follows tw before the segment, so the step never passes 64
+    // there and its reset to 0 is never taken.
+#pragma unroll 1
+    for (int i = tw; i < K * SUB; ++i) {
+      p = sw == 0.f ? C : p * (1.f - (sw + 1.f) / 64.f);
+      sw = sw + 1.f;
+    }
+  }
 }
 
 }  // namespace oscen_additive

@@ -35,11 +35,17 @@
 // fm.cu's body (y staged), (6) the chain warp reading no shared memory,
 // (7) the producer copying nothing.
 //
+// probe_fract_direct: K17's direct layout (csrc/fractabl.cu: K12's body,
+// the short wrap on a lane whose p0 and dt lie in [+0, 1)) storing its
+// [B, 3, V] output (0, the tool's layout) or K12's [3, B, V] (1): what the
+// layout alone costs against K12.
+//
 // Built like the other sources (--fmad=false); variants by number, as
 // tools/scanprobe.py names them.
 #include <cuda_runtime.h>
 
 #include "scan_stage.cuh"
+#include "short_wrap.cuh"
 
 namespace {
 
@@ -749,7 +755,49 @@ cudaError_t launch_operator_ring(OSCEN_OPERATOR_ARGS, cudaStream_t st) {
 
 }  // namespace probe_fm
 
+// K17 direct's body into [B, 3, V] (K12_LAYOUT 0) or [3, B, V] (1)
+template <int K12_LAYOUT>
+__global__ void __launch_bounds__(32)
+fract_direct_probe(const float* __restrict__ phases,
+                   const float* __restrict__ dt, float* __restrict__ out,
+                   float* __restrict__ carry, int V, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 3 * V) return;
+  float p = phases[i];
+  const float d = dt[i];
+  const int r = i / V;
+  float* o = K12_LAYOUT ? out + (size_t)r * B * V + (i - r * V) : out + i;
+  const size_t stride = K12_LAYOUT ? (size_t)V : (size_t)3 * V;
+  if (__float_as_uint(p) < 0x3F800000u && __float_as_uint(d) < 0x3F800000u) {
+#pragma unroll 8
+    for (int t = 0; t < B; ++t) {
+      o[(size_t)t * stride] = p;
+      p = oscen_wrap::short_wrap(p + d);
+    }
+  } else {
+#pragma unroll 8
+    for (int t = 0; t < B; ++t) {
+      o[(size_t)t * stride] = p;
+      const float q = p + d;
+      p = q - truncf(q);
+    }
+  }
+  carry[i] = p;
+}
+
 extern "C" {
+
+int probe_fract_direct(int k12_layout, const float* phases, const float* dt,
+                       float* out, float* carry, int V, int B,
+                       void* stream) {
+  const dim3 grid((3 * V + 31) / 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k12_layout)
+    fract_direct_probe<1><<<grid, 32, 0, st>>>(phases, dt, out, carry, V, B);
+  else
+    fract_direct_probe<0><<<grid, 32, 0, st>>>(phases, dt, out, carry, V, B);
+  return (int)cudaGetLastError();
+}
 
 int probe_phase(int variant, const float* phase0, const float* dt,
                 float* before, float* carry, int V, int B, void* stream) {

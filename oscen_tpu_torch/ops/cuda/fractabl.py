@@ -16,7 +16,11 @@ stored) and stores it differently:
   all segments replayed in parallel into a j-major ``[SEG, 3 * S, V]``
   output (:func:`seg_planes` un-permutes it, as ``fractabl2.py:144-147``).
 
-Every layout is bit-equal to ``fract_phase3``.  :func:`consume` is
+On the card every layout steps as K12 does: a lane whose p0 and dt lie in
+``[+0, 1)`` by the short exact wrap ``q - (q >= 1)``, every other lane by
+``q - trunc(q)`` (``csrc/short_wrap.cuh``), so each prices its store
+layout against K12's body alone.  Every layout is bit-equal to
+``fract_phase3``.  :func:`consume` is
 ``fractabl2``'s consumer, the zero-feedback FM chain's sines, routing and
 envelopes (``fractabl2.py:48-55``); it stays plain PyTorch.
 

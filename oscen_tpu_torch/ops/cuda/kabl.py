@@ -7,12 +7,19 @@ Counterpart of the JAX package's ablation tools ``tools/kabl.py`` ..
 the voices mixed into ``y``, with one cost removed or one mechanism swapped.
 Three kernels:
 
-- ``kabl_tick`` (kernel A, ``csrc/kabl.cu``): K3's layout with each
-  ablation a compile-time switch;
+- ``kabl_tick`` (kernel A, ``csrc/kabl.cu``): K3's layout, time segments
+  included, with each ablation a compile-time switch;
 - ``kabl_mma`` (kernel B, same file): the variants whose TPU form is an MXU
   product, as ``mma.sync`` bf16 products (one-hot rows, the bf16 reduce);
 - ``kabl_hmaj`` (kernel C, ``csrc/kabl_hmaj.cu``): the harmonic-major form
   of ``kabl5``.
+
+Each kernel splits every voice's block into time segments
+(:func:`segments` asks the built library how many) and rebuilds each
+segment's start state bit for bit, so its outputs are one warp's per voice
+(``tests/test_torch_kabl_segments.py`` models the replays on the CPU
+against :func:`plain_body` / :func:`plain_hmaj_body`, the plain versions
+from any subgroup's state).
 
 :data:`VARIANTS` names the kernel bodies by what they switch; ``TOOLS``
 maps each tool's variant names to them (``oscen_tpu_torch/tools``).
@@ -142,19 +149,53 @@ def zero_table(B: int, device) -> torch.Tensor:
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 
-def _mix_scratch(dev, n_blk: int, B: int, tiles: int = 1):
+def _mix_scratch(dev, n_blk: int, B: int, tiles: int = 1,
+                 words_per_tile: int = 1):
     """The fixed-order mix's rows, per tile, and zeroed ticket counters,
     shared by every launch (each leaves them zeroed; launches on one
-    stream)."""
+    stream): kernels A and B count every time segment in its own field of
+    the ``1 + groups`` words, kernel C in ``words_per_tile`` (its segments)
+    sets of its own."""
     n_grp = -(-n_blk // MIX_GROUP)
     part = torch.empty((tiles * (n_blk + n_grp), B), dtype=torch.float32,
                        device=dev)
-    n = tiles * (1 + n_grp)
+    n = tiles * words_per_tile * (1 + n_grp)
     cnt = _counters.get(dev)
     if cnt is None or cnt.numel() < n:
         cnt = _counters[dev] = torch.zeros((n,), dtype=torch.int32,
                                            device=dev)
     return part, cnt
+
+
+def segments(body: str, V: int, B: int, U: int = 64) -> int:
+    """Time segments per voice the card runs ``body`` (a key of
+    :data:`VARIANTS` or :data:`HMAJ`, or ``k3`` / ``k1``) in at ``V``
+    voices, ``B`` ticks and body length ``U``, as the built library picks
+    them: kernels A and B by K1's rule (``csrc/additive_common.cuh``'s
+    ``segments()``: 4, halved until they divide the subgroups and their
+    ticket fields hold the voice groups; defer and drop halve further until
+    U divides a segment), kernel C 16, halved until they divide the
+    subgroups, ``k3`` / ``k1`` K3's and K1's own at SUB=32.  Card only
+    (it loads the library)."""
+    import ctypes
+
+    from . import build
+    if body in ("k3", "k1"):
+        from . import additive
+        return additive.segments(V, B, 32)
+    if body in HMAJ:
+        fn = build.load_library("kabl_hmaj").oscen_kabl_hmaj_segments
+        fn.argtypes = [ctypes.c_int]
+        args = (B,)
+    else:
+        fn = build.load_library("kabl").oscen_kabl_segments
+        fn.argtypes = [ctypes.c_int] * 4
+        args = (list(VARIANTS).index(body), V, B, U)
+    fn.restype = ctypes.c_int
+    segs = fn(*args)
+    if segs < 1:
+        raise ValueError(f"{body}: no segments for V={V} B={B} U={U}")
+    return segs
 
 
 def _check_operands(dev, H, **ops):
@@ -308,11 +349,22 @@ def _defer_sum(prod):
     return t.sum()
 
 
-def plain_block(body: str, osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
-                step, B: int, U: int = 64, cur_in: bool = False, tbl=None):
-    """The tools' kernels in plain PyTorch, per subgroup and tick in their
-    op order: ``make_kernel`` of ``kabl.py:22``, ``kabl2.py:26``,
-    ``kabl3.py:21``, ``kabl4.py:35``, ``kabl6.py:37``."""
+def entry_state(osc_re, osc_im, cur, tgt, step):
+    """The block-start state ``(zr, zi, tgt, D, s, p)`` of the tick-major
+    bodies: a wrap at the first tick takes its cycle base from ``cur``."""
+    tgt = torch.where(step == 0.0, cur, tgt)
+    return osc_re, osc_im, tgt, cur - tgt, step, torch.ones_like(step)
+
+
+def plain_body(body: str, state, mul_re, mul_im, mult, k0: int, k1: int,
+               step0=None, tbl=None):
+    """Subgroups ``k0 .. k1 - 1`` of ``body``'s block from ``state`` (the
+    state at subgroup ``k0``, as :func:`entry_state` gives it at 0), in the
+    tools' op order; returns (one value per tick: the per-voice harmonic
+    sums ``[V]`` (lane 0's product with ``red="lane0"``), or the tick's
+    tree sum with ``red="defer"``; the state after subgroup ``k1 - 1``).
+    The one-hot rows take the table ``tbl`` and the block's entry step
+    ``step0``."""
     sp = VARIANTS[body]
     SUB = sp.sub
     bf = torch.bfloat16
@@ -331,21 +383,17 @@ def plain_block(body: str, osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
         mjr3 = [m.to(bf) for m in mjr3]
     scr = oh = None
     if sp.rows in ONEHOT_ROWS:
-        iota = torch.arange(TBL_COLS, device=step.device)[:, None]
-        oh = (iota == step.to(torch.int32)).to(torch.float32)   # [72, V]
+        B = tbl.shape[0] // 4
+        iota = torch.arange(TBL_COLS, device=step0.device)[:, None]
+        oh = (iota == step0.to(torch.int32)).to(torch.float32)   # [72, V]
         tblf = tbl.to(torch.float32)
         if sp.rows == "onehot_all":
             scr = tblf[:2 * B] @ oh + tblf[2 * B:4 * B] @ oh     # [2B, V]
         # dot32 / dot4: products the tool discards (nothing reads them)
 
-    s = step
-    zr, zi = osc_re, osc_im
-    tgt = torch.where(s == 0.0, cur, tgt)
-    D = cur - tgt
-    p = torch.ones_like(s)
-    ys = []
-    y00 = None
-    for k in range(B // SUB):
+    zr, zi, tgt, D, s, p = state
+    rows = []
+    for k in range(k0, k1):
         tgtm = tgt * mult
         G1 = tgtm - tgt
         wrapped = torch.zeros_like(s, dtype=torch.bool)
@@ -373,7 +421,6 @@ def plain_block(body: str, osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
         if lowp:
             zrb, zib, tgtb, Db, G1b = (x.to(bf) for x in (zr, zi, tgt, D,
                                                             G1))
-        rows = []
         for j in range(SUB):
             if lowp:
                 ampb = (r2s[j].to(bf) * G1b + (r1s[j].to(bf) * Db + tgtb))
@@ -386,16 +433,9 @@ def plain_block(body: str, osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
                 prod = im if sp.amp == "none" else im * amp
             if sp.red == "defer":
                 rows.append(_defer_sum(prod))
-                continue
-            row = prod[0] if sp.red == "lane0" else prod.sum(dim=0)   # [V]
-            if sp.out == "drop":
-                # y = 0 + Y[0, 0] * 0 per body of U ticks (kabl4.py:149)
-                if (k * SUB + j) % U == 0:
-                    y00 = row[0]
-                rows.append(0.0 + y00 * 0.0)
             else:
-                rows.append(row.sum())
-        ys.append(torch.stack(rows))
+                rows.append(prod[0] if sp.red == "lane0"
+                            else prod.sum(dim=0))   # [V]
         zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
         if sp.rows in ("recur", "fixed"):
             w_last = wrapped
@@ -412,7 +452,31 @@ def plain_block(body: str, osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
             s = torch.where(s >= 65.0, s - 65.0, s)
         tgt = torch.where(w_last, tgtm, tgt)
         D = torch.where(w_last, -G1, D)
-    return (torch.cat(ys)[:, None], zr, zi, (cur if cur_in else tgt), tgt,
+    return rows, (zr, zi, tgt, D, s, p)
+
+
+def plain_block(body: str, osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
+                step, B: int, U: int = 64, cur_in: bool = False, tbl=None):
+    """The tools' kernels in plain PyTorch, per subgroup and tick in their
+    op order: ``make_kernel`` of ``kabl.py:22``, ``kabl2.py:26``,
+    ``kabl3.py:21``, ``kabl4.py:35``, ``kabl6.py:37``
+    (:func:`plain_body` over the whole block, then the mix)."""
+    sp = VARIANTS[body]
+    rows, (zr, zi, tgt, _, s, _) = plain_body(
+        body, entry_state(osc_re, osc_im, cur, tgt, step), mul_re, mul_im,
+        mult, 0, B // sp.sub, step, tbl)
+    if sp.red == "defer":
+        ys = rows
+    elif sp.out == "drop":
+        # y = 0 + Y[0, 0] * 0 per body of U ticks (kabl4.py:149)
+        ys, y00 = [], None
+        for t, row in enumerate(rows):
+            if t % U == 0:
+                y00 = row[0]
+            ys.append(0.0 + y00 * 0.0)
+    else:
+        ys = [row.sum() for row in rows]
+    return (torch.stack(ys)[:, None], zr, zi, (cur if cur_in else tgt), tgt,
             s)
 
 
@@ -488,7 +552,8 @@ def hmaj_block(body: str, osc_re, osc_im, ti3, tr3, msr, msi, cur, tgt,
         ops.update(r1=(r1, (B, V)), r2=(r2, (B, V)))
     _check_operands(dev, H, **ops)
     y = torch.empty((B, 128 * tiles), dtype=torch.float32, device=dev)
-    part, cnt = _mix_scratch(dev, V // HMAJ_VOICES // tiles, B, tiles)
+    part, cnt = _mix_scratch(dev, V // HMAJ_VOICES // tiles, B, tiles,
+                             segments(body, V, B))
     outs = [torch.empty((H, V), dtype=torch.float32, device=dev)
             for _ in range(4)]
     step_o = torch.empty((1, V), dtype=torch.float32, device=dev)
@@ -503,21 +568,19 @@ def hmaj_block(body: str, osc_re, osc_im, ti3, tr3, msr, msi, cur, tgt,
     return (y, *outs, step_o)
 
 
-def plain_hmaj(body: str, osc_re, osc_im, ti3, tr3, msr, msi, cur, tgt,
-               mult, step, B: int, r1=None, r2=None):
-    """``make_hmaj`` (``kabl5.py:113``) in plain PyTorch: per subgroup the
-    rows (cumprod, or read), then the harmonic loop over ``[SUB, V]``
-    accumulators; each tile's mix broadcast over its 128 columns."""
-    ext, tiles = HMAJ[body]
-    H, V = osc_re.shape
+def plain_hmaj_body(state, ti3, tr3, msr, msi, mult, k0: int, k1: int,
+                    r1=None, r2=None):
+    """Subgroups ``k0 .. k1 - 1`` of ``make_hmaj`` (``kabl5.py:113``) from
+    ``state`` (the state at subgroup ``k0``): per subgroup the rows
+    (cumprod, or read from ``r1`` / ``r2`` ``[B, V]``), then the harmonic
+    loop over ``[SUB, V]`` accumulators; returns (the accumulators of each
+    subgroup, the state after subgroup ``k1 - 1``)."""
+    zr, zi, tgt, D, s, p = state
+    H, V = zr.shape
     SUB = ti3.shape[0] // H
-    zr, zi, s = osc_re, osc_im, step
-    tgt = torch.where(s == 0.0, cur, tgt)
-    D = cur - tgt
-    p = torch.ones_like(s)
-    ys = []
-    for k in range(B // SUB):
-        if ext:
+    accs = []
+    for k in range(k0, k1):
+        if r1 is not None:
             r1P, r2P = r1[k * SUB:(k + 1) * SUB], r2[k * SUB:(k + 1) * SUB]
             _, _, p, s, w_last = rows_scan(p, s, SUB)
         else:
@@ -532,11 +595,26 @@ def plain_hmaj(body: str, osc_re, osc_im, ti3, tr3, msr, msi, cur, tgt,
             amp = r1P * D[h:h + 1] + tgt[h:h + 1]
             amp = r2P * G1[h:h + 1] + amp
             acc = acc + im * amp
-        mix = acc.reshape(SUB, tiles, V // tiles).sum(dim=2)   # [SUB, tiles]
-        ys.append(mix.repeat_interleave(128, dim=1))
+        accs.append(acc)
         zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
         tgt = torch.where(w_last, tgtm, tgt)
         D = torch.where(w_last, -G1, D)
+    return accs, (zr, zi, tgt, D, s, p)
+
+
+def plain_hmaj(body: str, osc_re, osc_im, ti3, tr3, msr, msi, cur, tgt,
+               mult, step, B: int, r1=None, r2=None):
+    """``make_hmaj`` (``kabl5.py:113``) in plain PyTorch
+    (:func:`plain_hmaj_body` over the whole block); each tile's mix
+    broadcast over its 128 columns."""
+    ext, tiles = HMAJ[body]
+    H, V = osc_re.shape
+    SUB = ti3.shape[0] // H
+    accs, (zr, zi, tgt, _, s, _) = plain_hmaj_body(
+        entry_state(osc_re, osc_im, cur, tgt, step), ti3, tr3, msr,
+        msi, mult, 0, B // SUB, r1 if ext else None, r2 if ext else None)
+    ys = [acc.reshape(SUB, tiles, V // tiles).sum(dim=2)   # [SUB, tiles]
+          .repeat_interleave(128, dim=1) for acc in accs]
     return torch.cat(ys), zr, zi, tgt, tgt, s
 
 

@@ -56,13 +56,18 @@ WINDOWS = 7
 # segment first walks the rotation from tick 0 (``REPLAY_OPS``: * m, then
 # the complex sum), so the last segment's warp carries 2 ops over the
 # B - B / segments ticks before it.  K17's ``fract_abl`` walks K12's
-# fract chain (3); K16's bodies are not counted.
+# fract chain (3).  K16's tick-major bodies (``kabl_tick``, ``kabl_mma``)
+# carry v3's 2 over each time segment's ticks; its harmonic-major body
+# (``kabl_hmaj``) 1 (a thread's accumulation over the harmonics, one add a
+# harmonic for each of a subgroup's ticks in parallel: SUB adds a subgroup
+# of SUB ticks).
 CHAIN_OPS = {"phase_scan": 3, "tpt_svf_scan": 7, "adsr_scan": 3,
              "adsr_release": 4,
              "fract_phase3": 3, "fract_abl": 3, "fm_chain3_scan": 15,
              "pivot_chain3_scan": 15, "fm_operator_scan": 17,
              "lp18_scan": 8, "biquad_scan": 6, "allpass_cascade_scan": 3,
-             "v4": 2, "v3": 2, "v2": 2, "v4_epilogue": 2, "parity": 3}
+             "v4": 2, "v3": 2, "v2": 2, "v4_epilogue": 2, "parity": 3,
+             "kabl_tick": 2, "kabl_mma": 2, "kabl_hmaj": 1}
 REPLAY_OPS = {"parity": 2}
 CHAIN_CYCLES = 4   # dependent float32 issue latency on Hopper
 

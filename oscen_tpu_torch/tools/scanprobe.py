@@ -1,7 +1,7 @@
 """Where the scans' and the additive voice's time goes, and the redesigns
 against the old bodies, on the card.
 
-    python -m oscen_tpu_torch.tools.scanprobe [--old DIR]
+    python -m oscen_tpu_torch.tools.scanprobe [--old DIR [--ablations]]
 
 Three parts, one line per row:
 
@@ -93,7 +93,16 @@ Three parts, one line per row:
   own, so none also says ``(s + 1) / 64`` is a product), and
   ``fract_phase3_kernel``'s, with its FRND and FSET, and ptxas's
   registers for both; the run fails on LDL / STL or FFMA in a new parity
-  instance or LDL / STL in the new ``fract_phase3_kernel``.
+  instance or LDL / STL in the new ``fract_phase3_kernel``.  Then the
+  ablation kernels (``ab_ablations``; alone with ``--ablations``): every
+  K16 body (``csrc/kabl.cu``, ``csrc/kabl_hmaj.cu``) at its tool's inputs
+  (V=256, B=1024, the one-hot rows on a seeded random table), with the
+  new body's time segments per voice, and K17's three layouts
+  (``csrc/fractabl.cu``) at B=1024 and 4096 on the models' lanes and off
+  them; each new output ``torch.equal`` to the old build's, y included,
+  and the state planes (K17: every output) to the plain version; and
+  (``probe_fract_layout``) K17 direct's body into the tool's ``[B, 3,
+  V]`` and into K12's ``[3, B, V]``, beside K17 direct and K12.
 
 Times are device µs per launch from CUDA events around 20 back-to-back
 launches queued behind a ~2 ms sleep kernel (``tools.event_us``: the
@@ -121,6 +130,8 @@ from ..ops.cuda import adsr as kadsr
 from ..ops.cuda import additive as add
 from ..ops.cuda import build, iir
 from ..ops.cuda import fm as kfm
+from ..ops.cuda import fractabl as kfa
+from ..ops.cuda import kabl as kab
 from ..ops.cuda import phase as kphase
 
 WINDOWS = 5
@@ -215,6 +226,7 @@ def _probe_lib():
     _typed(lib.probe_chain, [I, I] + [P] * 11 + [I] * 3 + [P])
     _typed(lib.probe_biquad, [I] + [P] * 11 + [I] * 7 + [P])
     _typed(lib.probe_operator, [I] + [P] * 10 + [I] * 2 + [P])
+    _typed(lib.probe_fract_direct, [I] + [P] * 4 + [I] * 2 + [P])
     return lib
 
 
@@ -1094,24 +1106,235 @@ def ab(dev, old: Path, mhz):
               f"windows", flush=True)
 
 
+# K17's rows: the models' lanes (the short wrap) and lanes off it (every
+# p0 below 0: truncf), at B=1024 and 4096
+FRACT_AB = tuple((lanes, B) for lanes in ("on", "off") for B in (1024, 4096))
+
+
+def _ablation_entries(csrc: Path):
+    """One tree's K16 and K17 entry points, typed."""
+    return {
+        "kabl": _typed(build.load_library("kabl", csrc).oscen_kabl,
+                       [P] * 18 + [I] * 5 + [P]),
+        "kabl_hmaj": _typed(build.load_library("kabl_hmaj", csrc)
+                            .oscen_kabl_hmaj, [P] * 20 + [I] * 4 + [P]),
+        "fract_abl": _typed(build.load_library("fractabl", csrc)
+                            .oscen_fract_abl, [P] * 4 + [I] * 3 + [P]),
+    }
+
+
+def _kabl_launcher(fns, tool, name, x, B, cnt):
+    """One launch of ``tool``'s variant ``name`` through one tree's entries
+    (``fns``) on the inputs ``x``, its outputs preallocated and the mix's
+    ticket counters ``cnt`` (zeroed, large enough for either tree: each
+    launch leaves them zeroed); returns the tools' outputs as
+    ``kabl.run_variant`` does."""
+    run_ = kab.TOOLS[tool][name]
+    body = run_.body
+    dev = x["osc_re"].device
+    H, V = x["osc_re"].shape
+    outs = [torch.empty((H, V), device=dev) for _ in range(4)]
+    step_o = torch.empty((1, V), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    if body in kab.HMAJ:
+        ext, tiles = kab.HMAJ[body]
+        y = torch.empty((B, 128 * tiles), device=dev)
+        n_blk = V // kab.HMAJ_VOICES // tiles
+        part = torch.empty((tiles * (n_blk + -(-n_blk // kab.MIX_GROUP)), B),
+                           device=dev)
+        planes = [x[k] for k in kab.HMAJ_PLANES]
+        rows = [x["r1"].data_ptr(), x["r2"].data_ptr()] if ext \
+            else [None, None]
+
+        def run():
+            _check(fns["kabl_hmaj"](
+                *[t.data_ptr() for t in planes], x["step"].data_ptr(),
+                *rows, y.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                *[t.data_ptr() for t in outs], step_o.data_ptr(), int(ext),
+                tiles, V, B, stream), f"kabl_hmaj {body}")
+            return (y, *outs, step_o)
+        return run
+    sp = kab.VARIANTS[body]
+    nw = kab.MMA_WARPS if kab.kernel_of(body) == kab.KERNEL_B \
+        else kab.TICK_WARPS
+    y = torch.empty((B,), device=dev)
+    part = keep = None
+    if sp.out == "store":
+        n_blk = -(-V // nw)
+        part = torch.empty((n_blk + -(-n_blk // kab.MIX_GROUP), B),
+                           device=dev)
+    else:
+        keep = torch.empty((H, V), device=dev)
+    planes = [x[k] for k in kab.PLANES]
+    tbl = x["tbl"] if sp.rows in kab.ONEHOT_ROWS else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def run():
+        _check(fns["kabl"](
+            *[t.data_ptr() for t in planes], x["step"].data_ptr(), ptr(tbl),
+            y.data_ptr(), ptr(part), None if part is None else cnt.data_ptr(),
+            ptr(keep), *[t.data_ptr() for t in outs], step_o.data_ptr(),
+            list(kab.VARIANTS).index(body), V, B, run_.u, int(run_.cur_in),
+            stream), f"kabl {body}")
+        return (y[:, None], *outs, step_o)
+    return run
+
+
+def _fract_abl_launcher(fn, layout, p0, dt, B):
+    """One launch of K17's ``layout`` through ``fn`` on preallocated
+    outputs; returns (raw output, carry)."""
+    V = p0.shape[1]
+    shape = (B // kfa.S, 3 * kfa.S, V) if layout == "seg" else (B, 3, V)
+    out = torch.empty(shape, device=p0.device)
+    carry = torch.empty_like(p0)
+
+    def run():
+        _check(fn(p0.data_ptr(), dt.data_ptr(), out.data_ptr(),
+                  carry.data_ptr(), kfa.LAYOUTS.index(layout), V, B,
+                  torch.cuda.current_stream().cuda_stream),
+               f"fract_abl {layout}")
+        return out, carry
+    return run
+
+
+def ab_ablations(dev, old: Path):
+    """K16 and K17 against the old tree's bodies, in turns (old, new, new,
+    old) per window: every K16 body at its tool's inputs (H=32, V=256,
+    B=1024; the one-hot rows on a seeded random table, as chip_smoke.py
+    checks them) and K17's three layouts on the models' lanes and off
+    them.  Each row first checks the new outputs equal to the old build's
+    (``torch.equal``, every output: y too, since the segments keep every
+    tick's harmonic and voice trees) and the state planes (K17: every
+    output) equal to the plain version, then times; the new body's time
+    segments per voice are printed beside it."""
+    import importlib
+    old_fns = _ablation_entries(old / "oscen_tpu_torch" / "csrc")
+    new_fns = _ablation_entries(build.CSRC_DIR)
+    cnt = torch.zeros(4096, dtype=torch.int32, device=dev)
+    rows, seen = [], set()
+    for tool, variants in kab.TOOLS.items():
+        mod = importlib.import_module(f"oscen_tpu_torch.tools.{tool}")
+        x = {k: torch.as_tensor(v, device=dev)
+             for k, v in mod.inputs(1024).items()}
+        if "tbl" in x:
+            tbl = np.random.default_rng(1024).uniform(0, 0.5, x["tbl"].shape)
+            x["tbl"] = torch.as_tensor(tbl.astype(np.float32),
+                                       device=dev).to(torch.bfloat16)
+        for name, run_ in variants.items():
+            if run_.body in ("k3", "k1") or run_ in seen:
+                continue
+            seen.add(run_)
+            runs = {w: _kabl_launcher(fns, tool, name, x, 1024, cnt)
+                    for w, fns in (("old", old_fns), ("new", new_fns))}
+            plain = kab.run_variant(tool, name, x, 1024, plain=True)
+            segs = kab.segments(run_.body, 256, 1024, run_.u)
+            rows.append((f"K16 {tool} {name} ({run_.body}, S={segs})",
+                         runs, lambda got, ref=plain: _same(got[1:],
+                                                            ref[1:])))
+    for lanes, B in FRACT_AB:
+        p0, dt = _fract_inputs(dev, lanes, B, 29 * B)
+        for layout in kfa.LAYOUTS:
+            runs = {w: _fract_abl_launcher(fns["fract_abl"], layout, p0, dt,
+                                           B)
+                    for w, fns in (("old", old_fns), ("new", new_fns))}
+            ref = kfa.PLAIN[layout](p0, dt, B)
+            rows.append((f"K17 fract_abl {layout} V=256 B={B} {lanes} lanes",
+                         runs, lambda got, ref=ref: _bits_equal(got, ref)))
+    for label, runs, plain_ok in rows:
+        outs = {}
+        for w, run in runs.items():
+            outs[w] = [t.clone() for t in run()]
+            torch.cuda.synchronize()
+            if not plain_ok(outs[w]):
+                raise SystemExit(f"{w} {label}: not equal to the plain "
+                                 f"version")
+        if not _same_nan(outs["new"], outs["old"]):
+            raise SystemExit(f"{label}: the new body's outputs differ from "
+                             f"the old body's")
+        t = {"old": [], "new": []}
+        for _ in range(WINDOWS):
+            for w in ("old", "new", "new", "old"):
+                t[w].append(event_us(runs[w], LAUNCHES))
+        o, n = statistics.median(t["old"]), statistics.median(t["new"])
+        print(f"[ab] {label}: old {o:.2f} us, new {n:.2f} us (x{o / n:.2f})"
+              f", new equal to old (torch.equal, every output) True; old "
+              f"{min(t['old']):.2f}-{max(t['old']):.2f}, new "
+              f"{min(t['new']):.2f}-{max(t['new']):.2f} over {WINDOWS} "
+              f"windows", flush=True)
+    probe_fract_layout(dev)
+
+
+def probe_fract_layout(dev):
+    """K17 direct's body (``probe_fract_direct``) into the tool's [B, 3, V]
+    and into K12's [3, B, V], beside K17 direct and K12 (``fract_phase3``),
+    in turns, on the models' lanes at B=1024 and 4096: what the direct
+    layout's delta against K12 is made of.  Each output first checked
+    equal to K12's on its bit patterns."""
+    fn = _probe_lib().probe_fract_direct
+    for B in (1024, 4096):
+        p0, dt = _fract_inputs(dev, "on", B, 31 * B)
+        ref = kfm.fract_phase3(p0, dt, B)
+        runs = {}
+        for k12, name in ((0, "[B, 3, V]"), (1, "[3, B, V]")):
+            out = torch.empty((3 * B * 256,), device=dev)
+            carry = torch.empty_like(p0)
+
+            def run(k12=k12, out=out, carry=carry):
+                _check(fn(k12, p0.data_ptr(), dt.data_ptr(), out.data_ptr(),
+                          carry.data_ptr(), 256, B,
+                          torch.cuda.current_stream().cuda_stream),
+                       "probe_fract_direct")
+                o = out.view(3, B, 256) if k12 else \
+                    out.view(B, 3, 256).transpose(0, 1)
+                return o[0], o[1], o[2], carry
+            runs[f"direct body into {name}"] = run
+        runs["K17 direct"] = lambda: kfa.fract_layout("direct", p0, dt, B)
+        runs["K12"] = lambda: kfm.fract_phase3(p0, dt, B)
+        for label, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            if not _bits_equal(got, ref):
+                raise SystemExit(f"K17 {label} B={B}: not equal to K12")
+        t = {k: [] for k in runs}
+        for _ in range(WINDOWS):
+            for k in list(runs) + list(runs)[::-1]:
+                t[k].append(event_us(runs[k], LAUNCHES))
+        print(f"[probe] K17 direct by output layout, V=256 B={B}, models' "
+              f"lanes, equal to K12 (bit patterns): " + "; ".join(
+                  f"{k} {statistics.median(v):.2f} us" for k, v in
+                  t.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="a tree of the parent commit: time its iir.cu, "
-                         "phase.cu, additive.cu, fm.cu and adsr.cu against "
-                         "the package's")
+                         "phase.cu, additive.cu, fm.cu, adsr.cu, kabl.cu, "
+                         "kabl_hmaj.cu and fractabl.cu against the "
+                         "package's")
+    ap.add_argument("--ablations", action="store_true",
+                    help="with --old: the K16 / K17 rows alone (no "
+                         "latency, probe or other ab rows)")
     args = ap.parse_args(argv)
+    if args.ablations and args.old is None:
+        ap.error("--ablations compares against --old")
     if not torch.cuda.is_available():
         ap.error("no CUDA card: the probes time the card")
     dev = torch.device("cuda")
     mhz = sm_clock_mhz(dev)
     print(f"[scanprobe] {card()}; SM clock under load {mhz:.0f} MHz",
           flush=True)
+    if args.ablations:
+        ab_ablations(dev, args.old)
+        return 0
     latency(dev)
     probe(dev, mhz)
     probe_adsr(dev, mhz)
     if args.old is not None:
         ab(dev, args.old, mhz)
+        ab_ablations(dev, args.old)
     return 0
 
 

@@ -1183,6 +1183,99 @@ def test_fract_layout_kernel_equals_k12(cuda, layout, V, B):
     assert kfa.launches[kfa.KERNEL] == before + 2
 
 
+def test_kabl_segment_choice(cuda):
+    """Every K16 kernel runs more than one time segment per voice at the
+    tools' V=256, B=1024: kernels A and B by K1's rule (4: 2 or 8 warps a
+    block, 8-bit ticket fields), kernel C 16; K1's rule halves them where
+    they would not divide the subgroups, and defer / drop further until U
+    divides a segment."""
+    for body, sp in kab.VARIANTS.items():
+        assert kab.segments(body, 256, 1024) == 4, body
+        # B=64: one subgroup at SUB=64; two at 32, whose 32 ticks a
+        # segment U=64 does not divide
+        one = sp.sub == 64 or sp.red == "defer" or sp.out == "drop"
+        assert kab.segments(body, 256, 64) == (1 if one else 2), body
+    for body in kab.HMAJ:
+        assert kab.segments(body, 256, 1024) == 16
+        assert kab.segments(body, 256, 96) == 1      # 3 subgroups
+        assert kab.segments(body, 256, 128) == 4
+    assert kab.segments("full", 256, 64) == 2         # 2 subgroups
+    assert kab.segments("defmix", 256, 128) == 2      # U = 64
+    assert kab.segments("noout", 256, 128, 64) == 2
+    assert kab.segments("scan", 256, 128, 128) == 4   # U groups nothing
+    assert kab.segments("full", 8161, 1024) == 2      # 256 groups
+    assert kab.segments("k3", 256, 1024) == add.segments(256, 1024, 32)
+
+
+# entry steps the envelope never produces and the cycle's edges, among the
+# tools' steps (as tests/test_torch_kabl_segments.py)
+KABL_ODD = (0.0, 1.0, 63.0, 64.0, 0.5, 64.5, 70.0, -3.0, -0.0, 1e-10,
+            -2.5, 65.0, 2.0 ** 24, -2.0 ** 25, -1e9, float("nan"),
+            float("inf"), float("-inf"))
+
+
+@pytest.mark.parametrize("tool,variant", KABL_CASES)
+def test_kabl_segments_entry_steps_outside_0_64(cuda, tool, variant):
+    """Every K16 variant at its tool's width with the tools' steps replaced
+    by ``KABL_ODD`` in the first voices: every state plane equal to the
+    plain version with NaN equal to NaN (the segments' replays are exact
+    for any entry step); y within ``kabl.y_bound`` of it over the ticks
+    where both are finite and below 1e30 (a stuck counter's rows overflow
+    within a few ticks, and a sum of them may overflow in one order and not
+    in another)."""
+    x = _tool_inputs(cuda, tool)
+    step = x["step"].clone()
+    step[0, :len(KABL_ODD)] = torch.tensor(KABL_ODD, device=cuda)
+    x["step"] = step
+    out = kab.run_variant(tool, variant, x, 1024)
+    torch.cuda.synchronize()
+    plain = kab.run_variant(tool, variant, x, 1024, plain=True)
+    for a, b in zip(out[1:], plain[1:]):
+        assert _same_nan(a, b)
+    y, yp = out[0], plain[0]
+    ok = torch.isfinite(y) & torch.isfinite(yp) & (yp.abs() < 1e30)
+    if bool(ok.any()):
+        assert float((y[ok] - yp[ok]).abs().max()) <= kab.y_bound(
+            tool, variant, yp[ok], 256)
+
+
+def _fract_lanes(V, seed):
+    """K17's p0 and dt [3, V]: the models' lanes (p0 in [0, 1), dt in (0,
+    0.5): the short wrap) beside negatives, -0.0, 1.0, values above 1,
+    +-inf and NaN in p0 or dt."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, 1, (3, V)).astype(np.float32)
+    d = rng.uniform(0.001, 0.5, (3, V)).astype(np.float32)
+    odd = np.array([-0.25, -0.0, 1.0, 1.5, np.inf, -np.inf, np.nan,
+                    np.float32(1) - np.float32(2.0 ** -24), -3.75], np.float32)
+    pick = rng.choice(3 * V, 3 * V // 2, replace=False)
+    p.reshape(-1)[pick[::2]] = rng.choice(odd, pick[::2].size)
+    d.reshape(-1)[pick[1::2]] = rng.choice(odd, pick[1::2].size)
+    return (torch.as_tensor(p, device="cuda"),
+            torch.as_tensor(d, device="cuda"))
+
+
+@pytest.mark.parametrize("B", [1024, 4096])
+@pytest.mark.parametrize("layout", kfa.LAYOUTS)
+def test_fract_layouts_short_wrap_equal_k12(cuda, layout, B):
+    """Every K17 layout on the models' lanes (the short wrap) and, in one
+    call, on lanes of both kinds (p0 or dt negative, -0.0, 1.0, above 1,
+    inf, NaN: truncf): every output equal to K12's and to the plain
+    version's on its bit patterns."""
+    rng = np.random.default_rng(B)
+    models = (torch.as_tensor(rng.uniform(0, 1, (3, 256)).astype(np.float32),
+                              device=cuda),
+              torch.as_tensor(rng.uniform(0.001, 0.5, (3, 256))
+                              .astype(np.float32), device=cuda))
+    for p, dt in (models, _fract_lanes(256, B)):
+        got = kfa.fract_layout(layout, p, dt, B)
+        k12 = kfm.fract_phase3(p, dt, B)
+        raw, c = kfa.PLAIN[layout](p, dt, B)
+        torch.cuda.synchronize()
+        assert _same_bits(got, k12)
+        assert _same_bits(got, (*kfa.planes(layout, raw), c))
+
+
 def test_ablation_wrappers_reject_what_they_do_not_take(cuda):
     x = _tool_inputs(cuda, "kabl4", B=64)
     planes = [x[k] for k in kab.PLANES]
